@@ -3,19 +3,24 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. device and build: the card's name and power limit, and the seconds the
-   port's CUDA sources take to build (one nvcc per source, all at once);
+1. device and build: the card's name and power limit, the seconds the
+   port's CUDA sources take to build (one nvcc per source, all at once), and
+   each kernel's registers, shared memory and spills as ptxas reports them;
 2. kernels against their plain PyTorch versions: every hand kernel on
-   2**20 + 37 rows at bucket counts 2 .. 2**18, with skewed keys, invalid
-   rows, and inf/NaN rows checked against a float64 numpy oracle;
+   2**20 + 37 rows at bucket counts 2 .. 2**18 and at the edge of its
+   routes (the largest table of one block, the smallest of the global
+   route), and at 2**20 + 3 buckets on 2**16 + 37 rows (the plain
+   version's one-hot grows with the table), with skewed keys, invalid rows, and
+   inf/NaN rows checked against a float64 numpy oracle, and on inputs whose
+   starts are not 16-byte aligned;
 3. the port's main path at full size: ``api.aggregate`` by one integer key
    with SUM/COUNT/AVG/MIN/MAX of a float32 column over 100,000,000 rows
    (BASELINE.json config #3's scale), once over 1,000 uniform keys and once
    over Zipf(1.1) keys filling the 2**18-bucket table, each checked against
    a float64 oracle on the host; the kernels' launch counts are set to 0
    just before and read just after;
-4. times: the aggregate's wall time, and each kernel's time beside its
-   bound, its plain version's time and one PyTorch call's time;
+4. times: the aggregate's wall time, and each kernel's route, its time
+   beside its bound, its plain version's time and one PyTorch call's time;
 5. profile: one aggregate per frame under ``torch.profiler``, for the
    device time by kernel and the device's idle share.
 
@@ -38,7 +43,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3  # kernel vs plain: float32, other order
 ORACLE_RTOL = 1e-4  # f32 atomics vs f64 oracle over ~1e5..1e7 rows a group
 TIMING_REPS = 10  # medians of 10 timed calls, after a warm-up
-KERNEL_BUCKETS = (2, 5, 130, 1024, 12_289, 1 << 18)
+KERNEL_BUCKETS = (2, 5, 130, 1024, 12_289, 1 << 18, (1 << 20) + 3)
+KERNEL_ROWS, KERNEL_ROWS_LARGE = (1 << 20) + 37, (1 << 16) + 37  # above 2**18 buckets
 REPLACES = {
     "bin_sum": "fugue_tpu/ops/pallas_groupby.py:128 (_sum_kernel, via bin_sum_pallas :175)",
     "bin_sum_count": "fugue_tpu/ops/pallas_groupby.py:85 (_bin_kernel, via bin_sum_count_pallas :183)",
@@ -54,7 +60,17 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def phase_device(torch, build_all) -> dict:
+def route_edges(bg, smem_optin: int) -> list:
+    """Bucket counts at the edge of each kernel's routes: the largest table
+    of one block and the smallest of the global route."""
+    edges = set()
+    for with_count in (False, True):
+        largest = bg._largest_shared(with_count, smem_optin)
+        edges.update((largest, largest + 1))
+    return sorted(edges)
+
+
+def phase_device(torch, build_all, kernel_resources) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -69,6 +85,7 @@ def phase_device(torch, build_all) -> dict:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "build_s": build_s,
+        "ptxas": kernel_resources("bin_groupby"),
         "allow_tf32": {"matmul": False, "cudnn": False},
     }
     emit(info)
@@ -93,13 +110,16 @@ def _same_nonfinite(np, got, exp) -> bool:
 
 
 def phase_kernels(torch, np, bg, seed: int, dev) -> dict:
-    """Every kernel against its plain version (and float64 oracle)."""
-    n = (1 << 20) + 37
+    """Every kernel against its plain version (and float64 oracle), on every
+    route and on starts that are not 16-byte aligned."""
     rng = np.random.default_rng(seed)
     err = {"bin_sum": 0.0, "bin_sum_count": 0.0}
     cases = []
-    for buckets in KERNEL_BUCKETS:
-        for dist in ("uniform", "zipf", "nonfinite"):
+    bucket_counts = sorted(set(KERNEL_BUCKETS) | set(route_edges(bg, bg.smem_optin(dev))))
+    routes = {b: [bg.route_of(b, w, dev).kind for w in (False, True)] for b in bucket_counts}
+    for buckets in bucket_counts:
+        n = KERNEL_ROWS if buckets <= 1 << 18 else KERNEL_ROWS_LARGE
+        for dist in ("uniform", "zipf", "nonfinite", "offset"):
             if dist == "zipf":
                 keys = ((rng.zipf(1.3, n) - 1) % (buckets + 2)).astype(np.int32)
             else:
@@ -112,6 +132,13 @@ def phase_kernels(torch, np, bg, seed: int, dev) -> dict:
                 valid[rows[:4]] = True
                 valid[rows[4:]] = False  # NaN in invalid rows adds nothing
             tk, tv, tm = (torch.from_numpy(a).to(dev) for a in (keys, vals, valid))
+            if dist == "offset":
+                # keys, values and flags each start 1..3 elements into a
+                # larger buffer: no common 16-byte alignment, the scalar path
+                keys, vals, valid = keys[1:], vals[1:], valid[1:]
+                tk = torch.cat([tk.new_zeros(2), tk])[3:]
+                tv = torch.cat([tv.new_zeros(1), tv])[2:]
+                tm = torch.cat([tm.new_zeros(3), tm])[4:]
             s1 = bg.bin_sum(tk, tv, tm, buckets)
             torch.cuda.synchronize()
             s2, c2 = bg.bin_sum_count(tk, tv, tm, buckets)
@@ -138,7 +165,8 @@ def phase_kernels(torch, np, bg, seed: int, dev) -> dict:
             require((c2 == rc2).all() and (c2 == exp_c).all(), f"bin_sum_count b={buckets} {dist}: counts")
             require(c2.dtype == np.int32, "counts must be int32")
             cases.append(f"{buckets}/{dist}")
-    out = {"phase": "kernels", "rows": n, "cases": cases, "max_abs_err": err,
+    out = {"phase": "kernels", "rows": [KERNEL_ROWS, KERNEL_ROWS_LARGE], "cases": cases,
+           "routes": {str(b): r for b, r in routes.items()}, "max_abs_err": err,
            "tolerance": {"rtol": SUM_RTOL, "atol": SUM_ATOL}}
     emit(out)
     return out
@@ -296,6 +324,7 @@ def phase_times(torch, api, bg, engine, main: dict) -> dict:
             bound_ms, bound_by = _bound(n, row_bytes, buckets * out_bytes)
             kernels.append({
                 "name": name,
+                "route": bg.route_of(buckets, name == "bin_sum_count", idx.device)._asdict(),
                 "ms": _median_ms(torch, run, reps),
                 "plain_ms": _median_ms(torch, plain, max(3, reps // 3)) if with_plain else None,
                 "library_ms": None if library is None else _median_ms(torch, library, reps),
@@ -368,14 +397,14 @@ def main() -> int:
         from fugue_tpu_torch.column import col
         from fugue_tpu_torch.column import functions as ff
         from fugue_tpu_torch.ops import bin_groupby as bg
-        from fugue_tpu_torch.ops._build import build_all
+        from fugue_tpu_torch.ops._build import build_all, kernel_resources
         from fugue_tpu_torch.torch import TorchExecutionEngine
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 3
 
     dev = torch.device("cuda", 0)
-    phase_device(torch, build_all)
+    phase_device(torch, build_all, kernel_resources)
     kern = phase_kernels(torch, np, bg, args.seed, dev)
     engine = TorchExecutionEngine()
     main_path = phase_main_path(torch, np, pd, bg, api, ff, col, engine, args.seed, args.rows)
@@ -384,7 +413,7 @@ def main() -> int:
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
-    for t in times["frames"]["uniform"]["kernels"]:
+    for i, t in enumerate(times["frames"]["uniform"]["kernels"]):
         name = t["name"]
         kernels.append({
             "name": name,
@@ -400,6 +429,10 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "by_frame": {
+                dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
+                for dist, f in times["frames"].items()
+            },
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,17 +6,20 @@ the source and the compiler flags, so an edited source rebuilds and an
 unchanged one is loaded from the build directory. Nothing here runs when the
 module is imported: a kernel is built at its first use, or ahead of time by
 :func:`build_all`, which starts one ``nvcc`` for each source, all at once.
+``ptxas``'s report of each kernel's registers, shared memory and spills is
+kept beside the library (``.log``) and read by :func:`kernel_resources`.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -29,6 +32,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 _LOCK = threading.Lock()
@@ -56,6 +61,10 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    return library_path(name).with_suffix(".log")
+
+
 def _start(name: str) -> "Tuple[subprocess.Popen[bytes], Path]":
     """Start ``nvcc`` on ``csrc/<name>.cu``, writing to a temporary file."""
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -70,6 +79,7 @@ def _finish(name: str, proc: "subprocess.Popen[bytes]", tmp: Path) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log.decode(errors='replace')}")
+    log_path(name).write_bytes(log)  # before the library: a library has its log
     # atomic: a concurrent loader sees no library or the whole of it
     os.replace(tmp, library_path(name))
 
@@ -94,3 +104,50 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, *_start(name))
             _LIBS[name] = ctypes.CDLL(str(path))
         return _LIBS[name]
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_TEMPLATE = re.compile(r"\d([a-z_]+)ILb([01])E")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``binned_global<true>`` for the mangled name of that instance."""
+    m = _TEMPLATE.search(mangled)
+    if m is None:
+        return mangled
+    return f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
+
+
+def parse_ptxas(log: str) -> List[Dict[str, object]]:
+    """Each kernel's registers, static shared memory and spill bytes, from
+    ``nvcc -Xptxas -v`` output (one entry per ``Compiling entry function``)."""
+    out: List[Dict[str, object]] = []
+    cur: Optional[Dict[str, object]] = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m is not None:
+            cur = {"kernel": _kernel_name(m.group(1)), "registers": None, "smem_bytes": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _SPILLS.search(line)
+        if m is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = _REGS.search(line)
+        if m is not None:
+            cur["registers"] = int(m.group(1))
+            sm = _SMEM.search(line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm is not None else 0
+    return out
+
+
+def kernel_resources(name: str) -> List[Dict[str, object]]:
+    """``ptxas``'s report for each kernel of ``csrc/<name>.cu``, built first
+    if needed. Static shared memory only: the kernels' tables are dynamic."""
+    load(name)
+    return parse_ptxas(log_path(name).read_text(errors="replace"))

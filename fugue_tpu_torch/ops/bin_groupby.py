@@ -33,10 +33,17 @@ Two differences from the JAX package's kernels, in both implementations:
 Keys are clipped to ``[0, buckets)`` as in the JAX package. Float32 atomics
 fix no order of summation, so the kernel's sums differ from the plain
 version's (and from run to run) in the last bits.
+
+The kernel has two routes by table size, chosen here by :func:`_route` (so
+the CPU tests see the choice) and passed to the C entry, which checks the
+layout and launches: ``shared`` (the table fits one block's shared memory)
+and ``global`` (larger: each warp's hottest buckets in registers and a
+shared-memory cache of claimed buckets in front of global atomics). The
+source's header says why.
 """
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,6 +54,37 @@ _ONEHOT_ELEMS = 1 << 26
 
 # kernel launches by wrapper kernel, counted where the kernel is launched
 LAUNCHES: Dict[str, int] = {"bin_sum": 0, "bin_sum_count": 0}
+
+# the global route's claimed-bucket cache slots (csrc/bin_groupby.cu
+# kCacheSlots): 128 KB of shared memory with sums, 192 KB with counts
+CACHE_SLOTS = 16384
+_ROUTE_IDS = {"shared": 0, "global": 1}
+
+
+class Route(NamedTuple):
+    """How the kernel reduces one table: ``kind`` is ``shared`` (the table
+    in one block's shared memory) or ``global`` (a cache of claimed buckets
+    in front of global atomics); ``smem_bytes`` is the dynamic shared memory
+    of each block."""
+
+    kind: str
+    smem_bytes: int
+
+
+def _route(buckets: int, with_count: bool, smem_optin: int) -> Route:
+    """The route for a table of ``buckets`` sums (and counts, if
+    ``with_count``) on a card whose blocks may opt in to ``smem_optin`` bytes
+    of shared memory: one block's table if it fits, else the global route."""
+    per_bucket = 8 if with_count else 4
+    if buckets * per_bucket <= smem_optin:
+        return Route("shared", buckets * per_bucket)
+    return Route("global", CACHE_SLOTS * (4 + per_bucket))
+
+
+def _largest_shared(with_count: bool, smem_optin: int) -> int:
+    """The largest table (in buckets) of the shared route: one bucket more
+    takes the global route."""
+    return smem_optin // (8 if with_count else 4)
 
 
 def _onehot_sums(
@@ -136,12 +174,41 @@ def _lib() -> ctypes.CDLL:
     lib = load("bin_groupby")
     fn = lib.fugue_bin_sum_count
     if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int32, vp, vp, vp]
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        fn.argtypes = [vp, vp, vp, i64, i32, vp, vp, ctypes.c_int, i64, vp]
         fn.restype = ctypes.c_int
+        lib.fugue_smem_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.fugue_smem_optin.restype = ctypes.c_int
         lib.fugue_cuda_error_string.argtypes = [ctypes.c_int]
         lib.fugue_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.fugue_cuda_error_string(rc).decode()
+        raise RuntimeError(f"bin_groupby {what} failed: {msg} ({rc})")
+
+
+_SMEM_OPTIN: Dict[int, int] = {}
+
+
+def smem_optin(device: torch.device) -> int:
+    """The opt-in shared memory per block of a CUDA ``device``, in bytes."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMEM_OPTIN:
+        lib = _lib()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_on(lib, lib.fugue_smem_optin(ctypes.byref(out)), "device query")
+        _SMEM_OPTIN[index] = out.value
+    return _SMEM_OPTIN[index]
+
+
+def route_of(buckets: int, with_count: bool, device: torch.device) -> Route:
+    """The route the kernel takes for this table on a CUDA ``device``."""
+    return _route(buckets, with_count, smem_optin(device))
 
 
 def _launch(
@@ -153,6 +220,7 @@ def _launch(
     counts: Optional[torch.Tensor],
 ) -> None:
     lib = _lib()
+    route = route_of(buckets, counts is not None, keys.device)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         rc = lib.fugue_bin_sum_count(
@@ -163,11 +231,11 @@ def _launch(
             buckets,
             sums.data_ptr(),
             None if counts is None else counts.data_ptr(),
+            _ROUTE_IDS[route.kind],
+            route.smem_bytes,
             stream,
         )
-    if rc != 0:
-        msg = lib.fugue_cuda_error_string(rc).decode()
-        raise RuntimeError(f"bin_groupby kernel launch failed: {msg} ({rc})")
+    _raise_on(lib, rc, "kernel launch")
 
 
 def bin_sum(

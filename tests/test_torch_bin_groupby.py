@@ -162,3 +162,80 @@ def test_inf_and_nan_land_only_in_their_own_bucket():
     ps = np.asarray(ps)
     clean = np.setdiff1d(np.arange(buckets), [3, 7, 9])
     assert np.isnan(ps[clean]).all()  # the reference's fault, pinned
+
+
+# the kernel's route choice (csrc/bin_groupby.cu takes it as given)
+H100_SMEM_OPTIN = 232_448  # 227 KB a block: Hopper's opt-in shared memory
+
+
+@pytest.mark.parametrize(
+    "buckets,with_count,kind",
+    [
+        (1, False, "shared"),
+        (1024, False, "shared"),
+        (1024, True, "shared"),
+        (58_112, False, "shared"),  # 227 KB of sums: one block
+        (58_113, False, "global"),
+        (29_056, True, "shared"),  # 227 KB of sums and counts
+        (29_057, True, "global"),
+        (1 << 18, False, "global"),  # the dense path's largest table
+        (1 << 18, True, "global"),
+        ((1 << 20) + 3, False, "global"),
+        ((1 << 20) + 3, True, "global"),
+        (2**31 - 1, True, "global"),
+    ],
+)
+def test_route_puts_each_table_on_its_route(buckets, with_count, kind):
+    assert bg._route(buckets, with_count, H100_SMEM_OPTIN).kind == kind
+
+
+@pytest.mark.parametrize("with_count", [False, True])
+def test_route_dense_path_table_takes_the_global_route(with_count):
+    # 2**18 buckets (1 MiB of sums, 2 MiB with counts) exceed a block: the
+    # claimed-bucket cache fills 128 KB (sums) or 192 KB (with counts)
+    r = bg._route(1 << 18, with_count, H100_SMEM_OPTIN)
+    assert r == bg.Route("global", (192 if with_count else 128) * 1024)
+
+
+@pytest.mark.parametrize("smem_optin", [H100_SMEM_OPTIN, 200_000])
+@pytest.mark.parametrize("with_count", [False, True])
+def test_route_every_table_fits_the_block(smem_optin, with_count):
+    per_bucket = 8 if with_count else 4
+    edge = bg._largest_shared(with_count, smem_optin)
+    rng = np.random.default_rng(11)
+    for buckets in [edge, edge + 1, 2**31 - 1] + [int(b) for b in rng.integers(1, 1 << 21, 400)]:
+        r = bg._route(buckets, with_count, smem_optin)
+        assert r.smem_bytes <= smem_optin
+        if buckets * per_bucket <= smem_optin:
+            assert r == bg.Route("shared", buckets * per_bucket)
+        else:
+            assert r == bg.Route("global", bg.CACHE_SLOTS * (4 + per_bucket))
+
+
+@pytest.mark.parametrize("smem_optin", [H100_SMEM_OPTIN, 200_000])
+@pytest.mark.parametrize("with_count", [False, True])
+def test_largest_shared_is_the_route_edge(smem_optin, with_count):
+    edge = bg._largest_shared(with_count, smem_optin)
+    assert bg._route(edge, with_count, smem_optin).kind == "shared"
+    assert bg._route(edge + 1, with_count, smem_optin).kind == "global"
+
+
+def test_parse_ptxas_reads_each_kernel():
+    from fugue_tpu_torch.ops._build import parse_ptxas
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113binned_sharedILb0EEEvPKiPKfPKhliPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113binned_sharedILb0EEEvPKiPKfPKhliPfPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113binned_globalILb1EEEvPKiPKfPKhliPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113binned_globalILb1EEEvPKiPKfPKhliPfPi
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, 16 bytes smem, 384 bytes cmem[0]
+"""
+    assert parse_ptxas(log) == [
+        {"kernel": "binned_shared<false>", "registers": 26, "smem_bytes": 0,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "binned_global<true>", "registers": 64, "smem_bytes": 16,
+         "spill_stores": 4, "spill_loads": 8},
+    ]
