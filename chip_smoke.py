@@ -22,11 +22,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4. times: the aggregate's wall time, and each kernel's route, its time
    beside its bound, its plain version's time and one PyTorch call's time;
 5. profile: one aggregate per frame under ``torch.profiler``, for the
-   device time by kernel and the device's idle share.
+   device time by kernel and the device's idle share;
+6. sorted_path: the sorted groupby and the encoded columns at full width,
+   on TPC-H lineitem at scale factor 10 (15,000,000 orders, ~60M rows,
+   built from ``--seed`` by dbgen's rules; its ingest seconds on a line of
+   their own): ``q1-keys`` (two string keys, 4 groups), ``q18-orderkey``
+   (one int64 key over ~6e7, 15M groups, the host merge) and ``shipmode``
+   (one string key of 7 values: the dense partials route, B1 at 8
+   buckets, MAX over dictionary codes), each checked against a float64
+   oracle with the launch counts set to 0 just before and read just
+   after, timed and traced once (device busy/idle share, top device
+   operations, host time of the merge and decode); then B1 alone at
+   ``shipmode``'s shape beside its bound and ``index_add_``.
 
 Then a line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
-N`` cuts the main path's frames for a quick try). With no
+N`` cuts the dense frames and ``--orders N`` the lineitem frame, for a quick
+try). With no
 CUDA device, or outside the repository, it exits non-zero and prints no
 result.
 """
@@ -43,6 +55,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3  # kernel vs plain: float32, other order
 ORACLE_RTOL = 1e-4  # f32 atomics vs f64 oracle over ~1e5..1e7 rows a group
 TIMING_REPS = 10  # medians of 10 timed calls, after a warm-up
+SORTED_REPS = 3  # the sorted-path aggregates: medians of 3 calls, after the checked one
 KERNEL_BUCKETS = (2, 5, 130, 1024, 12_289, 1 << 18, (1 << 20) + 3)
 KERNEL_ROWS, KERNEL_ROWS_LARGE = (1 << 20) + 37, (1 << 16) + 37  # above 2**18 buckets
 REPLACES = {
@@ -255,6 +268,123 @@ def phase_main_path(torch, np, pd, bg, api, ff, col, engine, seed: int, rows: in
     return {"out": out, "frames": frames, "aggs": aggs}
 
 
+# TPC-H lineitem at scale factor 10, by dbgen's rules (TPC-H spec 4.2.3):
+# order dates uniform over [1992-01-01, 1998-12-31 - 151 days], 1..7 lines
+# an order, quantity 1..50, part 1..SF*200,000, discount 0.00..0.10, ship
+# date = order date + 1..121 days, receipt date = ship date + 1..30 days,
+# return flag R or A at random if received by CURRENTDATE (1995-06-17) else
+# N, line status O if shipped after CURRENTDATE else F, one of 7 ship modes.
+# Days are counted from 1970-01-01.
+SF10_ORDERS = 15_000_000
+SF10_PARTS = 2_000_000
+DAY_1992_01_01, DAY_1998_12_31, DAY_CURRENT = 8035, 10591, 9298
+RETURNFLAGS = ("A", "N", "R")  # sorted: the port's dictionary codes
+LINESTATUSES = ("F", "O")
+SHIPMODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
+
+
+def make_lineitem(np, pa, seed: int, orders: int = SF10_ORDERS, parts: int = SF10_PARTS):
+    """``(table, aux)``: the lineitem columns the sorted-path aggregates
+    read, as an arrow table (decimals as floats), and the per-row order
+    index and dictionary codes for the oracle."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(orders, dtype=np.int64)
+    okey = (i // 8) * 32 + i % 8 + 1  # dbgen's sparse keys: 8 of every 32
+    odate = rng.integers(DAY_1992_01_01, DAY_1998_12_31 - 151, orders, endpoint=True, dtype=np.int32)
+    order = np.repeat(np.arange(orders, dtype=np.int32), rng.integers(1, 7, orders, endpoint=True))
+    n = len(order)
+    qty = rng.integers(1, 50, n, endpoint=True, dtype=np.int32)
+    part = rng.integers(1, parts, n, endpoint=True, dtype=np.int64)
+    price = (90_000 + (part // 10) % 20_001 + 100 * (part % 1_000)) / 100
+    del part
+    ship = odate[order] + rng.integers(1, 121, n, endpoint=True, dtype=np.int32)
+    receipt = ship + rng.integers(1, 30, n, endpoint=True, dtype=np.int32)
+    flag = np.where(receipt <= DAY_CURRENT, rng.integers(0, 2, n, dtype=np.int8) * 2, 1).astype(np.int8)
+    del receipt
+    status = (ship > DAY_CURRENT).astype(np.int8)
+    mode = rng.integers(0, len(SHIPMODES), n, dtype=np.int8)
+
+    def strings(codes, words):
+        return pa.DictionaryArray.from_arrays(pa.array(codes), pa.array(words)).cast(pa.string())
+
+    tbl = pa.table({
+        "l_orderkey": okey[order],
+        "l_quantity": qty.astype(np.float32),
+        "l_extendedprice": qty * price,
+        "l_discount": (rng.integers(0, 10, n, endpoint=True) / 100).astype(np.float32),
+        "l_shipdate": pa.array(ship, pa.int32()).cast(pa.date32()),
+        "l_returnflag": strings(flag, RETURNFLAGS),
+        "l_linestatus": strings(status, LINESTATUSES),
+        "l_shipmode": strings(mode, SHIPMODES),
+    })
+    return tbl, {"order": order, "okey": okey, "flag": flag, "status": status, "mode": mode}
+
+
+def sorted_path_aggs(ff, col) -> dict:
+    """The three aggregates of the sorted-path phase: name → (keys, aggs)."""
+    q, p, d = col("l_quantity"), col("l_extendedprice"), col("l_discount")
+    return {
+        "q1-keys": (["l_returnflag", "l_linestatus"], dict(
+            sum_qty=ff.sum(q), sum_base_price=ff.sum(p), avg_qty=ff.avg(q),
+            avg_price=ff.avg(p), avg_disc=ff.avg(d), count_order=ff.count(col("*")))),
+        "q18-orderkey": (["l_orderkey"], dict(sum_qty=ff.sum(q))),
+        "shipmode": (["l_shipmode"], dict(
+            sum_qty=ff.sum(q), avg_disc=ff.avg(d), max_flag=ff.max(col("l_returnflag")),
+            count_order=ff.count(col("*")))),
+    }
+
+
+def lineitem_oracles(np, pd, tbl, aux) -> dict:
+    """float64 numpy answers of the three aggregates, keyed by name."""
+    qty = tbl.column("l_quantity").to_numpy().astype(np.float64)
+    price = tbl.column("l_extendedprice").to_numpy()
+    disc = tbl.column("l_discount").to_numpy().astype(np.float64)
+    out = {}
+    gid = aux["flag"].astype(np.int64) * len(LINESTATUSES) + aux["status"]
+    g = len(RETURNFLAGS) * len(LINESTATUSES)
+    cnt = np.bincount(gid, minlength=g)
+    sums = {c: np.bincount(gid, weights=w, minlength=g) for c, w in (("q", qty), ("p", price), ("d", disc))}
+    have = np.nonzero(cnt)[0]
+    out["q1-keys"] = pd.DataFrame({
+        "l_returnflag": [RETURNFLAGS[x // len(LINESTATUSES)] for x in have],
+        "l_linestatus": [LINESTATUSES[x % len(LINESTATUSES)] for x in have],
+        "sum_qty": sums["q"][have], "sum_base_price": sums["p"][have],
+        "avg_qty": sums["q"][have] / cnt[have], "avg_price": sums["p"][have] / cnt[have],
+        "avg_disc": sums["d"][have] / cnt[have], "count_order": cnt[have],
+    })
+    out["q18-orderkey"] = pd.DataFrame({
+        "l_orderkey": aux["okey"],
+        "sum_qty": np.bincount(aux["order"], weights=qty, minlength=len(aux["okey"])),
+    })
+    m = len(SHIPMODES)
+    cnt = np.bincount(aux["mode"], minlength=m)
+    seen = np.bincount(aux["mode"].astype(np.int64) * len(RETURNFLAGS) + aux["flag"],
+                       minlength=m * len(RETURNFLAGS)).reshape(m, len(RETURNFLAGS)) > 0
+    have = np.nonzero(cnt)[0]
+    out["shipmode"] = pd.DataFrame({
+        "l_shipmode": [SHIPMODES[x] for x in have],
+        "sum_qty": np.bincount(aux["mode"], weights=qty, minlength=m)[have],
+        "avg_disc": np.bincount(aux["mode"], weights=disc, minlength=m)[have] / cnt[have],
+        "max_flag": [RETURNFLAGS[np.nonzero(seen[x])[0].max()] for x in have],
+        "count_order": cnt[have],
+    })
+    return out
+
+
+def check_lineitem(np, got, exp, keys, what: str) -> None:
+    """Keys, counts and MAX exact; sums and averages within ORACLE_RTOL."""
+    require(list(got.columns) == list(exp.columns), f"{what}: columns {list(got.columns)}")
+    got = got.sort_values(keys).reset_index(drop=True)
+    require(len(got) == len(exp), f"{what}: {len(got)} groups, expected {len(exp)}")
+    for c in exp.columns:
+        g, e = got[c].to_numpy(), exp[c].to_numpy()
+        if c in keys or c in ("count_order", "max_flag"):
+            require(np.array_equal(g.astype(e.dtype), e), f"{what}: {c}")
+        else:
+            require(np.isfinite(g).all(), f"{what}: non-finite {c}")
+            require(np.allclose(g, e, rtol=ORACLE_RTOL, atol=0), f"{what}: {c} vs oracle")
+
+
 def _median_ms(torch, fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -378,10 +508,112 @@ def phase_profile(torch, api, engine, main: dict) -> dict:
     return out
 
 
+def _trace(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device's busy and
+    idle share of the call's wall time, the top device operations, and the
+    host time of the engine's ``fugue::`` spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # the engine's spans appear on the device side too, holding the device
+    # time of the kernels inside them: only kernels and copies count as busy
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+              and not e.key.startswith("fugue::")]
+    device.sort(key=lambda e: -e.device_time_total)
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else None,
+        "by_kernel": [{"name": e.key[:80], "ms": e.device_time_total / 1e3, "calls": e.count}
+                      for e in device[:10]],
+        "host_spans_ms": {e.key: e.cpu_time_total / 1e3 for e in events
+                          if e.key.startswith("fugue::") and e.device_type == torch.autograd.DeviceType.CPU},
+    }
+
+
+def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, orders: int) -> dict:
+    """The sorted groupby and the encoded columns at full width: TPC-H
+    lineitem at scale factor 10 (``make_lineitem``), three aggregates by
+    ``api.aggregate``, each checked against a float64 oracle with its
+    kernel launches counted from 0, timed (median of ``SORTED_REPS``
+    calls) and traced once; then B1 alone at the shape ``shipmode`` gives
+    it (8 buckets)."""
+    t0 = time.perf_counter()
+    tbl, aux = make_lineitem(np, pa, seed, orders)
+    generate_s = time.perf_counter() - t0
+    oracles = lineitem_oracles(np, pd, tbl, aux)
+    t0 = time.perf_counter()
+    tdf = engine.persist(engine.to_df(tbl))
+    ingest_s = time.perf_counter() - t0
+    rows = tbl.num_rows
+    del tbl, aux
+    tensors = list(tdf.device_cols.values()) + list(tdf.null_masks.values())
+    emit({"phase": "sorted_path_ingest", "rows": rows, "orders": orders, "generate_s": generate_s,
+          "ingest_s": ingest_s, "device_bytes": sum(t.numel() * t.element_size() for t in tensors),
+          "encodings": {c: e["kind"] for c, e in tdf.encodings.items()}})
+    out = {"phase": "sorted_path", "rows": rows, "reps": SORTED_REPS, "aggregates": {},
+           "checks": f"keys, counts, MAX exact; sums/averages rtol={ORACLE_RTOL} vs float64 oracle"}
+    for name, (by, aggs) in sorted_path_aggs(ff, col).items():
+        def call():
+            return api.aggregate(tdf, partition_by=by, engine=engine, **aggs)
+
+        for k in bg.LAUNCHES:
+            bg.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        check_lineitem(np, res.as_pandas(), oracles[name], by, name)
+        if name == "shipmode":
+            require(launches["bin_sum"] == 2, f"shipmode: bin_sum launched {launches['bin_sum']} times, expected 2")
+        groups = res.count()
+        del res
+        wall = []
+        for _ in range(SORTED_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        out["aggregates"][name] = {
+            "by": by, "groups": groups, "launches": launches, "first_call_s": first_s,
+            "aggregate_ms": statistics.median(wall), "aggregate_ms_all": wall,
+            "rows_per_s": rows / statistics.median(wall) * 1e3, "profile": _trace(torch, call),
+        }
+    # B1 alone, on the inputs the dense partials route builds for shipmode
+    kmin, kmax = tdf.key_range("l_shipmode")
+    buckets = 1 << (kmax - kmin + 1).bit_length()
+    valid = tdf.device_valid_mask()
+    idx = torch.where(valid, tdf.device_cols["l_shipmode"].to(torch.int64) - kmin, buckets - 1).to(torch.int32)
+    masked = torch.where(valid, tdf.device_cols["l_quantity"], 0.0)
+    bound_ms, bound_by = _bound(rows, 8, buckets * 4)
+    out["bin_sum"] = {
+        "route": bg.route_of(buckets, False, idx.device)._asdict(),
+        "ms": _median_ms(torch, lambda: bg.bin_sum_idx(idx, masked, buckets), TIMING_REPS),
+        "plain_ms": _median_ms(torch, lambda: bg.bin_sum_ref(idx, masked, None, buckets), 3),
+        "library_ms": _median_ms(torch, lambda: torch.zeros(buckets, device=idx.device).index_add_(0, idx, masked),
+                                 TIMING_REPS),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": {"rows": rows, "buckets": buckets},
+        "launches_per_aggregate": out["aggregates"]["shipmode"]["launches"]["bin_sum"],
+    }
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
+    ap.add_argument("--orders", type=int, default=SF10_ORDERS)
     args = ap.parse_args()
 
     import torch
@@ -392,6 +624,7 @@ def main() -> int:
     try:
         import numpy as np
         import pandas as pd
+        import pyarrow as pa
 
         from fugue_tpu_torch import api
         from fugue_tpu_torch.column import col
@@ -410,17 +643,30 @@ def main() -> int:
     main_path = phase_main_path(torch, np, pd, bg, api, ff, col, engine, args.seed, args.rows)
     times = phase_times(torch, api, bg, engine, main_path)
     phase_profile(torch, api, engine, main_path)
+    del main_path["frames"]
+    torch.cuda.empty_cache()
+    sorted_path = phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, args.seed, args.orders)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
     for i, t in enumerate(times["frames"]["uniform"]["kernels"]):
         name = t["name"]
+        by_path = {"dense": main_path["out"]["launches"][name],
+                   "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()}}
+        by_frame = {
+            dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
+            for dist, f in times["frames"].items()
+        }
+        if name == "bin_sum":
+            by_frame["shipmode"] = {k: sorted_path["bin_sum"][k]
+                                    for k in ("route", "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": sources[name],
             "replaces": REPLACES[name],
-            "launches": main_path["out"]["launches"][name],
+            "launches": by_path["dense"] + sum(by_path["sorted_path"].values()),
+            "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],
             "matched": True,
@@ -429,10 +675,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "by_frame": {
-                dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
-                for dist, f in times["frames"].items()
-            },
+            "by_frame": by_frame,
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

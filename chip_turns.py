@@ -77,24 +77,8 @@ def worker(root: Path, rows: int, seed: int, reps: int) -> dict:
     engine = TorchExecutionEngine()
     aggs = dict(s=ff.sum(col("v")), n=ff.count(col("v")), m=ff.avg(col("v")),
                 lo=ff.min(col("v")), hi=ff.max(col("v")))
-    rng = np.random.default_rng(seed)
     out = {"root": str(root), "build_s": build_s, "frames": {}}
-    for dist in ("uniform", "zipf"):
-        # the frames of chip_smoke.py, _make_frame
-        if dist == "uniform":
-            k = rng.integers(0, 1000, rows, dtype=np.int64)
-        else:
-            k = (rng.zipf(1.1, rows) - 1) % 200_000
-        v = rng.random(rows, dtype=np.float32)
-        v[rng.random(rows) < 0.01] = np.nan
-        tdf = engine.persist(engine.to_df(pd.DataFrame({"k": k.astype(np.int64), "v": v})))
-        del k, v
-        kmin, kmax = tdf.key_range("k")
-        buckets = 1 << (kmax - kmin + 1).bit_length()
-        kc, vc, valid = tdf.device_cols["k"], tdf.device_cols["v"], tdf.device_valid_mask()
-        ev = valid & ~torch.isnan(vc)
-        idx = torch.where(valid, kc - kmin, buckets - 1).to(torch.int32)
-        masked = torch.where(ev, vc, 0.0)
+    for dist, tdf, (idx, masked, vc, ev, buckets) in _frames(np, pd, torch, engine, rows, seed):
         frame = {"buckets": buckets}
         # in turns inside the process too: B1, B2, B2, B1
         b1 = lambda: bg.bin_sum_idx(idx, masked, buckets)  # noqa: E731
@@ -113,9 +97,69 @@ def worker(root: Path, rows: int, seed: int, reps: int) -> dict:
         frame["aggregate_ms"] = statistics.median(wall)
         frame["aggregate_ms_range"] = [min(wall), max(wall)]
         out["frames"][dist] = frame
-        del tdf, kc, vc, valid, ev, idx, masked
-        torch.cuda.empty_cache()
     return out
+
+
+def _frames(np, pd, torch, engine, rows: int, seed: int):
+    """The two frames of chip_smoke.py (``_make_frame``) on the card, one at
+    a time, with the binned-sum kernels' inputs as the dense path builds
+    them: ``(dist, frame, (idx, masked values, values, non-null, buckets))``."""
+    rng = np.random.default_rng(seed)
+    for dist in ("uniform", "zipf"):
+        if dist == "uniform":
+            k = rng.integers(0, 1000, rows, dtype=np.int64)
+        else:
+            k = (rng.zipf(1.1, rows) - 1) % 200_000
+        v = rng.random(rows, dtype=np.float32)
+        v[rng.random(rows) < 0.01] = np.nan
+        tdf = engine.persist(engine.to_df(pd.DataFrame({"k": k.astype(np.int64), "v": v})))
+        del k, v
+        kmin, kmax = tdf.key_range("k")
+        buckets = 1 << (kmax - kmin + 1).bit_length()
+        kc, vc, valid = tdf.device_cols["k"], tdf.device_cols["v"], tdf.device_valid_mask()
+        ev = valid & ~torch.isnan(vc)
+        idx = torch.where(valid, kc - kmin, buckets - 1).to(torch.int32)
+        yield dist, tdf, (idx, torch.where(ev, vc, 0.0), vc, ev, buckets)
+        del tdf, kc, vc, valid, ev, idx
+        torch.cuda.empty_cache()
+
+
+def plain() -> int:
+    """Time each kernel's plain PyTorch version once, at the shape the dense
+    path gives it on each frame of chip_smoke.py (which times it at
+    uniform-1k only: at 2**18 buckets one call takes minutes)."""
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from fugue_tpu_torch.ops import bin_groupby as bg
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+
+    out = {"nvidia_smi": _smi(), "rows": 100_000_000, "frames": {}}
+    for dist, _, (idx, masked, vc, ev, buckets) in _frames(np, pd, torch, TorchExecutionEngine(),
+                                                             out["rows"], 0):
+        frame = {"buckets": buckets}
+        for name, fn in (("bin_sum_plain_ms", lambda: bg.bin_sum_ref(idx, masked, None, buckets)),
+                         ("bin_sum_count_plain_ms", lambda: bg.bin_sum_count_ref(idx, vc, ev, buckets))):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            frame[name] = start.elapsed_time(end)
+        out["frames"][dist] = frame
+        print(json.dumps({dist: frame}), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def atomics() -> int:
@@ -136,6 +180,8 @@ def main() -> int:
     ap.add_argument("roots", nargs="*", help="checkouts of the repository to compare")
     ap.add_argument("--atomics", action="store_true",
                     help="run tools/cuda_atomics_bench.cu instead")
+    ap.add_argument("--plain", action="store_true",
+                    help="time the plain versions once at both frames' shapes instead")
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
@@ -143,16 +189,15 @@ def main() -> int:
     args = ap.parse_args()
     if args.atomics:
         return atomics()
+    if args.plain:
+        return plain()
     if not args.roots:
         ap.error("give the checkouts to compare")
     if args.worker:
         print(json.dumps(worker(Path(args.roots[0]), args.rows, args.seed, args.reps)), flush=True)
         return 0
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(smi, flush=True)
     roots = [str(Path(r).resolve()) for r in args.roots]
     order = roots + roots[::-1]

@@ -1,5 +1,6 @@
 """Aggregate column functions, copied from ``fugue_tpu/column/functions.py``
-and trimmed to the aggregates the dense device path computes. The output
+and trimmed to the aggregates the device groupby computes (and
+``count_distinct``, which the engine refuses). The output
 types are the JAX package's: SUM of an integer is ``long`` and of a float
 ``double``, COUNT is ``long``, AVG is ``double``, MIN/MAX keep their
 input's type."""
@@ -22,6 +23,10 @@ def max(col: ColumnExpr) -> ColumnExpr:  # noqa: A001
 
 def count(col: ColumnExpr) -> ColumnExpr:
     return _UnaryAggFuncExpr("COUNT", col)
+
+
+def count_distinct(col: ColumnExpr) -> ColumnExpr:
+    return _UnaryAggFuncExpr("COUNT", col, arg_distinct=True)
 
 
 def avg(col: ColumnExpr) -> ColumnExpr:

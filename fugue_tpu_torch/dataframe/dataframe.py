@@ -8,6 +8,7 @@ from typing import Any
 import pandas as pd
 import pyarrow as pa
 
+from .._utils.arrow import pa_table_to_pandas
 from ..schema import Schema
 
 
@@ -37,4 +38,4 @@ class DataFrame(ABC):
         raise NotImplementedError
 
     def as_pandas(self) -> pd.DataFrame:
-        return self.as_arrow().to_pandas(use_threads=False)
+        return pa_table_to_pandas(self.as_arrow())

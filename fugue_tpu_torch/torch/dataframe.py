@@ -1,37 +1,46 @@
 """TorchDataFrame — a frame whose columns are tensors on one device.
 
-The port of ``JaxDataFrame`` (``fugue_tpu/jax/dataframe.py``) for the dense
-aggregate slice:
+The port of ``JaxDataFrame`` (``fugue_tpu/jax/dataframe.py``):
 
 - numeric and bool columns live on the device, one 1-D tensor each; float
   columns carry NULL as NaN (the JAX package's device convention);
+- string columns are DICTIONARY-ENCODED: int32 codes on the device (−1 =
+  NULL) into a sorted host ``pa.Array`` dictionary, so code order is
+  value order and MIN/MAX over codes is MIN/MAX over the strings;
+- nullable int and bool columns carry a bool null mask beside a value
+  tensor whose NULLs are filled (0 or False); dates and timestamps live as
+  epoch ints, with a mask where NULLs exist, and get their arrow type back
+  on conversion;
+- every other type (decimal, binary, list, struct, and the unsigned types
+  above uint8, for which PyTorch has no arithmetic) stays in a host arrow
+  table aligned with the device rows by position;
 - ``row_count`` is the logical length, and an optional bool tensor marks
   the valid rows. Rows it marks invalid (the JAX frame's padding, or rows a
   device op dropped) are skipped by device ops and dropped on conversion
   back to arrow or pandas;
 - ``key_range`` caches one min/max probe of an integer column over the
-  valid rows.
+  valid rows, on the device.
 
-Columns the device cannot hold as one plain tensor — strings, nullable
-ints and bools, dates, nested and binary types — are not ported yet
-(ROADMAP.md A.3) and raise ``NotImplementedError``. Ingestion is eager:
-the frame is on the device once it is built.
+Ingestion is eager: the frame is on the device once it is built.
 """
 
-from typing import Any, Dict, Iterable, Optional, Set, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 import pandas as pd
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from ..dataframe import DataFrame
 from ..exceptions import FugueDataFrameInitError
+from ..ops.segment import minmax_probe
 from ..parallel.device import resolve_device
 from ..schema import Schema
 
 # arrow type name → numpy dtype of the device tensor. The unsigned types
-# beyond uint8 are left out: PyTorch has no arithmetic for them.
+# beyond uint8 stay on the host: PyTorch has no arithmetic for them
+# (ROADMAP.md A.3).
 _DEVICE_DTYPES = {
     "int8": np.int8,
     "int16": np.int16,
@@ -45,25 +54,77 @@ _DEVICE_DTYPES = {
 }
 
 
-def _unported(name: str, tp: pa.DataType, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"column {name!r} of type {tp}: {why} are not ported to the torch "
-        "engine yet (ROADMAP.md A.3 dictionary-encoded strings and null masks)"
-    )
+def _to_numpy(col: pa.Array) -> np.ndarray:
+    # arrow's buffers are read-only: copy where numpy shares them, so a CPU
+    # tensor owns its memory
+    return np.require(col.to_numpy(zero_copy_only=False), requirements=["C", "W"])
 
 
-def _encode_column(col: pa.ChunkedArray, f: pa.Field) -> Tuple[np.ndarray, bool]:
-    """One arrow column → (numpy array for the device, may it hold NaN)."""
-    if str(f.type) not in _DEVICE_DTYPES:
-        raise _unported(f.name, f.type, "non-numeric columns")
-    floating = pa.types.is_floating(f.type)
-    if col.null_count > 0 and not floating:
-        raise _unported(f.name, f.type, "nullable int and bool columns")
-    # arrow float → numpy turns nulls into NaN — the device NULL. Arrow's
-    # buffers are read-only: copy where numpy shares them, so a CPU tensor
-    # owns its memory
-    arr = np.require(col.to_numpy(), _DEVICE_DTYPES[str(f.type)], ["C", "W"])
-    return arr, bool(floating and np.isnan(arr).any())
+def _encode_column(col: pa.Array, f: pa.Field) -> Tuple[Optional[np.ndarray], dict]:
+    """Encode ONE arrow column for the device: ``(arr, extra)``.
+
+    ``arr`` is the numpy array for the device, or None when the column
+    stays on the host. ``extra`` holds ``nan`` (a float column that may
+    hold NaN), ``encoding`` (``{"kind": "dict"|"datetime", "dictionary":
+    pa.Array|None, "type": pa.DataType}``) and ``null_mask`` (np bool,
+    True = NULL)."""
+    t = f.type
+    if str(t) in _DEVICE_DTYPES:
+        if col.null_count == 0 or pa.types.is_floating(t):
+            # arrow float → numpy turns nulls into NaN — the device NULL
+            arr = _to_numpy(col).astype(_DEVICE_DTYPES[str(t)], copy=False)
+            nan = arr.dtype.kind == "f" and (col.null_count > 0 or bool(np.isnan(arr).any()))
+            return arr, ({"nan": True} if nan else {})
+        # nullable int/bool: value array + null mask
+        mask = _to_numpy(col.is_null())
+        fill = False if pa.types.is_boolean(t) else 0
+        return _to_numpy(col.fill_null(fill)), {"null_mask": mask}
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        d = col.dictionary_encode()
+        codes = _to_numpy(d.indices.fill_null(-1)).astype(np.int32)
+        # SORT the dictionary so code order == lexicographic order: MIN/MAX
+        # on the codes are then exact. The codes are the JAX package's.
+        dictionary = d.dictionary.cast(t)
+        if len(dictionary) > 1:
+            order = _to_numpy(pc.sort_indices(dictionary))
+            dictionary = dictionary.take(pa.array(order))
+            inverse = np.empty(len(order), dtype=np.int32)
+            inverse[order] = np.arange(len(order), dtype=np.int32)
+            codes = np.where(codes >= 0, inverse[np.clip(codes, 0, None)], -1).astype(np.int32)
+        return codes, {
+            "encoding": {"kind": "dict", "dictionary": dictionary, "type": t, "sorted": True}
+        }
+    if pa.types.is_timestamp(t) or pa.types.is_date(t):
+        ints = col.cast(pa.int32() if pa.types.is_date32(t) else pa.int64())
+        extra: Dict[str, Any] = {"encoding": {"kind": "datetime", "dictionary": None, "type": t}}
+        if col.null_count > 0:
+            extra["null_mask"] = _to_numpy(col.is_null())
+            ints = ints.fill_null(0)
+        return _to_numpy(ints), extra
+    return None, {}  # host-resident
+
+
+def encode_arrow_for_device(tbl: pa.Table) -> Tuple[Dict[str, np.ndarray], Optional[pa.Table], dict]:
+    """Encode an arrow table for the device: ``(device_cols, host_tbl,
+    meta)``, ``meta`` holding ``nan_cols`` (float columns that may hold
+    NaN), ``encodings`` and ``null_masks`` (np bool arrays, True = NULL)."""
+    device_cols: Dict[str, np.ndarray] = {}
+    host_names: List[str] = []
+    meta: Dict[str, Any] = {"nan_cols": set(), "encodings": {}, "null_masks": {}}
+    for i, f in enumerate(tbl.schema):
+        arr, extra = _encode_column(tbl.column(i).combine_chunks(), f)
+        if arr is None:
+            host_names.append(f.name)
+            continue
+        device_cols[f.name] = arr
+        if extra.get("nan"):
+            meta["nan_cols"].add(f.name)
+        if "encoding" in extra:
+            meta["encodings"][f.name] = extra["encoding"]
+        if "null_mask" in extra:
+            meta["null_masks"][f.name] = extra["null_mask"]
+    host_tbl = tbl.select(host_names) if len(host_names) > 0 else None
+    return device_cols, host_tbl, meta
 
 
 class TorchDataFrame(DataFrame):
@@ -84,10 +145,13 @@ class TorchDataFrame(DataFrame):
         if _internal is not None:
             self._device = torch.device(_internal["device"])
             self._cols: Dict[str, torch.Tensor] = _internal["device_cols"]
+            self._host_tbl: Optional[pa.Table] = _internal.get("host_tbl")
             self._row_count: int = _internal["row_count"]
             self._valid_mask: Optional[torch.Tensor] = _internal.get("valid_mask")
             # None = unknown → treat every float column as possibly-NaN
             self._nan_cols: Optional[Set[str]] = _internal.get("nan_cols")
+            self._encodings: Dict[str, dict] = _internal.get("encodings") or {}
+            self._null_masks: Dict[str, torch.Tensor] = _internal.get("null_masks") or {}
             super().__init__(_internal["schema"])
             return
         if isinstance(df, TorchDataFrame):
@@ -101,13 +165,13 @@ class TorchDataFrame(DataFrame):
         )
         tbl = df if df.schema.equals(s.pa_schema) else df.cast(s.pa_schema)
         self._device = resolve_device(device)
-        self._cols = {}
-        self._nan_cols = set()
-        for f in s.fields:
-            arr, nan = _encode_column(tbl.column(f.name), f)
-            self._cols[f.name] = torch.from_numpy(arr).to(self._device)
-            if nan:
-                self._nan_cols.add(f.name)
+        device_cols, self._host_tbl, meta = encode_arrow_for_device(tbl)
+        self._cols = {c: torch.from_numpy(a).to(self._device) for c, a in device_cols.items()}
+        self._null_masks = {
+            c: torch.from_numpy(m).to(self._device) for c, m in meta["null_masks"].items()
+        }
+        self._nan_cols = meta["nan_cols"]
+        self._encodings = meta["encodings"]
         self._row_count = tbl.num_rows
         self._valid_mask = None
         super().__init__(s)
@@ -119,6 +183,28 @@ class TorchDataFrame(DataFrame):
     @property
     def device_cols(self) -> Dict[str, torch.Tensor]:
         return self._cols
+
+    @property
+    def host_table(self) -> Optional[pa.Table]:
+        """The columns that stay on the host, aligned with the device rows
+        by position; None when every column is on the device."""
+        return self._host_tbl
+
+    @property
+    def encodings(self) -> Dict[str, dict]:
+        """Per-column internal device representations (dict/datetime)."""
+        return self._encodings
+
+    @property
+    def null_masks(self) -> Dict[str, torch.Tensor]:
+        """Per-column device null masks (True = NULL) for nullable columns."""
+        return self._null_masks
+
+    @property
+    def valid_mask(self) -> Optional[torch.Tensor]:
+        """The explicit device validity mask, or None: rows
+        ``[0, row_count)`` are valid."""
+        return self._valid_mask
 
     def maybe_nan(self, name: str) -> bool:
         """Whether float column ``name`` may contain NaN (i.e. NULL).
@@ -142,21 +228,15 @@ class TorchDataFrame(DataFrame):
         return cached
 
     def key_range(self, name: str) -> Tuple[int, int]:
-        """Cached ``(min, max)`` of integer column ``name`` over valid rows —
-        the probe behind dense-plan eligibility, one device→host read per
-        (frame, column). With no valid rows it returns
+        """Cached ``(min, max)`` of integer device column ``name`` over
+        valid rows — the probe behind dense-plan eligibility, one
+        device→host read per (frame, column). It reads the device column
+        as it is: dictionary codes with −1 for NULL, and the fill value of
+        a masked column. With no valid rows it returns
         ``(iinfo(dtype).max, iinfo(dtype).min)``, so emptiness is ``hi < lo``."""
         cache = self.__dict__.setdefault("_key_range_cache", {})
         if name not in cache:
-            k = self._cols[name]
-            ii = torch.iinfo(k.dtype)
-            if k.shape[0] == 0:
-                cache[name] = (ii.max, ii.min)
-            else:
-                valid = self.device_valid_mask()
-                lo = torch.where(valid, k, ii.max).min()
-                hi = torch.where(valid, k, ii.min).max()
-                cache[name] = tuple(int(x) for x in torch.stack([lo, hi]).tolist())
+            cache[name] = minmax_probe(self._cols[name], self.device_valid_mask())
         return cache[name]
 
     def count(self) -> int:
@@ -165,18 +245,49 @@ class TorchDataFrame(DataFrame):
             self._row_count = int(self._valid_mask.sum())
         return self._row_count
 
+    def _decode_device_col(
+        self, f: pa.Field, host: np.ndarray, nulls: Optional[np.ndarray]
+    ) -> pa.Array:
+        """A row-filtered host view of a device column back to its arrow
+        form: NaN → NULL, dictionary codes → values, epochs → dates and
+        timestamps."""
+        enc = self._encodings.get(f.name)
+        if enc is None:
+            if host.dtype.kind == "f" and self.maybe_nan(f.name):
+                nn = np.isnan(host)  # device convention: NaN IS NULL
+                nulls = nn if nulls is None else (nulls | nn)
+            arr = pa.array(host, mask=nulls)
+        elif enc["kind"] == "dict":
+            # codes → dictionary values; −1 = NULL
+            arr = enc["dictionary"].take(pa.array(host.astype(np.int64), mask=host < 0))
+        elif enc["kind"] == "datetime":
+            arr = pa.array(host, mask=nulls).cast(enc["type"])
+        else:  # pragma: no cover
+            raise NotImplementedError(enc["kind"])
+        return arr.cast(f.type, safe=False)
+
     def as_arrow(self) -> pa.Table:
         mask: Optional[np.ndarray] = None
         if self._valid_mask is not None:
             mask = self._valid_mask.cpu().numpy()
+
+        def rows(a: torch.Tensor) -> np.ndarray:
+            host = a.cpu().numpy()
+            return host[mask] if mask is not None else host[: self._row_count]
+
         arrays = []
         for f in self.schema.fields:
-            host = self._cols[f.name].cpu().numpy()
-            host = host[mask] if mask is not None else host[: self._row_count]
-            nulls = None
-            if np.issubdtype(host.dtype, np.floating) and self.maybe_nan(f.name):
-                nulls = np.isnan(host)  # device convention: NaN IS NULL
-            arrays.append(pa.array(host, mask=nulls).cast(f.type, safe=False))
+            if f.name in self._cols:
+                nulls = rows(self._null_masks[f.name]) if f.name in self._null_masks else None
+                arrays.append(self._decode_device_col(f, rows(self._cols[f.name]), nulls))
+            else:
+                assert self._host_tbl is not None
+                col = self._host_tbl.column(f.name)
+                if mask is not None:
+                    col = col.filter(pa.array(mask[: len(col)]))
+                else:
+                    col = col.slice(0, self._row_count)
+                arrays.append(col.combine_chunks())
         return pa.Table.from_arrays(arrays, schema=self.schema.pa_schema)
 
     def __repr__(self) -> str:
@@ -188,29 +299,49 @@ def frame_from_numpy(
     schema: Any,
     valid: Optional[np.ndarray] = None,
     nan_cols: Optional[Iterable[str]] = None,
+    encodings: Optional[Dict[str, dict]] = None,
+    null_masks: Optional[Dict[str, np.ndarray]] = None,
+    host_table: Optional[pa.Table] = None,
     device: Any = None,
 ) -> TorchDataFrame:
     """A ``TorchDataFrame`` from device state handed over as numpy arrays —
-    the carry-across from a ``JaxDataFrame``:
-    ``{c: np.asarray(jdf.device_cols[c])}`` and
-    ``np.asarray(jdf.device_valid_mask())``.
+    the carry-across from a ``JaxDataFrame`` ``jdf``:
+    ``{c: np.asarray(a) for c, a in jdf.device_cols.items()}``,
+    ``np.asarray(jdf.device_valid_mask())``, ``jdf.encodings``,
+    ``{c: np.asarray(m) for c, m in jdf.null_masks.items()}`` and
+    ``jdf.host_table``.
 
     ``columns`` hold every row, padding included; ``valid`` marks the rows
     that belong to the frame (None: all of them). ``nan_cols`` names the
-    float columns that may hold NaN (None: any float column may)."""
+    float columns that may hold NaN (None: any float column may). The
+    schema's other columns come from ``host_table``, whose rows line up
+    with the device rows by position."""
     s = schema if isinstance(schema, Schema) else Schema(schema)
     dev = resolve_device(device)
-    if set(columns) != set(s.names):
-        raise FugueDataFrameInitError(f"columns {sorted(columns)} don't match schema {s}")
-    lengths = {len(a) for a in columns.values()}
-    if len(lengths) != 1 or (valid is not None and len(valid) not in lengths):
-        raise FugueDataFrameInitError("columns and valid mask differ in length")
+    encodings = dict(encodings or {})
+    null_masks = null_masks or {}
+    host_names = [] if host_table is None else list(host_table.column_names)
+    if set(columns) | set(host_names) != set(s.names) or set(columns) & set(host_names):
+        raise FugueDataFrameInitError(
+            f"device columns {sorted(columns)} and host columns {host_names} don't match schema {s}"
+        )
+    lengths = {len(a) for a in columns.values()} | {len(m) for m in null_masks.values()}
+    if len(lengths) > 1 or (valid is not None and len(valid) not in lengths):
+        raise FugueDataFrameInitError("columns, null masks and valid mask differ in length")
     cols: Dict[str, torch.Tensor] = {}
-    for f in s.fields:
-        if str(f.type) not in _DEVICE_DTYPES:
-            raise _unported(f.name, f.type, "non-numeric columns")
-        arr = np.require(columns[f.name], _DEVICE_DTYPES[str(f.type)], ["C", "W"])
-        cols[f.name] = torch.from_numpy(arr).to(dev)
+    for name, arr in columns.items():
+        tp = s[name].type
+        if name not in encodings and str(tp) not in _DEVICE_DTYPES:
+            raise NotImplementedError(
+                f"column {name!r} of type {tp} cannot live on the torch device: "
+                "the unsigned types above uint8 are not ported (ROADMAP.md A.3)"
+            )
+        dt = arr.dtype if name in encodings else _DEVICE_DTYPES[str(tp)]
+        cols[name] = torch.from_numpy(np.require(arr, dt, ["C", "W"])).to(dev)
+    masks = {
+        c: torch.from_numpy(np.require(m, np.bool_, ["C", "W"])).to(dev)
+        for c, m in null_masks.items()
+    }
     mask = None
     if valid is not None:
         mask = torch.from_numpy(np.require(valid, np.bool_, ["C", "W"])).to(dev)
@@ -218,9 +349,12 @@ def frame_from_numpy(
         _internal=dict(
             device=dev,
             device_cols=cols,
-            row_count=lengths.pop() if mask is None else -1,
+            host_tbl=host_table,
+            row_count=(lengths.pop() if lengths else 0) if mask is None else -1,
             valid_mask=mask,
             nan_cols=None if nan_cols is None else set(nan_cols),
+            encodings=encodings,
+            null_masks=masks,
             schema=s,
         )
     )
