@@ -33,14 +33,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    oracle with the launch counts set to 0 just before and read just
    after, timed and traced once (device busy/idle share, top device
    operations, host time of the merge and decode); then B1 alone at
-   ``shipmode``'s shape beside its bound and ``index_add_``.
+   ``shipmode``'s shape beside its bound and ``index_add_``;
+7. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
+   UDFs (``transform_udfs``) over frames of 100,000,000 rows built from
+   ``--seed`` with numpy: ``map-keyless`` (elementwise), ``demean-dense``
+   (bench.py's demean by 1,000 keys: the dense plan), ``demean-sorted``
+   (the same over 1,000 keys spread over [0, 2**40): the sorted plan),
+   ``window-presort`` (row_number, running sum and max, lag under a
+   presort: the sorted plan and the log-step scan) and ``ridge-hpo``
+   (bench.py's ridge fit over 32 configs: 21 group reductions a call),
+   each checked against a float64 numpy oracle with the launch counts set
+   to 0 just before and read just after, timed (median of
+   ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
+   a frame.
 
-Then a line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
+last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
-N`` cuts the dense frames and ``--orders N`` the lineitem frame, for a quick
-try). With no
-CUDA device, or outside the repository, it exits non-zero and prints no
-result.
+N`` cuts the dense and the transform frames and ``--orders N`` the lineitem
+frame, for a quick try). With no CUDA device, or outside the repository, it
+exits non-zero and prints no result.
 """
 
 import argparse
@@ -49,6 +61,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Dict
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -56,6 +69,17 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-3  # kernel vs plain: float32, other order
 ORACLE_RTOL = 1e-4  # f32 atomics vs f64 oracle over ~1e5..1e7 rows a group
 TIMING_REPS = 10  # medians of 10 timed calls, after a warm-up
 SORTED_REPS = 3  # the sorted-path aggregates: medians of 3 calls, after the checked one
+TRANSFORM_REPS = 5  # transform_path: medians of 5 calls, after the checked one
+# transform outputs vs the float64 oracle: pandas' assert_frame_equal
+# default, as the reference's tests compare; the ridge residuals with the
+# absolute tolerance of bench.py's check
+TRANSFORM_RTOL, TRANSFORM_ATOL, RIDGE_ATOL = 1e-5, 1e-8, 1e-6
+# a running sum is a prefix sum over the whole frame (up to ~5e7 here) less
+# the prefix at its group's start, as in the JAX package: one ulp of 5e7 is
+# 7.5e-9, and a prefix sum taken in another order is off by a few
+RUNNING_SUM_ATOL = 1e-6
+TRACE_WINDOW_MS = 20  # transform_path: trace as many calls as fill this
+TRANSFORM_KEYS, HPO_CONFIGS = 1000, 32
 KERNEL_BUCKETS = (2, 5, 130, 1024, 12_289, 1 << 18, (1 << 20) + 3)
 KERNEL_ROWS, KERNEL_ROWS_LARGE = (1 << 20) + 37, (1 << 16) + 37  # above 2**18 buckets
 REPLACES = {
@@ -478,62 +502,53 @@ def phase_times(torch, api, bg, engine, main: dict) -> dict:
 def phase_profile(torch, api, engine, main: dict) -> dict:
     """One aggregate per frame under ``torch.profiler``: device time by
     kernel, and the device's busy share of the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {"phase": "profile", "frames": {}}
     for dist, tdf in main["frames"].items():
-        api.aggregate(tdf, partition_by="k", engine=engine, **main["aggs"])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            api.aggregate(tdf, partition_by="k", engine=engine, **main["aggs"])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [
-            e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-        ]
-        kernels.sort(key=lambda e: -e.device_time_total)
-        busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-        out["frames"][dist] = {
-            "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else None,
-            "by_kernel": [
-                {"name": e.key[:80], "ms": e.device_time_total / 1e3, "calls": e.count}
-                for e in kernels[:12]
-            ],
-        }
+        out["frames"][dist] = _trace(
+            torch, lambda: api.aggregate(tdf, partition_by="k", engine=engine, **main["aggs"]))
     emit(out)
     return out
 
 
-def _trace(torch, fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the device's busy and
-    idle share of the call's wall time, the top device operations, and the
-    host time of the engine's ``fugue::`` spans."""
-    from torch.profiler import ProfilerActivity, profile
+def _trace(torch, fn, calls: int = 1) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler`` (one unless a call
+    is too short to trace alone): per call, the device's busy and idle
+    share of the wall time, the top device operations, and the host time of
+    the engine's ``fugue::`` spans.
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    One call runs first as the profiler's warm-up step, whose events are
+    dropped: without it, kernels of the traced call went unrecorded (both
+    of the keyless map's, some of the dense demean's)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        prof.step()
     events = prof.key_averages()
-    # the engine's spans appear on the device side too, holding the device
-    # time of the kernels inside them: only kernels and copies count as busy
+    # the engine's spans and the profiler's step appear on the device side
+    # too, holding the device time of kernels inside them: only kernels and
+    # copies count as busy
     device = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-              and not e.key.startswith("fugue::")]
+              and not e.key.startswith(("fugue::", "ProfilerStep"))]
     device.sort(key=lambda e: -e.device_time_total)
-    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    busy_ms = sum(e.device_time_total for e in device) / 1e3 / calls
     return {
+        "calls": calls,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else None,
-        "by_kernel": [{"name": e.key[:80], "ms": e.device_time_total / 1e3, "calls": e.count}
-                      for e in device[:10]],
-        "host_spans_ms": {e.key: e.cpu_time_total / 1e3 for e in events
+        "by_kernel": [{"name": e.key[:80], "ms": e.device_time_total / 1e3 / calls,
+                       "calls": e.count / calls} for e in device[:10]],
+        "host_spans_ms": {e.key: e.cpu_time_total / 1e3 / calls for e in events
                           if e.key.startswith("fugue::") and e.device_type == torch.autograd.DeviceType.CPU},
     }
 
@@ -609,12 +624,228 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
     return out
 
 
+def transform_udfs(torch, go) -> dict:
+    """The transform_path UDFs, written for the port: name -> function."""
+    T = Dict[str, torch.Tensor]
+
+    def map_keyless(cols: T) -> T:
+        return {"k": cols["k"], "v": cols["v"] * 2 + 1}
+
+    def demean(cols: T) -> T:
+        # bench.py's demean_jax (:530)
+        m = go.mean(cols, cols["v"])
+        return {"k": cols["k"], "v": cols["v"] - go.per_row(cols, m)}
+
+    def window(cols: T) -> T:
+        v = cols["v"]
+        return {"k": cols["k"], "t": cols["t"], "rn": go.row_number(cols),
+                "rs": go.running_sum(cols, v), "rm": go.running_max(cols, v), "lg": go.lag(cols, v)}
+
+    def ridge_fit_score(cols: T) -> T:
+        # bench.py's ridge_fit_score (:643): per-config normal equations
+        # from 20 group sums and one group max, a batched 4x4 solve, the
+        # residual of every row. solve_ex: solve would read back to the
+        # host to check for singular matrices, which the empty segment
+        # ids give (A = -inf·I with NaN off the diagonal, rows unused)
+        xs = [cols[f"x{i}"] for i in range(4)]
+        y = cols["y"]
+        ata = [[go.segment_sum(cols, xs[i] * xs[j]) for j in range(4)] for i in range(4)]
+        aty = [go.segment_sum(cols, xs[i] * y) for i in range(4)]
+        alpha = go.segment_max(cols, cols["alpha"])
+        a = torch.stack([torch.stack(r, dim=-1) for r in ata], dim=-2)
+        a = a + alpha[:, None, None] * torch.eye(4, dtype=a.dtype, device=a.device)
+        b = torch.stack(aty, dim=-1)
+        w = torch.linalg.solve_ex(a, b[..., None]).result[..., 0]
+        pred = sum(go.per_row(cols, w[:, i]) * xs[i] for i in range(4))
+        return {"config": cols["config"], "resid": y - pred}
+
+    return {"map_keyless": map_keyless, "demean": demean, "window": window, "ridge": ridge_fit_score}
+
+
+# cell -> (frame, UDF, output schema, partition, plan)
+TRANSFORM_CELLS = {
+    "map-keyless": ("bench", "map_keyless", "k:long,v:double", None, "keyless"),
+    "demean-dense": ("bench", "demean", "k:long,v:double", {"by": ["k"]}, "dense"),
+    "demean-sorted": ("wide", "demean", "k:long,v:double", {"by": ["k"]}, "sorted"),
+    "window-presort": ("window", "window", "k:long,t:long,rn:long,rs:double,rm:double,lg:double",
+                       {"by": ["k"], "presort": "t"}, "sorted"),
+    "ridge-hpo": ("hpo", "ridge", "config:long,resid:double", {"by": ["config"]}, "dense"),
+}
+
+
+def transform_frame(np, kind: str, rows: int, seed: int):
+    """``(columns, schema, aux)`` of one transform_path frame, made with
+    numpy from ``seed``: ``bench`` is bench.py's ``_make_frame`` shape (``k``
+    uniform over 1,000 keys, ``v`` uniform); ``wide`` the same keys spread
+    over [0, 2**40) (``aux["idx"]`` their rank); ``window`` adds ``t``, a
+    permutation of the rows; ``hpo`` is bench.py's ``_make_hpo_frame``
+    (seed 23, its own) at ``rows // 32`` rows a config."""
+    rng = np.random.default_rng(seed)
+    if kind == "hpo":
+        per = rows // HPO_CONFIGS
+        rng = np.random.default_rng(23)
+        x = rng.random((per, 4))
+        y = x @ np.asarray([1.0, -2.0, 0.5, 3.0]) + rng.normal(0, 0.1, per)
+        config = np.repeat(np.arange(HPO_CONFIGS, dtype=np.int64), per)
+        cols = {f"x{i}": np.tile(x[:, i], HPO_CONFIGS) for i in range(4)}
+        cols.update(y=np.tile(y, HPO_CONFIGS), config=config,
+                    alpha=10.0 ** (config / 4 - 4))
+        schema = "x0:double,x1:double,x2:double,x3:double,y:double,config:long,alpha:double"
+        return cols, schema, {"x": x, "y": y, "per": per}
+    idx = rng.integers(0, TRANSFORM_KEYS, rows, dtype=np.int16)
+    v = rng.random(rows)
+    aux = {"idx": idx}
+    if kind == "wide":
+        ks = np.sort(rng.choice(1 << 40, TRANSFORM_KEYS, replace=False)).astype(np.int64)
+        aux["ks"] = ks
+        return {"k": ks[idx], "v": v}, "k:long,v:double", aux
+    cols = {"k": idx.astype(np.int64), "v": v}
+    if kind == "window":
+        cols["t"] = rng.permutation(rows).astype(np.int64)
+        return cols, "k:long,v:double,t:long", aux
+    return cols, "k:long,v:double", aux
+
+
+def _close(np, got, exp, what: str, rtol=TRANSFORM_RTOL, atol=TRANSFORM_ATOL) -> None:
+    require(got.shape == exp.shape, f"{what}: {got.shape} rows, expected {exp.shape}")
+    require((np.isnan(got) == np.isnan(exp)).all(), f"{what}: NULLs")
+    ok = ~np.isnan(exp)
+    require(np.allclose(got[ok], exp[ok], rtol=rtol, atol=atol), f"{what}: vs float64 oracle")
+
+
+def check_transform(np, cell: str, got, cols: dict, aux: dict) -> None:
+    """``got`` (an arrow table) against the float64 numpy oracle of
+    ``cell``. The dense plan and the keyless map keep the input's order;
+    the sorted plan's is its stable sort by (keys, presort)."""
+    out = {c: got.column(c).to_numpy() for c in got.column_names}
+    if cell == "ridge-hpo":
+        x, y, per = aux["x"], aux["y"], aux["per"]
+        require(np.array_equal(out["config"], cols["config"]), f"{cell}: config")
+        xtx, xty = x.T @ x, x.T @ y
+        for c in range(HPO_CONFIGS):
+            w = np.linalg.solve(xtx + 10.0 ** (c / 4 - 4) * np.eye(4), xty)
+            _close(np, out["resid"][c * per:(c + 1) * per], y - x @ w, f"{cell}: resid of config {c}",
+                   rtol=0, atol=RIDGE_ATOL)
+        return
+    k, v, idx = cols["k"], cols["v"], aux["idx"]
+    if cell == "map-keyless":
+        require(np.array_equal(out["k"], k), f"{cell}: k")
+        _close(np, out["v"], v * 2 + 1, f"{cell}: v")
+        return
+    counts = np.bincount(idx, minlength=TRANSFORM_KEYS)
+    mean = np.bincount(idx, weights=v, minlength=TRANSFORM_KEYS) / np.maximum(counts, 1)
+    if cell == "demean-dense":
+        require(np.array_equal(out["k"], k), f"{cell}: k")
+        _close(np, out["v"], v - mean[idx], f"{cell}: v")
+        return
+    if cell == "demean-sorted":
+        order = np.argsort(idx, kind="stable")
+        require(np.array_equal(out["k"], k[order]), f"{cell}: k")
+        _close(np, out["v"], (v - mean[idx])[order], f"{cell}: v")
+        return
+    # window-presort: rows in t order, then a stable sort by k
+    t = cols["t"]
+    by_t = np.empty_like(t)
+    by_t[t] = np.arange(len(t))
+    order = by_t[np.argsort(idx[by_t], kind="stable")]
+    require(np.array_equal(out["k"], k[order]) and np.array_equal(out["t"], t[order]),
+            f"{cell}: k and t in (k, t) order")
+    gid, vs = idx[order].astype(np.int64), v[order]
+    pos = np.arange(len(vs))
+    start = np.r_[0, np.cumsum(counts)[:-1]]  # first position of each key
+    require(np.array_equal(out["rn"], pos - start[gid] + 1), f"{cell}: row_number")
+    cs = np.cumsum(vs)
+    _close(np, out["rs"], cs - (cs[start] - vs[start])[gid], f"{cell}: running_sum",
+           atol=RUNNING_SUM_ATOL)
+    # v in [0, 1): a key's offset of 2 keeps every running max inside its key
+    _close(np, out["rm"], np.maximum.accumulate(vs + 2.0 * gid) - 2.0 * gid, f"{cell}: running_max")
+    lag = np.r_[np.nan, vs[:-1]]
+    lag[pos == start[gid]] = np.nan
+    _close(np, out["lg"], lag, f"{cell}: lag")
+
+
+def _transform_bound(cell: str, n: int) -> tuple:
+    """Each input column read once and each output column written once
+    (8 bytes a value), over the card's memory rate."""
+    schema = TRANSFORM_CELLS[cell][2]
+    inputs = {"bench": 2, "wide": 2, "window": 3, "hpo": 7}[TRANSFORM_CELLS[cell][0]]
+    outputs = len(schema.split(","))
+    return _bound(n, 8 * (inputs + outputs), 0)
+
+
+def phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, seed: int,
+                         rows: int) -> dict:
+    """``api.transform`` over the five transform_path frames: each checked
+    against its float64 oracle with its kernel launches counted from 0,
+    timed (median of ``TRANSFORM_REPS`` calls) beside its bound, and
+    traced once."""
+    udfs = transform_udfs(torch, go)
+    out = {"phase": "transform_path", "rows": rows, "reps": TRANSFORM_REPS, "cells": {},
+           "checks": f"keys and order exact; values rtol={TRANSFORM_RTOL} atol={TRANSFORM_ATOL} "
+                     f"(running sums atol={RUNNING_SUM_ATOL}, ridge atol={RIDGE_ATOL}) vs float64 oracle"}
+    for kind in ("bench", "wide", "window", "hpo"):
+        t0 = time.perf_counter()
+        cols, schema, aux = transform_frame(np, kind, rows, seed)
+        generate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tdf = engine.persist(frame_from_numpy(cols, schema, nan_cols=(), device=engine.device))
+        ingest_s = time.perf_counter() - t0
+        n = tdf.count()
+        for cell, (fkind, udf, out_schema, partition, plan) in TRANSFORM_CELLS.items():
+            if fkind != kind:
+                continue
+
+            def call():
+                return api.transform(tdf, udfs[udf], schema=out_schema, partition=partition,
+                                     engine=engine, as_fugue=True)
+
+            for k in bg.LAUNCHES:
+                bg.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = dict(bg.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            # the sorted plan's output carries its sorted valid mask
+            require((res.valid_mask is not None) == (plan == "sorted"), f"{cell}: not the {plan} plan")
+            check_transform(np, cell, res.as_arrow(), cols, aux)
+            del res
+            wall = []
+            for _ in range(TRANSFORM_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(wall)
+            bound_ms, bound_by = _transform_bound(cell, n)
+            line = {
+                "phase": "transform_path", "cell": cell, "plan": plan, "rows": n,
+                "generate_s": generate_s, "ingest_s": ingest_s, "first_call_s": first_s,
+                "launches": launches, "peak_device_gb": peak / 1e9,
+                "transform_ms": ms, "transform_ms_all": wall, "rows_per_s": n / ms * 1e3,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                # a window of at least TRACE_WINDOW_MS: a call of ~1 ms is
+                # too short a window to read an idle share from
+                "profile": _trace(torch, call, calls=max(1, int(TRACE_WINDOW_MS / ms))),
+            }
+            emit(line)
+            out["cells"][cell] = line
+        del tdf, cols, aux
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--orders", type=int, default=SF10_ORDERS)
     args = ap.parse_args()
+    start = time.perf_counter()
 
     import torch
 
@@ -631,7 +862,8 @@ def main() -> int:
         from fugue_tpu_torch.column import functions as ff
         from fugue_tpu_torch.ops import bin_groupby as bg
         from fugue_tpu_torch.ops._build import build_all, kernel_resources
-        from fugue_tpu_torch.torch import TorchExecutionEngine
+        from fugue_tpu_torch.torch import TorchExecutionEngine, frame_from_numpy
+        from fugue_tpu_torch.torch import group_ops as go
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 3
@@ -646,13 +878,17 @@ def main() -> int:
     del main_path["frames"]
     torch.cuda.empty_cache()
     sorted_path = phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, args.seed, args.orders)
+    torch.cuda.empty_cache()
+    transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
+                                          args.rows)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
     for i, t in enumerate(times["frames"]["uniform"]["kernels"]):
         name = t["name"]
         by_path = {"dense": main_path["out"]["launches"][name],
-                   "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()}}
+                   "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()},
+                   "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -665,7 +901,8 @@ def main() -> int:
             "route": "cuda",
             "source": sources[name],
             "replaces": REPLACES[name],
-            "launches": by_path["dense"] + sum(by_path["sorted_path"].values()),
+            "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
+            + sum(by_path["transform_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],
@@ -677,6 +914,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "by_frame": by_frame,
         })
+    emit({"phase": "end", "seconds": time.perf_counter() - start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,7 +6,7 @@ engine instance. The names resolve here; nothing is registered into
 ``fugue_tpu``'s plugin system.
 """
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import pandas as pd
 import pyarrow as pa
@@ -14,7 +14,9 @@ import pyarrow as pa
 from .collections.partition import PartitionSpec
 from .column.expressions import ColumnExpr
 from .dataframe import DataFrame
+from .exceptions import FugueInvalidOperation
 from .execution.execution_engine import ExecutionEngine
+from .schema import Schema
 from .torch.execution_engine import TorchExecutionEngine
 
 _ENGINE_NAMES = ("torch", "cuda")
@@ -55,7 +57,57 @@ def aggregate(
         if partition_by is None
         else PartitionSpec(by=[partition_by] if isinstance(partition_by, str) else list(partition_by))
     )
-    res = e.aggregate(e.to_df(df), spec, cols)
+    return _adjust_result(e.aggregate(e.to_df(df), spec, cols), df, as_fugue)
+
+
+def transform(
+    df: Any,
+    using: Callable,
+    schema: Any = None,
+    params: Any = None,
+    partition: Any = None,
+    engine: Any = None,
+    device: Any = None,
+    as_fugue: bool = False,
+) -> Any:
+    """Run the device transformer ``using`` (annotated ``Dict[str,
+    torch.Tensor] -> Dict[str, torch.Tensor]``) over ``df``, grouped by
+    ``partition`` (a dict such as ``{"by": ["k"], "presort": "t desc"}``,
+    a ``PartitionSpec``, or a key name or list of names), into a frame of
+    ``schema`` (an explicit schema expression)::
+
+        transform(df, demean, schema="k:long,v:double,d:double",
+                  partition={"by": ["k"]}, engine="torch")
+
+    Any other transformer raises ``NotImplementedError`` (the JAX package
+    runs it on its host engine; ROADMAP.md A.4b). ``params`` are refused:
+    a compiled transformer takes its columns only (the JAX package drops
+    them silently, ROADMAP.md C4). The result follows ``aggregate``'s
+    rule for its type."""
+    if params:
+        raise FugueInvalidOperation(
+            f"params {sorted(params)} given to a compiled transformer, which takes "
+            "its columns only (ROADMAP.md C4)"
+        )
+    if schema is None or (isinstance(schema, str) and "*" in schema):
+        raise NotImplementedError(
+            f"output schema {schema!r}: a compiled transformer needs an explicit "
+            "schema; `*` expressions are not ported (ROADMAP.md A.4b)"
+        )
+    e = make_execution_engine(engine, device)
+    if partition is None:
+        spec = PartitionSpec()
+    elif isinstance(partition, (PartitionSpec, dict)):
+        spec = PartitionSpec(partition)
+    else:
+        spec = PartitionSpec(by=partition)
+    res = e.map_engine.map_dataframe(df, using, Schema(schema), spec)
+    return _adjust_result(res, df, as_fugue)
+
+
+def _adjust_result(res: DataFrame, df: Any, as_fugue: bool) -> Any:
+    """The result is a frame of the engine when ``as_fugue`` or when ``df``
+    is one; otherwise it has the input's type (pandas or arrow)."""
     if as_fugue or isinstance(df, DataFrame):
         return res
     if isinstance(df, pa.Table):

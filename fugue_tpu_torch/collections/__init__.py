@@ -1,3 +1,3 @@
-from .partition import PartitionSpec, PartitionSpecError
+from .partition import PartitionSpec, PartitionSpecError, parse_presort_exp
 
-__all__ = ["PartitionSpec", "PartitionSpecError"]
+__all__ = ["PartitionSpec", "PartitionSpecError", "parse_presort_exp"]

@@ -18,3 +18,7 @@ class FugueDataFrameInitError(FugueDataFrameError):
 
 class FugueDataFrameOperationError(FugueDataFrameError):
     """An operation on a DataFrame (rename/alter/head/...) is invalid."""
+
+
+class FugueInvalidOperation(FugueTPUError):
+    """The requested operation is not allowed in the current state."""

@@ -1,3 +1,3 @@
-from .execution_engine import ExecutionEngine
+from .execution_engine import ExecutionEngine, MapEngine
 
-__all__ = ["ExecutionEngine"]
+__all__ = ["ExecutionEngine", "MapEngine"]

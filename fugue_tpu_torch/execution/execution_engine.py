@@ -1,16 +1,48 @@
-"""ExecutionEngine ABC, trimmed from ``fugue_tpu/execution/execution_engine.py``
-to the verbs the port has: ``to_df``, ``persist`` and ``aggregate``."""
+"""ExecutionEngine and MapEngine ABCs, trimmed from
+``fugue_tpu/execution/execution_engine.py`` to the verbs the port has:
+``to_df``, ``persist``, ``aggregate`` and the map behind ``transform``."""
 
 from abc import ABC, abstractmethod
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 from ..collections.partition import PartitionSpec
 from ..column.expressions import ColumnExpr
 from ..dataframe import DataFrame
 
 
+class MapEngine(ABC):
+    """Runs a transformer over the partitions of a frame. The port's map
+    takes the transformer itself (no function-wrapper runner, no
+    ``on_init``, no format hint): only device-compiled functions run."""
+
+    def __init__(self, execution_engine: "ExecutionEngine"):
+        self._execution_engine = execution_engine
+
+    @property
+    def execution_engine(self) -> "ExecutionEngine":
+        return self._execution_engine
+
+    @abstractmethod
+    def map_dataframe(
+        self,
+        df: DataFrame,
+        map_func: Callable,
+        output_schema: Any,
+        partition_spec: PartitionSpec,
+    ) -> DataFrame:
+        """Apply ``map_func`` to ``df`` grouped by ``partition_spec``; the
+        result has ``output_schema``."""
+        raise NotImplementedError
+
+
 class ExecutionEngine(ABC):
     """The contract every engine of the port implements."""
+
+    @property
+    @abstractmethod
+    def map_engine(self) -> MapEngine:
+        """The engine's map, behind ``transform``."""
+        raise NotImplementedError
 
     @abstractmethod
     def to_df(self, df: Any, schema: Any = None) -> DataFrame:

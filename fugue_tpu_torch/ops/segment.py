@@ -23,7 +23,7 @@ of segments is the sorted route's one data-dependent shape: it is read
 from the device once per aggregate.
 """
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -210,15 +210,59 @@ def _sort_image(k: torch.Tensor) -> torch.Tensor:
     return bits ^ ((bits >> (bits.element_size() * 8 - 1)) & torch.iinfo(bits.dtype).max)
 
 
-def _lex_order(keys: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
-    """The permutation that sorts rows by (not valid, keys...), ties in row
-    order: one stable sort per key, from the last key to the first, then
-    one by validity."""
+def _order_by(images: Iterable[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts rows by (not valid, images...), ties in
+    row order: one stable sort per integer image, ``images`` given from
+    the least significant to the most (an iterable, so one image lives at a
+    time), then one by validity."""
     perm = torch.arange(valid.shape[0], device=valid.device)
-    for k in reversed(keys):
-        perm = perm[torch.sort(_sort_image(k)[perm], stable=True).indices]
+    for image in images:
+        perm = perm[torch.sort(image[perm], stable=True).indices]
     invalid = torch.logical_not(valid)[perm].to(torch.uint8)
     return perm[torch.sort(invalid, stable=True).indices]
+
+
+def _lex_order(keys: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts rows by (not valid, keys...), as
+    ``lax.sort`` orders them (NaN last), ties in row order."""
+    return _order_by((_sort_image(k) for k in reversed(keys)), valid)
+
+
+def _keyed_image(key: torch.Tensor, ascending: bool) -> torch.Tensor:
+    """An integer image of one sort column of the JAX package's keyed map
+    (``_compiled_keyed_map``). Unlike the groupby's, a float column puts NaN
+    FIRST, ascending or descending (the JAX package's leading ``¬isnan``
+    operand): NaN rows take the image's minimum, below the image of
+    ``-inf``, so one sort a column does it. A descending column is reversed
+    by negation (float), ``~`` (int) or ``logical_not`` (bool)."""
+    if key.is_floating_point():
+        isnan = torch.isnan(key)
+        filled = torch.where(isnan, 0.0, key)
+        image = _sort_image(filled if ascending else -filled)
+        return torch.where(isnan, torch.iinfo(image.dtype).min, image)
+    if ascending:
+        return _sort_image(key)
+    return _sort_image(torch.logical_not(key) if key.dtype == torch.bool else ~key)
+
+
+def _keyed_order(
+    sort_items: Sequence[Tuple[str, bool]], cols: Dict[str, torch.Tensor], valid: torch.Tensor
+) -> torch.Tensor:
+    """The permutation that sorts rows as the JAX package's keyed map sorts
+    them: by (not valid, then each ``(name, ascending)`` item), ties in row
+    order."""
+    return _order_by((_keyed_image(cols[n], asc) for n, asc in reversed(list(sort_items))), valid)
+
+
+def keyed_segments(keys: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """int32 segment ids of rows sorted by ``_keyed_order``: a new segment
+    where any partition key changes (the presort does not count), and every
+    invalid row a segment of its own."""
+    change = torch.logical_not(valid)
+    change[:1] = True
+    for k in keys:
+        change[1:] |= k[1:] != k[:-1]
+    return torch.cumsum(change, 0, dtype=torch.int32) - 1
 
 
 def _shard_kernel(num_keys: int, agg_specs: Sequence[Tuple[Any, ...]]):

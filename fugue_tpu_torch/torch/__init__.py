@@ -3,6 +3,6 @@
 imports are absolute."""
 
 from .dataframe import TorchDataFrame, frame_from_numpy
-from .execution_engine import TorchExecutionEngine
+from .execution_engine import TorchExecutionEngine, TorchMapEngine
 
-__all__ = ["TorchDataFrame", "TorchExecutionEngine", "frame_from_numpy"]
+__all__ = ["TorchDataFrame", "TorchExecutionEngine", "TorchMapEngine", "frame_from_numpy"]

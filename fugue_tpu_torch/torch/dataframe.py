@@ -19,7 +19,12 @@ The port of ``JaxDataFrame`` (``fugue_tpu/jax/dataframe.py``):
   device op dropped) are skipped by device ops and dropped on conversion
   back to arrow or pandas;
 - ``key_range`` caches one min/max probe of an integer column over the
-  valid rows, on the device.
+  valid rows, on the device;
+- a transform's output frame holds the UDF's tensors as it returned them,
+  with the input's dictionary put back on passed-through keys and the
+  input's (or the sorted) valid mask; ``as_arrow`` casts each column to
+  its schema type unchecked, as ``JaxDataFrame.as_arrow`` does (an int32
+  tensor declared ``long`` comes out as int64).
 
 Ingestion is eager: the frame is on the device once it is built.
 """
@@ -199,6 +204,12 @@ class TorchDataFrame(DataFrame):
     def null_masks(self) -> Dict[str, torch.Tensor]:
         """Per-column device null masks (True = NULL) for nullable columns."""
         return self._null_masks
+
+    @property
+    def has_encoded(self) -> bool:
+        """True when any device column is not plainly typed (encoded or
+        masked): device paths that assume plain semantics gate on this."""
+        return len(self._encodings) > 0 or len(self._null_masks) > 0
 
     @property
     def valid_mask(self) -> Optional[torch.Tensor]:

@@ -1,20 +1,23 @@
 """TorchExecutionEngine — the port of ``JaxExecutionEngine``
 (``fugue_tpu/jax/execution_engine.py``) for one CUDA device.
 
-This slice ports ``to_df``, ``persist`` and the device ``aggregate``:
-any number of keys of any integer, float, bool, string, date or timestamp
-column, nullable or not, with SUM/COUNT/AVG/MIN/MAX and COUNT(*) over
-numeric, nullable-int, bool and dictionary-string columns. A plain single
-integer key whose range fits ``2**18`` buckets takes the dense route and
-finishes on the device; every other plan runs the device groupby
-(``ops/segment.py``) into per-group partials, merges them on the host
-and comes back to the device as the result frame, as the JAX engine does.
+The port has ``to_df``, ``persist``, the device ``aggregate`` and the
+compiled maps behind ``transform`` (``TorchMapEngine``).
+
+``aggregate`` takes any number of keys of any integer, float, bool,
+string, date or timestamp column, nullable or not, with
+SUM/COUNT/AVG/MIN/MAX and COUNT(*) over numeric, nullable-int, bool and
+dictionary-string columns. A plain single integer key whose range fits
+``2**18`` buckets takes the dense route and finishes on the device; every
+other plan runs the device groupby (``ops/segment.py``) into per-group
+partials, merges them on the host and comes back to the device as the
+result frame, as the JAX engine does.
 
 There is no host fallback: a plan that the JAX engine hands to its host
 engine raises ``NotImplementedError`` here, naming its ROADMAP.md item.
 """
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -24,21 +27,291 @@ from torch.profiler import record_function
 
 from ..collections.partition import PartitionSpec
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
-from ..execution.execution_engine import ExecutionEngine
+from ..exceptions import FugueInvalidOperation
+from ..execution.execution_engine import ExecutionEngine, MapEngine
 from ..ops.segment import (
     _DENSE_MAX_RANGE,
     _is_int,
+    _keyed_order,
     dense_buckets,
     dense_kernel_parts,
     device_groupby_partials,
+    keyed_segments,
     merge_partials,
 )
 from ..parallel.device import resolve_device
 from ..schema import Schema
+from ..torch_annotations import torch_dict_udf
 from .dataframe import TorchDataFrame
+from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
 
 _ENCODED = "ROADMAP.md A.3 encoded columns"
 _VERBS = "ROADMAP.md A.8 remaining verbs"
+_HOST_UDFS = "ROADMAP.md A.4b host transformers"
+# the largest segment-id space of the dense keyed map: the JAX package's
+# default for FUGUE_TPU_CONF_DENSE_MAP_RANGE (the port has no such knob)
+_DENSE_MAP_RANGE = 1 << 20
+_RESERVED = (SEGMENTS, VALID, SEGMENT_SPACE, SPANS_SHARDS)
+
+
+class TorchMapEngine(MapEngine):
+    """The port of ``JaxMapEngine`` (``fugue_tpu/jax/execution_engine.py``):
+    a ``Dict[str, torch.Tensor]`` transformer runs on the engine's device in
+    one of the three forms the JAX package compiles:
+
+    - **keyless** (``_compiled_map``): the whole frame in one call;
+    - **keyed, dense plan** (``_try_dense_keyed_map``): integer keys of a
+      bounded range map to dense segment ids; rows stay in place;
+    - **keyed, sorted plan** (``_compiled_keyed_map``): rows sorted by
+      (validity, keys, presort), contiguous segment ids.
+
+    The JAX package sends every other transformer to its host engine; the
+    port has none and raises ``NotImplementedError`` (ROADMAP.md A.4b).
+    On one device every group is whole: the JAX package's hash exchange
+    before the sorted plan, and its cross-shard merge of group tables
+    under the dense plan, have nothing to do here."""
+
+    def map_dataframe(
+        self,
+        df: Any,
+        map_func: Callable,
+        output_schema: Any,
+        partition_spec: PartitionSpec,
+    ) -> TorchDataFrame:
+        engine: TorchExecutionEngine = self.execution_engine  # type: ignore[assignment]
+        if not isinstance(output_schema, Schema):
+            output_schema = Schema(output_schema)
+        fn = torch_dict_udf(map_func)
+        tdf = engine.to_df(df)
+        keys = partition_spec.partition_by
+        if len(keys) == 0:
+            if len(partition_spec.presort) > 0:
+                raise NotImplementedError(
+                    "a presort without partition keys orders the frame through a "
+                    "repartition, which is not ported (ROADMAP.md A.7 repartition)"
+                )
+            if tdf.has_encoded:
+                # the JAX package renders encoded/masked columns as real
+                # values on its host engine
+                raise NotImplementedError(
+                    "a keyless map over encoded or nullable columns runs on the JAX "
+                    f"package's host engine, which is not ported ({_HOST_UDFS})"
+                )
+            return self._compiled_map(tdf, fn, output_schema)
+        # encoded/masked columns have non-plain semantics the UDF can't see.
+        # The ONE exception: dictionary-encoded PARTITION keys, whose codes
+        # the UDF only groups by and passes through opaquely (the engine
+        # reattaches the dictionary on output).
+        dict_keys_only = len(tdf.null_masks) == 0 and all(
+            e.get("kind") == "dict" and c in keys for c, e in tdf.encodings.items()
+        )
+        # an encoded key that appears in the output must keep its declared
+        # type — the dictionary is reattached to the (passed-through) codes
+        enc_schema_ok = all(
+            k not in output_schema or output_schema[k].type == tdf.schema[k].type
+            for k in tdf.encodings
+        )
+        nan_key = any(
+            tdf.device_cols[k].is_floating_point() and tdf.maybe_nan(k)
+            for k in keys
+            if k in tdf.device_cols
+        )
+        if not (
+            all(k in tdf.device_cols for k in keys)
+            and not nan_key
+            and tdf.host_table is None
+            and (not tdf.has_encoded or (dict_keys_only and enc_schema_ok))
+        ):
+            raise FugueInvalidOperation(
+                "compiled keyed map unavailable for partition keys "
+                f"{keys}: keys must be plain or dictionary-encoded "
+                "device columns (no nullable ints/maybe-NaN "
+                "floats), non-key columns must be un-encoded, and "
+                "encoded keys must keep their type in the output "
+                "schema. Use a pandas-annotated transformer for "
+                f"these shapes (on the JAX package: {_HOST_UDFS})."
+            )
+        return self._compiled_keyed_map(tdf, fn, output_schema, partition_spec)
+
+    def _compiled_keyed_map(
+        self,
+        tdf: TorchDataFrame,
+        fn: Callable,
+        output_schema: Schema,
+        partition_spec: PartitionSpec,
+    ) -> TorchDataFrame:
+        """Keyed compiled map: groupby-apply that never leaves the device.
+
+        The dense plan when it applies; otherwise the sorted plan: sort the
+        frame by (validity, keys, presort), derive row-aligned contiguous
+        ``__segments__`` ids, and call the user fn once over the sorted
+        columns. The fn computes per-group results with the ``group_ops``
+        reductions (tables as long as the frame) and returns a row-aligned
+        dict. Invalid rows sort to the tail, each in its own segment, and
+        stay masked via ``__valid__``; the output keeps the sorted mask."""
+        keys = partition_spec.partition_by
+        dense = self._try_dense_keyed_map(tdf, fn, output_schema, partition_spec, keys)
+        if dense is not None:
+            return dense
+        sort_items = tuple(partition_spec.get_sorts(tdf.schema, with_partition_keys=True).items())
+        valid = tdf.device_valid_mask()
+        with record_function("fugue::keyed_sort"):
+            perm = _keyed_order(sort_items, tdf.device_cols, valid)
+            sc = {n: c[perm] for n, c in tdf.device_cols.items()}
+            sv = valid[perm]
+            sc[SEGMENTS] = keyed_segments([sc[k] for k in keys], sv)
+            sc[VALID] = sv
+        with record_function("fugue::udf"):
+            out = _keyed_output(fn(sc), output_schema, sv.shape[0])
+        return TorchDataFrame(
+            _internal=dict(
+                device=tdf.device,
+                device_cols=out,
+                row_count=tdf._row_count,
+                valid_mask=sv,
+                encodings=_keyed_out_encodings(tdf, keys, output_schema),
+                schema=output_schema,
+            )
+        )
+
+    def _try_dense_keyed_map(
+        self,
+        tdf: TorchDataFrame,
+        fn: Callable,
+        output_schema: Schema,
+        partition_spec: PartitionSpec,
+        keys: List[str],
+    ) -> Optional[TorchDataFrame]:
+        """Sort-free keyed map (the dense plan).
+
+        Integer keys with a bounded range map to dense segment ids (mixed
+        radix over per-key spans); rows never move. Returns None when
+        ineligible (presort, non-integer keys, a range product above
+        ``_DENSE_MAP_RANGE``) — the caller then runs the sorted plan."""
+        if len(partition_spec.presort) > 0:
+            return None  # order inside groups requires the sorted plan
+        if not all(_is_int(tdf.device_cols[k]) for k in keys):
+            return None
+        bounds: List[int] = []
+        spans: List[int] = []
+        for k in keys:
+            enc = tdf.encodings.get(k)
+            if enc is not None:
+                # dict codes are bounded by construction: [-1, len) where
+                # -1 is the NULL code — static metadata, no device probe
+                lo, hi = -1, len(enc["dictionary"]) - 1
+            else:
+                lo, hi = tdf.key_range(k)  # cached per frame (one probe ever)
+            if hi < lo:  # empty frame: degenerate single-bucket space
+                lo, hi = 0, 0
+            bounds.append(lo)
+            spans.append(hi - lo + 1)
+        total = 1
+        for s in spans:
+            total *= s
+            if total > _DENSE_MAP_RANGE:
+                return None
+        buckets = 1 << max(1, total.bit_length())  # ≥ total+1: padding slot
+        strides: List[int] = []
+        acc = 1
+        for s in reversed(spans):
+            strides.append(acc)
+            acc *= s
+        strides.reverse()
+        valid = tdf.device_valid_mask()
+        ids = torch.zeros(valid.shape, dtype=torch.int64, device=valid.device)
+        for k, lo, st in zip(keys, bounds, strides):
+            ids += (tdf.device_cols[k].to(torch.int64) - lo) * st
+        # invalid rows go to the top bucket, which no real key reaches
+        sc: Dict[str, torch.Tensor] = dict(tdf.device_cols)
+        sc[SEGMENTS] = torch.where(valid, ids, buckets - 1).to(torch.int32)
+        sc[VALID] = valid
+        sc[SEGMENT_SPACE] = torch.zeros(buckets, dtype=torch.bool, device=valid.device)
+        sc[SPANS_SHARDS] = sc[SEGMENT_SPACE][:1]
+        with record_function("fugue::udf"):
+            out = _keyed_output(fn(sc), output_schema, valid.shape[0])
+        # rows never moved: validity/count carry over unchanged
+        return TorchDataFrame(
+            _internal=dict(
+                device=tdf.device,
+                device_cols=out,
+                row_count=tdf._row_count,
+                valid_mask=tdf.valid_mask,
+                encodings=_keyed_out_encodings(tdf, keys, output_schema),
+                schema=output_schema,
+            )
+        )
+
+    def _compiled_map(
+        self, tdf: TorchDataFrame, fn: Callable, output_schema: Schema
+    ) -> TorchDataFrame:
+        """The keyless map: one call of the user fn over the whole frame.
+
+        The input dict carries a reserved ``"__valid__"`` bool tensor
+        marking real rows — functions doing reductions must mask with it;
+        elementwise functions may ignore it. An output as long as the input
+        keeps the input's valid rows; any other length is a new frame of
+        that many rows."""
+        cols = dict(tdf.device_cols)
+        if len(cols) == 0:
+            raise FugueInvalidOperation("no device columns to map on the compiled path")
+        n_in = next(iter(cols.values())).shape[0]
+        cols[VALID] = tdf.device_valid_mask()
+        with record_function("fugue::udf"):
+            res = _select_output(fn(cols), output_schema, exclude=(VALID,))
+        out = {n: res[n] for n in output_schema.names}
+        lengths = {v.shape[0] for v in out.values()}
+        if len(lengths) != 1:
+            raise FugueInvalidOperation(
+                f"compiled transformer output columns differ in length: {sorted(lengths)}"
+            )
+        n_out = lengths.pop()
+        same_len = n_out == n_in
+        return TorchDataFrame(
+            _internal=dict(
+                device=tdf.device,
+                device_cols=out,
+                row_count=tdf._row_count if same_len else n_out,
+                valid_mask=tdf.valid_mask if same_len else None,
+                schema=output_schema,
+            )
+        )
+
+
+def _select_output(
+    out: Any, output_schema: Schema, exclude: Tuple[str, ...]
+) -> Dict[str, torch.Tensor]:
+    """The output schema's columns of a transformer's result, which must be
+    a dict of tensors holding every one of them."""
+    if not isinstance(out, dict) or not all(isinstance(v, torch.Tensor) for v in out.values()):
+        raise FugueInvalidOperation("compiled transformer must return Dict[str, torch.Tensor]")
+    out = {k: v for k, v in out.items() if k not in exclude}
+    missing = [n for n in output_schema.names if n not in out]
+    if len(missing) > 0:
+        raise FugueInvalidOperation(f"compiled transformer output missing columns {missing}")
+    if any(v.dim() != 1 for v in out.values()):
+        raise FugueInvalidOperation("compiled transformer must return 1-D tensors")
+    return out
+
+
+def _keyed_output(out: Any, output_schema: Schema, n_in: int) -> Dict[str, torch.Tensor]:
+    """A keyed transformer's output columns, each row-aligned with its
+    input (the sorted or in-place rows)."""
+    res = _select_output(out, output_schema, exclude=_RESERVED)
+    if not all(v.shape[0] == n_in for v in res.values()):
+        raise FugueInvalidOperation(
+            "compiled keyed transformers must return row-aligned arrays "
+            "(same length as the sorted input shard)"
+        )
+    return {n: res[n] for n in output_schema.names}
+
+
+def _keyed_out_encodings(
+    tdf: TorchDataFrame, keys: List[str], output_schema: Schema
+) -> Dict[str, Any]:
+    """Dictionary encodings to reattach to encoded partition keys that the
+    UDF passed through (by contract) into the output."""
+    return {k: dict(tdf.encodings[k]) for k in keys if k in tdf.encodings and k in output_schema}
 
 
 class TorchExecutionEngine(ExecutionEngine):
@@ -48,10 +321,15 @@ class TorchExecutionEngine(ExecutionEngine):
 
     def __init__(self, device: Any = None):
         self._device = resolve_device(device)
+        self._map_engine = TorchMapEngine(self)
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def map_engine(self) -> TorchMapEngine:
+        return self._map_engine
 
     def __repr__(self) -> str:
         return f"TorchExecutionEngine(device={self._device})"

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of ``fugue_tpu_torch`` nor
 ``chip_smoke.py`` imports JAX or ``fugue_tpu``, importing the port's API
-loads neither, and the port's engine refuses to start on a machine with
+or running a compiled transform loads neither, and the port's engine refuses to start on a machine with
 no card unless the caller asks for the CPU."""
 
 import ast
@@ -61,6 +61,31 @@ def test_importing_the_api_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_a_compiled_transform_loads_no_jax():
+    """The compiled maps (the annotation check, ``group_ops``, the keyed
+    sort) run all three forms without loading JAX or ``fugue_tpu``."""
+    code = """
+import sys
+from typing import Dict
+import pandas as pd, torch
+from fugue_tpu_torch import api
+from fugue_tpu_torch.torch import group_ops as go
+def f(cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    if go.SEGMENTS not in cols:  # keyless
+        return {"k": cols["k"], "d": cols["v"] * 2}
+    return {"k": cols["k"], "d": cols["v"] - go.per_row(cols, go.mean(cols, cols["v"]))}
+pdf = pd.DataFrame({"k": [1, 1, 2], "v": [1.0, 2.0, 3.0]})
+for part in (None, {"by": ["k"]}, {"by": ["k"], "presort": "v desc"}):
+    api.transform(pdf, f, schema="k:long,d:double", partition=part, device="cpu")
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fugue_tpu')]
+print(bad); sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -69,6 +94,8 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         TorchExecutionEngine(device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.aggregate(None, "k", engine="cuda", s=ff.sum(col("v")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.transform(None, lambda c: c, schema="k:long", engine="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchDataFrame(pa.table({"k": [1]}))
     assert TorchExecutionEngine(device="cpu").device == torch.device("cpu")
