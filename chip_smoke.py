@@ -45,13 +45,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each checked against a float64 numpy oracle with the launch counts set
    to 0 just before and read just after, timed (median of
    ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
-   a frame.
+   a frame;
+8. join_path: the device joins at full width, one line a cell:
+   ``north-star-100m`` (bench.py's ``_north_star`` in memory: the group
+   means of 100,000,000 rows by ``api.aggregate``, joined back onto every
+   row by ``api.join`` and subtracted by ``api.transform``),
+   ``lineitem-orders-inner`` (lineitem SF10 inner its 15,000,000 orders:
+   the unique probe), ``lineitem-orders-f`` (left_outer, then anti,
+   against the orders whose status is F) and ``orders-lineitem-expand``
+   (1,000,000 orders inner their lines: the expansion, cut in scale to
+   stay under its 2**22 output rows), each checked against a host oracle
+   with the launch counts set to 0 just before and read just after, its
+   device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
+   bound, and traced once.
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
-N`` cuts the dense and the transform frames and ``--orders N`` the lineitem
-frame, for a quick try). With no CUDA device, or outside the repository, it
+N`` cuts the dense, the transform and the north-star frames, ``--orders N``
+the lineitem frame and ``--expand-orders N`` the expansion's, for a quick
+try). With no CUDA device, or outside the repository, it
 exits non-zero and prints no result.
 """
 
@@ -307,6 +320,10 @@ LINESTATUSES = ("F", "O")
 SHIPMODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
 
 
+def _strings(pa, codes, words):
+    return pa.DictionaryArray.from_arrays(pa.array(codes), pa.array(words)).cast(pa.string())
+
+
 def make_lineitem(np, pa, seed: int, orders: int = SF10_ORDERS, parts: int = SF10_PARTS):
     """``(table, aux)``: the lineitem columns the sorted-path aggregates
     read, as an arrow table (decimals as floats), and the per-row order
@@ -328,20 +345,53 @@ def make_lineitem(np, pa, seed: int, orders: int = SF10_ORDERS, parts: int = SF1
     status = (ship > DAY_CURRENT).astype(np.int8)
     mode = rng.integers(0, len(SHIPMODES), n, dtype=np.int8)
 
-    def strings(codes, words):
-        return pa.DictionaryArray.from_arrays(pa.array(codes), pa.array(words)).cast(pa.string())
-
     tbl = pa.table({
         "l_orderkey": okey[order],
         "l_quantity": qty.astype(np.float32),
         "l_extendedprice": qty * price,
         "l_discount": (rng.integers(0, 10, n, endpoint=True) / 100).astype(np.float32),
         "l_shipdate": pa.array(ship, pa.int32()).cast(pa.date32()),
-        "l_returnflag": strings(flag, RETURNFLAGS),
-        "l_linestatus": strings(status, LINESTATUSES),
-        "l_shipmode": strings(mode, SHIPMODES),
+        "l_returnflag": _strings(pa, flag, RETURNFLAGS),
+        "l_linestatus": _strings(pa, status, LINESTATUSES),
+        "l_shipmode": _strings(pa, mode, SHIPMODES),
     })
-    return tbl, {"order": order, "okey": okey, "flag": flag, "status": status, "mode": mode}
+    return tbl, {"order": order, "okey": okey, "odate": odate, "flag": flag, "status": status,
+                 "mode": mode}
+
+
+# TPC-H orders by dbgen's rules (TPC-H spec 4.2.3): one row per order of
+# ``make_lineitem``'s ``aux``, customer keys 1..orders/10 skipping every
+# multiple of 3, priority one of 5 at random, status F (every line F), O
+# (every line O) or P, total price the sum of its lines' price after
+# discount (tax left out).
+ORDERPRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+ORDERSTATUSES = ("F", "O", "P")  # sorted: the port's dictionary codes
+
+
+def make_orders(np, pa, lineitem, aux: dict, seed: int):
+    """``(table, oaux)``: the orders of ``make_lineitem``'s frame, keyed by
+    ``l_orderkey`` (dbgen's sparse ``o_orderkey``, named as lineitem names
+    it, so the two join on it), and the customer, priority and status
+    codes for the oracle."""
+    rng = np.random.default_rng(seed + 1)
+    orders = len(aux["okey"])
+    i = rng.integers(0, max(1, orders // 10) * 2 // 3, orders, dtype=np.int64)
+    custkey = i + i // 2 + 1  # the i-th integer that is not a multiple of 3
+    priority = rng.integers(0, len(ORDERPRIORITIES), orders, dtype=np.int8)
+    lines = np.bincount(aux["order"], minlength=orders)
+    open_lines = np.bincount(aux["order"], weights=aux["status"], minlength=orders)
+    status = np.where(open_lines == 0, 0, np.where(open_lines == lines, 1, 2)).astype(np.int8)
+    net = lineitem.column("l_extendedprice").to_numpy() * (
+        1 - lineitem.column("l_discount").to_numpy().astype(np.float64))
+    tbl = pa.table({
+        "l_orderkey": aux["okey"],
+        "o_custkey": custkey,
+        "o_orderdate": pa.array(aux["odate"], pa.int32()).cast(pa.date32()),
+        "o_totalprice": np.bincount(aux["order"], weights=net, minlength=orders),
+        "o_orderpriority": _strings(pa, priority, ORDERPRIORITIES),
+        "o_orderstatus": _strings(pa, status, ORDERSTATUSES),
+    })
+    return tbl, {"custkey": custkey, "priority": priority, "status": status}
 
 
 def sorted_path_aggs(ff, col) -> dict:
@@ -839,11 +889,307 @@ def phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, seed:
     return out
 
 
+# join_path: bench.py's north star in memory, and TPC-H lineitem with orders
+NS_GROUPS = 100_000  # bench.py's NS_GROUPS
+JOIN_REPS = 5  # join_path: medians of 5 calls, after the checked one
+EXPAND_ORDERS = 1_000_000  # ~4.0M pairs: under MAX_EXPAND_ROWS (2**22) output rows
+
+
+def north_star_frame(np, rows: int, seed: int) -> dict:
+    """bench.py's ``_north_star`` frame in memory: ``k`` uniform over
+    ``NS_GROUPS`` keys, ``v`` uniform."""
+    rng = np.random.default_rng(seed)
+    return {"k": rng.integers(0, NS_GROUPS, rows, dtype=np.int64), "v": rng.random(rows)}
+
+
+def north_star_steps(torch, api, ff, col, engine) -> dict:
+    """bench.py's north-star chain as three verbs of the port: the group
+    means (``aggregate``), the means onto every row (a broadcast-hash
+    ``join``) and the demean (a keyless ``transform``). name -> step."""
+    T = Dict[str, torch.Tensor]
+
+    def demean(cols: T) -> T:
+        return {"k": cols["k"], "d": cols["v"] - cols["m"]}
+
+    return {
+        "aggregate": lambda tdf: api.aggregate(tdf, partition_by="k", engine=engine, m=ff.avg(col("v"))),
+        "join": lambda tdf, means: api.join(tdf, means, how="inner", engine=engine),
+        "transform": lambda joined: api.transform(joined, demean, schema="k:long,d:double",
+                                                  engine=engine, as_fugue=True),
+    }
+
+
+def check_north_star(np, got, cols: dict) -> None:
+    """bench.py's own assertions (every row comes out, the demeaned values
+    sum to ~0), and ``d`` against ``v`` less its key's float64 mean."""
+    k, v = cols["k"], cols["v"]
+    d = got.column("d").to_numpy()
+    require(len(d) == len(k), f"north-star: {len(d)} rows, expected {len(k)}")
+    require(abs(float(d.sum())) < 1.0, f"north-star: the demeaned values sum to {d.sum()}")
+    require(np.array_equal(got.column("k").to_numpy(), k), "north-star: k in the input's order")
+    mean = np.bincount(k, weights=v, minlength=NS_GROUPS) / np.maximum(
+        np.bincount(k, minlength=NS_GROUPS), 1)
+    _close(np, d, v - mean[k], "north-star: d")
+
+
+def _codes_of(np, res, name: str, words, idx):
+    """The codes the result should hold for strings ``words[idx]`` (−1
+    where ``idx`` is negative) in the result's own dictionary of ``name``."""
+    dictionary = res.encodings[name]["dictionary"].to_pylist()
+    lut = np.asarray([dictionary.index(w) if w in dictionary else -2 for w in words] + [-1])
+    return lut[np.where(idx < 0, len(words), idx)]
+
+
+def check_orders_join(np, res, how: str, aux: dict, oaux: dict, only_f: bool) -> None:
+    """lineitem (left) joined with orders, or with its F orders: every
+    lineitem row's order values gathered by ``aux["order"]`` (no merge).
+    Keys, codes, rows and NULLs exact; the price ``rtol=1e-5, atol=1e-8``."""
+    what = f"lineitem {how} orders{'_f' if only_f else ''}"
+    order = aux["order"]
+    hit = (oaux["status"] == 0)[order] if only_f else np.ones(len(order), dtype=bool)
+    valid = res.device_valid_mask().cpu().numpy()
+    if how == "anti":
+        require(np.array_equal(valid, ~hit), f"{what}: rows")
+        require(res.count() == int((~hit).sum()), f"{what}: row count")
+        return
+    require(np.array_equal(valid, hit if how == "inner" else np.ones_like(hit)), f"{what}: rows")
+    host = {c: t.cpu().numpy() for c, t in res.device_cols.items()}
+    masks = {c: t.cpu().numpy() for c, t in res.null_masks.items()}
+    src = np.where(hit, order, -1)
+    require(np.array_equal(host["l_orderkey"], aux["okey"][order]), f"{what}: keys")
+    for name, exp, fill in (("o_custkey", oaux["custkey"], 0), ("o_orderdate", aux["odate"], 0)):
+        got = host[name][valid]
+        require(np.array_equal(got, np.where(src >= 0, exp[src], fill)[valid]), f"{what}: {name}")
+        if how == "left_outer":
+            require(np.array_equal(masks[name], ~hit), f"{what}: NULLs of {name}")
+    for name, words, codes in (("o_orderpriority", ORDERPRIORITIES, oaux["priority"]),
+                               ("o_orderstatus", ORDERSTATUSES, oaux["status"])):
+        exp = _codes_of(np, res, name, words, np.where(src >= 0, codes[np.maximum(src, 0)], -1))
+        require(np.array_equal(host[name][valid], exp[valid]), f"{what}: {name} codes")
+    price = np.where(src >= 0, oaux["totalprice"][np.maximum(src, 0)], np.nan)
+    _close(np, host["o_totalprice"][valid], price[valid], f"{what}: o_totalprice")
+
+
+def check_expand(np, pa, res, lineitem, aux: dict, oaux: dict) -> None:
+    """orders (left) inner lineitem (right): one row per (order, line)
+    pair, held against the pairs ``aux["order"]`` gives, as row sets."""
+    valid = res.device_valid_mask().cpu().numpy()
+    got = {c: t.cpu().numpy()[valid] for c, t in res.device_cols.items()}
+    order = aux["order"]
+    exp = {
+        "l_orderkey": aux["okey"][order],
+        "o_custkey": oaux["custkey"][order],
+        "o_orderdate": aux["odate"][order],
+        "o_totalprice": oaux["totalprice"][order],
+        "o_orderpriority": _codes_of(np, res, "o_orderpriority", ORDERPRIORITIES, oaux["priority"][order]),
+        "o_orderstatus": _codes_of(np, res, "o_orderstatus", ORDERSTATUSES, oaux["status"][order]),
+        "l_quantity": lineitem.column("l_quantity").to_numpy(),
+        "l_extendedprice": lineitem.column("l_extendedprice").to_numpy(),
+        "l_discount": lineitem.column("l_discount").to_numpy(),
+        "l_shipdate": lineitem.column("l_shipdate").cast(pa.int32()).to_numpy(),
+        "l_returnflag": _codes_of(np, res, "l_returnflag", RETURNFLAGS, aux["flag"]),
+        "l_linestatus": _codes_of(np, res, "l_linestatus", LINESTATUSES, aux["status"]),
+        "l_shipmode": _codes_of(np, res, "l_shipmode", SHIPMODES, aux["mode"]),
+    }
+    require(sorted(got) == sorted(exp), f"expand: columns {sorted(got)}")
+    require(len(got["l_orderkey"]) == len(order), f"expand: {len(got['l_orderkey'])} pairs, expected {len(order)}")
+    names = sorted(exp)
+    g_order = np.lexsort([got[c] for c in names])
+    e_order = np.lexsort([exp[c] for c in names])
+    for c in names:
+        require(np.array_equal(got[c][g_order], exp[c][e_order]), f"expand: {c}")
+
+
+def _synced(torch, fn):
+    """``(fn(), the source lines of the synchronizing CUDA calls it
+    made)``, as PyTorch's sync debug mode reports them: each device→host
+    read is one. The first switch of the mode in a process was seen to
+    report one more, from ``torch/cuda`` itself; ``_port_syncs`` leaves
+    torch's own out."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+
+def _port_syncs(lines) -> list:
+    """The syncs made by the port's code (not by torch's own)."""
+    return [ln for ln in lines if "/torch/" not in ln]
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _frame_tensors(tdf) -> list:
+    return list(tdf.device_cols.values()) + list(tdf.null_masks.values()) + [tdf.device_valid_mask()]
+
+
+def _join_bound(left, right, res, keys, plan: str) -> tuple:
+    """The join's least time on the card: the right side read once, the
+    left's keys and valid mask read once (its whole rows for the
+    expansion, which moves them), each new result tensor written once."""
+    left_in = _frame_tensors(left) if plan == "expand" else (
+        [left.device_cols[k] for k in keys] + [left.device_valid_mask()])
+    reused = {id(t) for t in _frame_tensors(left)}
+    written = [t for t in _frame_tensors(res) if id(t) not in reused]
+    return _bound(0, 0, _tensor_bytes(left_in) + _tensor_bytes(_frame_tensors(right))
+                  + _tensor_bytes(written))
+
+
+def _first_call(torch, bg, fn) -> tuple:
+    """``(fn(), line)``: the first call, with its seconds, kernel launches
+    (counted from 0), peak device memory and device syncs in ``line``."""
+    for k in bg.LAUNCHES:
+        bg.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, syncs = _synced(torch, fn)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out = {"launches": dict(bg.LAUNCHES), "first_call_s": first_s,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "host_syncs": len(_port_syncs(syncs)), "host_sync_lines": syncs}
+    return res, out
+
+
+def _time_and_trace(torch, fn, out: dict, rows_left: int, reps: int = JOIN_REPS) -> dict:
+    """``out`` with the median and range of ``reps`` calls of ``fn``, the
+    left rows a second, and one traced call."""
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(wall)
+    out.update(ms=ms, ms_range=[min(wall), max(wall)], left_rows_per_s=rows_left / ms * 1e3,
+               profile=_trace(torch, fn))
+    return out
+
+
+def phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, seed: int,
+                    rows: int, orders: int, expand_orders: int) -> dict:
+    """The device joins at full width, one line a cell: bench.py's north
+    star (aggregate → join → transform over ``rows`` rows), TPC-H lineitem
+    with its orders (the unique probe: inner, then left_outer and anti
+    against the F orders) and orders with their lines (the expansion).
+    Every cell's first call is held against a host oracle with its kernel
+    launches counted from 0, then timed (median of ``JOIN_REPS`` calls)
+    beside its bound and traced once."""
+    out = {"phase": "join_path", "cells": {}}
+
+    def emit_cell(cell: str, line: dict) -> None:
+        line = {"phase": "join_path", "cell": cell, **line}
+        emit(line)
+        out["cells"][line.get("key", cell)] = line
+
+    # north-star-100m
+    t0 = time.perf_counter()
+    cols = north_star_frame(np, rows, seed)
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tdf = engine.persist(frame_from_numpy(cols, "k:long,v:double", nan_cols=(), device=engine.device))
+    ingest_s = time.perf_counter() - t0
+    steps = north_star_steps(torch, api, ff, col, engine)
+
+    def chain():
+        means = steps["aggregate"](tdf)
+        return steps["transform"](steps["join"](tdf, means))
+
+    res, line = _first_call(torch, bg, chain)
+    check_north_star(np, res.as_arrow(), cols)
+    del res
+    means = steps["aggregate"](tdf)
+    joined = steps["join"](tdf, means)
+    verbs = {"aggregate": lambda: steps["aggregate"](tdf), "join": lambda: steps["join"](tdf, means),
+             "transform": lambda: steps["transform"](joined)}
+    verb_ms = {}
+    for name, fn in verbs.items():
+        verb_ms[name] = _time_and_trace(torch, fn, {}, rows)
+    join_bound_ms, join_bound_by = _join_bound(tdf, means, joined, ["k"], "probe")
+    g = means.count()
+    agg_bound_ms, _ = _bound(rows, 16, g * 17)
+    transform_bound_ms, _ = _bound(rows, 24, 0)
+    line.update(plan="probe", rows_in=[rows, g], rows_out=joined.count(), generate_s=generate_s,
+                ingest_s=ingest_s, verbs=verb_ms,
+                bound_ms=agg_bound_ms + join_bound_ms + transform_bound_ms, bound_by="bytes",
+                join_bound_ms=join_bound_ms, join_bound_by=join_bound_by)
+    emit_cell("north-star-100m", _time_and_trace(torch, chain, line, rows))
+    del tdf, cols, means, joined, verbs
+    torch.cuda.empty_cache()
+
+    # lineitem with orders: the unique probe
+    t0 = time.perf_counter()
+    tbl, aux = make_lineitem(np, pa, seed, orders)
+    otbl, oaux = make_orders(np, pa, tbl, aux, seed)
+    oaux["totalprice"] = otbl.column("o_totalprice").to_numpy()
+    otbl_f = otbl.filter(pa.array(oaux["status"] == 0))
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lineitem = engine.persist(engine.to_df(tbl))
+    odf = engine.persist(engine.to_df(otbl))
+    odf_f = engine.persist(engine.to_df(otbl_f))
+    ingest_s = time.perf_counter() - t0
+    n_left = tbl.num_rows
+    del tbl
+    for cell, right, how in (("lineitem-orders-inner", odf, "inner"),
+                             ("lineitem-orders-f", odf_f, "left_outer"),
+                             ("lineitem-orders-f", odf_f, "anti")):
+        def call():
+            return api.join(lineitem, right, how=how, on=["l_orderkey"], engine=engine)
+
+        res, line = _first_call(torch, bg, call)
+        check_orders_join(np, res, how, aux, oaux, only_f=right is odf_f)
+        bound_ms, bound_by = _join_bound(lineitem, right, res, ["l_orderkey"], "probe")
+        line.update(key=f"{cell}/{how}", join=how, plan="probe", rows_in=[n_left, right.count()],
+                    rows_out=res.count(), generate_s=generate_s, ingest_s=ingest_s,
+                    bound_ms=bound_ms, bound_by=bound_by)
+        del res
+        emit_cell(cell, _time_and_trace(torch, call, line, n_left))
+    del lineitem, odf, odf_f, aux, oaux, otbl, otbl_f
+    torch.cuda.empty_cache()
+
+    # orders with their lines: the expansion
+    t0 = time.perf_counter()
+    tbl, aux = make_lineitem(np, pa, seed, expand_orders)
+    otbl, oaux = make_orders(np, pa, tbl, aux, seed)
+    oaux["totalprice"] = otbl.column("o_totalprice").to_numpy()
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lineitem = engine.persist(engine.to_df(tbl))
+    odf = engine.persist(engine.to_df(otbl))
+    ingest_s = time.perf_counter() - t0
+
+    def expand():
+        return api.join(odf, lineitem, how="inner", on=["l_orderkey"], engine=engine)
+
+    res, line = _first_call(torch, bg, expand)
+    check_expand(np, pa, res, tbl, aux, oaux)
+    bound_ms, bound_by = _join_bound(odf, lineitem, res, ["l_orderkey"], "expand")
+    line.update(plan="expand", rows_in=[odf.count(), lineitem.count()], rows_out=res.count(),
+                generate_s=generate_s, ingest_s=ingest_s, bound_ms=bound_ms, bound_by=bound_by)
+    del res
+    emit_cell("orders-lineitem-expand", _time_and_trace(torch, expand, line, expand_orders))
+    del lineitem, odf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--orders", type=int, default=SF10_ORDERS)
+    ap.add_argument("--expand-orders", type=int, default=EXPAND_ORDERS)
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -881,6 +1227,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
                                           args.rows)
+    torch.cuda.empty_cache()
+    join_path = phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, args.seed,
+                                args.rows, args.orders, args.expand_orders)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -888,7 +1237,8 @@ def main() -> int:
         name = t["name"]
         by_path = {"dense": main_path["out"]["launches"][name],
                    "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()},
-                   "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()}}
+                   "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
+                   "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -902,7 +1252,7 @@ def main() -> int:
             "source": sources[name],
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
-            + sum(by_path["transform_path"].values()),
+            + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

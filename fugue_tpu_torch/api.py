@@ -6,7 +6,7 @@ engine instance. The names resolve here; nothing is registered into
 ``fugue_tpu``'s plugin system.
 """
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional
 
 import pandas as pd
 import pyarrow as pa
@@ -103,6 +103,70 @@ def transform(
         spec = PartitionSpec(by=partition)
     res = e.map_engine.map_dataframe(df, using, Schema(schema), spec)
     return _adjust_result(res, df, as_fugue)
+
+
+def join(
+    df1: Any,
+    df2: Any,
+    *dfs: Any,
+    how: str = "inner",
+    on: Optional[List[str]] = None,
+    engine: Any = None,
+    device: Any = None,
+    as_fugue: bool = False,
+) -> Any:
+    """Join ``df1`` with ``df2``, then the result with each of ``dfs`` in
+    turn, by ``how`` (inner, left_outer, right_outer, full_outer,
+    left_semi, left_anti or cross, or an alias such as ``"semi"``) on the
+    keys ``on`` (default: the columns the two sides share)::
+
+        join(frame, means, how="inner", engine="torch")
+
+    The result is a frame of the engine when ``as_fugue`` or when any input
+    is one; otherwise it has the type of ``df1`` (pandas or arrow)."""
+    e = make_execution_engine(engine, device)
+    frames = [df1, df2, *dfs]
+    res = e.join(e.to_df(df1), e.to_df(df2), how=how, on=on)
+    for x in dfs:
+        res = e.join(res, e.to_df(x), how=how, on=on)
+    return _adjust_result(res, df1, as_fugue or any(isinstance(d, DataFrame) for d in frames))
+
+
+def semi_join(df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False) -> Any:
+    return join(df1, df2, *dfs, how="semi", on=on, engine=engine, device=device, as_fugue=as_fugue)
+
+
+def anti_join(df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False) -> Any:
+    return join(df1, df2, *dfs, how="anti", on=on, engine=engine, device=device, as_fugue=as_fugue)
+
+
+def inner_join(df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False) -> Any:
+    return join(df1, df2, *dfs, how="inner", on=on, engine=engine, device=device, as_fugue=as_fugue)
+
+
+def left_outer_join(
+    df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False
+) -> Any:
+    return join(df1, df2, *dfs, how="left_outer", on=on, engine=engine, device=device,
+                as_fugue=as_fugue)
+
+
+def right_outer_join(
+    df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False
+) -> Any:
+    return join(df1, df2, *dfs, how="right_outer", on=on, engine=engine, device=device,
+                as_fugue=as_fugue)
+
+
+def full_outer_join(
+    df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False
+) -> Any:
+    return join(df1, df2, *dfs, how="full_outer", on=on, engine=engine, device=device,
+                as_fugue=as_fugue)
+
+
+def cross_join(df1: Any, df2: Any, *dfs: Any, engine=None, device=None, as_fugue=False) -> Any:
+    return join(df1, df2, *dfs, how="cross", engine=engine, device=device, as_fugue=as_fugue)
 
 
 def _adjust_result(res: DataFrame, df: Any, as_fugue: bool) -> Any:

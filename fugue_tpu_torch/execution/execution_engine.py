@@ -1,6 +1,7 @@
 """ExecutionEngine and MapEngine ABCs, trimmed from
 ``fugue_tpu/execution/execution_engine.py`` to the verbs the port has:
-``to_df``, ``persist``, ``aggregate`` and the map behind ``transform``."""
+``to_df``, ``persist``, ``aggregate``, ``join``, ``union`` and the map
+behind ``transform``."""
 
 from abc import ABC, abstractmethod
 from typing import Any, Callable, List, Optional
@@ -64,4 +65,23 @@ class ExecutionEngine(ABC):
         agg_cols: List[ColumnExpr],
     ) -> DataFrame:
         """Group ``df`` by the spec's keys and compute ``agg_cols``."""
+        raise NotImplementedError
+
+    @abstractmethod
+    def join(
+        self,
+        df1: DataFrame,
+        df2: DataFrame,
+        how: str,
+        on: Optional[List[str]] = None,
+    ) -> DataFrame:
+        """Join ``df1`` with ``df2`` (``how``: inner, left_outer,
+        right_outer, full_outer, left_semi, left_anti or cross, or an alias)
+        on the keys ``on`` (default: the columns they share)."""
+        raise NotImplementedError
+
+    @abstractmethod
+    def union(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
+        """The rows of ``df1`` and of ``df2``; without repeats if
+        ``distinct``."""
         raise NotImplementedError

@@ -2,7 +2,8 @@
 
 Copied from ``fugue_tpu/schema.py`` and trimmed to what the port uses:
 parse and print expressions such as ``"k:long,v:float"``, hold the
-fields of a frame, and derive the output types of an aggregate. The
+fields of a frame, derive the output types of an aggregate, and the
+copy, ``+``, ``-`` and ``extract`` that the join schemas need. The
 grammar is the JAX package's::
 
     schema  := pair ("," pair)*
@@ -304,6 +305,30 @@ class Schema(IndexedOrderedDict):
 
     def __hash__(self) -> int:  # needed because __eq__ is overridden
         return hash(str(self))
+
+    def copy(self) -> "Schema":
+        """A writable copy."""
+        return Schema(self.fields)
+
+    def __add__(self, other: Any) -> "Schema":
+        return self.copy().append(other)
+
+    def _field_names(self, names: Any) -> List[str]:
+        """``names`` (a name or a list of names) as a list, each a field."""
+        names = [names] if isinstance(names, str) else list(names)
+        missing = [n for n in names if n not in self]
+        if len(missing) > 0:
+            raise SchemaError(f"fields {missing} not in schema {self}")
+        return names
+
+    def __sub__(self, names: Any) -> "Schema":
+        """The schema without the fields named in ``names``."""
+        drop = set(self._field_names(names))
+        return Schema([f for f in self.fields if f.name not in drop])
+
+    def extract(self, names: Any) -> "Schema":
+        """The fields named in ``names``, in that order."""
+        return Schema([self[n] for n in self._field_names(names)])
 
     def assert_not_empty(self) -> "Schema":
         if len(self) == 0:

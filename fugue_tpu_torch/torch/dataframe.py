@@ -301,6 +301,27 @@ class TorchDataFrame(DataFrame):
                 arrays.append(col.combine_chunks())
         return pa.Table.from_arrays(arrays, schema=self.schema.pa_schema)
 
+    def __getitem__(self, cols: List[str]) -> "TorchDataFrame":
+        """The columns ``cols``, in that order, over the same rows: their
+        encodings, null masks and host columns come along, and the valid
+        mask is shared (``JaxDataFrame._select_cols``)."""
+        schema = self.schema.extract(cols)
+        dc = {k: v for k, v in self._cols.items() if k in schema}
+        keep_host = [n for n in schema.names if n not in dc]
+        return TorchDataFrame(
+            _internal=dict(
+                device=self._device,
+                device_cols=dc,
+                host_tbl=self._host_tbl.select(keep_host) if len(keep_host) > 0 else None,
+                row_count=self._row_count,
+                valid_mask=self._valid_mask,
+                nan_cols=self._nan_cols,
+                encodings={k: v for k, v in self._encodings.items() if k in dc},
+                null_masks={k: v for k, v in self._null_masks.items() if k in dc},
+                schema=schema,
+            )
+        )
+
     def __repr__(self) -> str:
         return f"TorchDataFrame({self.schema}, device={self._device})"
 

@@ -1,8 +1,9 @@
 """TorchExecutionEngine — the port of ``JaxExecutionEngine``
 (``fugue_tpu/jax/execution_engine.py``) for one CUDA device.
 
-The port has ``to_df``, ``persist``, the device ``aggregate`` and the
-compiled maps behind ``transform`` (``TorchMapEngine``).
+The port has ``to_df``, ``persist``, the device ``aggregate``, the
+compiled maps behind ``transform`` (``TorchMapEngine``), the device
+``join`` of every type and ``union`` without ``distinct``.
 
 ``aggregate`` takes any number of keys of any integer, float, bool,
 string, date or timestamp column, nullable or not, with
@@ -22,13 +23,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import pandas as pd
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 from torch.profiler import record_function
 
 from ..collections.partition import PartitionSpec
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
+from ..dataframe.utils import get_join_schemas, parse_join_type
 from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
+from ..ops.join import MAX_BROADCAST_ROWS, MAX_EXPAND_ROWS, device_expand_join, device_hash_join
 from ..ops.segment import (
     _DENSE_MAX_RANGE,
     _is_int,
@@ -48,6 +52,7 @@ from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
 _ENCODED = "ROADMAP.md A.3 encoded columns"
 _VERBS = "ROADMAP.md A.8 remaining verbs"
 _HOST_UDFS = "ROADMAP.md A.4b host transformers"
+_HOST_JOIN = "ROADMAP.md A.5b host joins"
 # the largest segment-id space of the dense keyed map: the JAX package's
 # default for FUGUE_TPU_CONF_DENSE_MAP_RANGE (the port has no such knob)
 _DENSE_MAP_RANGE = 1 << 20
@@ -545,6 +550,550 @@ class TorchExecutionEngine(ExecutionEngine):
             return (key, valid, *outs)
 
         return fin
+
+    # ---- joins -------------------------------------------------------------
+
+    def join(self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None) -> TorchDataFrame:
+        """Hash joins on the device (``ops/join.py``): inner / left_outer /
+        left_semi / left_anti by a probe of the hash-sorted right side when
+        its keys are unique, by the 1:N/N:M expansion when they are not;
+        right_outer mirrors left_outer; full_outer is left_outer ∪ the
+        NULL-extended anti of the right side; cross runs through the
+        expansion on a constant key. Every join runs in the broadcast form:
+        the right side whole and the left rows in place.
+
+        Where the JAX engine joins on its host engine (keys it cannot align,
+        host columns whose rows would move, expansions past
+        ``MAX_EXPAND_ROWS``, a cross join past ``MAX_BROADCAST_ROWS``) this
+        raises ``NotImplementedError`` (ROADMAP.md A.5b)."""
+        with record_function("fugue::join"):
+            jt = parse_join_type(how)
+            j1, j2 = self.to_df(df1), self.to_df(df2)
+            if jt in _KERNEL_HOW:
+                return self._join_device(j1, j2, _KERNEL_HOW[jt], on)
+            if jt == "right_outer":
+                # mirrored left_outer, columns re-ordered to the contract schema
+                res = self._join_device(j2, j1, "left_outer", on)
+                _, out_schema = get_join_schemas(j1, j2, how="right_outer", on=on)
+                return res if res.schema.names == out_schema.names else res[out_schema.names]
+            if jt == "full_outer":
+                return self._full_outer_device(j1, j2, on)
+            return self._cross_device(j1, j2, on)
+
+    def _full_outer_device(
+        self, j1: TorchDataFrame, j2: TorchDataFrame, on: Optional[List[str]]
+    ) -> TorchDataFrame:
+        """full_outer = left_outer(L,R) ∪ (anti(R,L) with NULL left
+        values) — composed from device verbs, so it inherits all their
+        representations (dictionaries, epochs, masks)."""
+        _, out_schema = get_join_schemas(j1, j2, how="full_outer", on=on)
+        left_part = self._join_device(j1, j2, "left_outer", on)
+        right_only = self._join_device(j2, j1, "anti", on)
+        ext = self._null_extend(right_only, out_schema, j1)
+        lp = left_part if left_part.schema.names == out_schema.names else left_part[out_schema.names]
+        res = self._union_device(lp, ext)
+        if res is None:
+            raise NotImplementedError(
+                "full_outer join: the left and right parts differ in column types, "
+                "encodings or host columns, so the JAX package unions them on its "
+                f"host engine, which is not ported ({_HOST_JOIN})"
+            )
+        return res
+
+    def _null_extend(
+        self, jr: TorchDataFrame, out_schema: Schema, j1: TorchDataFrame
+    ) -> TorchDataFrame:
+        """Extend right-only rows to the full join schema: absent (left-
+        side) columns become NULL in each dtype's device representation."""
+        if jr.host_table is not None:
+            raise _host_refusal(jr.host_table, "full_outer join: the right side")
+        n = next(iter(jr.device_cols.values())).shape[0]
+        dev = jr.device
+        cols: Dict[str, torch.Tensor] = {}
+        encodings: Dict[str, Any] = dict(jr.encodings)
+        null_masks: Dict[str, torch.Tensor] = dict(jr.null_masks)
+        nan_new = set()
+        for name in out_schema.names:
+            if name in jr.device_cols:
+                cols[name] = jr.device_cols[name]
+                continue
+            if name not in j1.device_cols:
+                raise _host_refusal(j1.host_table, "full_outer join: the left side")
+            enc = j1.encodings.get(name)
+            dt = j1.device_cols[name].dtype
+            if enc is not None and enc["kind"] == "dict":
+                cols[name] = torch.full((n,), -1, dtype=dt, device=dev)
+                encodings[name] = dict(enc)
+            elif dt.is_floating_point and enc is None:
+                cols[name] = torch.full((n,), float("nan"), dtype=dt, device=dev)
+                nan_new.add(name)
+            else:
+                cols[name] = torch.zeros(n, dtype=dt, device=dev)
+                if enc is not None:
+                    encodings[name] = dict(enc)
+                null_masks[name] = torch.ones(n, dtype=torch.bool, device=dev)
+        return TorchDataFrame(
+            _internal=dict(
+                device=dev,
+                device_cols=cols,
+                row_count=jr._row_count,
+                valid_mask=jr.valid_mask,
+                nan_cols=None if jr._nan_cols is None else set(jr._nan_cols) | nan_new,
+                encodings=encodings,
+                null_masks=null_masks,
+                schema=out_schema,
+            )
+        )
+
+    def _cross_device(
+        self, j1: TorchDataFrame, j2: TorchDataFrame, on: Optional[List[str]]
+    ) -> TorchDataFrame:
+        """Cross join via the expansion over a constant synthetic key
+        (every left row matches every right row). ``on`` is not read, as in
+        the JAX engine, except in the error of overlapping columns."""
+        if any(c in j1.schema for c in j2.schema.names):
+            get_join_schemas(j1, j2, how="cross", on=on)  # raises the join's own error
+        for side, j in (("left", j1), ("right", j2)):
+            if j.host_table is not None:
+                raise _host_refusal(j.host_table, f"cross join: the {side} side")
+        n_right = next(iter(j2.device_cols.values())).shape[0]
+        if n_right > MAX_BROADCAST_ROWS:
+            raise NotImplementedError(
+                f"cross join with {n_right} right rows, past MAX_BROADCAST_ROWS "
+                f"({MAX_BROADCAST_ROWS}): the JAX package joins it on its host engine, "
+                f"which is not ported ({_HOST_JOIN})"
+            )
+        mp = _safe_prefix("__mask__", j1.schema.names, j2.schema.names)
+        lmp = _safe_prefix("__lmask__", j1.schema.names)
+        kp = _safe_prefix("__xkey", j1.schema.names, j2.schema.names)
+        n_left = next(iter(j1.device_cols.values())).shape[0]
+        left_cols = dict(j1.device_cols)
+        for c, m in j1.null_masks.items():
+            left_cols[f"{lmp}{c}"] = m
+        left_cols[f"{kp}0"] = torch.zeros(n_left, dtype=torch.int8, device=j1.device)
+        right_entries: List[Any] = [(v, j2.device_cols[v], 0) for v in j2.schema.names]
+        right_entries += [(f"{mp}{v}", m, True) for v, m in j2.null_masks.items()]
+        with record_function("fugue::join_expand"):
+            res = device_expand_join(
+                "inner",
+                left_cols,
+                j1.device_valid_mask(),
+                [f"{kp}0"],
+                [torch.zeros(n_right, dtype=torch.int8, device=j2.device)],
+                j2.device_valid_mask(),
+                right_entries,
+            )
+        if res is None:
+            raise _expand_refusal("cross join")
+        new_cols, new_valid, _ = res
+        null_masks = {c: new_cols.pop(f"{lmp}{c}") for c in j1.null_masks}
+        null_masks.update({v: new_cols.pop(f"{mp}{v}") for v in j2.null_masks})
+        out_schema = Schema(list(j1.schema.fields) + list(j2.schema.fields))
+        return TorchDataFrame(
+            _internal=dict(
+                device=self._device,
+                device_cols={n: new_cols[n] for n in out_schema.names},
+                row_count=-1,
+                valid_mask=new_valid,
+                nan_cols=(
+                    None
+                    if j1._nan_cols is None or j2._nan_cols is None
+                    else set(j1._nan_cols) | set(j2._nan_cols)
+                ),
+                encodings={**j1.encodings, **j2.encodings},
+                null_masks=null_masks,
+                schema=out_schema,
+            )
+        )
+
+    def _prepare_join_keys(
+        self, j1: TorchDataFrame, j2: TorchDataFrame, keys: List[str]
+    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """Align the two frames' key representations for hashing/equality:
+        ``(left key tensors by mangled name, right key tensors)``.
+
+        Dictionary keys remap the right side's codes into the left's code
+        space (host-side unification of the small dictionaries; NULLs get
+        −1 left / −2 right so they never match); nullable numeric keys
+        become float64 NaN views on both sides; epoch datetimes compare
+        directly when the arrow types agree; plain keys of two dtypes meet
+        in their common type. Where the JAX engine declines (and joins on
+        its host engine) this raises ``NotImplementedError``."""
+        kp = _safe_prefix("__key", j1.schema.names)
+        left_keys: Dict[str, torch.Tensor] = {}
+        right_keys: List[torch.Tensor] = []
+        for i, k in enumerate(keys):
+            lenc, renc = j1.encodings.get(k), j2.encodings.get(k)
+            lm, rm = j1.null_masks.get(k), j2.null_masks.get(k)
+            la, ra = j1.device_cols[k], j2.device_cols[k]
+            refusal = None
+            if lenc is None and renc is None:
+                if lm is None and rm is None:
+                    lk, rk = la, ra
+                    if la.dtype != ra.dtype:
+                        # cross-dtype keys match by VALUE via the common
+                        # type (pandas/SQL coercion semantics — the host
+                        # oracle does the same; int64 past 2^53 matches
+                        # inexactly there too)
+                        if la.is_floating_point() or ra.is_floating_point():
+                            lk, rk = la.to(torch.float64), ra.to(torch.float64)
+                        else:
+                            lk, rk = la.to(torch.int64), ra.to(torch.int64)
+                elif la.is_floating_point() or (la.element_size() < 8 and ra.element_size() < 8):
+                    lk, rk = _nullview(la, lm), _nullview(ra, rm)
+                else:
+                    refusal = "a 64-bit int key with NULLs loses exactness as a float64 view"
+            elif lenc is not None and renc is not None and lenc["kind"] == renc["kind"] == "dict":
+                lk, rk = la, _remap_dict_codes(lenc, renc, ra)
+            elif (
+                lenc is not None
+                and renc is not None
+                and lenc["kind"] == renc["kind"] == "datetime"
+                and lenc["type"] == renc["type"]
+            ):
+                if lm is not None or rm is not None:
+                    refusal = "a date or timestamp key with NULLs (a 64-bit masked key)"
+                else:
+                    lk, rk = la, ra
+            else:
+                refusal = (
+                    f"its types {j1.schema[k].type} and {j2.schema[k].type} have no "
+                    "common device representation"
+                )
+            if refusal is not None:
+                raise NotImplementedError(
+                    f"join key {k!r}: {refusal}; the JAX package joins it on its host "
+                    f"engine, which is not ported ({_HOST_JOIN})"
+                )
+            left_keys[f"{kp}{i}__"] = lk
+            right_keys.append(rk)
+        return left_keys, right_keys
+
+    def _join_device(
+        self, j1: TorchDataFrame, j2: TorchDataFrame, kernel_how: str, on: Any
+    ) -> TorchDataFrame:
+        """The device hash join of ``j2`` onto ``j1`` for one of the four
+        kernel types: the unique probe, and the expansion when the right
+        keys repeat. Raises where the JAX engine joins on its host."""
+        key_schema, out_schema = get_join_schemas(
+            j1, j2, how=_SCHEMA_HOW[kernel_how], on=on
+        )
+        keys = key_schema.names
+        for f in key_schema.fields:
+            if not _is_join_key_type(f.type):
+                raise NotImplementedError(
+                    f"join key {f.name!r} of type {f.type}: the JAX package joins it on "
+                    f"its host engine, which is not ported ({_HOST_JOIN})"
+                )
+        for k in keys:
+            t1, t2 = j1.schema[k].type, j2.schema[k].type
+            if t1 != t2 and pa.uint64() in (t1, t2):
+                raise NotImplementedError(
+                    f"join key {k!r} of types {t1} and {t2}: uint64 past 2^63 would wrap "
+                    "under an int64 cast, so the JAX package joins it on its host "
+                    f"engine, which is not ported ({_HOST_JOIN})"
+                )
+            if k not in j1.device_cols or k not in j2.device_cols:
+                raise NotImplementedError(
+                    f"join key {k!r} of types {t1} and {t2}: the port keeps unsigned "
+                    f"types above uint8 on the host ({_ENCODED})"
+                )
+        if j2.host_table is not None:
+            raise _host_refusal(j2.host_table, "the right side")
+        with record_function("fugue::join_prep"):
+            left_key_arrs, right_key_arrs = self._prepare_join_keys(j1, j2, keys)
+            value_names = [n for n in j2.schema.names if n not in keys and n in out_schema]
+            # value entries: (out_name, tensor, left_outer miss fill); masked
+            # columns ship their mask as an extra gathered tensor (miss = True)
+            mp = _safe_prefix("__mask__", j1.schema.names, j2.schema.names)
+            lmp = _safe_prefix("__lmask__", j1.schema.names)
+            right_entries: List[Any] = []
+            out_value_encodings: Dict[str, Any] = {}
+            gen_mask_names: List[str] = []  # plain non-floats: mask = ~match
+            for v in value_names:
+                arr = j2.device_cols[v]
+                enc = j2.encodings.get(v)
+                if enc is not None and enc["kind"] == "dict":
+                    right_entries.append((v, arr, -1))
+                    out_value_encodings[v] = enc
+                elif arr.is_floating_point():
+                    right_entries.append((v, arr, float("nan")))
+                else:
+                    right_entries.append((v, arr, 0))
+                    if enc is not None:
+                        out_value_encodings[v] = enc
+                    if kernel_how == "left_outer" and v not in j2.null_masks:
+                        gen_mask_names.append(v)
+                if v in j2.null_masks:
+                    right_entries.append((f"{mp}{v}", j2.null_masks[v], True))
+            # the broadcast form: left rows stay in place, so the left's host
+            # columns, encodings and masks ride along
+            left_cols = dict(j1.device_cols)
+            left_cols.update(left_key_arrs)
+            left_valid = j1.device_valid_mask()
+            right_valid = j2.device_valid_mask()
+        host_tbl = j1.host_table
+        nan_cols = j1._nan_cols
+        encodings = dict(j1.encodings)
+        null_masks = dict(j1.null_masks)
+        probe_keys = list(left_key_arrs)
+        with record_function("fugue::join_probe"):
+            res = device_hash_join(
+                kernel_how, left_cols, left_valid, probe_keys, right_key_arrs, right_valid,
+                right_entries,
+            )
+        expanded = False
+        if res is None:
+            # duplicate right keys: the 1:N/N:M expansion. semi/anti keep row
+            # alignment (mask-only); inner/left_outer materialize (left row,
+            # match) pairs — rows move, host columns can't follow
+            if kernel_how in ("inner", "left_outer"):
+                if j1.host_table is not None:
+                    raise _host_refusal(
+                        j1.host_table, "duplicate right keys move the left rows: the left side"
+                    )
+                # the left masks ride along with the gathered rows
+                for c, m in j1.null_masks.items():
+                    left_cols[f"{lmp}{c}"] = m
+                host_tbl = None
+                null_masks = {}
+            with record_function("fugue::join_expand"):
+                res = device_expand_join(
+                    kernel_how, left_cols, left_valid, probe_keys, right_key_arrs,
+                    right_valid, right_entries,
+                )
+            if res is None:
+                raise _expand_refusal(f"{_SCHEMA_HOW[kernel_how]} join")
+            expanded = True
+        new_cols, new_valid, match = res
+        # reassemble: pop probe keys, split off mask arrays
+        for mk in probe_keys:
+            new_cols.pop(mk, None)
+        if expanded:
+            for c in j1.null_masks:
+                m = new_cols.pop(f"{lmp}{c}", None)
+                if m is not None:
+                    null_masks[c] = m
+        for v in value_names:
+            m = new_cols.pop(f"{mp}{v}", None)
+            if m is not None:
+                null_masks[v] = m
+        if nan_cols is not None:
+            # gathered float values may be NaN-filled on misses (left_outer),
+            # and carry the right side's NaN (its NULLs) along: the JAX
+            # package leaves the latter out on an inner join, so a NULL
+            # comes out as a NaN value (ROADMAP.md C6)
+            nan_cols = set(nan_cols) | {
+                v
+                for v in value_names
+                if j2.device_cols[v].is_floating_point()
+                and (kernel_how == "left_outer" or j2.maybe_nan(v))
+            }
+        if len(gen_mask_names) > 0:
+            miss = torch.logical_not(match)
+            for v in gen_mask_names:
+                null_masks[v] = miss
+        encodings.update(out_value_encodings)
+        return TorchDataFrame(
+            _internal=dict(
+                device=self._device,
+                device_cols={n: new_cols[n] for n in out_schema.names if n in new_cols},
+                host_tbl=host_tbl,
+                row_count=-1,
+                valid_mask=new_valid,
+                nan_cols=nan_cols,
+                encodings={k: v for k, v in encodings.items() if k in out_schema},
+                null_masks={k: v for k, v in null_masks.items() if k in out_schema},
+                schema=out_schema,
+            )
+        )
+
+    # ---- union ---------------------------------------------------------------
+
+    def union(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
+        """Device union (``distinct=False``): both frames' rows, one after
+        the other. Dictionary columns unify into one sorted union dictionary
+        with both sides' codes remapped; null masks concatenate with their
+        columns; epoch datetimes concatenate when the arrow types agree.
+        ``distinct=True`` (the device distinct) and frames the JAX engine
+        unions on its host engine raise ``NotImplementedError``."""
+        if distinct:
+            raise NotImplementedError(f"union with distinct=True is not ported ({_VERBS})")
+        res = self._union_device(self.to_df(df1), self.to_df(df2))
+        if res is None:
+            raise NotImplementedError(
+                "union of frames whose schemas, column types or encodings differ, or "
+                "with host columns: the JAX package unions them on its host engine, "
+                f"which is not ported ({_VERBS})"
+            )
+        return res
+
+    def _union_device(self, j1: TorchDataFrame, j2: TorchDataFrame) -> Optional[TorchDataFrame]:
+        """The device union of two frames, or None where the JAX engine
+        takes its host engine."""
+        names = j1.schema.names
+        if not (
+            j1.schema == j2.schema
+            and j1.host_table is None
+            and j2.host_table is None
+            and all(j1.device_cols[c].dtype == j2.device_cols[c].dtype for c in names)
+            # per-column encodings must agree in KIND (schema equality
+            # already forces matching arrow types, incl. timestamp units)
+            and all(
+                j1.encodings.get(c, {}).get("kind") == j2.encodings.get(c, {}).get("kind")
+                for c in names
+            )
+        ):
+            return None
+        cols1, cols2 = dict(j1.device_cols), dict(j2.device_cols)
+        encodings: Dict[str, Any] = {}
+        for c in names:
+            enc1, enc2 = j1.encodings.get(c), j2.encodings.get(c)
+            if enc1 is None:
+                continue
+            if enc1["kind"] == "datetime":
+                encodings[c] = enc1
+                continue
+            # sorted union dictionary + remapped codes on both sides (the
+            # NULL code −1 is preserved by the remap)
+            union_dict = _sorted_union_dictionary([enc1["dictionary"], enc2["dictionary"]])
+            for cols, enc in ((cols1, enc1), (cols2, enc2)):
+                table = torch.from_numpy(_dict_mapping(enc["dictionary"], union_dict)).to(
+                    self._device
+                )
+                cd = cols[c]
+                cols[c] = torch.where(cd < 0, -1, table[cd.clamp(0, table.shape[0] - 1)])
+            encodings[c] = {
+                "kind": "dict", "dictionary": union_dict, "type": enc1["type"], "sorted": True,
+            }
+        # null masks travel with their columns; a side without a mask for
+        # the column contributes all-False
+        null_masks = {}
+        for c in set(j1.null_masks) | set(j2.null_masks):
+            null_masks[c] = torch.cat([_mask_or_false(j1, c), _mask_or_false(j2, c)])
+        return TorchDataFrame(
+            _internal=dict(
+                device=self._device,
+                device_cols={c: torch.cat([cols1[c], cols2[c]]) for c in names},
+                row_count=-1,
+                valid_mask=torch.cat([j1.device_valid_mask(), j2.device_valid_mask()]),
+                nan_cols=(
+                    None
+                    if j1._nan_cols is None or j2._nan_cols is None
+                    else set(j1._nan_cols) | set(j2._nan_cols)
+                ),
+                encodings=encodings,
+                null_masks=null_masks,
+                schema=j1.schema,
+            )
+        )
+
+
+# join type → the kernel's name for it; and back, for the join schemas
+_KERNEL_HOW = {"inner": "inner", "left_outer": "left_outer", "left_semi": "semi", "left_anti": "anti"}
+_SCHEMA_HOW = {v: k for k, v in _KERNEL_HOW.items()}
+
+
+def _safe_prefix(base: str, *name_sets: Any) -> str:
+    """Internal payload-column prefix guaranteed not to shadow a user column
+    (a user column may literally be named ``__mask__x``): prepend ``_`` until
+    no provided name starts with the prefix."""
+    p = base
+    while any(any(str(n).startswith(p) for n in ns) for ns in name_sets):
+        p = "_" + p
+    return p
+
+
+def _is_join_key_type(t: pa.DataType) -> bool:
+    """The key types the JAX engine joins on its device."""
+    return (
+        pa.types.is_integer(t)
+        or pa.types.is_floating(t)
+        or pa.types.is_boolean(t)
+        or pa.types.is_string(t)
+        or pa.types.is_large_string(t)
+        or pa.types.is_timestamp(t)
+        or pa.types.is_date(t)
+    )
+
+
+def _host_refusal(host_tbl: Optional[pa.Table], what: str) -> NotImplementedError:
+    """The refusal of a join over a frame with host columns. Unsigned
+    columns above uint8 live on the JAX package's device but on the port's
+    host (A.3); any other host column is on the JAX package's host too, and
+    it joins on its host engine (A.5b)."""
+    types = [] if host_tbl is None else list(host_tbl.schema.types)
+    if len(types) > 0 and all(
+        pa.types.is_unsigned_integer(t) and t.bit_width > 8 for t in types
+    ):
+        item = _ENCODED
+    else:
+        item = _HOST_JOIN
+    return NotImplementedError(
+        f"{what} has host columns {host_tbl.column_names if host_tbl is not None else []}; "
+        f"a device join cannot carry them ({item})"
+    )
+
+
+def _expand_refusal(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the expansion would pass MAX_EXPAND_ROWS ({MAX_EXPAND_ROWS}) rows; "
+        f"the JAX package joins it on its host engine, which is not ported ({_HOST_JOIN})"
+    )
+
+
+def _nullview(arr: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """A float64 view of a key, NaN (never matching) where ``mask`` is set."""
+    if mask is None:
+        return arr.to(torch.float64)
+    return torch.where(mask, float("nan"), arr.to(torch.float64))
+
+
+def _remap_dict_codes(lenc: dict, renc: dict, right_codes: torch.Tensor) -> torch.Tensor:
+    """Map right-side dictionary codes into the left's code space.
+
+    Right values absent from the left dictionary get out-of-range codes
+    (≥ len(left dict)) so they never match; NULL codes map −1 → −2 so
+    NULL never equals NULL (SQL semantics)."""
+    idx = pc.index_in(renc["dictionary"], value_set=lenc["dictionary"])
+    n_left = len(lenc["dictionary"])
+    mapped = idx.to_numpy(zero_copy_only=False)
+    if len(mapped) == 0:  # an all-NULL right column: every code is −1
+        return torch.full_like(right_codes, -2)
+    mapped = np.where(np.isnan(mapped), n_left + np.arange(len(mapped)), mapped).astype(np.int32)
+    table = torch.from_numpy(mapped).to(right_codes.device)
+    return torch.where(
+        right_codes < 0, -2, table[right_codes.clamp(0, table.shape[0] - 1)]
+    ).to(torch.int32)
+
+
+def _sorted_union_dictionary(pieces: List[pa.Array]) -> pa.Array:
+    """Distinct sorted union of dictionary arrays, so code order ==
+    lexicographic order stays true."""
+    u = pa.concat_arrays(pieces).unique().drop_null()
+    return u.take(pc.sort_indices(u))
+
+
+def _dict_mapping(local_dict: pa.Array, union_dict: pa.Array) -> np.ndarray:
+    """Index table from local dictionary positions to union positions.
+
+    Apply as ``code >= 0 ? table[code] : -1`` (−1 is the NULL code). An
+    empty local dictionary yields a single ``-1`` placeholder so device
+    gathers stay in-bounds."""
+    mapped = np.asarray(
+        pc.index_in(local_dict, value_set=union_dict).to_numpy(zero_copy_only=False)
+    )
+    if mapped.size == 0:
+        mapped = np.asarray([-1])
+    return mapped.astype(np.int32)
+
+
+def _mask_or_false(tdf: TorchDataFrame, name: str) -> torch.Tensor:
+    """Column ``name``'s null mask, or all-False as long as the frame."""
+    if name in tdf.null_masks:
+        return tdf.null_masks[name]
+    n = next(iter(tdf.device_cols.values())).shape[0]
+    return torch.zeros(n, dtype=torch.bool, device=tdf.device)
 
 
 def _torch_dtype(np_dtype_str: str) -> torch.dtype:
