@@ -57,14 +57,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    stay under its 2**22 output rows), each checked against a host oracle
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
-   bound, and traced once.
+   bound, and traced once;
+9. stream_path: the streaming paths at full size, one line a cell:
+   ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
+   in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
+   whole, streamed through the group means, then through the join of the
+   means onto every row and the demean; bench.py's assertions, the means
+   against a float64 oracle pass of the same chunks, ``d`` on every 25th
+   chunk; each pass's wall time, rows/s, the generator's host seconds,
+   peak device bytes (under 1 GiB), the ingest pipeline's stats and a
+   traced window of 6 chunks a pass, every thread's spans) and
+   ``f32-aggregate`` (``--rows`` rows with ``v`` as float32, streamed into
+   SUM/COUNT/AVG: B1 once a chunk, against a float64 oracle).
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
 N`` cuts the dense, the transform and the north-star frames, ``--orders N``
 the lineitem frame and ``--expand-orders N`` the expansion's, for a quick
-try). With no CUDA device, or outside the repository, it
+try; ``--stream-rows N`` cuts the streamed north star). With no CUDA
+device, or outside the repository, it
 exits non-zero and prints no result.
 """
 
@@ -560,19 +572,29 @@ def phase_profile(torch, api, engine, main: dict) -> dict:
     return out
 
 
-def _trace(torch, fn, calls: int = 1) -> dict:
+def _trace(torch, fn, calls: int = 1, all_threads: bool = False) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler`` (one unless a call
     is too short to trace alone): per call, the device's busy and idle
     share of the wall time, the top device operations, and the host time of
-    the engine's ``fugue::`` spans.
+    the engine's ``fugue::`` spans. With ``all_threads`` the spans of every
+    thread are recorded (the stream's producer threads), where this
+    PyTorch's profiler offers it (``"all_threads"`` in the result says).
 
     One call runs first as the profiler's warm-up step, whose events are
     dropped: without it, kernels of the traced call went unrecorded (both
     of the keyless map's, some of the dense demean's)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    extra, asked = {}, all_threads
+    if all_threads:
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+
+            extra["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):
+            all_threads = False
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1), **extra) as prof:
         fn()
         torch.cuda.synchronize()
         prof.step()
@@ -593,6 +615,7 @@ def _trace(torch, fn, calls: int = 1) -> dict:
     busy_ms = sum(e.device_time_total for e in device) / 1e3 / calls
     return {
         "calls": calls,
+        **({"all_threads": all_threads} if asked else {}),
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else None,
@@ -1184,12 +1207,216 @@ def phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, s
     return out
 
 
+# stream_path: bench.py's north star streamed at its full size, and B1 on the stream
+NS_STREAM_ROWS = 1_000_000_000  # bench.py's NS_ROWS
+NS_STREAM_CHUNK = 4_000_000  # bench.py's NS_CHUNK
+NS_CHECK_EVERY = 25  # d is held against the oracle on every 25th chunk
+STREAM_TRACE_CHUNKS = 6  # a traced window of at least 5 chunks
+STREAM_RTOL = 1e-9  # the streamed means against the float64 oracle
+STREAM_PEAK_LIMIT = 1 << 30  # the north star's peak device bytes stay under 1 GiB
+
+
+def stream_chunks(np, pd, PandasDataFrame, rows: int, chunk: int, seed: int, clock: dict,
+                  count=None, f32: bool = False):
+    """bench.py's ``_north_star`` chunks: chunk i from
+    ``np.random.default_rng(seed + i)``, ``k`` uniform over ``NS_GROUPS``
+    keys, ``v`` uniform (float32 with ``f32``), as PandasDataFrames of
+    ``k:long,v:double`` (``v:float``); the host seconds spent making them
+    add up in ``clock["generate_s"]``."""
+    schema = "k:long,v:float" if f32 else "k:long,v:double"
+    n_chunks = (rows + chunk - 1) // chunk
+    for i in range(n_chunks if count is None else min(count, n_chunks)):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(seed + i)
+        n = min(chunk, rows - i * chunk)
+        k, v = rng.integers(0, NS_GROUPS, n), rng.random(n)
+        part = PandasDataFrame(pd.DataFrame({"k": k, "v": v.astype(np.float32) if f32 else v}), schema)
+        clock["generate_s"] += time.perf_counter() - t0
+        yield part
+
+
+def _stream_oracle(np, pd, PandasDataFrame, rows: int, chunk: int, seed: int, f32: bool) -> tuple:
+    """float64 per-group sums and counts of the stream, by ``np.bincount``."""
+    sums, counts = np.zeros(NS_GROUPS), np.zeros(NS_GROUPS, dtype=np.int64)
+    clock = {"generate_s": 0.0}
+    for part in stream_chunks(np, pd, PandasDataFrame, rows, chunk, seed, clock, f32=f32):
+        k, v = part.native["k"].to_numpy(), part.native["v"].to_numpy()
+        sums += np.bincount(k, weights=v.astype(np.float64), minlength=NS_GROUPS)
+        counts += np.bincount(k, minlength=NS_GROUPS)
+    return sums, counts
+
+
+def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: int = NS_STREAM_ROWS,
+                      chunk: int = NS_STREAM_CHUNK, f32_rows: int = 100_000_000,
+                      check_every: int = NS_CHECK_EVERY) -> dict:
+    """The streaming paths at full size, one line a cell:
+
+    - ``north-star``: bench.py's ``_north_star`` on the port, ``rows`` rows
+      made in chunks of ``chunk`` and never held whole: the streamed group
+      means (``aggregate``), then the streamed join of the means onto every
+      row and the streamed demean (``join`` → ``transform``). Checked by
+      bench.py's assertions (every row out, ``|Σd| < 1``), the means
+      against a float64 ``np.bincount`` oracle (``rtol=STREAM_RTOL``), and
+      ``d`` against ``v − mean[k]`` (``atol=1e-9``) on every
+      ``check_every``-th chunk; timed by pass, the peak device bytes under
+      ``STREAM_PEAK_LIMIT``, the pipeline's stats, the generator's host
+      seconds, and a traced window of ``STREAM_TRACE_CHUNKS`` chunks a pass.
+    - ``f32-aggregate``: ``f32_rows`` rows with ``v`` as float32 streamed
+      into SUM/COUNT/AVG: B1 launches once a chunk; against a float64
+      oracle (``ORACLE_RTOL``).
+    """
+    from fugue_tpu_torch.collections import PartitionSpec
+    from fugue_tpu_torch.constants import (
+        FUGUE_TPU_CONF_STREAM_CHUNK_ROWS,
+        FUGUE_TPU_CONF_STREAM_KEY_RANGE,
+    )
+    from fugue_tpu_torch.dataframe import LocalDataFrameIterableDataFrame, PandasDataFrame
+    from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
+
+    T = Dict[str, torch.Tensor]
+
+    def demean(cols: T) -> T:
+        return {"k": cols["k"], "d": cols["v"] - cols["m"]}
+
+    conf = {FUGUE_TPU_CONF_STREAM_KEY_RANGE: f"0,{NS_GROUPS - 1}", FUGUE_TPU_CONF_STREAM_CHUNK_ROWS: chunk}
+    out = {"phase": "stream_path", "cells": {}}
+    n_chunks = (rows + chunk - 1) // chunk
+
+    def stream(clock, count=None, f32=False, n=rows):
+        schema = "k:long,v:float" if f32 else "k:long,v:double"
+        return LocalDataFrameIterableDataFrame(
+            stream_chunks(np, pd, PandasDataFrame, n, chunk, seed, clock, count, f32), schema=schema)
+
+    def aggregate(eng, s):
+        return eng.aggregate(s, PartitionSpec(by=["k"]), [ff.avg(col("v")).alias("m")])
+
+    def join_map(eng, s, means):
+        return api.transform(eng.join(s, means, how="inner"), demean, schema="k:long,d:double",
+                             engine=eng, as_fugue=True)
+
+    # north-star: the oracle pass first, then the two timed passes
+    t0 = time.perf_counter()
+    sums, counts = _stream_oracle(np, pd, PandasDataFrame, rows, chunk, seed, f32=False)
+    oracle_s = time.perf_counter() - t0
+    mean = sums / np.maximum(counts, 1)
+    eng = TorchExecutionEngine(device=device, conf=conf)
+    for name in bg.LAUNCHES:
+        bg.LAUNCHES[name] = 0
+    clock = {"generate_s": 0.0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    means = aggregate(eng, stream(clock))
+    agg_s = time.perf_counter() - t0
+    agg_peak = torch.cuda.max_memory_allocated()
+    agg_generate_s = clock["generate_s"]
+    agg_stats = dict(streaming.last_run_stats)
+    mp = means.as_pandas()
+    present = np.nonzero(counts)[0]
+    require(np.array_equal(mp["k"].to_numpy(), present), "north-star: the groups of the means")
+    require(np.allclose(mp["m"].to_numpy(), mean[present], rtol=STREAM_RTOL, atol=0),
+            "north-star: the means against the float64 oracle")
+    kept, n_out, total = {}, 0, 0.0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i, part in enumerate(join_map(eng, stream(clock), means).native):
+        p = part.as_pandas()
+        n_out += len(p)
+        total += float(p["d"].sum())
+        if i % check_every == 0:
+            kept[i] = (p["k"].to_numpy(), p["d"].to_numpy())
+    join_map_s = time.perf_counter() - t0
+    peak = max(agg_peak, torch.cuda.max_memory_allocated())
+    launches = dict(bg.LAUNCHES)
+    require(n_out == rows, f"north-star: {n_out} rows, expected {rows}")  # bench.py's assertions
+    require(abs(total) < 1.0, f"north-star: the demeaned values sum to {total}")
+    for i, (k, d) in kept.items():
+        src = next(stream_chunks(np, pd, PandasDataFrame, rows - i * chunk, chunk, seed + i,
+                                 {"generate_s": 0.0})).native
+        require(np.array_equal(k, src["k"].to_numpy()), f"north-star: k of chunk {i}")
+        require(np.allclose(d, src["v"].to_numpy() - mean[k], rtol=0, atol=1e-9),
+                f"north-star: d of chunk {i}")
+    require(peak < STREAM_PEAK_LIMIT, f"north-star: peak device bytes {peak}")
+    window = min(STREAM_TRACE_CHUNKS, n_chunks)
+    traces = {
+        "aggregate": _trace(torch, lambda: aggregate(eng, stream({"generate_s": 0.0}, window)),
+                            all_threads=True),
+        "join_map": _trace(torch, lambda: [p.count() for p in join_map(
+            eng, stream({"generate_s": 0.0}, window), means).native], all_threads=True),
+    }
+    wall = agg_s + join_map_s
+    line = {"phase": "stream_path", "cell": "north-star", "rows": rows, "chunk": chunk,
+            "chunks": n_chunks, "groups": int(len(present)), "launches": launches,
+            "aggregate_s": agg_s, "join_map_s": join_map_s, "wall_s": wall,
+            "rows_per_s": rows / wall, "generate_s": {"aggregate": agg_generate_s,
+                                                     "join_map": clock["generate_s"] - agg_generate_s},
+            "oracle_s": oracle_s, "peak_device_bytes": peak, "checked_chunks": sorted(kept),
+            "aggregate_run": agg_stats, "join_map_run": dict(streaming.last_run_stats),
+            "pipeline": eng.pipeline_stats.as_dict(), "trace_chunks": window, "profile": traces}
+    emit(line)
+    out["cells"]["north-star"] = line
+    del means, mp, kept, eng
+    torch.cuda.empty_cache()
+
+    # f32-aggregate: B1 once a chunk
+    t0 = time.perf_counter()
+    sums, counts = _stream_oracle(np, pd, PandasDataFrame, f32_rows, chunk, seed, f32=True)
+    oracle_s = time.perf_counter() - t0
+    eng = TorchExecutionEngine(device=device, conf=conf)
+    f32_chunks = (f32_rows + chunk - 1) // chunk
+    for name in bg.LAUNCHES:
+        bg.LAUNCHES[name] = 0
+    clock = {"generate_s": 0.0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eng.aggregate(stream(clock, f32=True, n=f32_rows), PartitionSpec(by=["k"]),
+                        [ff.sum(col("v")).alias("s"), ff.count(col("v")).alias("n"),
+                         ff.avg(col("v")).alias("m")]).as_pandas()
+    wall = time.perf_counter() - t0
+    launches = dict(bg.LAUNCHES)
+    # once a chunk on the card; on the CPU the wrapper takes its plain version
+    expected = f32_chunks if eng.device.type == "cuda" else 0
+    require(launches["bin_sum"] == expected,
+            f"f32-aggregate: bin_sum launched {launches['bin_sum']} times over {f32_chunks} chunks")
+    present = np.nonzero(counts)[0]
+    require(np.array_equal(res["k"].to_numpy(), present), "f32-aggregate: groups")
+    require(np.array_equal(res["n"].to_numpy(), counts[present]), "f32-aggregate: counts")
+    require(np.allclose(res["s"].to_numpy(), sums[present], rtol=ORACLE_RTOL, atol=0),
+            "f32-aggregate: sums against the float64 oracle")
+    require(np.allclose(res["m"].to_numpy(), sums[present] / counts[present], rtol=ORACLE_RTOL, atol=0),
+            "f32-aggregate: means against the float64 oracle")
+    peak = torch.cuda.max_memory_allocated()
+    # B1 alone at the shape the stream gives it: one chunk's bucket ids
+    # and masked values, beside its bound and index_add_ (the plain
+    # version's one-hot at this table size is left out, as for zipf-256k)
+    part = next(stream_chunks(np, pd, PandasDataFrame, chunk, chunk, seed, {"generate_s": 0.0}, f32=True))
+    buckets = 1 << NS_GROUPS.bit_length()
+    idx = torch.from_numpy(part.native["k"].to_numpy().astype(np.int32)).to(eng.device)
+    vals = torch.from_numpy(part.native["v"].to_numpy()).to(eng.device)
+    bound_ms, bound_by = _bound(len(part.native), 8, buckets * 4)
+    b1 = {"route": bg.route_of(buckets, False, idx.device)._asdict() if eng.device.type == "cuda" else None,
+          "shape": {"rows": len(part.native), "buckets": buckets}, "bound_ms": bound_ms, "bound_by": bound_by}
+    if eng.device.type == "cuda":
+        b1["ms"] = _median_ms(torch, lambda: bg.bin_sum_idx(idx, vals, buckets), TIMING_REPS)
+        b1["library_ms"] = _median_ms(torch, lambda: torch.zeros(buckets, device=idx.device).index_add_(
+            0, idx, vals), TIMING_REPS)
+    line = {"phase": "stream_path", "cell": "f32-aggregate", "rows": f32_rows, "chunk": chunk,
+            "chunks": f32_chunks, "groups": int(len(present)), "launches": launches, "wall_s": wall,
+            "rows_per_s": f32_rows / wall, "generate_s": clock["generate_s"], "oracle_s": oracle_s,
+            "peak_device_bytes": peak, "run": dict(streaming.last_run_stats), "bin_sum": b1}
+    emit(line)
+    out["cells"]["f32-aggregate"] = line
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--orders", type=int, default=SF10_ORDERS)
     ap.add_argument("--expand-orders", type=int, default=EXPAND_ORDERS)
+    ap.add_argument("--stream-rows", type=int, default=NS_STREAM_ROWS)
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -1230,6 +1457,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     join_path = phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, args.seed,
                                 args.rows, args.orders, args.expand_orders)
+    del engine
+    torch.cuda.empty_cache()
+    stream_path = phase_stream_path(torch, np, pd, bg, api, ff, col, None, args.seed,
+                                    rows=args.stream_rows, f32_rows=args.rows)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -1238,7 +1469,8 @@ def main() -> int:
         by_path = {"dense": main_path["out"]["launches"][name],
                    "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
-                   "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()}}
+                   "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
+                   "stream_path": {c: r["launches"][name] for c, r in stream_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -1246,13 +1478,15 @@ def main() -> int:
         if name == "bin_sum":
             by_frame["shipmode"] = {k: sorted_path["bin_sum"][k]
                                     for k in ("route", "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
+            by_frame["stream-chunk"] = stream_path["cells"]["f32-aggregate"]["bin_sum"]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": sources[name],
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
-            + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values()),
+            + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
+            + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

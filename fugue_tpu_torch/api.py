@@ -1,9 +1,11 @@
 """User-facing functions of the port, mirroring ``fugue_tpu/execution/api.py``.
 
 ``engine`` is ``None``, ``"torch"`` or its alias ``"cuda"`` (a new
-:class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device``), or an
-engine instance. The names resolve here; nothing is registered into
-``fugue_tpu``'s plugin system.
+:class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device`` with
+``conf``), or an engine instance. The names resolve here; nothing is
+registered into ``fugue_tpu``'s plugin system. A one-pass stream
+(``LocalDataFrameIterableDataFrame``) goes to the engine as it is, never
+through ``to_df``, and a stream result comes back as the stream.
 """
 
 from typing import Any, Callable, List, Optional
@@ -18,19 +20,22 @@ from .exceptions import FugueInvalidOperation
 from .execution.execution_engine import ExecutionEngine
 from .schema import Schema
 from .torch.execution_engine import TorchExecutionEngine
+from .torch.streaming import is_stream_frame
 
 _ENGINE_NAMES = ("torch", "cuda")
 
 
-def make_execution_engine(engine: Any = None, device: Any = None) -> ExecutionEngine:
+def make_execution_engine(
+    engine: Any = None, device: Any = None, conf: Any = None
+) -> ExecutionEngine:
     """The engine that ``engine`` names, on ``device`` (``cuda:0`` unless
-    given; with no card, pass ``device="cpu"``)."""
+    given; with no card, pass ``device="cpu"``) with ``conf``."""
     if isinstance(engine, ExecutionEngine):
-        if device is not None:
-            raise ValueError("device applies to an engine name, not an engine instance")
+        if device is not None or conf is not None:
+            raise ValueError("device and conf apply to an engine name, not an engine instance")
         return engine
     if engine is None or (isinstance(engine, str) and engine.lower() in _ENGINE_NAMES):
-        return TorchExecutionEngine(device=device)
+        return TorchExecutionEngine(device=device, conf=conf)
     raise ValueError(f"unknown engine {engine!r}: expected one of {_ENGINE_NAMES}")
 
 
@@ -57,7 +62,7 @@ def aggregate(
         if partition_by is None
         else PartitionSpec(by=[partition_by] if isinstance(partition_by, str) else list(partition_by))
     )
-    return _adjust_result(e.aggregate(e.to_df(df), spec, cols), df, as_fugue)
+    return _adjust_result(e.aggregate(df, spec, cols), df, as_fugue)
 
 
 def transform(
@@ -126,9 +131,9 @@ def join(
     is one; otherwise it has the type of ``df1`` (pandas or arrow)."""
     e = make_execution_engine(engine, device)
     frames = [df1, df2, *dfs]
-    res = e.join(e.to_df(df1), e.to_df(df2), how=how, on=on)
+    res = e.join(df1, df2, how=how, on=on)
     for x in dfs:
-        res = e.join(res, e.to_df(x), how=how, on=on)
+        res = e.join(res, x, how=how, on=on)
     return _adjust_result(res, df1, as_fugue or any(isinstance(d, DataFrame) for d in frames))
 
 
@@ -171,8 +176,9 @@ def cross_join(df1: Any, df2: Any, *dfs: Any, engine=None, device=None, as_fugue
 
 def _adjust_result(res: DataFrame, df: Any, as_fugue: bool) -> Any:
     """The result is a frame of the engine when ``as_fugue`` or when ``df``
-    is one; otherwise it has the input's type (pandas or arrow)."""
-    if as_fugue or isinstance(df, DataFrame):
+    is one; otherwise it has the input's type (pandas or arrow). A stream
+    result stays the stream."""
+    if as_fugue or isinstance(df, DataFrame) or is_stream_frame(res):
         return res
     if isinstance(df, pa.Table):
         return res.as_arrow()

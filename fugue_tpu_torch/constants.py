@@ -1,0 +1,15 @@
+"""Configuration keys of the port, copied from ``fugue_tpu/constants.py``
+(:131-140) and trimmed to the streaming keys. The names are the JAX
+package's, so one conf dict drives either engine."""
+
+# rows per host→device chunk of a stream; the device working set is
+# O(chunk_rows × columns), not O(stream)
+FUGUE_TPU_CONF_STREAM_CHUNK_ROWS = "fugue.tpu.stream.chunk_rows"
+# depth of the ingest pipeline's chunk queue (``torch/pipeline.py``): the
+# decode and host→device copy of the next chunks overlap the device work
+# on the current one; 0 runs the chunks serially, with no thread
+FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH = "fugue.tpu.stream.prefetch_depth"
+# "lo,hi" inclusive integer key range of a streaming dense aggregate;
+# without it the range is probed from the first chunk, and a later key
+# outside it raises (a one-pass stream cannot be read again)
+FUGUE_TPU_CONF_STREAM_KEY_RANGE = "fugue.tpu.stream.key_range"

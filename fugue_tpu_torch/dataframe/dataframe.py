@@ -1,6 +1,7 @@
 """DataFrame ABC, copied from ``fugue_tpu/dataframe/dataframe.py`` and
-trimmed to what the port's frame implements: a schema, a row count, and
-columnar conversions to arrow and pandas."""
+trimmed to what the port's frames implement: a schema, a row count, and
+columnar conversions to arrow and pandas; with the local frame classes
+(:179-207) the streaming paths build on."""
 
 from abc import ABC, abstractmethod
 from typing import Any
@@ -9,6 +10,7 @@ import pandas as pd
 import pyarrow as pa
 
 from .._utils.arrow import pa_table_to_pandas
+from ..exceptions import FugueInvalidOperation
 from ..schema import Schema
 
 
@@ -39,3 +41,21 @@ class DataFrame(ABC):
 
     def as_pandas(self) -> pd.DataFrame:
         return pa_table_to_pandas(self.as_arrow())
+
+
+class LocalDataFrame(DataFrame):
+    """A frame held whole in the host process, or a stream of such frames."""
+
+
+class LocalBoundedDataFrame(LocalDataFrame):
+    """A local frame of known length."""
+
+    def as_local_bounded(self) -> "LocalBoundedDataFrame":
+        return self
+
+
+class LocalUnboundedDataFrame(LocalDataFrame):
+    """A local frame whose length is known only once it is read."""
+
+    def count(self) -> int:
+        raise FugueInvalidOperation("can't count an unbounded dataframe")

@@ -120,6 +120,10 @@ def _agg_outputs(
         # masking by selection (where), never by multiplying: an inf in a
         # valid row stays in its own group
         if agg == "sum":
+            # bool sums as int64: index_add_ on bool saturates (an OR), and
+            # AVG divides this sum by a count
+            if v.dtype == torch.bool:
+                v = v.to(torch.int64)
             part = sum_of(torch.where(ev, v, torch.zeros((), dtype=v.dtype, device=v.device)))
             if may_null:
                 part = torch.where(_nn(vidx) > 0, part, float("nan"))  # all-null → NULL

@@ -3,7 +3,10 @@
 
 The port has ``to_df``, ``persist``, the device ``aggregate``, the
 compiled maps behind ``transform`` (``TorchMapEngine``), the device
-``join`` of every type and ``union`` without ``distinct``.
+``join`` of every type and ``union`` without ``distinct``. A one-pass
+stream (``LocalDataFrameIterableDataFrame``) given to ``aggregate``,
+``join`` or ``transform`` goes through the device chunk by chunk
+(``torch/streaming.py``) where the plan allows it, as in the JAX engine.
 
 ``aggregate`` takes any number of keys of any integer, float, bool,
 string, date or timestamp column, nullable or not, with
@@ -27,8 +30,10 @@ import pyarrow.compute as pc
 import torch
 from torch.profiler import record_function
 
+from .._utils.params import ParamDict
 from ..collections.partition import PartitionSpec
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
+from ..dataframe import DataFrame, LocalDataFrame
 from ..dataframe.utils import get_join_schemas, parse_join_type
 from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
@@ -48,6 +53,14 @@ from ..schema import Schema
 from ..torch_annotations import torch_dict_udf
 from .dataframe import TorchDataFrame
 from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
+from .pipeline import PipelineStats
+from .streaming import (
+    is_stream_frame,
+    streaming_compiled_map,
+    streaming_dense_aggregate,
+    streaming_hash_join,
+    streaming_keyed_compiled_map,
+)
 
 _ENCODED = "ROADMAP.md A.3 encoded columns"
 _VERBS = "ROADMAP.md A.8 remaining verbs"
@@ -82,13 +95,18 @@ class TorchMapEngine(MapEngine):
         map_func: Callable,
         output_schema: Any,
         partition_spec: PartitionSpec,
-    ) -> TorchDataFrame:
+    ) -> DataFrame:
         engine: TorchExecutionEngine = self.execution_engine  # type: ignore[assignment]
         if not isinstance(output_schema, Schema):
             output_schema = Schema(output_schema)
         fn = torch_dict_udf(map_func)
-        tdf = engine.to_df(df)
         keys = partition_spec.partition_by
+        if is_stream_frame(df):
+            # a one-pass stream is mapped chunk by chunk, never materialized
+            if len(keys) == 0:
+                return streaming_compiled_map(engine, df, fn, output_schema)
+            return streaming_keyed_compiled_map(engine, df, fn, output_schema, partition_spec)
+        tdf = engine.to_df(df)
         if len(keys) == 0:
             if len(partition_spec.presort) > 0:
                 raise NotImplementedError(
@@ -322,15 +340,27 @@ def _keyed_out_encodings(
 class TorchExecutionEngine(ExecutionEngine):
     """Runs verbs on one torch device: ``cuda:0`` unless ``device`` names
     another (``device="cpu"`` for a machine with no card). With no device
-    given and no card present, construction raises ``RuntimeError``."""
+    given and no card present, construction raises ``RuntimeError``.
+    ``conf`` takes the stream keys of ``fugue_tpu_torch/constants.py``."""
 
-    def __init__(self, device: Any = None):
+    def __init__(self, device: Any = None, conf: Any = None):
         self._device = resolve_device(device)
+        self._conf = ParamDict(conf)
         self._map_engine = TorchMapEngine(self)
+        self._pipeline_stats = PipelineStats()
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def conf(self) -> ParamDict:
+        return self._conf
+
+    @property
+    def pipeline_stats(self) -> PipelineStats:
+        """The ingest pipeline's counters over this engine's streams."""
+        return self._pipeline_stats
 
     @property
     def map_engine(self) -> TorchMapEngine:
@@ -340,16 +370,20 @@ class TorchExecutionEngine(ExecutionEngine):
         return f"TorchExecutionEngine(device={self._device})"
 
     def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
-        """A pandas frame, an arrow table or a ``TorchDataFrame`` as a
-        ``TorchDataFrame`` on this engine's device."""
+        """A pandas frame, an arrow table, a local frame or a
+        ``TorchDataFrame`` as a ``TorchDataFrame`` on this engine's device.
+        A stream (``LocalDataFrameIterableDataFrame``) is read whole."""
         if isinstance(df, TorchDataFrame):
             if df.device == self._device and (schema is None or df.schema == Schema(schema)):
                 return df
             return TorchDataFrame(df.as_arrow(), schema=schema, device=self._device)
+        if isinstance(df, LocalDataFrame):
+            df = df.as_arrow()
         if isinstance(df, (pd.DataFrame, pa.Table)):
             return TorchDataFrame(df, schema=schema, device=self._device)
         raise NotImplementedError(
-            f"to_df of {type(df)} is not ported (pandas, arrow and TorchDataFrame are)"
+            f"to_df of {type(df)} is not ported (pandas, arrow, local frames and "
+            "TorchDataFrame are)"
         )
 
     def persist(self, df: Any, lazy: bool = False, **kwargs: Any) -> TorchDataFrame:
@@ -364,7 +398,13 @@ class TorchExecutionEngine(ExecutionEngine):
         partition_spec: Optional[PartitionSpec],
         agg_cols: List[ColumnExpr],
     ) -> TorchDataFrame:
-        """Two-phase device groupby of ``df`` by the spec's keys."""
+        """Two-phase device groupby of ``df`` by the spec's keys. A stream
+        runs the streaming dense aggregate where its plan allows, and is
+        materialized otherwise, as in the JAX engine."""
+        if is_stream_frame(df):
+            res = streaming_dense_aggregate(self, df, partition_spec, agg_cols)
+            if res is not None:
+                return res
         tdf = self.to_df(df)
         keys = list(partition_spec.partition_by) if partition_spec is not None else []
         if len(keys) == 0:
@@ -553,7 +593,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
     # ---- joins -------------------------------------------------------------
 
-    def join(self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None) -> TorchDataFrame:
+    def join(self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None) -> DataFrame:
         """Hash joins on the device (``ops/join.py``): inner / left_outer /
         left_semi / left_anti by a probe of the hash-sorted right side when
         its keys are unique, by the 1:N/N:M expansion when they are not;
@@ -565,7 +605,15 @@ class TorchExecutionEngine(ExecutionEngine):
         Where the JAX engine joins on its host engine (keys it cannot align,
         host columns whose rows would move, expansions past
         ``MAX_EXPAND_ROWS``, a cross join past ``MAX_BROADCAST_ROWS``) this
-        raises ``NotImplementedError`` (ROADMAP.md A.5b)."""
+        raises ``NotImplementedError`` (ROADMAP.md A.5b).
+
+        When either side is a one-pass stream, the streaming join runs
+        first (``streaming_hash_join``: a stream of the result); a plan it
+        does not take materializes the stream, as in the JAX engine."""
+        if is_stream_frame(df1) or is_stream_frame(df2):
+            res = streaming_hash_join(self, df1, df2, how, on)
+            if res is not None:
+                return res
         with record_function("fugue::join"):
             jt = parse_join_type(how)
             j1, j2 = self.to_df(df1), self.to_df(df2)

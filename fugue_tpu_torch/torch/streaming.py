@@ -1,0 +1,783 @@
+"""Streaming (out-of-core) device execution, the port of
+``fugue_tpu/jax/streaming.py``.
+
+A ``TorchDataFrame`` holds every column on the device, which caps a frame
+at the card's memory. These paths take a one-pass stream of local frames
+(``LocalDataFrameIterableDataFrame`` of pandas or arrow chunks, or
+:func:`stream_parquet`) through the device chunk by chunk, so the device
+holds O(chunk) rows whatever the stream's length:
+
+- **aggregate**, :func:`streaming_dense_aggregate`: each chunk runs the
+  dense groupby kernel (``ops/segment.py``); its tables fold into device
+  accumulators, and one O(buckets) transfer finishes on the host;
+- **join**, :func:`streaming_hash_join`: a stream against a frame held
+  whole; the sorted build keys stay on the device, each chunk's key is
+  probed with ``torch.searchsorted``, and payloads are gathered on the
+  host (any type, NULLs kept);
+- **transform**, :func:`streaming_compiled_map`: a keyless
+  ``Dict[str, torch.Tensor]`` UDF per fixed-capacity chunk, its output
+  back on the host chunk by chunk, as a one-pass stream;
+- **keyed transform**, :func:`streaming_keyed_compiled_map`: keyed UDFs
+  over key-clustered streams, re-batched at key boundaries.
+
+Chunks of ``fugue.tpu.stream.chunk_rows`` rows (default 2^20) come through
+the ingest pipeline (``torch/pipeline.py``). ``last_run_stats`` holds the
+chunks, rows and peak device bytes of the most recent streaming run: on
+CUDA ``torch.cuda.max_memory_allocated`` since the stream started, on the
+CPU the bytes of the tensors the stream held at its fullest.
+
+Not ported yet (ROADMAP.md A.6b): the row-stream ``IterableDataFrame``,
+``streaming_take``, ``streaming_distinct``, ``streaming_fused_steps``,
+streaming zip/comap and the lowered-segment streams.
+"""
+
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+
+import numpy as np
+import pandas as pd
+import pyarrow as pa
+import torch
+from torch.profiler import record_function
+
+from .._utils.assertion import assert_or_throw
+from ..constants import FUGUE_TPU_CONF_STREAM_CHUNK_ROWS, FUGUE_TPU_CONF_STREAM_KEY_RANGE
+from ..dataframe import (
+    ArrowDataFrame,
+    DataFrame,
+    LocalBoundedDataFrame,
+    LocalDataFrame,
+    LocalDataFrameIterableDataFrame,
+    PandasDataFrame,
+)
+from ..exceptions import FugueInvalidOperation
+from ..schema import Schema
+from .pipeline import HostToDevice, engine_prefetcher, prefetch_depth
+
+DEFAULT_CHUNK_ROWS = 1 << 20
+
+# chunks, rows and peak device bytes of the most recent streaming run
+last_run_stats: Dict[str, Any] = {}
+
+
+def is_stream_frame(df: Any) -> bool:
+    """Whether ``df`` is a one-pass stream of frames (which must not be
+    materialized). A row stream, which the port does not take, raises."""
+    if isinstance(df, LocalDataFrameIterableDataFrame):
+        return True
+    if isinstance(df, Iterator) or type(df).__name__ == "IterableDataFrame":
+        raise NotImplementedError(
+            f"a row stream ({type(df).__name__}) is not ported (ROADMAP.md A.6b); "
+            "stream pandas or arrow chunks as a LocalDataFrameIterableDataFrame"
+        )
+    return False
+
+
+def stream_parquet(
+    path: Any, columns: Optional[List[str]] = None, chunk_rows: int = DEFAULT_CHUNK_ROWS
+) -> LocalDataFrameIterableDataFrame:
+    """Parquet file(s) as a one-pass stream of arrow chunks of at most
+    ``chunk_rows`` rows."""
+    import pyarrow.parquet as pq
+
+    paths = [path] if isinstance(path, str) else list(path)
+    schema = pq.ParquetFile(paths[0]).schema_arrow
+    if columns is not None:
+        schema = pa.schema([schema.field(c) for c in columns])
+
+    def gen() -> Iterator[LocalDataFrame]:
+        for p in paths:
+            for batch in pq.ParquetFile(p).iter_batches(batch_size=chunk_rows, columns=columns):
+                yield ArrowDataFrame(pa.Table.from_batches([batch]))
+
+    return LocalDataFrameIterableDataFrame(gen(), schema=Schema(schema))
+
+
+# --------------------------------------------------------------------------
+# chunks: a stream frame -> local frames -> numpy columns
+# --------------------------------------------------------------------------
+
+
+def _iter_local_frames(df: Any) -> Iterator[LocalDataFrame]:
+    if isinstance(df, LocalDataFrameIterableDataFrame):
+        yield from df.native
+    elif isinstance(df, LocalBoundedDataFrame):
+        yield df
+    else:
+        raise FugueInvalidOperation(f"can't stream from {type(df)}")
+
+
+def _rechunk(frames: Iterable[LocalDataFrame], capacity: int) -> Iterator[LocalDataFrame]:
+    """Split oversized chunks so that none exceeds ``capacity`` rows; empty
+    chunks drop out, short ones pass."""
+    for f in frames:
+        n = f.count()
+        if n <= capacity:
+            if n > 0:
+                yield f
+            continue
+        if isinstance(f, ArrowDataFrame):
+            for s in range(0, n, capacity):
+                yield ArrowDataFrame(f.native.slice(s, min(capacity, n - s)))
+        else:
+            pdf = f.as_pandas()
+            for s in range(0, n, capacity):
+                yield PandasDataFrame(pdf.iloc[s : s + capacity], f.schema)
+
+
+def _chunk_columns(
+    f: LocalDataFrame, names: List[str]
+) -> Tuple[int, Dict[str, np.ndarray], Dict[str, int]]:
+    """``(rows, {name: numpy}, {name: null count})`` of one chunk. Float
+    NULLs come out as NaN (the device NULL); the NULL counts of the other
+    columns let the caller refuse them (a streaming plan has no mask)."""
+    cols: Dict[str, np.ndarray] = {}
+    nulls: Dict[str, int] = {}
+    if isinstance(f, ArrowDataFrame):
+        tbl = f.native
+        for name in names:
+            c = tbl.column(name)
+            nulls[name] = c.null_count
+            cols[name] = np.asarray(c.to_numpy(zero_copy_only=False))
+        return tbl.num_rows, cols, nulls
+    pdf = f.as_pandas()
+    for name in names:
+        s = pdf[name]
+        # plain numpy columns hold no NULL but NaN, the device's NULL
+        plain = isinstance(s.dtype, np.dtype) and s.dtype.kind in "iubf"
+        nulls[name] = 0 if plain else int(s.isna().sum())
+        cols[name] = s.to_numpy()
+    return len(pdf), cols, nulls
+
+
+def _closing(chunks_it: Any) -> Iterator[Any]:
+    """Consume a (possibly prefetched) chunk iterator, stopping its
+    producer at the end, on an error, or when the consumer is abandoned."""
+    try:
+        yield from chunks_it
+    finally:
+        chunks_it.close()
+
+
+def _prefetched_pandas_chunks(engine: Any, df: Any, verb: str) -> Any:
+    """Chunks decoded to pandas on the producer's thread, for the paths
+    whose device work starts downstream (the keyed map)."""
+    return engine_prefetcher(engine, (f.as_pandas() for f in _iter_local_frames(df)), verb)
+
+
+def _chunk_rows(engine: Any) -> int:
+    """The stream's chunk size: the JAX package's ``_tuned_chunk_rows``
+    (:219) without the tuner, i.e. ``fugue.tpu.stream.chunk_rows``."""
+    return max(int(engine.conf.get(FUGUE_TPU_CONF_STREAM_CHUNK_ROWS, DEFAULT_CHUNK_ROWS)), 1)
+
+
+def _stager(engine: Any, capacity: int) -> HostToDevice:
+    return HostToDevice(
+        engine.device, capacity, slots=prefetch_depth(engine.conf, engine.device) + 1
+    )
+
+
+def _reset_peak(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _device_peak_bytes(device: torch.device, held: Iterable[torch.Tensor]) -> int:
+    """On CUDA the device's peak since the stream's ``_reset_peak``; on the
+    CPU the bytes of ``held``, the tensors the stream holds now."""
+    if device.type == "cuda":
+        return int(torch.cuda.max_memory_allocated(device))
+    return sum(t.nbytes for t in held)
+
+
+def _valid_masks(device: torch.device, capacity: int) -> Callable[[int], torch.Tensor]:
+    """``valid_for(n)``: the mask of a chunk's first ``n`` of ``capacity``
+    rows. Full chunks share one all-valid mask."""
+    full: List[torch.Tensor] = []
+
+    def valid_for(n: int) -> torch.Tensor:
+        if n < capacity:
+            return torch.arange(capacity, device=device) < n
+        if not full:
+            full.append(torch.ones(capacity, dtype=torch.bool, device=device))
+        return full[0]
+
+    return valid_for
+
+
+# --------------------------------------------------------------------------
+# streaming dense aggregate
+# --------------------------------------------------------------------------
+
+
+def _fold_dense_acc(agg_sig: Tuple, acc: Tuple, outs: Tuple) -> Tuple:
+    """Merge one chunk's dense tables into the running accumulators: NaN is
+    the merge identity of a nullable float (an all-NULL or absent bucket),
+    plain adds, min and max otherwise."""
+    new = [acc[0] + outs[0]]  # presence counts
+    for (_, agg, _, nullable), a, b in zip(agg_sig, acc[1:], outs[1:]):
+        if agg == "count":
+            new.append(a + b)
+        elif agg == "sum":
+            if nullable:
+                new.append(torch.where(torch.isnan(a), b, torch.where(torch.isnan(b), a, a + b)))
+            else:
+                new.append(a + b)
+        elif agg == "min":
+            new.append(torch.fmin(a, b) if nullable else torch.minimum(a, b))
+        elif agg == "max":
+            new.append(torch.fmax(a, b) if nullable else torch.maximum(a, b))
+        else:  # pragma: no cover - the plan admits no other
+            raise AssertionError(agg)
+    return tuple(new)
+
+
+def _widen(outs: Tuple) -> Tuple:
+    """The first chunk's tables as accumulators: float32 sums (B1's tables)
+    accumulate across chunks in float64, as the sorted route sums float32
+    (ROADMAP.md C2); the finish casts back to the declared type."""
+    return tuple(t.to(torch.float64) if t.dtype == torch.float32 else t for t in outs)
+
+
+def _finish_dense_host(
+    engine: Any, acc: Tuple, agg_sig: Tuple, key: str, key_np: np.dtype, kmin: int, plan: dict
+) -> DataFrame:
+    """One host transfer of the merged O(buckets) tables, then the host
+    finish: the present groups only, avg = sum/count, the declared types."""
+    host = [a.cpu().numpy() for a in acc]
+    (idx,) = np.nonzero(host[0] > 0)
+    merged: Dict[str, Any] = {key: idx.astype(np.int64) + kmin}
+    for (name, _, _, _), table in zip(agg_sig, host[1:]):
+        merged[name] = table[idx]
+    mdf = pd.DataFrame(merged)
+    out = pd.DataFrame({key: mdf[key].astype(key_np)})
+    for spec in plan["post"]:
+        out[spec["name"]] = spec["fn"](mdf)
+    tbl = pa.Table.from_pandas(out, schema=plan["schema"].pa_schema, preserve_index=False, safe=False)
+    return engine.to_df(tbl)
+
+
+def _parse_key_range(conf: Any) -> Optional[Tuple[int, int]]:
+    raw = conf.get_or_none(FUGUE_TPU_CONF_STREAM_KEY_RANGE, str)
+    if raw is None or raw == "":
+        return None
+    try:
+        lo, hi = (int(x) for x in str(raw).split(","))
+    except ValueError:
+        raise FugueInvalidOperation(
+            f"{FUGUE_TPU_CONF_STREAM_KEY_RANGE} must be 'lo,hi' ints, got {raw!r}"
+        )
+    assert_or_throw(lo <= hi, ValueError(f"empty key range {raw!r}"))
+    return lo, hi
+
+
+def streaming_dense_aggregate(
+    engine: Any, df: Any, partition_spec: Any, agg_cols: List[Any]
+) -> Optional[DataFrame]:
+    """A keyed aggregate over a one-pass stream with device accumulators.
+
+    Eligibility is decided from the schema alone, before any chunk is
+    read: one plain integer key, numeric values, SUM/COUNT/AVG/MIN/MAX.
+    Otherwise this returns None, and the caller materializes the stream.
+    A plan the in-memory aggregate refuses raises its
+    ``NotImplementedError`` here too. The key range comes from
+    ``fugue.tpu.stream.key_range`` or the first chunk; a key outside it,
+    and a NULL key or int value, raise ``FugueInvalidOperation``."""
+    from ..ops.segment import _DENSE_MAX_RANGE, _dense_kernel, dense_buckets
+    from .dataframe import TorchDataFrame
+    from .execution_engine import _np_dtype, _plan_device_agg
+
+    keys = list(partition_spec.partition_by) if partition_spec is not None else []
+    if len(keys) != 1:
+        return None
+    device = engine.device
+    capacity = _chunk_rows(engine)
+    # the plan of an empty frame of the stream's schema: nothing is read
+    tdf0 = TorchDataFrame(Schema(df.schema).create_empty_arrow_table(), device=device)
+    plan = _plan_device_agg(tdf0, keys, agg_cols)
+    if (
+        plan["virtual"]
+        or plan["dict_srcs"]
+        or plan["masked_srcs"]
+        or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])
+    ):
+        return None
+    key = keys[0]
+    key_np = _np_dtype(tdf0.device_cols[key].dtype)
+    if key_np.kind not in ("i", "u"):
+        return None
+    srcs = sorted({s for _, _, s in plan["aggs"]})
+    src_np = {s: _np_dtype(tdf0.device_cols[s].dtype) for s in srcs}
+    if any(dt.kind not in ("i", "u", "f") for dt in src_np.values()):
+        return None
+    del tdf0
+    key_range = _parse_key_range(engine.conf)
+    if key_range is not None and not (0 < key_range[1] - key_range[0] + 1 <= _DENSE_MAX_RANGE):
+        return None  # a declared range too wide for the dense plan
+
+    # ---- the stream is read from here on: failures raise ----------------
+    frames = _rechunk(_iter_local_frames(df), capacity)
+    first = next(frames, None)
+    if first is None:  # an empty stream: no groups, the declared schema
+        return engine.to_df(plan["schema"].create_empty_arrow_table())
+    n0, cols0, nulls0 = _chunk_columns(first, [key] + srcs)
+    assert_or_throw(
+        nulls0[key] == 0,
+        FugueInvalidOperation(f"streaming aggregate: NULL in key column {key!r}"),
+    )
+    probed = key_range is None
+    if probed:
+        key_range = (int(cols0[key].min()), int(cols0[key].max()))
+    kmin, kmax = key_range
+    if not (0 < kmax - kmin + 1 <= _DENSE_MAX_RANGE):
+        raise FugueInvalidOperation(
+            f"streaming aggregate: first-chunk key range [{kmin},{kmax}] exceeds the "
+            f"dense plan bound ({_DENSE_MAX_RANGE}); set {FUGUE_TPU_CONF_STREAM_KEY_RANGE} "
+            "or pre-bucket the key"
+        )
+    buckets = dense_buckets(kmax - kmin + 1)
+    # value columns dedupe by source; floats are always NaN-aware here: a
+    # later chunk may hold NaN where the first did not
+    vidx = {s: i for i, s in enumerate(srcs)}
+    agg_sig = tuple(
+        (name, agg, vidx[src], src_np[src].kind == "f") for name, agg, src in plan["aggs"]
+    )
+    stager = _stager(engine, capacity)
+    valid_for = _valid_masks(device, capacity)
+
+    def put_chunk(n: int, cols: Dict[str, np.ndarray], nulls: Dict[str, int]) -> Any:
+        assert_or_throw(
+            nulls[key] == 0,
+            FugueInvalidOperation(f"streaming aggregate: NULL in key column {key!r}"),
+        )
+        ck = cols[key]
+        lo, hi = int(ck.min()), int(ck.max())
+        if lo < kmin or hi > kmax:
+            hint = (
+                f"probed from the first chunk as [{kmin},{kmax}]; set "
+                f"{FUGUE_TPU_CONF_STREAM_KEY_RANGE}='lo,hi' to cover the full stream"
+                if probed
+                else f"conf {FUGUE_TPU_CONF_STREAM_KEY_RANGE} was [{kmin},{kmax}]"
+            )
+            raise FugueInvalidOperation(
+                f"streaming aggregate: key {key!r} value outside range ([{lo},{hi}] seen): {hint}"
+            )
+        staged = {key: ck.astype(key_np, copy=False)}
+        for s in srcs:
+            if src_np[s].kind != "f":
+                assert_or_throw(
+                    nulls[s] == 0,
+                    FugueInvalidOperation(
+                        f"streaming aggregate: NULL in non-float column {s!r} (the first "
+                        "chunk established a null-free int contract)"
+                    ),
+                )
+            staged[s] = cols[s].astype(src_np[s], copy=False)
+        return stager.put(staged, n)
+
+    def produce() -> Iterator[Tuple[int, Any]]:
+        nonlocal cols0, nulls0, first
+        yield n0, put_chunk(n0, cols0, nulls0)
+        cols0 = nulls0 = first = None  # drop the head chunk's host copy
+        for f in frames:
+            n, cols, nulls = _chunk_columns(f, [key] + srcs)
+            yield n, put_chunk(n, cols, nulls)
+
+    stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+    _reset_peak(device)
+    acc: Any = None
+    pending: List[Any] = []  # events of chunks whose kernels may still run
+    for n, chunk in _closing(engine_prefetcher(engine, produce(), "aggregate")):
+        t = chunk.tensors()
+        outs = _dense_kernel(buckets, agg_sig, t[key], kmin, [t[s] for s in srcs], valid_for(n))
+        acc = _widen(outs) if acc is None else _fold_dense_acc(agg_sig, acc, outs)
+        stats["chunks"] += 1
+        stats["rows"] += n
+        stats["peak_device_bytes"] = max(
+            stats["peak_device_bytes"], _device_peak_bytes(device, [*acc, *t.values()])
+        )
+        if device.type == "cuda":
+            # nothing here reads the device, so bound the chunks in flight
+            # on the stream, not only those in the queue
+            pending.append(torch.cuda.Event())
+            pending[-1].record()
+            if len(pending) > 2:
+                pending.pop(0).synchronize()
+        del t, outs, chunk
+    res = _finish_dense_host(engine, acc, agg_sig, key, key_np, kmin, plan)
+    stats["peak_device_bytes"] = max(
+        stats["peak_device_bytes"], _device_peak_bytes(device, acc)
+    )
+    global last_run_stats
+    last_run_stats = dict(stats, verb="aggregate")
+    return res
+
+
+# --------------------------------------------------------------------------
+# streaming broadcast-hash join
+# --------------------------------------------------------------------------
+
+
+def _key_image(a: np.ndarray) -> np.ndarray:
+    """A key array ``torch.searchsorted`` takes, in the same order: uint64
+    as its int64 bits with the top bit flipped (``ops/shuffle.py``
+    ``unsigned_order``), the narrower unsigned types widened to int64."""
+    if a.dtype.kind != "u":
+        return a
+    if a.dtype.itemsize < 8:
+        return a.astype(np.int64)
+    return np.ascontiguousarray(a).view(np.int64) ^ np.int64(-(1 << 63))
+
+
+def streaming_hash_join(
+    engine: Any, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None
+) -> Optional[DataFrame]:
+    """A one-pass stream joined with a frame held whole (the build side),
+    with a bounded device working set.
+
+    The build side is sorted by its key, and the sorted key goes to the
+    device. Each stream chunk's key goes to the device (through the ingest
+    pipeline) and is probed with ``torch.searchsorted``; ``(hit, pos)``
+    come back, and the payloads of both sides are gathered on the host
+    with pandas, so they keep any type and their NULLs. NULL and NaN
+    stream keys never match, and stay on an outer join.
+
+    Eligible: exactly one side is a stream; the join is inner, or the
+    outer side is the stream; one numeric key of one type on both sides;
+    unique, non-NULL build keys. Otherwise this returns None and the caller
+    materializes the stream."""
+    from ..dataframe.utils import get_join_schemas, parse_join_type
+
+    jt = parse_join_type(how)
+    s1, s2 = is_stream_frame(df1), is_stream_frame(df2)
+    if s1 == s2:
+        return None
+    stream_df, build_df = (df1, df2) if s1 else (df2, df1)
+    if not (jt == "inner" or (jt == "left_outer" and s1) or (jt == "right_outer" and s2)):
+        return None
+    key_schema, out_schema = get_join_schemas(df1, df2, how=jt, on=on)
+    if len(key_schema) != 1:
+        return None
+    key = key_schema.names[0]
+    ktype = stream_df.schema[key].type
+    if not (pa.types.is_integer(ktype) or pa.types.is_floating(ktype)):
+        return None
+    if build_df.schema[key].type != ktype:
+        # a cast of the probe key (float -> int) would truncate values into
+        # false matches; equality across types is the general path's
+        return None
+    outer = jt != "inner"
+    bpdf = build_df.as_pandas()
+    if len(bpdf) > 0 and bpdf[key].isna().any():
+        return None  # NULL build keys: the general path's
+    key_np = np.dtype(ktype.to_pandas_dtype())
+    bkeys = bpdf[key].to_numpy().astype(key_np, copy=False)
+    order = np.argsort(bkeys, kind="stable")
+    bsorted = bkeys[order]
+    if len(bsorted) > 1 and (bsorted[1:] == bsorted[:-1]).any():
+        return None  # duplicates need the 1:N expansion
+    n_build = len(bkeys)
+    payload_names = [n for n in build_df.schema.names if n != key]
+    device = engine.device
+    capacity = _chunk_rows(engine)
+
+    if n_build == 0 and not outer:
+        # inner with an empty build side: empty, and the stream stays unread
+        return engine.to_df(out_schema.create_empty_arrow_table())
+
+    # the sorted payload on the host; nullable dtypes on an outer join, so
+    # the misses' NULLs keep their declared types
+    bs = bpdf.iloc[order].reset_index(drop=True)
+    if outer:
+        bs = pd.DataFrame({n: bs[n].convert_dtypes() for n in payload_names})
+    bk_dev = torch.from_numpy(np.ascontiguousarray(_key_image(bsorted))).to(device)
+
+    def produce(stager: HostToDevice) -> Iterator[Tuple[int, Any]]:
+        for f in _rechunk(_iter_local_frames(stream_df), capacity):
+            pf = f.as_pandas().reset_index(drop=True)
+            n = len(pf)
+            if n_build == 0:  # outer with an empty build side: no probe
+                yield n, pf, None
+                continue
+            s = pf[key]
+            knull = s.isna().to_numpy()
+            cols = {"k": _key_image((s.fillna(0) if knull.any() else s).to_numpy(dtype=key_np))}
+            if knull.any():
+                cols["valid"] = ~knull
+            yield n, pf, stager.put(cols, n)
+
+    def gen() -> Iterator[LocalDataFrame]:
+        stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+        _reset_peak(device)
+        valid_for = _valid_masks(device, capacity)
+        chunks = engine_prefetcher(engine, produce(_stager(engine, capacity)), "join")
+        for n, pf, chunk in _closing(chunks):
+            stats["chunks"] += 1
+            stats["rows"] += n
+            if chunk is None:
+                data = {
+                    nm: pf[nm] if nm in pf.columns else pd.Series([pd.NA] * n).convert_dtypes()
+                    for nm in out_schema.names
+                }
+                yield PandasDataFrame(pd.DataFrame(data), out_schema)
+                continue
+            t = chunk.tensors()
+            pk = t["k"]
+            valid = t["valid"] if "valid" in t else valid_for(n)
+            idx = torch.searchsorted(bk_dev, pk).clamp_(0, n_build - 1)
+            hit_d = (bk_dev[idx] == pk) & valid  # NaN keys never match
+            hit = hit_d[:n].cpu().numpy()
+            pos = idx[:n].cpu().numpy()
+            stats["peak_device_bytes"] = max(
+                stats["peak_device_bytes"],
+                _device_peak_bytes(device, [bk_dev, *t.values(), valid, idx, hit_d]),
+            )
+            del t, pk, valid, idx, hit_d, chunk
+            data = {}
+            if outer:
+                hit_s = pd.Series(hit)
+                for nm in out_schema.names:
+                    if nm in pf.columns:
+                        data[nm] = pf[nm]
+                    else:
+                        data[nm] = bs[nm].take(pos).reset_index(drop=True).where(hit_s)
+            elif hit.all():
+                # every row hit (the dimension-table norm): rows pass as they are
+                for nm in out_schema.names:
+                    data[nm] = pf[nm] if nm in pf.columns else bs[nm].take(pos).reset_index(drop=True)
+            else:
+                (sel,) = np.nonzero(hit)
+                for nm in out_schema.names:
+                    if nm in pf.columns:
+                        data[nm] = pf[nm].take(sel).reset_index(drop=True)
+                    else:
+                        data[nm] = bs[nm].take(pos[sel]).reset_index(drop=True)
+            yield PandasDataFrame(pd.DataFrame(data), out_schema)
+        global last_run_stats
+        last_run_stats = dict(stats, verb="join")
+
+    return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+
+# --------------------------------------------------------------------------
+# streaming compiled map
+# --------------------------------------------------------------------------
+
+
+def _stream_np_dtypes(schema: Schema, what: str) -> Dict[str, np.dtype]:
+    """The numpy dtype of each column, which must be numeric or bool."""
+    out: Dict[str, np.dtype] = {}
+    for f in schema.fields:
+        if not (pa.types.is_integer(f.type) or pa.types.is_floating(f.type)
+                or pa.types.is_boolean(f.type)):
+            raise FugueInvalidOperation(
+                f"{what} needs numeric/bool columns; {f.name} is {f.type} "
+                "(use a pandas-annotated transformer)"
+            )
+        out[f.name] = np.dtype(f.type.to_pandas_dtype())
+    return out
+
+
+def streaming_compiled_map(
+    engine: Any, df: Any, fn: Callable, output_schema: Schema
+) -> DataFrame:
+    """A keyless ``Dict[str, torch.Tensor]`` UDF over a one-pass stream,
+    chunk by chunk.
+
+    Each chunk is padded to a fixed capacity with ``__valid__`` marking its
+    rows (the contract of the in-memory keyless map; full chunks share one
+    all-valid mask); each output chunk comes back to the host, so the
+    result is a one-pass ``LocalDataFrameIterableDataFrame`` and the device
+    holds O(chunk) rows end to end."""
+    from .execution_engine import _select_output
+    from .group_ops import VALID
+
+    device = engine.device
+    capacity = _chunk_rows(engine)
+    np_dtypes = _stream_np_dtypes(Schema(df.schema), "streaming compiled map")
+    names = list(np_dtypes)
+    out_schema = Schema(output_schema)
+    out_np = {f.name: np.dtype(f.type.to_pandas_dtype()) for f in out_schema.fields}
+
+    def produce(stager: HostToDevice) -> Iterator[Tuple[int, Any]]:
+        for f in _rechunk(_iter_local_frames(df), capacity):
+            n, cols, nulls = _chunk_columns(f, names)
+            for c in names:
+                if np_dtypes[c].kind != "f":
+                    assert_or_throw(
+                        nulls[c] == 0,
+                        FugueInvalidOperation(f"streaming compiled map: NULL in non-float column {c!r}"),
+                    )
+            yield n, stager.put({c: cols[c].astype(np_dtypes[c], copy=False) for c in names}, n)
+
+    def gen() -> Iterator[LocalDataFrame]:
+        stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+        _reset_peak(device)
+        valid_for = _valid_masks(device, capacity)
+        chunks = engine_prefetcher(engine, produce(_stager(engine, capacity)), "map")
+        for n, chunk in _closing(chunks):
+            cols = dict(chunk.tensors())
+            cols[VALID] = valid_for(n)
+            with record_function("fugue::udf"):
+                out = _select_output(fn(cols), out_schema, exclude=(VALID,))
+            assert_or_throw(
+                all(v.shape[0] == capacity for v in out.values()),
+                FugueInvalidOperation(
+                    "streaming compiled transformers must return row-aligned arrays "
+                    "(padding preserved; reductions must mask with __valid__)"
+                ),
+            )
+            host = {c: out[c][:n].cpu().numpy().astype(out_np[c], copy=False) for c in out_np}
+            stats["chunks"] += 1
+            stats["rows"] += n
+            stats["peak_device_bytes"] = max(
+                stats["peak_device_bytes"],
+                _device_peak_bytes(device, [*cols.values(), *out.values()]),
+            )
+            del cols, out, chunk
+            yield PandasDataFrame(pd.DataFrame(host), out_schema)
+        global last_run_stats
+        last_run_stats = dict(stats, verb="map")
+
+    return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+
+# --------------------------------------------------------------------------
+# streaming keyed compiled map
+# --------------------------------------------------------------------------
+
+
+def streaming_keyed_compiled_map(
+    engine: Any, df: Any, fn: Callable, output_schema: Schema, partition_spec: Any
+) -> DataFrame:
+    """A keyed ``Dict[str, torch.Tensor]`` UDF over a key-clustered
+    one-pass stream.
+
+    The rows of one key must be contiguous in the stream. Chunks re-batch
+    at key boundaries (the trailing key's rows carry into the next batch,
+    so no group is split), and each batch of at most the chunk capacity
+    runs the in-memory keyed map (``TorchMapEngine._compiled_keyed_map``).
+    A key that comes back after its batch closed raises, as do a run of
+    one key longer than the capacity, a NULL/NaN key and a column that is
+    not numeric or bool."""
+    from .dataframe import frame_from_numpy
+
+    keys = list(partition_spec.partition_by)
+    in_schema = Schema(df.schema)
+    np_dtypes = _stream_np_dtypes(in_schema, "streaming keyed compiled map")
+    device = engine.device
+    capacity = _chunk_rows(engine)
+    out_schema = Schema(output_schema)
+    map_engine = engine.map_engine
+    names = list(in_schema.names)
+
+    def run_batch(batch: pd.DataFrame, closed: set) -> Tuple[pd.DataFrame, int]:
+        uk = set(map(tuple, batch[keys].drop_duplicates().itertuples(index=False, name=None)))
+        overlap = uk & closed
+        assert_or_throw(
+            len(overlap) == 0,
+            FugueInvalidOperation(
+                "streaming keyed map: the stream is not key-clustered — key(s) "
+                f"{sorted(overlap)[:3]} reappeared after their rows were already "
+                f"processed. Sort/cluster the stream by {keys} first."
+            ),
+        )
+        closed |= uk
+        k = len(batch)
+        assert_or_throw(
+            k <= capacity,
+            FugueInvalidOperation(
+                f"streaming keyed map: a contiguous key run ({k} rows) exceeds the chunk "
+                f"capacity ({capacity}); raise {FUGUE_TPU_CONF_STREAM_CHUNK_ROWS}"
+            ),
+        )
+        cols: Dict[str, np.ndarray] = {}
+        for c in names:
+            s = batch[c]
+            assert_or_throw(
+                np_dtypes[c].kind == "f" or not s.isna().any(),
+                FugueInvalidOperation(f"streaming keyed map: NULL in non-float column {c!r}"),
+            )
+            cols[c] = s.to_numpy().astype(np_dtypes[c])
+        tdf = frame_from_numpy(cols, in_schema, device=device)
+        res = map_engine._compiled_keyed_map(tdf, fn, out_schema, partition_spec)
+        # the input and output batches are both alive here
+        peak = _device_peak_bytes(
+            device, [*tdf.device_cols.values(), *res.device_cols.values()]
+        )
+        return res.as_pandas(), peak
+
+    def gen() -> Iterator[LocalDataFrame]:
+        stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+        _reset_peak(device)
+        carry: Optional[pd.DataFrame] = None
+        closed: set = set()
+
+        def emit(batch: pd.DataFrame) -> Iterator[LocalDataFrame]:
+            for sub in _key_aligned_splits(batch, keys, capacity):
+                out, peak = run_batch(sub, closed)
+                stats["peak_device_bytes"] = max(stats["peak_device_bytes"], peak)
+                yield PandasDataFrame(out, out_schema)
+
+        for pf in _closing(_prefetched_pandas_chunks(engine, df, "keyed_map")):
+            stats["chunks"] += 1
+            stats["rows"] += len(pf)
+            merged = pf if carry is None or len(carry) == 0 else pd.concat(
+                [carry, pf], ignore_index=True
+            )
+            if len(merged) == 0:
+                carry = None
+                continue
+            assert_or_throw(
+                not merged[keys].isna().any().any(),
+                FugueInvalidOperation(
+                    "streaming keyed map: NULL/NaN partition keys are not supported (NaN "
+                    "breaks key-run detection); filter or fill the key column first"
+                ),
+            )
+            eq_last = (merged[keys] == merged[keys].iloc[-1].values).all(axis=1).to_numpy()
+            if eq_last.all():
+                # one key so far: keep it, but fail once the run cannot fit
+                assert_or_throw(
+                    len(merged) <= capacity,
+                    FugueInvalidOperation(
+                        f"streaming keyed map: a contiguous key run ({len(merged)}+ rows) "
+                        f"exceeds the chunk capacity ({capacity}); raise "
+                        f"{FUGUE_TPU_CONF_STREAM_CHUNK_ROWS}"
+                    ),
+                )
+                carry = merged
+                continue
+            tail = int(np.argmin(eq_last[::-1]))  # the trailing run's length
+            carry = merged.iloc[len(merged) - tail :].reset_index(drop=True)
+            yield from emit(merged.iloc[: len(merged) - tail])
+        if carry is not None and len(carry) > 0:
+            yield from emit(carry)
+        global last_run_stats
+        last_run_stats = dict(stats, verb="keyed_map")
+
+    return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+
+def _key_aligned_splits(
+    batch: pd.DataFrame, keys: List[str], capacity: int
+) -> Iterator[pd.DataFrame]:
+    """``batch`` (whole groups) in pieces of at most ``capacity`` rows that
+    cut no key's run (whole groups, taken greedily)."""
+    if len(batch) <= capacity:
+        yield batch
+        return
+    sizes = batch.groupby(keys, dropna=False, sort=False).size().to_numpy()
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    start = 0
+    cur = 0
+    for gi in range(len(sizes)):
+        if bounds[gi + 1] - start > capacity:
+            if bounds[gi] == start:  # one group larger than the capacity
+                yield batch.iloc[start : bounds[gi + 1]]  # run_batch raises
+                start = int(bounds[gi + 1])
+                continue
+            yield batch.iloc[start : bounds[gi]].reset_index(drop=True)
+            start = int(bounds[gi])
+        cur = int(bounds[gi + 1])
+    if cur > start:
+        yield batch.iloc[start:cur].reset_index(drop=True)

@@ -19,6 +19,7 @@ from fugue_tpu.collections import PartitionSpec as JPartitionSpec
 from fugue_tpu.column import col as jcol
 from fugue_tpu.column import functions as jff
 from fugue_tpu.dataframe import PandasDataFrame as JPandasDataFrame
+from fugue_tpu.execution import NativeExecutionEngine
 from fugue_tpu.jax import JaxExecutionEngine
 from fugue_tpu.ops.segment import _DENSE_SUM_BACKEND, set_dense_sum_backend
 from fugue_tpu_torch import api
@@ -336,3 +337,37 @@ def test_device_dense_groupby_matches_jax_ops(jax_engine):
             assert np.allclose(t, j, rtol=1e-5, atol=1e-3, equal_nan=True)
         else:
             assert np.array_equal(t, j, equal_nan=t.dtype.kind == "f"), tn
+
+
+@pytest.mark.parametrize(
+    "keys", [[1, 1, 2], [1, 1, 1 << 40], ["a", "a", "b"]], ids=["dense", "wide-int", "string"]
+)
+def test_avg_and_sum_of_a_bool_column(jax_engine, engine, keys):
+    """ROADMAP.md C7: a bool column sums as int64, so AVG divides a true
+    count (a bool accumulator saturated, and AVG came out 0.5). SUM keeps
+    its declared bool type, as the native engine gives it. The JAX engine
+    raises on the non-nullable column (a fault of the reference, left as
+    it is) and answers on the same column made nullable."""
+    pdf = pd.DataFrame({"k": keys, "v": [True, True, False]})
+    native = NativeExecutionEngine()
+    jaggs = [jff.avg(jcol("v")).alias("a"), jff.sum(jcol("v")).alias("s")]
+    exp = native.aggregate(native.to_df(pdf), JPartitionSpec(by=["k"]), jaggs)
+    got = engine.aggregate(
+        engine.to_df(pdf), PartitionSpec(by=["k"]),
+        [ff.avg(col("v")).alias("a"), ff.sum(col("v")).alias("s")],
+    )
+    assert str(got.schema) == str(exp.schema)
+    pd.testing.assert_frame_equal(
+        got.as_pandas().sort_values("k").reset_index(drop=True),
+        exp.as_pandas().sort_values("k").reset_index(drop=True),
+    )
+    assert got.as_pandas().sort_values("k")["a"].tolist() == [1.0, 0.0]
+    with pytest.raises(TypeError, match="bool"):
+        jax_engine.aggregate(jax_engine.to_df(pdf), JPartitionSpec(by=["k"]), jaggs)
+    # the same column made nullable: one NULL more in the first group
+    nullable = pa.table({"k": keys + keys[:1], "v": pa.array([True, True, False, None])})
+    jexp = jax_engine.aggregate(jax_engine.to_df(nullable), JPartitionSpec(by=["k"]), jaggs)
+    pd.testing.assert_frame_equal(
+        got.as_pandas().sort_values("k").reset_index(drop=True),
+        jexp.as_pandas().sort_values("k").reset_index(drop=True),
+    )

@@ -365,6 +365,24 @@ def test_float_values_of_an_inner_join_keep_their_nulls(jax_engine, engine):
     assert res.as_arrow().column("w").null_count == 1
 
 
+@pytest.mark.parametrize("how", ["inner", "left_outer", "left_anti", "right_outer", "full_outer"])
+def test_an_empty_string_key_dictionary(jax_engine, engine, how):
+    """ROADMAP.md C8: a side whose string keys are all NULL has an empty
+    dictionary. The JAX engine's remap of its codes gathers from a table of
+    length 0 and raises; the port answers as the native engine does. The
+    empty side is the right one, or the left one for right_outer and
+    full_outer."""
+    full = pa.table({"k": pa.array(["a", "b"]), "a": pa.array([1, 2], pa.int64())})
+    empty = pa.table({"k": pa.array([None], pa.string()), "b": pa.array([5], pa.int64())})
+    left, right = (empty, full) if how in ("right_outer", "full_outer") else (full, empty)
+    native = NativeExecutionEngine()
+    exp = native.join(native.to_df(left), native.to_df(right), how=how)
+    got = engine.join(engine.to_df(left), engine.to_df(right), how=how)
+    _same(got, exp)
+    with pytest.raises(TypeError, match="gather"):
+        jax_engine.join(jax_engine.to_df(left), jax_engine.to_df(right), how=how)
+
+
 def test_right_outer_keeps_the_contract_column_order(jax_engine, engine):
     left = pd.DataFrame({"v": [1.0, 2.0], "k": [1, 2]})
     right = pd.DataFrame({"w": [5.0, 6.0], "k": [2, 3]})
