@@ -58,7 +58,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
    bound, and traced once;
-9. stream_path: the streaming paths at full size, one line a cell:
+9. host_path: the host engine behind the device engine, one line a cell:
+   ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
+   ``transform(pdf, demean, schema="*", partition={"by": ["k"]})`` with a
+   pandas UDF over bench.py's ``_make_frame`` cut to 1,000,000 rows,
+   pandas in and out, and a round trip through parquet, ``load_df`` and
+   ``save_df``), ``pandas-demean-100m`` (the same UDF over the
+   ``demean-dense`` frame, 10^8 rows on the card, beside the compiled
+   map's time) and ``orders-lineitem-expand-sf10`` (15,000,000 orders
+   inner their ~60M lines: past ``MAX_EXPAND_ROWS``, so the host join),
+   each checked against a host oracle with the launch counts set to 0
+   just before and read just after, timed, and traced once with the copy
+   to the host, the pandas work and the copy back apart;
+10. stream_path: the streaming paths at full size, one line a cell:
    ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
@@ -73,8 +85,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
-N`` cuts the dense, the transform and the north-star frames, ``--orders N``
-the lineitem frame and ``--expand-orders N`` the expansion's, for a quick
+N`` cuts the dense, the transform, the north-star and the 100m host frames,
+``--orders N`` the lineitem frames and ``--expand-orders N`` the expansion's, for a quick
 try; ``--stream-rows N`` cuts the streamed north star). With no CUDA
 device, or outside the repository, it
 exits non-zero and prints no result.
@@ -572,7 +584,7 @@ def phase_profile(torch, api, engine, main: dict) -> dict:
     return out
 
 
-def _trace(torch, fn, calls: int = 1, all_threads: bool = False) -> dict:
+def _trace(torch, fn, calls: int = 1, all_threads: bool = False, warm_up=None) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler`` (one unless a call
     is too short to trace alone): per call, the device's busy and idle
     share of the wall time, the top device operations, and the host time of
@@ -582,7 +594,8 @@ def _trace(torch, fn, calls: int = 1, all_threads: bool = False) -> dict:
 
     One call runs first as the profiler's warm-up step, whose events are
     dropped: without it, kernels of the traced call went unrecorded (both
-    of the keyless map's, some of the dense demean's)."""
+    of the keyless map's, some of the dense demean's). ``warm_up`` runs in
+    its place where a call of ``fn`` is too long to run twice."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     extra, asked = {}, all_threads
@@ -595,7 +608,7 @@ def _trace(torch, fn, calls: int = 1, all_threads: bool = False) -> dict:
             all_threads = False
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1), **extra) as prof:
-        fn()
+        (warm_up or fn)()
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
@@ -993,9 +1006,48 @@ def check_orders_join(np, res, how: str, aux: dict, oaux: dict, only_f: bool) ->
     _close(np, host["o_totalprice"][valid], price[valid], f"{what}: o_totalprice")
 
 
+def _order_by(np, group, within):
+    """The order of ``np.lexsort((within, group))`` (by ``group``, then by
+    ``within``) as one sort by ``within`` and a stable one by ``group``,
+    which takes numpy's radix sort when ``group`` fits 16 bits: a fraction
+    of lexsort's time at 10^7–10^8 rows."""
+    o = np.argsort(within)
+    g = group[o]
+    if len(g) > 0 and -(1 << 15) <= g.min() and g.max() < (1 << 15):
+        g = g.astype(np.int16)
+    return o[np.argsort(g, kind="stable")]
+
+
+def _bits(np, c):
+    """A column's values as uint64 bit patterns (floats by their bits)."""
+    if c.dtype.kind == "f":
+        c = c.view(np.uint64 if c.itemsize == 8 else np.uint32)
+    return c.astype(np.uint64)
+
+
+def _row_hash(np, cols):
+    """A 64-bit hash of each row of ``cols``: splitmix64 chained over the
+    columns' bits, so equal rows hash alike and a row's hash depends on
+    all of its values together. Summed over the rows (mod 2^64) it is a
+    hash of the row multiset: two different multisets agree once in
+    ~2^64."""
+    h = np.zeros(len(cols[0]), np.uint64)
+    for c in cols:
+        h += _bits(np, c) + np.uint64(0x9E3779B97F4A7C15)
+        h ^= h >> np.uint64(30)
+        h *= np.uint64(0xBF58476D1CE4E5B9)
+        h ^= h >> np.uint64(27)
+        h *= np.uint64(0x94D049BB133111EB)
+        h ^= h >> np.uint64(31)
+    return h
+
+
 def check_expand(np, pa, res, lineitem, aux: dict, oaux: dict) -> None:
     """orders (left) inner lineitem (right): one row per (order, line)
-    pair, held against the pairs ``aux["order"]`` gives, as row sets."""
+    pair, held against the pairs ``aux["order"]`` gives, as row sets: each
+    column's values summed as bits (which column differs), then a hash of
+    the row multiset (how the columns pair), each exact. No sort: at SF10's
+    60M rows a sort of each side took minutes."""
     valid = res.device_valid_mask().cpu().numpy()
     got = {c: t.cpu().numpy()[valid] for c, t in res.device_cols.items()}
     order = aux["order"]
@@ -1017,10 +1069,10 @@ def check_expand(np, pa, res, lineitem, aux: dict, oaux: dict) -> None:
     require(sorted(got) == sorted(exp), f"expand: columns {sorted(got)}")
     require(len(got["l_orderkey"]) == len(order), f"expand: {len(got['l_orderkey'])} pairs, expected {len(order)}")
     names = sorted(exp)
-    g_order = np.lexsort([got[c] for c in names])
-    e_order = np.lexsort([exp[c] for c in names])
     for c in names:
-        require(np.array_equal(got[c][g_order], exp[c][e_order]), f"expand: {c}")
+        require(_bits(np, got[c]).sum() == _bits(np, exp[c]).sum(), f"expand: {c}")
+    require(_row_hash(np, [got[c] for c in names]).sum() == _row_hash(np, [exp[c] for c in names]).sum(),
+            "expand: the columns pair otherwise than in the oracle's rows")
 
 
 def _synced(torch, fn):
@@ -1203,6 +1255,232 @@ def phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, s
     del res
     emit_cell("orders-lineitem-expand", _time_and_trace(torch, expand, line, expand_orders))
     del lineitem, odf
+    torch.cuda.empty_cache()
+    return out
+
+
+# host_path: the host engine, with the device↔host moves around it
+UDF_GROUPS, UDF_FRAME_ROWS, UDF_ROWS = 1000, 2_000_000, 1_000_000  # bench.py's N_GROUPS, N_ROWS, UDF_ROWS
+HOST_REPS = 5  # host_path: the 1m cell's median of 5 calls, after the checked one
+HOST_RTOL, HOST_ATOL = 1e-5, 1e-8
+
+
+def host_udfs(pd) -> dict:
+    """bench.py's config #1 UDF, as it writes it: pandas in, pandas out."""
+
+    def demean(df: pd.DataFrame) -> pd.DataFrame:
+        df["v"] = df["v"] - df["v"].mean()
+        return df
+
+    return {"demean": demean}
+
+
+def udf_frame(np, pd):
+    """bench.py's ``_make_frame`` (``default_rng(42)``, ``k`` uniform over
+    1,000 groups, ``v`` uniform float64) cut to its ``UDF_ROWS``."""
+    rng = np.random.default_rng(42)
+    pdf = pd.DataFrame({"k": rng.integers(0, UDF_GROUPS, UDF_FRAME_ROWS),
+                        "v": rng.random(UDF_FRAME_ROWS)})
+    return pdf.iloc[:UDF_ROWS]
+
+
+def check_demean(np, cell: str, got_k, got_v, k, v, torch=None) -> None:
+    """``v − mean[k]`` in float64 numpy, ``rtol=1e-5, atol=1e-8``; the keys
+    and the row count exact. The host map's row order inside a group is
+    its sort's, so both sides are compared in (key, value) order. With
+    ``torch``, ``got_k`` and ``got_v`` are tensors and the two sorts run
+    on their device (10^8 rows: milliseconds on the card, tens of seconds
+    on a host core); the oracle's arithmetic stays numpy's."""
+    require(len(got_k) == len(k), f"{cell}: {len(got_k)} rows, expected {len(k)}")
+    groups = int(k.max()) + 1 if len(k) else 0
+    mean = np.bincount(k, weights=v, minlength=groups) / np.maximum(np.bincount(k, minlength=groups), 1)
+    exp = v - mean[k]
+    if torch is None:
+        g, e = _order_by(np, got_k, got_v), _order_by(np, k, exp)
+        ok_k = np.array_equal(got_k[g], k[e])
+        ok_v = np.allclose(got_v[g], exp[e], rtol=HOST_RTOL, atol=HOST_ATOL)
+    else:
+        k_t, exp_t = torch.from_numpy(k).to(got_k.device), torch.from_numpy(exp).to(got_k.device)
+        g, e = _order_by_t(torch, got_k, got_v), _order_by_t(torch, k_t, exp_t)
+        ok_k = bool(torch.equal(got_k[g], k_t[e]))
+        ok_v = bool(torch.allclose(got_v[g], exp_t[e], rtol=HOST_RTOL, atol=HOST_ATOL))
+    require(ok_k, f"{cell}: keys")
+    require(ok_v, f"{cell}: v vs float64 oracle")
+
+
+def _order_by_t(torch, group, within):
+    """``_order_by`` of two tensors, on their device."""
+    o = torch.argsort(within)
+    return o[torch.argsort(group[o], stable=True)]
+
+
+def _copy_split(profile: dict, engine_span: str) -> dict:
+    """The host-path call's host time in the engine's three steps: the
+    copy to the host (``fugue::to_host``), the pandas work and the copy
+    back with its encoding (``fugue::to_device``)."""
+    spans = profile["host_spans_ms"]
+    return {"d2h_ms": spans.get("fugue::to_host"), "pandas_ms": spans.get(engine_span),
+            "h2d_ms": spans.get("fugue::to_device")}
+
+
+class _Calls:
+    """Counts the calls of ``obj.name`` (an instance attribute shadows the
+    method until ``restore``)."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.count = obj, name, 0
+        orig = getattr(obj, name)
+
+        def counted(*args, **kwargs):
+            self.count += 1
+            return orig(*args, **kwargs)
+
+        setattr(obj, name, counted)
+
+    def restore(self) -> None:
+        delattr(self.obj, self.name)
+
+
+def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: int, rows: int,
+                    orders: int, compiled_ms=None) -> dict:
+    """The host engine behind the device engine, one line a cell:
+    ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
+    pandas in, pandas out, median of ``HOST_REPS`` calls; and a round trip
+    through parquet, ``engine.load_df``, the transform and
+    ``engine.save_df``), ``pandas-demean-100m`` (the same UDF over
+    transform_path's ``demean-dense`` frame of ``rows`` rows already on the
+    card, beside the compiled map's time ``compiled_ms``) and
+    ``orders-lineitem-expand-sf10`` (``orders`` orders inner their lines,
+    past ``MAX_EXPAND_ROWS``: the join the JAX engine makes on its host).
+    Each is held against a host oracle with its kernel launches counted
+    from 0, timed, and traced once (idle share, device operations, and the
+    D2H, pandas and H2D steps apart)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import pyarrow.parquet as pq
+
+    out = {"phase": "host_path", "cells": {},
+           "checks": f"keys and row counts exact; values rtol={HOST_RTOL} atol={HOST_ATOL} vs "
+                     "float64 oracle; the expansion's row set exact"}
+    demean = host_udfs(pd)["demean"]
+
+    def emit_cell(cell: str, line: dict) -> None:
+        line = {"phase": "host_path", "cell": cell, **line}
+        emit(line)
+        out["cells"][cell] = line
+
+    # pandas-demean-1m: pandas in, pandas out
+    pdf = udf_frame(np, pd)
+    k, v = pdf["k"].to_numpy(), pdf["v"].to_numpy()
+
+    def udf_call():
+        return api.transform(pdf, demean, schema="*", partition={"by": ["k"]}, engine=engine)
+
+    maps = _Calls(engine.map_engine._host_map, "map_dataframe")
+    res, line = _first_call(torch, bg, udf_call)
+    require(maps.count == 1, "pandas-demean-1m: not the host map")
+    maps.restore()
+    require(isinstance(res, pd.DataFrame), "pandas-demean-1m: pandas in, pandas out")
+    check_demean(np, "pandas-demean-1m", res["k"].to_numpy(), res["v"].to_numpy(), k, v)
+    del res
+    wall = []
+    for _ in range(HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        udf_call()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(wall)
+    profile = _trace(torch, udf_call)
+    tmp = Path(tempfile.mkdtemp(prefix=".host_path_", dir=Path(__file__).resolve().parent))
+    try:
+        pq.write_table(pa.Table.from_pandas(pdf, preserve_index=False), tmp / "in.parquet")
+        t0 = time.perf_counter()
+        loaded = engine.load_df(str(tmp / "in.parquet"))
+        mapped = api.transform(loaded, demean, schema="*", partition={"by": ["k"]}, engine=engine,
+                               as_fugue=True)
+        engine.save_df(mapped, str(tmp / "out.parquet"))
+        back = pq.read_table(tmp / "out.parquet")
+        round_trip_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    require(type(loaded).__name__ == "TorchDataFrame" and loaded.device == engine.device,
+            "pandas-demean-1m: load_df not on the card")
+    require(back.schema.names == ["k", "v"], f"pandas-demean-1m: round trip columns {back.schema.names}")
+    check_demean(np, "pandas-demean-1m round trip", back.column("k").to_numpy(),
+                 back.column("v").to_numpy(), k, v)
+    line.update(rows=len(pdf), groups=UDF_GROUPS, ms=ms, ms_all=wall, rows_per_s=len(pdf) / ms * 1e3,
+                copies_bytes={"d2h": 16 * len(pdf), "h2d": 16 * len(pdf)},
+                split=_copy_split(profile, "fugue::host_map"), profile=profile,
+                round_trip_s=round_trip_s)
+    emit_cell("pandas-demean-1m", line)
+    del pdf, k, v, loaded, mapped, back
+
+    # pandas-demean-100m: the frame already on the card
+    t0 = time.perf_counter()
+    cols, schema, _ = transform_frame(np, "bench", rows, seed)
+    generate_s = time.perf_counter() - t0
+    tdf = engine.persist(frame_from_numpy(cols, schema, nan_cols=(), device=engine.device))
+
+    def big_call():
+        return api.transform(tdf, demean, schema="*", partition={"by": ["k"]}, engine=engine,
+                             as_fugue=True)
+
+    res, line = _first_call(torch, bg, big_call)
+    require(res.valid_mask is None and res.count() == rows, "pandas-demean-100m: rows")
+    check_demean(np, "pandas-demean-100m", res.device_cols["k"], res.device_cols["v"],
+                 cols["k"], cols["v"], torch=torch)
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big_call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    # one call is long enough to trace alone: a tiny op is the warm-up step
+    profile = _trace(torch, big_call, warm_up=lambda: torch.ones(1, device=engine.device) + 1)
+    line.update(rows=rows, groups=TRANSFORM_KEYS, generate_s=generate_s, ms=ms, rows_per_s=rows / ms * 1e3,
+                compiled_ms=compiled_ms, copies_bytes={"d2h": 16 * rows, "h2d": 16 * rows},
+                split=_copy_split(profile, "fugue::host_map"), profile=profile)
+    emit_cell("pandas-demean-100m", line)
+    del tdf, cols
+    torch.cuda.empty_cache()
+
+    # orders-lineitem-expand-sf10: past MAX_EXPAND_ROWS, the host join
+    t0 = time.perf_counter()
+    tbl, aux = make_lineitem(np, pa, seed, orders)
+    otbl, oaux = make_orders(np, pa, tbl, aux, seed)
+    oaux["totalprice"] = otbl.column("o_totalprice").to_numpy()
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lineitem = engine.persist(engine.to_df(tbl))
+    odf = engine.persist(engine.to_df(otbl))
+    ingest_s = time.perf_counter() - t0
+
+    def join_call():
+        return api.join(odf, lineitem, how="inner", on=["l_orderkey"], engine=engine)
+
+    joins = _Calls(engine._host_engine, "join")
+    res, line = _first_call(torch, bg, join_call)
+    require(joins.count == 1, "orders-lineitem-expand-sf10: not the host join")
+    joins.restore()
+    check_expand(np, pa, res, tbl, aux, oaux)
+    rows_out = res.count()
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    join_call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    profile = _trace(torch, join_call, warm_up=lambda: torch.ones(1, device=engine.device) + 1)
+    d2h = _tensor_bytes(_frame_tensors(odf)) + _tensor_bytes(_frame_tensors(lineitem))
+    line.update(plan="host", rows_in=[odf.count(), lineitem.count()], rows_out=rows_out,
+                generate_s=generate_s, ingest_s=ingest_s, ms=ms, left_rows_per_s=odf.count() / ms * 1e3,
+                copies_bytes={"d2h": d2h}, split=_copy_split(profile, "fugue::host_join"),
+                profile=profile)
+    emit_cell("orders-lineitem-expand-sf10", line)
+    del lineitem, odf, tbl, otbl
     torch.cuda.empty_cache()
     return out
 
@@ -1457,6 +1735,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     join_path = phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, args.seed,
                                 args.rows, args.orders, args.expand_orders)
+    torch.cuda.empty_cache()
+    host_path = phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, args.seed, args.rows,
+                                args.orders, transform_path["cells"]["demean-dense"]["transform_ms"])
     del engine
     torch.cuda.empty_cache()
     stream_path = phase_stream_path(torch, np, pd, bg, api, ff, col, None, args.seed,
@@ -1470,6 +1751,7 @@ def main() -> int:
                    "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
+                   "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
                    "stream_path": {c: r["launches"][name] for c, r in stream_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
@@ -1486,7 +1768,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
-            + sum(by_path["stream_path"].values()),
+            + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

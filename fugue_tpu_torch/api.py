@@ -1,4 +1,5 @@
-"""User-facing functions of the port, mirroring ``fugue_tpu/execution/api.py``.
+"""User-facing functions of the port, mirroring ``fugue_tpu/execution/api.py``
+and ``fugue_tpu/workflow/api.py`` (``transform``, ``out_transform``).
 
 ``engine`` is ``None``, ``"torch"`` or its alias ``"cuda"`` (a new
 :class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device`` with
@@ -16,9 +17,10 @@ import pyarrow as pa
 from .collections.partition import PartitionSpec
 from .column.expressions import ColumnExpr
 from .dataframe import DataFrame
-from .exceptions import FugueInvalidOperation
+from .dataframe.api import get_native_as_df
 from .execution.execution_engine import ExecutionEngine
-from .schema import Schema
+from .extensions._builtins.processors import run_transformer
+from .extensions.transformer.convert import _to_output_transformer, _to_transformer
 from .torch.execution_engine import TorchExecutionEngine
 from .torch.streaming import is_stream_frame
 
@@ -67,47 +69,109 @@ def aggregate(
 
 def transform(
     df: Any,
-    using: Callable,
+    using: Any,
     schema: Any = None,
     params: Any = None,
     partition: Any = None,
+    callback: Any = None,
+    ignore_errors: Optional[List[Any]] = None,
     engine: Any = None,
     device: Any = None,
     as_fugue: bool = False,
+    as_local: bool = False,
 ) -> Any:
-    """Run the device transformer ``using`` (annotated ``Dict[str,
-    torch.Tensor] -> Dict[str, torch.Tensor]``) over ``df``, grouped by
-    ``partition`` (a dict such as ``{"by": ["k"], "presort": "t desc"}``,
-    a ``PartitionSpec``, or a key name or list of names), into a frame of
-    ``schema`` (an explicit schema expression)::
+    """Run the transformer ``using`` over ``df``, grouped by ``partition``
+    (a dict such as ``{"by": ["k"], "presort": "t desc"}``, a
+    ``PartitionSpec``, a number of partitions, or a key name or list of
+    names), into a frame of ``schema`` (an expression, where ``*`` is the
+    input's columns; or a ``# schema:`` comment above the function)::
 
-        transform(df, demean, schema="k:long,v:double,d:double",
-                  partition={"by": ["k"]}, engine="torch")
+        transform(pdf, demean, schema="*", partition={"by": ["k"]}, engine="torch")
 
-    Any other transformer raises ``NotImplementedError`` (the JAX package
-    runs it on its host engine; ROADMAP.md A.4b). ``params`` are refused:
-    a compiled transformer takes its columns only (the JAX package drops
-    them silently, ROADMAP.md C4). The result follows ``aggregate``'s
-    rule for its type."""
-    if params:
-        raise FugueInvalidOperation(
-            f"params {sorted(params)} given to a compiled transformer, which takes "
-            "its columns only (ROADMAP.md C4)"
-        )
-    if schema is None or (isinstance(schema, str) and "*" in schema):
+    ``using`` is a function annotated with frames (``pd.DataFrame``,
+    ``pa.Table``, ``List[List[Any]]``, ``List[Dict[str, Any]]``, their
+    iterables, ``LocalDataFrame``), a ``@transformer`` function, a
+    ``Transformer`` class or instance, or a device function annotated
+    ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``. The device
+    function runs compiled on the engine's device; any other runs on the
+    engine's host engine once a partition, the frame moved to the host and
+    the result back onto the device. ``params`` go to the function's other
+    parameters (a compiled function refuses them, ROADMAP.md C4); an
+    exception of a type in ``ignore_errors`` empties its partition's
+    output. ``callback`` is not ported (ROADMAP.md A.10). The result is a
+    frame of the engine (local with ``as_local``) when ``as_fugue`` or when
+    ``df`` is one; otherwise it has the input's type (pandas or arrow)."""
+    res = _run(df, lambda: _to_transformer(using, schema), params, partition, callback,
+               ignore_errors, engine, device)
+    return _adjust_result(res.as_local() if as_local else res, df, as_fugue)
+
+
+def out_transform(
+    df: Any,
+    using: Any,
+    params: Any = None,
+    partition: Any = None,
+    callback: Any = None,
+    ignore_errors: Optional[List[Any]] = None,
+    engine: Any = None,
+    device: Any = None,
+) -> None:
+    """Run the output transformer ``using`` over ``df`` for its side
+    effects (``transform``'s arguments; a function may return nothing)."""
+    res = _run(df, lambda: _to_output_transformer(using), params, partition, callback,
+               ignore_errors, engine, device)
+    # touch the result, so a lazy one runs
+    res.count() if res.is_bounded else res.as_local_bounded()
+
+
+def load(
+    path: Any, format_hint: Any = None, columns: Any = None, engine: Any = None,
+    device: Any = None, **kwargs: Any,
+) -> Any:
+    """The files at ``path`` (parquet, csv or json; a glob, a directory or
+    a list of paths), read on the host, as a frame of the engine."""
+    e = make_execution_engine(engine, device)
+    return e.load_df(path, format_hint=format_hint, columns=columns, **kwargs)
+
+
+def save(
+    df: Any, path: str, format_hint: Any = None, mode: str = "overwrite", partition: Any = None,
+    force_single: bool = False, engine: Any = None, device: Any = None, **kwargs: Any,
+) -> None:
+    """Write ``df`` to ``path`` (parquet, csv or json; ``mode`` overwrite,
+    append or error; ``partition`` keys: hive-partitioned parquet)."""
+    e = make_execution_engine(engine, device)
+    e.save_df(
+        e.to_df(df), path, format_hint=format_hint, mode=mode,
+        partition_spec=None if partition is None else _partition_spec(partition),
+        force_single=force_single, **kwargs,
+    )
+
+
+def _run(
+    df: Any, make_transformer: Callable[[], Any], params: Any, partition: Any, callback: Any,
+    ignore_errors: Optional[List[Any]], engine: Any, device: Any,
+) -> DataFrame:
+    """The transformer's run over ``df`` as the engine holds it (the JAX
+    package's workflow puts it on the device; a one-pass stream stays as
+    it is)."""
+    if callback is not None:
         raise NotImplementedError(
-            f"output schema {schema!r}: a compiled transformer needs an explicit "
-            "schema; `*` expressions are not ported (ROADMAP.md A.4b)"
+            "transformer callbacks need the RPC server, which is not ported (ROADMAP.md A.10)"
         )
     e = make_execution_engine(engine, device)
+    return run_transformer(
+        e, df if is_stream_frame(df) else e.to_df(df), make_transformer(), params=params,
+        partition_spec=_partition_spec(partition), ignore_errors=ignore_errors,
+    )
+
+
+def _partition_spec(partition: Any) -> PartitionSpec:
     if partition is None:
-        spec = PartitionSpec()
-    elif isinstance(partition, (PartitionSpec, dict)):
-        spec = PartitionSpec(partition)
-    else:
-        spec = PartitionSpec(by=partition)
-    res = e.map_engine.map_dataframe(df, using, Schema(schema), spec)
-    return _adjust_result(res, df, as_fugue)
+        return PartitionSpec()
+    if isinstance(partition, (PartitionSpec, dict, int)):
+        return PartitionSpec(partition)
+    return PartitionSpec(by=partition)
 
 
 def join(
@@ -184,4 +248,4 @@ def _adjust_result(res: DataFrame, df: Any, as_fugue: bool) -> Any:
         return res.as_arrow()
     if isinstance(df, pd.DataFrame):
         return res.as_pandas()
-    return res
+    return get_native_as_df(res)

@@ -1,3 +1,3 @@
-from .partition import PartitionSpec, PartitionSpecError, parse_presort_exp
+from .partition import PartitionCursor, PartitionSpec, PartitionSpecError, parse_presort_exp
 
-__all__ = ["PartitionSpec", "PartitionSpecError", "parse_presort_exp"]
+__all__ = ["PartitionCursor", "PartitionSpec", "PartitionSpecError", "parse_presort_exp"]

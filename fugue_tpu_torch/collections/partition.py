@@ -1,19 +1,36 @@
-"""``PartitionSpec``, copied from ``fugue_tpu/collections/partition.py``
-and trimmed to its keys (``by``) and its presort (``presort``): the parts
-of a spec that the ported ``aggregate`` and ``transform`` read. The other
-fields of the JAX package's spec (``algo``, ``num``) steer repartitioning,
-which the port does not have yet; asking for them raises
-``NotImplementedError``.
+"""``PartitionSpec`` and ``PartitionCursor``, copied from
+``fugue_tpu/collections/partition.py``: a spec's keys (``by``), presort
+(``presort``) and partition count (``num``, an expression over
+``ROWCOUNT`` and ``CONCURRENCY``), and the cursor a transformer reads its
+partition's keys from. ``num`` splits a keyless host map into that many
+contiguous partitions, as the JAX package's host engine does. The spec's
+``algo`` steers a repartition, which the port does not have yet: asking
+for it raises ``NotImplementedError`` (ROADMAP.md A.7).
 
-On one device the port needs no exchange: where the JAX package's keyed map
-asks for ``algo="hash"`` to bring every group onto one shard, every group
-is already whole on the one device, and the port skips it."""
+On one device the port needs no exchange: where the JAX package's keyed
+map asks for ``algo="hash"`` to bring every group onto one shard, every
+group is already whole on the one device."""
 
-from typing import Any, Dict, List
+import ast
+import operator
+from typing import Any, Callable, Dict, List
 
 from .._utils.assertion import assert_or_throw
 from .._utils.params import IndexedOrderedDict
 from ..exceptions import FugueTPUError
+
+KEYWORD_ROWCOUNT = "ROWCOUNT"
+KEYWORD_CONCURRENCY = "CONCURRENCY"
+_OPS: Dict[type, Callable] = {
+    ast.Add: operator.add,
+    ast.Sub: operator.sub,
+    ast.Mult: operator.mul,
+    ast.Div: operator.truediv,
+    ast.FloorDiv: operator.floordiv,
+    ast.Mod: operator.mod,
+    ast.Pow: operator.pow,
+    ast.USub: operator.neg,
+}
 
 
 class PartitionSpecError(FugueTPUError):
@@ -67,35 +84,59 @@ def parse_presort_exp(presort: Any) -> IndexedOrderedDict:
     return res
 
 
+def _eval_num(expr: str, variables: Dict[str, int]) -> int:
+    """A partition-number expression such as ``ROWCOUNT/4 + 1``."""
+
+    def ev(node: ast.AST) -> Any:
+        if isinstance(node, ast.Expression):
+            return ev(node.body)
+        if isinstance(node, ast.Constant) and isinstance(node.value, (int, float)):
+            return node.value
+        if isinstance(node, ast.Name) and node.id in variables:
+            return variables[node.id]
+        if isinstance(node, ast.BinOp) and type(node.op) in _OPS:
+            return _OPS[type(node.op)](ev(node.left), ev(node.right))
+        if isinstance(node, ast.UnaryOp) and type(node.op) in _OPS:
+            return _OPS[type(node.op)](ev(node.operand))
+        raise PartitionSpecError(f"invalid partition number expression {expr!r}")
+
+    return int(ev(ast.parse(expr, mode="eval")))
+
+
 class PartitionSpec:
-    """The grouping keys of an operation and the order inside each group.
+    """The grouping keys of an operation, the order inside each group, and
+    the number of partitions of a keyless map.
 
     Examples::
 
         PartitionSpec(by=["a"])
         PartitionSpec(by="a", presort="b desc")
         PartitionSpec({"by": ["a", "b"]})
+        PartitionSpec(num="ROWCOUNT/2")
+        PartitionSpec(4)                      # num=4
         PartitionSpec(spec1)                  # a copy of another spec
     """
 
     def __init__(self, *args: Any, **kwargs: Any):
         params: Dict[str, Any] = {}
-        for a in args:
+        for a in list(args) + [kwargs]:
             if a is None:
                 continue
             if isinstance(a, PartitionSpec):
-                params.update(a.jsondict)
-            elif isinstance(a, dict):
-                params.update(a)
-            else:
+                a = a.jsondict
+            elif isinstance(a, int) and not isinstance(a, bool):
+                a = {"num": a}
+            elif not isinstance(a, dict):
                 raise PartitionSpecError(f"can't initialize PartitionSpec with {a!r}")
-        params.update(kwargs)
-        extra = sorted(k for k in params if k not in ("by", "presort"))
+            for k, v in a.items():
+                params[{"partition_by": "by", "num_partitions": "num"}.get(k, k)] = v
+        extra = sorted(k for k in params if k not in ("by", "presort", "num"))
         if len(extra) > 0:
             raise NotImplementedError(
                 f"PartitionSpec fields {extra} are not ported yet; the port "
-                "reads only `by` and `presort` (ROADMAP.md A.7 repartition)"
+                "reads `by`, `presort` and `num` (ROADMAP.md A.7 repartition)"
             )
+        self._num = str(params.get("num", "0"))
         by = params.get("by", [])
         self._by: List[str] = [by] if isinstance(by, str) else [str(x) for x in by]
         assert_or_throw(
@@ -108,6 +149,19 @@ class PartitionSpec:
             len(overlap) == 0,
             lambda: PartitionSpecError(f"presort keys {overlap} overlap partition keys"),
         )
+
+    def get_num_partitions(self, **expr_map_funcs: Callable[[], int]) -> int:
+        """The partition-number expression's value: ``expr_map_funcs`` maps
+        each keyword (``ROWCOUNT``, ``CONCURRENCY``) to a callable, called
+        only when the keyword appears."""
+        expr = self._num.strip()
+        if expr == "":
+            return 0
+        try:
+            return int(expr)
+        except ValueError:
+            variables = {k: int(f()) for k, f in expr_map_funcs.items() if k in expr}
+            return _eval_num(expr, variables)
 
     @property
     def partition_by(self) -> List[str]:
@@ -123,7 +177,7 @@ class PartitionSpec:
 
     @property
     def jsondict(self) -> Dict[str, Any]:
-        return {"by": self.partition_by, "presort": self.presort_expr}
+        return {"num": self._num, "by": self.partition_by, "presort": self.presort_expr}
 
     def get_sorts(self, schema: Any, with_partition_keys: bool = True) -> IndexedOrderedDict:
         """Full sort map for a physical partition: partition keys (ascending)
@@ -144,5 +198,70 @@ class PartitionSpec:
             res[k] = v
         return res
 
+    def get_key_schema(self, schema: Any) -> Any:
+        """The sub-schema of the partition keys."""
+        return schema.extract(self._by)
+
+    def get_cursor(self, schema: Any, physical_partition_no: int) -> "PartitionCursor":
+        return PartitionCursor(schema, self, physical_partition_no)
+
     def __repr__(self) -> str:
         return f"PartitionSpec(by={self._by!r}, presort={self.presort_expr!r})"
+
+
+class PartitionCursor:
+    """The cursor over the logical partitions of one physical partition
+    (``fugue_tpu/collections/partition.py`` :404): the current partition's
+    number and first row, and from it the key values. The row is read only
+    when asked for: most transformers never look."""
+
+    def __init__(self, schema: Any, spec: PartitionSpec, physical_partition_no: int):
+        self._schema = schema
+        self._spec = spec
+        self._physical_no = physical_partition_no
+        self._key_index = [schema.index_of_key(k) for k in spec.partition_by]
+        self._item: Any = None
+        self._item_factory: Any = None
+        self._partition_no = 0
+        self._slice_no = 0
+
+    def set(self, item: Any, partition_no: int, slice_no: int) -> None:
+        """``item``: the first row, or a callable that returns it."""
+        self._item_factory, self._item = (item, None) if callable(item) else (None, item)
+        self._partition_no = partition_no
+        self._slice_no = slice_no
+
+    @property
+    def row(self) -> List[Any]:
+        if self._item is None and self._item_factory is not None:
+            self._item = self._item_factory()
+            self._item_factory = None
+        return self._item
+
+    @property
+    def partition_no(self) -> int:
+        return self._partition_no
+
+    @property
+    def physical_partition_no(self) -> int:
+        return self._physical_no
+
+    @property
+    def slice_no(self) -> int:
+        return self._slice_no
+
+    @property
+    def row_schema(self) -> Any:
+        return self._schema
+
+    @property
+    def key_schema(self) -> Any:
+        return self._schema.extract(self._spec.partition_by)
+
+    @property
+    def key_value_array(self) -> List[Any]:
+        return [self.row[i] for i in self._key_index]
+
+    @property
+    def key_value_dict(self) -> Dict[str, Any]:
+        return {self._schema.names[i]: self.row[i] for i in self._key_index}

@@ -1,6 +1,7 @@
 """Configuration keys of the port, copied from ``fugue_tpu/constants.py``
-(:131-140) and trimmed to the streaming keys. The names are the JAX
-package's, so one conf dict drives either engine."""
+(:131-140, :41) and trimmed to the streaming keys and the host map's
+pool. The names are the JAX package's, so one conf dict drives either
+engine."""
 
 # rows per host→device chunk of a stream; the device working set is
 # O(chunk_rows × columns), not O(stream)
@@ -13,3 +14,8 @@ FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH = "fugue.tpu.stream.prefetch_depth"
 # without it the range is probed from the first chunk, and a later key
 # outside it raises (a one-pass stream cannot be read again)
 FUGUE_TPU_CONF_STREAM_KEY_RANGE = "fugue.tpu.stream.key_range"
+# processes of the host map's forked pool (the JAX package's default, -1,
+# sizes it by the engine's parallelism, 1 on one device). The pool is not
+# ported (ROADMAP.md A.10): the map runs serially, and a value above 1
+# raises
+FUGUE_TPU_CONF_MAP_PARALLELISM = "fugue.tpu.map.parallelism"

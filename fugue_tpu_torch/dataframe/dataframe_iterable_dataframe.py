@@ -1,13 +1,16 @@
 """LocalDataFrameIterableDataFrame, copied from
-``fugue_tpu/dataframe/dataframe_iterable_dataframe.py`` (:23) and trimmed
-to what the streaming paths use: one pass over local frames."""
+``fugue_tpu/dataframe/dataframe_iterable_dataframe.py`` (:23): a one-pass
+stream of local frames, with the pandas and arrow streams of the
+transformers' ``Iterable[pd.DataFrame]`` and ``Iterable[pa.Table]``
+outputs (:202, :207)."""
 
 import itertools
-from typing import Any, Iterable, Iterator
+from typing import Any, Iterable, Iterator, List, Optional
 
 import pandas as pd
 import pyarrow as pa
 
+from .._utils.iter import EmptyAwareIterable, make_empty_aware
 from ..exceptions import FugueDataFrameInitError
 from ..schema import Schema
 from .arrow_dataframe import ArrowDataFrame
@@ -20,7 +23,7 @@ class LocalDataFrameIterableDataFrame(LocalUnboundedDataFrame):
     ``LocalDataFrame``, ``pd.DataFrame`` or ``pa.Table`` chunks (a pandas
     or arrow chunk is cast to ``schema``). Without ``schema`` the first
     chunk's is taken, and the iterable must not be empty. ``native`` is
-    the iterator of chunks; reading it consumes the stream."""
+    the chunks, empty-aware; reading it consumes the stream."""
 
     def __init__(self, df: Any = None, schema: Any = None):
         if df is not None and not isinstance(df, Iterable):
@@ -35,7 +38,7 @@ class LocalDataFrameIterableDataFrame(LocalUnboundedDataFrame):
                 raise FugueDataFrameInitError("schema is required when the iterable can be empty")
             s = first.schema
             it = itertools.chain([first], it)
-        self._native = it
+        self._native: EmptyAwareIterable[LocalDataFrame] = make_empty_aware(it)
         super().__init__(s)
 
     @staticmethod
@@ -51,8 +54,17 @@ class LocalDataFrameIterableDataFrame(LocalUnboundedDataFrame):
                 raise FugueDataFrameInitError(f"invalid chunk type {type(x)}")
 
     @property
-    def native(self) -> Iterator[LocalDataFrame]:
+    def native(self) -> EmptyAwareIterable[LocalDataFrame]:
         return self._native
+
+    @property
+    def empty(self) -> bool:
+        # as in the reference, only the head chunk is looked at (one pass)
+        return self._native.empty or self._native.peek().empty
+
+    def peek_array(self) -> List[Any]:
+        self.assert_not_empty()
+        return self._native.peek().peek_array()
 
     def as_local_bounded(self) -> LocalBoundedDataFrame:
         """The rest of the stream as one frame (this consumes it)."""
@@ -61,7 +73,9 @@ class LocalDataFrameIterableDataFrame(LocalUnboundedDataFrame):
             return ArrowDataFrame(None, self.schema)
         if all(isinstance(f, PandasDataFrame) and f.schema == self.schema for f in chunks):
             return PandasDataFrame(
-                pd.concat([f.native for f in chunks], ignore_index=True), self.schema
+                pd.concat([f.native for f in chunks], ignore_index=True),
+                self.schema,
+                pandas_df_wrapper=True,
             )
         target = self.schema.pa_schema
         tables = [f.as_arrow() for f in chunks]
@@ -69,8 +83,27 @@ class LocalDataFrameIterableDataFrame(LocalUnboundedDataFrame):
             pa.concat_tables([t if t.schema.equals(target) else t.cast(target) for t in tables])
         )
 
+    def as_array_iterable(
+        self, columns: Optional[List[str]] = None, type_safe: bool = False
+    ) -> Iterable[List[Any]]:
+        for f in self._native:
+            yield from f.as_array_iterable(columns, type_safe=type_safe)
+
+    def as_array(
+        self, columns: Optional[List[str]] = None, type_safe: bool = False
+    ) -> List[List[Any]]:
+        return list(self.as_array_iterable(columns, type_safe=type_safe))
+
     def as_pandas(self) -> pd.DataFrame:
         return self.as_local_bounded().as_pandas()
 
     def as_arrow(self) -> pa.Table:
         return self.as_local_bounded().as_arrow()
+
+
+class IterablePandasDataFrame(LocalDataFrameIterableDataFrame):
+    """A stream of pandas chunks."""
+
+
+class IterableArrowDataFrame(LocalDataFrameIterableDataFrame):
+    """A stream of arrow chunks."""

@@ -1,0 +1,45 @@
+"""DataFrames, copied from ``fugue_tpu/dataframe/dataframes.py`` (:9): an
+ordered, named collection of frames, read-only once built (``_0``,
+``_1``, ... for frames given without names). The port has no
+cotransformers yet (ROADMAP.md A.8): the type marks a function of
+several frames, which the transformer layer refuses."""
+
+from typing import Any, Dict
+
+from .._utils.params import IndexedOrderedDict
+from ..exceptions import FugueDataFrameInitError
+from .dataframe import DataFrame
+
+
+class DataFrames(IndexedOrderedDict):
+    def __init__(self, *args: Any, **kwargs: Any):
+        super().__init__()
+        for a in args:
+            self._append(a)
+        for k, v in kwargs.items():
+            self[k] = v
+        self.set_readonly()
+
+    def _append(self, obj: Any) -> None:
+        if obj is None:
+            return
+        if isinstance(obj, DataFrame):
+            self[f"_{len(self)}"] = obj
+        elif isinstance(obj, Dict):
+            for k, v in obj.items():
+                self[k] = v
+        elif isinstance(obj, (list, tuple)):
+            for x in obj:
+                self._append(x)
+        else:
+            raise FugueDataFrameInitError(f"can't add {type(obj)} to DataFrames")
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        if not isinstance(value, DataFrame):
+            raise FugueDataFrameInitError(f"{key} value must be a DataFrame")
+        super().__setitem__(key, value)
+
+    def __getitem__(self, key: Any) -> DataFrame:  # type: ignore
+        if isinstance(key, int):
+            return self.get_value_by_index(key)
+        return super().__getitem__(key)

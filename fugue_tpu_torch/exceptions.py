@@ -20,5 +20,28 @@ class FugueDataFrameOperationError(FugueDataFrameError):
     """An operation on a DataFrame (rename/alter/head/...) is invalid."""
 
 
+class FugueDatasetEmptyError(FugueDataFrameError):
+    """Operation requires a non-empty frame (e.g. ``peek``)."""
+
+
+FugueDataFrameEmptyError = FugueDatasetEmptyError
+
+
+class FugueWorkflowError(FugueTPUError):
+    """Errors of a transformer's run."""
+
+
+class FugueWorkflowCompileValidationError(FugueWorkflowError):
+    """A partition spec breaks a transformer's validation rules."""
+
+
+class FugueWorkflowRuntimeValidationError(FugueWorkflowError):
+    """An input schema breaks a transformer's validation rules."""
+
+
+class FugueInterfacelessError(FugueTPUError):
+    """A function can't be adapted into an extension by its annotations."""
+
+
 class FugueInvalidOperation(FugueTPUError):
     """The requested operation is not allowed in the current state."""

@@ -1,3 +1,4 @@
 from .execution_engine import ExecutionEngine, MapEngine
+from .native_execution_engine import NativeExecutionEngine, PandasMapEngine
 
-__all__ = ["ExecutionEngine", "MapEngine"]
+__all__ = ["ExecutionEngine", "MapEngine", "NativeExecutionEngine", "PandasMapEngine"]

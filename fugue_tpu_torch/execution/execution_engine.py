@@ -1,20 +1,28 @@
-"""ExecutionEngine and MapEngine ABCs, trimmed from
-``fugue_tpu/execution/execution_engine.py`` to the verbs the port has:
-``to_df``, ``persist``, ``aggregate``, ``join``, ``union`` and the map
-behind ``transform``."""
+"""ExecutionEngine and MapEngine ABCs, copied from
+``fugue_tpu/execution/execution_engine.py`` and trimmed to the verbs the
+port's engines have: ``to_df``, ``persist``, the map behind ``transform``
+(``MapEngine.map_dataframe`` :276, with ``on_init`` and the format hint),
+``aggregate``, ``join``, the set operations, ``distinct``, ``dropna``,
+``fillna``, ``sample``, ``take``, ``load_df`` and ``save_df``.
+
+A verb an engine does not implement raises ``NotImplementedError``: the
+host engine (``NativeExecutionEngine``) has all of them but ``aggregate``,
+whose host form goes with ROADMAP.md A.8; the device engine has the ones
+it runs and those it hands to its host engine where the JAX engine does."""
 
 from abc import ABC, abstractmethod
 from typing import Any, Callable, List, Optional
 
-from ..collections.partition import PartitionSpec
+from .._utils.params import ParamDict
+from ..collections.partition import PartitionCursor, PartitionSpec
 from ..column.expressions import ColumnExpr
-from ..dataframe import DataFrame
+from ..dataframe import DataFrame, LocalDataFrame
+
+_VERBS = "ROADMAP.md A.8 remaining verbs"
 
 
 class MapEngine(ABC):
-    """Runs a transformer over the partitions of a frame. The port's map
-    takes the transformer itself (no function-wrapper runner, no
-    ``on_init``, no format hint): only device-compiled functions run."""
+    """Runs a function over the logical partitions of a frame."""
 
     def __init__(self, execution_engine: "ExecutionEngine"):
         self._execution_engine = execution_engine
@@ -23,21 +31,44 @@ class MapEngine(ABC):
     def execution_engine(self) -> "ExecutionEngine":
         return self._execution_engine
 
+    @property
+    def conf(self) -> ParamDict:
+        return self._execution_engine.conf
+
+    def to_df(self, df: Any, schema: Any = None) -> DataFrame:
+        return self._execution_engine.to_df(df, schema)
+
     @abstractmethod
     def map_dataframe(
         self,
         df: DataFrame,
-        map_func: Callable,
+        map_func: Callable[[PartitionCursor, LocalDataFrame], LocalDataFrame],
         output_schema: Any,
         partition_spec: PartitionSpec,
+        on_init: Optional[Callable[[int, DataFrame], Any]] = None,
+        map_func_format_hint: Optional[str] = None,
     ) -> DataFrame:
-        """Apply ``map_func`` to ``df`` grouped by ``partition_spec``; the
-        result has ``output_schema``."""
+        """Apply ``map_func(cursor, partition)`` to each logical partition
+        of ``df`` under ``partition_spec``; the result has
+        ``output_schema``. ``on_init(0, df)`` runs once first."""
         raise NotImplementedError
 
 
 class ExecutionEngine(ABC):
-    """The contract every engine of the port implements."""
+    """The contract every engine of the port implements. ``conf`` takes
+    the keys of ``fugue_tpu_torch/constants.py``."""
+
+    def __init__(self, conf: Any = None):
+        self._conf = ParamDict(conf)
+
+    @property
+    def conf(self) -> ParamDict:
+        return self._conf
+
+    def get_current_parallelism(self) -> int:
+        """The engine's concurrency (``CONCURRENCY`` in a partition number):
+        1 for the host engine and for one device."""
+        return 1
 
     @property
     @abstractmethod
@@ -47,41 +78,83 @@ class ExecutionEngine(ABC):
 
     @abstractmethod
     def to_df(self, df: Any, schema: Any = None) -> DataFrame:
-        """Convert a pandas frame, an arrow table or a frame of this engine
-        to this engine's frame."""
+        """Convert a pandas frame, an arrow table or a frame to this
+        engine's frame."""
         raise NotImplementedError
 
-    @abstractmethod
+    def _missing(self, verb: str) -> NotImplementedError:
+        return NotImplementedError(f"{verb} is not ported to {type(self).__name__} ({_VERBS})")
+
     def persist(self, df: DataFrame, lazy: bool = False, **kwargs: Any) -> DataFrame:
         """Materialize ``df`` in the engine's memory; unless ``lazy``,
         return only when it is there."""
-        raise NotImplementedError
+        raise self._missing("persist")
 
-    @abstractmethod
     def aggregate(
-        self,
-        df: DataFrame,
-        partition_spec: Optional[PartitionSpec],
-        agg_cols: List[ColumnExpr],
+        self, df: DataFrame, partition_spec: Optional[PartitionSpec], agg_cols: List[ColumnExpr]
     ) -> DataFrame:
         """Group ``df`` by the spec's keys and compute ``agg_cols``."""
-        raise NotImplementedError
+        raise self._missing("aggregate")
 
-    @abstractmethod
-    def join(
-        self,
-        df1: DataFrame,
-        df2: DataFrame,
-        how: str,
-        on: Optional[List[str]] = None,
-    ) -> DataFrame:
+    def join(self, df1: DataFrame, df2: DataFrame, how: str, on: Optional[List[str]] = None) -> DataFrame:
         """Join ``df1`` with ``df2`` (``how``: inner, left_outer,
         right_outer, full_outer, left_semi, left_anti or cross, or an alias)
-        on the keys ``on`` (default: the columns they share)."""
-        raise NotImplementedError
+        on the keys ``on`` (default: the columns they share), NULL keys
+        matching nothing."""
+        raise self._missing("join")
 
-    @abstractmethod
     def union(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
-        """The rows of ``df1`` and of ``df2``; without repeats if
-        ``distinct``."""
-        raise NotImplementedError
+        """The rows of ``df1`` and of ``df2``; without repeats if ``distinct``."""
+        raise self._missing("union")
+
+    def subtract(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
+        """The distinct rows of ``df1`` that are not in ``df2``."""
+        raise self._missing("subtract")
+
+    def intersect(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
+        """The distinct rows in both ``df1`` and ``df2``."""
+        raise self._missing("intersect")
+
+    def distinct(self, df: DataFrame) -> DataFrame:
+        """The rows of ``df`` without repeats (NULL equals NULL)."""
+        raise self._missing("distinct")
+
+    def dropna(
+        self, df: DataFrame, how: str = "any", thresh: Optional[int] = None,
+        subset: Optional[List[str]] = None,
+    ) -> DataFrame:
+        """``df`` without the rows with NULLs: ``how`` any or all, or fewer
+        than ``thresh`` non-NULL values, over ``subset`` of the columns."""
+        raise self._missing("dropna")
+
+    def fillna(self, df: DataFrame, value: Any, subset: Optional[List[str]] = None) -> DataFrame:
+        """``df`` with NULLs replaced by ``value`` (a value, or a dict of
+        column to value), over ``subset`` of the columns."""
+        raise self._missing("fillna")
+
+    def sample(
+        self, df: DataFrame, n: Optional[int] = None, frac: Optional[float] = None,
+        replace: bool = False, seed: Optional[int] = None,
+    ) -> DataFrame:
+        """``n`` rows or a ``frac`` of the rows of ``df``, drawn with ``seed``."""
+        raise self._missing("sample")
+
+    def take(
+        self, df: DataFrame, n: int, presort: str, na_position: str = "last",
+        partition_spec: Optional[PartitionSpec] = None,
+    ) -> DataFrame:
+        """The first ``n`` rows of ``df`` (of each partition) after ``presort``."""
+        raise self._missing("take")
+
+    def load_df(
+        self, path: Any, format_hint: Any = None, columns: Any = None, **kwargs: Any
+    ) -> DataFrame:
+        """The files at ``path`` (parquet, csv or json) as a frame."""
+        raise self._missing("load_df")
+
+    def save_df(
+        self, df: DataFrame, path: str, format_hint: Any = None, mode: str = "overwrite",
+        partition_spec: Optional[PartitionSpec] = None, force_single: bool = False, **kwargs: Any,
+    ) -> DataFrame:
+        """Write ``df`` to ``path``; returns ``df``."""
+        raise self._missing("save_df")

@@ -1,0 +1,169 @@
+"""Transformers from classes and functions, copied from
+``fugue_tpu/extensions/transformer/convert.py`` and trimmed: the
+``@transformer``/``@output_transformer`` decorators, ``_to_transformer``,
+and the interfaceless ``_FuncAsTransformer`` whose output schema comes
+from an argument or a ``# schema:`` comment, ``*`` expressions included.
+
+Not ported: transformers named by a string (the extension registry and the
+workflow, ROADMAP.md A.11), cotransformers (A.8's zip/comap) and RPC
+callbacks (A.10): each raises ``NotImplementedError`` naming its item."""
+
+import copy
+import inspect
+from typing import Any, Callable, Dict, List, Optional
+
+from ..._utils.convert import to_instance
+from ...dataframe import ArrayDataFrame, DataFrame, LocalDataFrame
+from ...dataframe.function_wrapper import DataFrameFunctionWrapper
+from ...exceptions import FugueInterfacelessError
+from ...schema import Schema
+from .._shared import parse_comment_annotation
+from .._utils import parse_validation_rules_from_comment, to_validation_rules
+from .transformer import OutputTransformer, Transformer
+
+OUTPUT_TRANSFORMER_DUMMY_SCHEMA = Schema("_0:int")
+# input: one frame, an optional callback, simple params, **kwargs; ``t`` is
+# the port's Dict[str, torch.Tensor] (the JAX package's ``j``)
+_INPUT_RE = "^[lspqt][fF]?x*z?$"
+
+
+def transformer(schema: Any, **validation_rules: Any) -> Callable[[Callable], "_FuncAsTransformer"]:
+    """A function as a transformer of output ``schema``."""
+
+    def deco(func: Callable) -> _FuncAsTransformer:
+        return _FuncAsTransformer.from_func(func, schema, to_validation_rules(validation_rules))
+
+    return deco
+
+
+def output_transformer(**validation_rules: Any) -> Callable[[Callable], "_FuncAsOutputTransformer"]:
+    """A function as an output transformer."""
+
+    def deco(func: Callable) -> _FuncAsOutputTransformer:
+        return _FuncAsOutputTransformer.from_func(func, None, to_validation_rules(validation_rules))
+
+    return deco
+
+
+def _to_transformer(obj: Any, schema: Any = None) -> Transformer:
+    return _to_general_transformer(obj, schema, _FuncAsTransformer)
+
+
+def _to_output_transformer(obj: Any) -> Transformer:
+    return _to_general_transformer(obj, None, _FuncAsOutputTransformer)
+
+
+def _to_general_transformer(obj: Any, schema: Any, func_single: type) -> Transformer:
+    if isinstance(obj, str):
+        raise NotImplementedError(
+            f"transformer {obj!r} named by a string: the extension registry and the "
+            "workflow that resolve names are not ported (ROADMAP.md A.11)"
+        )
+    if isinstance(obj, Transformer):
+        if schema is not None:
+            raise FugueInterfacelessError("schema must be None when using an interface class")
+        return copy.copy(obj)
+    if inspect.isclass(obj) and issubclass(obj, Transformer):
+        return to_instance(obj, Transformer)
+    if callable(obj):
+        if _is_cotransform_func(obj):
+            raise NotImplementedError(
+                f"{obj!r} takes several frames: cotransformers go with zip/comap, "
+                "which are not ported (ROADMAP.md A.8)"
+            )
+        return func_single.from_func(obj, schema, validation_rules={})
+    raise FugueInterfacelessError(f"can't convert {obj!r} to a transformer")
+
+
+def _is_cotransform_func(func: Callable) -> bool:
+    try:
+        code = DataFrameFunctionWrapper(func).input_code
+    except FugueInterfacelessError:
+        return False
+    return code.startswith("c") or len([c for c in code.split("x")[0] if c in "lspq"]) > 1
+
+
+class _FuncAsTransformer(Transformer):
+    """A plain function as a Transformer (reference ``:328``)."""
+
+    @property
+    def validation_rules(self) -> Dict[str, Any]:
+        return self._validation_rules  # type: ignore
+
+    def get_output_schema(self, df: DataFrame) -> Any:
+        return _apply_schema_arg(df.schema, self._output_schema_arg)  # type: ignore
+
+    def get_format_hint(self) -> Optional[str]:
+        return self._wrapper.get_format_hint()  # type: ignore
+
+    def _args(self, df: LocalDataFrame) -> List[Any]:
+        # an Optional[Callable] parameter gets None: no callback is ported
+        return [df, None] if "F" in self._wrapper.input_code else [df]  # type: ignore
+
+    def transform(self, df: LocalDataFrame) -> LocalDataFrame:
+        return self._wrapper.run(  # type: ignore
+            self._args(df), self.params, ignore_unknown=False, output_schema=self.output_schema
+        )
+
+    @classmethod
+    def _wrap(cls, func: Callable, return_re: str, validation_rules: Dict[str, Any]) -> Any:
+        tr = cls()
+        tr._wrapper = DataFrameFunctionWrapper(func, _INPUT_RE, return_re)  # type: ignore
+        if "f" in tr._wrapper.input_code:  # type: ignore
+            raise NotImplementedError(
+                f"{func!r} requires a callback: RPC callbacks are not ported (ROADMAP.md A.10)"
+            )
+        rules = dict(validation_rules)
+        rules.update(parse_validation_rules_from_comment(func))
+        tr._validation_rules = rules  # type: ignore
+        return tr
+
+    @staticmethod
+    def from_func(func: Callable, schema: Any, validation_rules: Dict[str, Any]) -> "_FuncAsTransformer":
+        if schema is None:
+            schema = parse_comment_annotation(func, "schema")
+        tr = _FuncAsTransformer._wrap(func, "^[lspqt]$", validation_rules)
+        if schema is None:
+            # an interfaceless transformer needs its output schema before it runs
+            raise FugueInterfacelessError(
+                "schema is required for interfaceless transformers "
+                "(pass schema=... or add a '# schema:' comment)"
+            )
+        tr._output_schema_arg = schema  # type: ignore
+        return tr
+
+
+class _FuncAsOutputTransformer(_FuncAsTransformer, OutputTransformer):
+    """A plain function as an OutputTransformer (reference ``:412``)."""
+
+    def get_output_schema(self, df: DataFrame) -> Any:
+        return OUTPUT_TRANSFORMER_DUMMY_SCHEMA
+
+    def transform(self, df: LocalDataFrame) -> LocalDataFrame:
+        self._wrapper.run(self._args(df), self.params, ignore_unknown=False, output=False)  # type: ignore
+        return ArrayDataFrame([], OUTPUT_TRANSFORMER_DUMMY_SCHEMA)
+
+    @staticmethod
+    def from_func(
+        func: Callable, schema: Any, validation_rules: Dict[str, Any]
+    ) -> "_FuncAsOutputTransformer":
+        if schema is not None:
+            raise FugueInterfacelessError("schema must be None for output transformers")
+        tr = _FuncAsOutputTransformer._wrap(func, "^[lspnqt]$", validation_rules)
+        tr._output_schema_arg = None  # type: ignore
+        return tr
+
+
+def _apply_schema_arg(input_schema: Schema, schema_arg: Any) -> Schema:
+    """The output schema: a Schema as it is, a callable of the input
+    schema, or expressions (``*`` is the input's columns) resolved against
+    the input schema."""
+    if schema_arg is None:
+        raise FugueInterfacelessError("output schema is required but not provided")
+    if isinstance(schema_arg, Schema):
+        return schema_arg
+    if callable(schema_arg):
+        return Schema(schema_arg(input_schema))
+    if isinstance(schema_arg, (list, tuple)):
+        return input_schema.transform(*schema_arg)
+    return input_schema.transform(schema_arg)

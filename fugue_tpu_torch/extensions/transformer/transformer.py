@@ -1,0 +1,45 @@
+"""Transformer and OutputTransformer, copied from
+``fugue_tpu/extensions/transformer/transformer.py`` (:12, :30): the logic
+that runs once a logical partition. Cotransformers go with the zip/comap
+of ROADMAP.md A.8."""
+
+from typing import Any
+
+from ...dataframe import ArrayDataFrame, DataFrame, LocalDataFrame
+from ..context import ExtensionContext
+
+
+class Transformer(ExtensionContext):
+    """A transformation of each logical partition: ``get_output_schema``
+    once on the whole input, ``on_init`` once before the first partition,
+    ``transform`` once a partition."""
+
+    def get_output_schema(self, df: DataFrame) -> Any:
+        raise NotImplementedError
+
+    def on_init(self, df: DataFrame) -> None:
+        pass
+
+    def transform(self, df: LocalDataFrame) -> LocalDataFrame:
+        raise NotImplementedError
+
+    @property
+    def validation_rules(self) -> dict:
+        return {}
+
+
+class OutputTransformer(Transformer):
+    """A transformer run for its side effects: ``process`` once a
+    partition, and no output."""
+
+    def get_output_schema(self, df: DataFrame) -> Any:
+        from .convert import OUTPUT_TRANSFORMER_DUMMY_SCHEMA
+
+        return OUTPUT_TRANSFORMER_DUMMY_SCHEMA
+
+    def process(self, df: LocalDataFrame) -> None:
+        raise NotImplementedError
+
+    def transform(self, df: LocalDataFrame) -> LocalDataFrame:
+        self.process(df)
+        return ArrayDataFrame([], self.get_output_schema(df))

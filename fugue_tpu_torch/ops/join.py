@@ -32,7 +32,7 @@ from .segment import _order_by
 from .shuffle import _hash_cols, unsigned_order
 
 # right sides larger than this take the shuffle strategy in the JAX
-# package; the port's cross join refuses them (ROADMAP.md A.5b)
+# package; the port's cross join hands them to its host engine
 MAX_BROADCAST_ROWS = 1 << 20
 # output-slot budget of the 1:N expansion join on one device
 MAX_EXPAND_ROWS = 1 << 22

@@ -2,9 +2,10 @@
 
 Copied from ``fugue_tpu/schema.py`` and trimmed to what the port uses:
 parse and print expressions such as ``"k:long,v:float"``, hold the
-fields of a frame, derive the output types of an aggregate, and the
-copy, ``+``, ``-`` and ``extract`` that the join schemas need. The
-grammar is the JAX package's::
+fields of a frame, derive the output types of an aggregate, the copy,
+``+``, ``-`` and ``extract`` that the join schemas need, and the
+``transform`` that resolves a transformer's output schema (``*``,
+``-a``, ``~a``). The grammar is the JAX package's::
 
     schema  := pair ("," pair)*
     pair    := name ":" type
@@ -285,10 +286,48 @@ class Schema(IndexedOrderedDict):
     def pa_schema(self) -> pa.Schema:
         return pa.schema(self.fields)
 
+    @property
+    def pandas_dtype(self) -> Dict[str, Any]:
+        """The pandas dtype each column holds when it has no NULLs
+        (``object`` for strings, binaries and nested types)."""
+        return {
+            f.name: pd.api.types.pandas_dtype(f.type.to_pandas_dtype())
+            if not pa.types.is_nested(f.type)
+            and not pa.types.is_string(f.type)
+            and not pa.types.is_binary(f.type)
+            and not pa.types.is_null(f.type)
+            else pd.api.types.pandas_dtype(object)
+            for f in self.fields
+        }
+
+    def index_of_key(self, key: str) -> int:
+        return self.names.index(key)
+
     def __getitem__(self, key: Any) -> Any:
         if isinstance(key, int):
             return self.get_value_by_index(key)
         return super().__getitem__(key)
+
+    def __contains__(self, key: Any) -> bool:
+        """A name, a ``name:type`` expression, a field, or an iterable of
+        them, every one present (with its type, where one is given)."""
+        if key is None:
+            return False
+        if isinstance(key, str):
+            if ":" not in key:
+                return super().__contains__(key)
+            try:
+                fields = _parse_fields(key)
+            except Exception:
+                return False
+            return all(self.__contains__(f) for f in fields)
+        if isinstance(key, pa.Field):
+            return super().__contains__(key.name) and self[key.name].type == key.type
+        if isinstance(key, Schema):
+            return all(self.__contains__(f) for f in key.fields)
+        if isinstance(key, Iterable):
+            return all(self.__contains__(k) for k in key)
+        return False
 
     def __eq__(self, other: Any) -> bool:
         if other is None:
@@ -330,6 +369,63 @@ class Schema(IndexedOrderedDict):
         """The fields named in ``names``, in that order."""
         return Schema([self[n] for n in self._field_names(names)])
 
+    def exclude(self, names: Any) -> "Schema":
+        """The schema without the fields named in ``names`` that it has."""
+        drop = {names} if isinstance(names, str) else set(names)
+        return Schema([f for f in self.fields if f.name not in drop])
+
+    def transform(self, *args: Any) -> "Schema":
+        """A derived schema (``fugue_tpu/schema.py`` ``transform``): each
+        argument is an expression, a callable of this schema, or anything
+        a schema appends. In an expression, ``*`` is every column of this
+        schema, ``name:type`` adds a column, ``-a,b`` drops columns (each
+        must be there) and ``~a,b`` drops them where they are; a bare name
+        after ``-`` or ``~`` keeps dropping until a typed field or ``*``."""
+        result = Schema()
+        subtract: List[str] = []
+        soft_subtract: List[str] = []
+
+        def handle_expr(expr: str) -> None:
+            mode = "add"
+            for part in _split_top(expr, ","):
+                part = part.strip()
+                if part == "":
+                    continue
+                if part == "*":
+                    mode = "add"
+                    result.append(self)
+                elif part.startswith("-"):
+                    mode = "sub"
+                    subtract.append(part[1:].strip())
+                elif part.startswith("~"):
+                    mode = "soft"
+                    soft_subtract.append(part[1:].strip())
+                elif ":" in part:
+                    mode = "add"
+                    result.append(part)
+                elif mode == "sub":
+                    subtract.append(part)
+                elif mode == "soft":
+                    soft_subtract.append(part)
+                else:
+                    result.append(part)
+
+        for a in args:
+            if a is None:
+                continue
+            if callable(a) and not isinstance(a, (str, Schema)):
+                result.append(a(self))
+            elif isinstance(a, str):
+                handle_expr(a)
+            else:
+                result.append(a)
+        res = result
+        if len(subtract) > 0:
+            res = res - subtract
+        if len(soft_subtract) > 0:
+            res = res.exclude(soft_subtract)
+        return res
+
     def assert_not_empty(self) -> "Schema":
         if len(self) == 0:
             raise SchemaError("schema is empty")
@@ -339,6 +435,9 @@ class Schema(IndexedOrderedDict):
         return pa.Table.from_arrays(
             [pa.array([], type=f.type) for f in self.fields], schema=self.pa_schema
         )
+
+    def create_empty_pandas_df(self) -> pd.DataFrame:
+        return self.create_empty_arrow_table().to_pandas()
 
     def __repr__(self) -> str:
         return str(self)

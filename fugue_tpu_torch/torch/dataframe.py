@@ -27,6 +27,11 @@ The port of ``JaxDataFrame`` (``fugue_tpu/jax/dataframe.py``):
   tensor declared ``long`` comes out as int64).
 
 Ingestion is eager: the frame is on the device once it is built.
+``as_local_bounded`` is the way to the host engine (the JAX engine's
+``_host``): one copy of the valid rows to the host, dictionary strings,
+epochs and NULL masks rendered as arrow values, as ``as_arrow`` does. The
+way back (``pinned=True``) stages each column through pinned host memory
+on a CUDA device.
 """
 
 from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
@@ -37,7 +42,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
-from ..dataframe import DataFrame
+from ..dataframe import ArrowDataFrame, DataFrame
 from ..exceptions import FugueDataFrameInitError
 from ..ops.segment import minmax_probe
 from ..parallel.device import resolve_device
@@ -60,9 +65,8 @@ _DEVICE_DTYPES = {
 
 
 def _to_numpy(col: pa.Array) -> np.ndarray:
-    # arrow's buffers are read-only: copy where numpy shares them, so a CPU
-    # tensor owns its memory
-    return np.require(col.to_numpy(zero_copy_only=False), requirements=["C", "W"])
+    # may share arrow's read-only buffers: ``_to_device`` copies them
+    return col.to_numpy(zero_copy_only=False)
 
 
 def _encode_column(col: pa.Array, f: pa.Field) -> Tuple[Optional[np.ndarray], dict]:
@@ -109,6 +113,18 @@ def _encode_column(col: pa.Array, f: pa.Field) -> Tuple[Optional[np.ndarray], di
     return None, {}  # host-resident
 
 
+def _to_device(arr: np.ndarray, device: torch.device, pinned: bool) -> torch.Tensor:
+    """``arr`` as a tensor on ``device``. With ``pinned`` and a CUDA device
+    the copy is staged through pinned host memory, which also reads the
+    read-only arrays that pandas 3 and arrow hand out without a writable
+    copy first."""
+    if pinned and device.type == "cuda":
+        buf = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0].copy()).dtype, pin_memory=True)
+        buf.numpy()[...] = arr
+        return buf.to(device, non_blocking=True)
+    return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
+
+
 def encode_arrow_for_device(tbl: pa.Table) -> Tuple[Dict[str, np.ndarray], Optional[pa.Table], dict]:
     """Encode an arrow table for the device: ``(device_cols, host_tbl,
     meta)``, ``meta`` holding ``nan_cols`` (float columns that may hold
@@ -137,7 +153,8 @@ class TorchDataFrame(DataFrame):
     otherwise).
 
     ``df`` is a ``pa.Table``, a ``pd.DataFrame`` or another
-    ``TorchDataFrame``; ``schema`` (optional) casts the input to it.
+    ``TorchDataFrame``; ``schema`` (optional) casts the input to it;
+    ``pinned`` stages the copy to a CUDA device through pinned memory.
     """
 
     def __init__(
@@ -145,6 +162,7 @@ class TorchDataFrame(DataFrame):
         df: Any = None,
         schema: Any = None,
         device: Any = None,
+        pinned: bool = False,
         _internal: Optional[dict] = None,
     ):
         if _internal is not None:
@@ -171,9 +189,9 @@ class TorchDataFrame(DataFrame):
         tbl = df if df.schema.equals(s.pa_schema) else df.cast(s.pa_schema)
         self._device = resolve_device(device)
         device_cols, self._host_tbl, meta = encode_arrow_for_device(tbl)
-        self._cols = {c: torch.from_numpy(a).to(self._device) for c, a in device_cols.items()}
+        self._cols = {c: _to_device(a, self._device, pinned) for c, a in device_cols.items()}
         self._null_masks = {
-            c: torch.from_numpy(m).to(self._device) for c, m in meta["null_masks"].items()
+            c: _to_device(m, self._device, pinned) for c, m in meta["null_masks"].items()
         }
         self._nan_cols = meta["nan_cols"]
         self._encodings = meta["encodings"]
@@ -300,6 +318,9 @@ class TorchDataFrame(DataFrame):
                     col = col.slice(0, self._row_count)
                 arrays.append(col.combine_chunks())
         return pa.Table.from_arrays(arrays, schema=self.schema.pa_schema)
+
+    def as_local_bounded(self) -> ArrowDataFrame:
+        return ArrowDataFrame(self.as_arrow())
 
     def __getitem__(self, cols: List[str]) -> "TorchDataFrame":
         """The columns ``cols``, in that order, over the same rows: their

@@ -1,12 +1,13 @@
 """TorchExecutionEngine — the port of ``JaxExecutionEngine``
 (``fugue_tpu/jax/execution_engine.py``) for one CUDA device.
 
-The port has ``to_df``, ``persist``, the device ``aggregate``, the
-compiled maps behind ``transform`` (``TorchMapEngine``), the device
-``join`` of every type and ``union`` without ``distinct``. A one-pass
-stream (``LocalDataFrameIterableDataFrame``) given to ``aggregate``,
-``join`` or ``transform`` goes through the device chunk by chunk
-(``torch/streaming.py``) where the plan allows it, as in the JAX engine.
+The port has ``to_df``, ``persist``, the device ``aggregate``, the maps
+behind ``transform`` (``TorchMapEngine``), the device ``join`` of every
+type, ``union`` without ``distinct``, ``load_df`` and ``save_df``. A
+one-pass stream (``LocalDataFrameIterableDataFrame``) given to
+``aggregate``, ``join`` or ``transform`` goes through the device chunk by
+chunk (``torch/streaming.py``) where the plan allows it, as in the JAX
+engine.
 
 ``aggregate`` takes any number of keys of any integer, float, bool,
 string, date or timestamp column, nullable or not, with
@@ -17,8 +18,19 @@ other plan runs the device groupby (``ops/segment.py``) into per-group
 partials, merges them on the host and comes back to the device as the
 result frame, as the JAX engine does.
 
-There is no host fallback: a plan that the JAX engine hands to its host
-engine raises ``NotImplementedError`` here, naming its ROADMAP.md item.
+Like the JAX engine, it holds a host engine (``NativeExecutionEngine``,
+``execution/native_execution_engine.py``) and calls it exactly where the
+JAX engine calls its own: the map of any transformer that is not a
+compiled ``Dict[str, torch.Tensor]`` function, the joins the device plans
+decline, the union of a full_outer join's parts that the device union
+declines, and ``load_df``/``save_df``. A frame goes to the host through
+``_host`` (one copy of its valid rows) and the result comes back through
+``_back``; the spans ``fugue::to_host``, ``fugue::host_map`` /
+``fugue::host_join`` / ``fugue::host_union`` and ``fugue::to_device``
+name the three steps in a ``torch.profiler`` trace. Every other plan the
+JAX engine hands to its host engine (the host ``aggregate``, ``select``
+and the other verbs of ROADMAP.md A.8) raises ``NotImplementedError``
+here, naming its ROADMAP.md item.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -30,14 +42,14 @@ import pyarrow.compute as pc
 import torch
 from torch.profiler import record_function
 
-from .._utils.params import ParamDict
 from ..collections.partition import PartitionSpec
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
-from ..dataframe import DataFrame, LocalDataFrame
+from ..dataframe import DataFrame, LocalBoundedDataFrame, LocalDataFrame
 from ..dataframe.utils import get_join_schemas, parse_join_type
 from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
-from ..ops.join import MAX_BROADCAST_ROWS, MAX_EXPAND_ROWS, device_expand_join, device_hash_join
+from ..execution.native_execution_engine import NativeExecutionEngine, PandasMapEngine
+from ..ops.join import MAX_BROADCAST_ROWS, device_expand_join, device_hash_join
 from ..ops.segment import (
     _DENSE_MAX_RANGE,
     _is_int,
@@ -50,7 +62,7 @@ from ..ops.segment import (
 )
 from ..parallel.device import resolve_device
 from ..schema import Schema
-from ..torch_annotations import torch_dict_udf
+from ..torch_annotations import sniff_torch_func
 from .dataframe import TorchDataFrame
 from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
 from .pipeline import PipelineStats
@@ -64,8 +76,6 @@ from .streaming import (
 
 _ENCODED = "ROADMAP.md A.3 encoded columns"
 _VERBS = "ROADMAP.md A.8 remaining verbs"
-_HOST_UDFS = "ROADMAP.md A.4b host transformers"
-_HOST_JOIN = "ROADMAP.md A.5b host joins"
 # the largest segment-id space of the dense keyed map: the JAX package's
 # default for FUGUE_TPU_CONF_DENSE_MAP_RANGE (the port has no such knob)
 _DENSE_MAP_RANGE = 1 << 20
@@ -73,9 +83,12 @@ _RESERVED = (SEGMENTS, VALID, SEGMENT_SPACE, SPANS_SHARDS)
 
 
 class TorchMapEngine(MapEngine):
-    """The port of ``JaxMapEngine`` (``fugue_tpu/jax/execution_engine.py``):
-    a ``Dict[str, torch.Tensor]`` transformer runs on the engine's device in
-    one of the three forms the JAX package compiles:
+    """The port of ``JaxMapEngine`` (``fugue_tpu/jax/execution_engine.py``).
+
+    ``map_func`` is a transformer runner's ``run(cursor, df)``. When the
+    transformer is an interfaceless ``Dict[str, torch.Tensor]`` function of
+    one parameter (format hint ``"torch"``), the raw function runs on the
+    engine's device in one of the three forms the JAX package compiles:
 
     - **keyless** (``_compiled_map``): the whole frame in one call;
     - **keyed, dense plan** (``_try_dense_keyed_map``): integer keys of a
@@ -83,11 +96,21 @@ class TorchMapEngine(MapEngine):
     - **keyed, sorted plan** (``_compiled_keyed_map``): rows sorted by
       (validity, keys, presort), contiguous segment ids.
 
-    The JAX package sends every other transformer to its host engine; the
-    port has none and raises ``NotImplementedError`` (ROADMAP.md A.4b).
+    Every other transformer, and a keyless one over encoded or nullable
+    columns, takes the general path (:188-204): the frame to the host
+    (``_host``), the host engine's ``PandasMapEngine``, the result back to
+    the device (``_back``). A one-pass stream handed to it is read whole
+    on the host, as the JAX engine's ``_host`` reads it.
+
     On one device every group is whole: the JAX package's hash exchange
     before the sorted plan, and its cross-shard merge of group tables
     under the dense plan, have nothing to do here."""
+
+    def __init__(self, execution_engine: "TorchExecutionEngine"):
+        super().__init__(execution_engine)
+        self._host_map = PandasMapEngine(
+            execution_engine._host_engine, parallelism_engine=execution_engine
+        )
 
     def map_dataframe(
         self,
@@ -95,12 +118,50 @@ class TorchMapEngine(MapEngine):
         map_func: Callable,
         output_schema: Any,
         partition_spec: PartitionSpec,
+        on_init: Optional[Callable] = None,
+        map_func_format_hint: Optional[str] = None,
     ) -> DataFrame:
         engine: TorchExecutionEngine = self.execution_engine  # type: ignore[assignment]
         if not isinstance(output_schema, Schema):
             output_schema = Schema(output_schema)
-        fn = torch_dict_udf(map_func)
+        fn = sniff_torch_func(map_func) if map_func_format_hint == "torch" else None
+        if fn is not None:
+            res = self._compiled(engine, df, fn, map_func, output_schema, partition_spec, on_init)
+            if res is not None:
+                return res
+        local = engine._host(df)
+        with record_function("fugue::host_map"):
+            local = self._host_map.map_dataframe(
+                local,
+                map_func,
+                output_schema,
+                partition_spec,
+                on_init=on_init,
+                map_func_format_hint=map_func_format_hint,
+            )
+        return engine._back(local)
+
+    def _compiled(
+        self,
+        engine: "TorchExecutionEngine",
+        df: Any,
+        fn: Callable,
+        map_func: Callable,
+        output_schema: Schema,
+        partition_spec: PartitionSpec,
+        on_init: Optional[Callable],
+    ) -> Optional[DataFrame]:
+        """A compiled transformer's device plan; None for a keyless map
+        over encoded or nullable columns, which takes the host path."""
+        params = map_func.__self__.transformer.params
+        if len(params) > 0:
+            raise FugueInvalidOperation(
+                f"params {sorted(params)} given to a compiled transformer, which takes "
+                "its columns only (ROADMAP.md C4)"
+            )
         keys = partition_spec.partition_by
+        if on_init is not None:
+            on_init(0, df)
         if is_stream_frame(df):
             # a one-pass stream is mapped chunk by chunk, never materialized
             if len(keys) == 0:
@@ -116,10 +177,7 @@ class TorchMapEngine(MapEngine):
             if tdf.has_encoded:
                 # the JAX package renders encoded/masked columns as real
                 # values on its host engine
-                raise NotImplementedError(
-                    "a keyless map over encoded or nullable columns runs on the JAX "
-                    f"package's host engine, which is not ported ({_HOST_UDFS})"
-                )
+                return None
             return self._compiled_map(tdf, fn, output_schema)
         # encoded/masked columns have non-plain semantics the UDF can't see.
         # The ONE exception: dictionary-encoded PARTITION keys, whose codes
@@ -152,7 +210,7 @@ class TorchMapEngine(MapEngine):
                 "floats), non-key columns must be un-encoded, and "
                 "encoded keys must keep their type in the output "
                 "schema. Use a pandas-annotated transformer for "
-                f"these shapes (on the JAX package: {_HOST_UDFS})."
+                "these shapes."
             )
         return self._compiled_keyed_map(tdf, fn, output_schema, partition_spec)
 
@@ -344,18 +402,15 @@ class TorchExecutionEngine(ExecutionEngine):
     ``conf`` takes the stream keys of ``fugue_tpu_torch/constants.py``."""
 
     def __init__(self, device: Any = None, conf: Any = None):
+        super().__init__(conf)
         self._device = resolve_device(device)
-        self._conf = ParamDict(conf)
+        self._host_engine = NativeExecutionEngine(conf)
         self._map_engine = TorchMapEngine(self)
         self._pipeline_stats = PipelineStats()
 
     @property
     def device(self) -> torch.device:
         return self._device
-
-    @property
-    def conf(self) -> ParamDict:
-        return self._conf
 
     @property
     def pipeline_stats(self) -> PipelineStats:
@@ -385,6 +440,39 @@ class TorchExecutionEngine(ExecutionEngine):
             f"to_df of {type(df)} is not ported (pandas, arrow, local frames and "
             "TorchDataFrame are)"
         )
+
+    def _host(self, df: Any) -> LocalBoundedDataFrame:
+        """``df`` on the host: a device frame's valid rows in one copy, any
+        other frame (a stream too) as the host engine reads it."""
+        with record_function("fugue::to_host"):
+            if isinstance(df, TorchDataFrame):
+                return df.as_local_bounded()
+            return self._host_engine.to_df(df)
+
+    def _back(self, df: DataFrame) -> TorchDataFrame:
+        """A host result back on the device, staged through pinned memory."""
+        with record_function("fugue::to_device"):
+            return TorchDataFrame(df.as_arrow(), device=self._device, pinned=True)
+
+    def load_df(
+        self, path: Any, format_hint: Any = None, columns: Any = None, **kwargs: Any
+    ) -> TorchDataFrame:
+        """The files at ``path`` (parquet, csv or json), read by the host
+        engine, on the device."""
+        return self.to_df(
+            self._host_engine.load_df(path, format_hint=format_hint, columns=columns, **kwargs)
+        )
+
+    def save_df(
+        self, df: Any, path: str, format_hint: Any = None, mode: str = "overwrite",
+        partition_spec: Optional[PartitionSpec] = None, force_single: bool = False, **kwargs: Any,
+    ) -> Any:
+        """Write ``df`` to ``path`` through the host engine; returns ``df``."""
+        self._host_engine.save_df(
+            self._host(df), path, format_hint=format_hint, mode=mode,
+            partition_spec=partition_spec, force_single=force_single, **kwargs,
+        )
+        return df
 
     def persist(self, df: Any, lazy: bool = False, **kwargs: Any) -> TorchDataFrame:
         tdf = self.to_df(df)
@@ -604,8 +692,11 @@ class TorchExecutionEngine(ExecutionEngine):
 
         Where the JAX engine joins on its host engine (keys it cannot align,
         host columns whose rows would move, expansions past
-        ``MAX_EXPAND_ROWS``, a cross join past ``MAX_BROADCAST_ROWS``) this
-        raises ``NotImplementedError`` (ROADMAP.md A.5b).
+        ``MAX_EXPAND_ROWS``, a cross join past ``MAX_BROADCAST_ROWS``) the
+        host engine joins the two frames' host copies, and the result comes
+        back to the device (``fugue::host_join``). Unsigned columns above
+        uint8, on the JAX package's device but on the port's host, raise
+        ``NotImplementedError`` (ROADMAP.md A.3).
 
         When either side is a one-pass stream, the streaming join runs
         first (``streaming_hash_join``: a stream of the result); a plan it
@@ -618,43 +709,59 @@ class TorchExecutionEngine(ExecutionEngine):
             jt = parse_join_type(how)
             j1, j2 = self.to_df(df1), self.to_df(df2)
             if jt in _KERNEL_HOW:
-                return self._join_device(j1, j2, _KERNEL_HOW[jt], on)
-            if jt == "right_outer":
+                res = self._join_device(j1, j2, _KERNEL_HOW[jt], on)
+            elif jt == "right_outer":
                 # mirrored left_outer, columns re-ordered to the contract schema
                 res = self._join_device(j2, j1, "left_outer", on)
                 _, out_schema = get_join_schemas(j1, j2, how="right_outer", on=on)
-                return res if res.schema.names == out_schema.names else res[out_schema.names]
-            if jt == "full_outer":
-                return self._full_outer_device(j1, j2, on)
-            return self._cross_device(j1, j2, on)
+                if res is not None and res.schema.names != out_schema.names:
+                    res = res[out_schema.names]
+            elif jt == "full_outer":
+                res = self._full_outer_device(j1, j2, on)
+            else:
+                res = self._cross_device(j1, j2, on)
+            if res is not None:
+                return res
+            local1, local2 = self._host(j1), self._host(j2)
+            with record_function("fugue::host_join"):
+                local = self._host_engine.join(local1, local2, how=how, on=on)
+            return self._back(local)
 
     def _full_outer_device(
         self, j1: TorchDataFrame, j2: TorchDataFrame, on: Optional[List[str]]
-    ) -> TorchDataFrame:
+    ) -> Optional[TorchDataFrame]:
         """full_outer = left_outer(L,R) ∪ (anti(R,L) with NULL left
         values) — composed from device verbs, so it inherits all their
         representations (dictionaries, epochs, masks)."""
         _, out_schema = get_join_schemas(j1, j2, how="full_outer", on=on)
         left_part = self._join_device(j1, j2, "left_outer", on)
+        if left_part is None:
+            return None
         right_only = self._join_device(j2, j1, "anti", on)
+        if right_only is None:
+            return None
         ext = self._null_extend(right_only, out_schema, j1)
+        if ext is None:
+            return None
         lp = left_part if left_part.schema.names == out_schema.names else left_part[out_schema.names]
         res = self._union_device(lp, ext)
         if res is None:
-            raise NotImplementedError(
-                "full_outer join: the left and right parts differ in column types, "
-                "encodings or host columns, so the JAX package unions them on its "
-                f"host engine, which is not ported ({_HOST_JOIN})"
-            )
+            # the parts differ in column types or encodings: the JAX
+            # engine's union concatenates them on its host engine
+            local1, local2 = self._host(lp), self._host(ext)
+            with record_function("fugue::host_union"):
+                local = self._host_engine.union(local1, local2, distinct=False)
+            res = self._back(local)
         return res
 
     def _null_extend(
         self, jr: TorchDataFrame, out_schema: Schema, j1: TorchDataFrame
-    ) -> TorchDataFrame:
+    ) -> Optional[TorchDataFrame]:
         """Extend right-only rows to the full join schema: absent (left-
-        side) columns become NULL in each dtype's device representation."""
+        side) columns become NULL in each dtype's device representation.
+        None where a side has host columns (the JAX engine's host join)."""
         if jr.host_table is not None:
-            raise _host_refusal(jr.host_table, "full_outer join: the right side")
+            return _host_columns(jr.host_table, "full_outer join: the right side")
         n = next(iter(jr.device_cols.values())).shape[0]
         dev = jr.device
         cols: Dict[str, torch.Tensor] = {}
@@ -666,7 +773,7 @@ class TorchExecutionEngine(ExecutionEngine):
                 cols[name] = jr.device_cols[name]
                 continue
             if name not in j1.device_cols:
-                raise _host_refusal(j1.host_table, "full_outer join: the left side")
+                return _host_columns(j1.host_table, "full_outer join: the left side")
             enc = j1.encodings.get(name)
             dt = j1.device_cols[name].dtype
             if enc is not None and enc["kind"] == "dict":
@@ -695,22 +802,20 @@ class TorchExecutionEngine(ExecutionEngine):
 
     def _cross_device(
         self, j1: TorchDataFrame, j2: TorchDataFrame, on: Optional[List[str]]
-    ) -> TorchDataFrame:
+    ) -> Optional[TorchDataFrame]:
         """Cross join via the expansion over a constant synthetic key
         (every left row matches every right row). ``on`` is not read, as in
-        the JAX engine, except in the error of overlapping columns."""
+        the JAX engine, except in the error of overlapping columns. None
+        (the host join) for host columns, more than ``MAX_BROADCAST_ROWS``
+        right rows or an expansion past ``MAX_EXPAND_ROWS``."""
         if any(c in j1.schema for c in j2.schema.names):
             get_join_schemas(j1, j2, how="cross", on=on)  # raises the join's own error
         for side, j in (("left", j1), ("right", j2)):
             if j.host_table is not None:
-                raise _host_refusal(j.host_table, f"cross join: the {side} side")
+                return _host_columns(j.host_table, f"cross join: the {side} side")
         n_right = next(iter(j2.device_cols.values())).shape[0]
         if n_right > MAX_BROADCAST_ROWS:
-            raise NotImplementedError(
-                f"cross join with {n_right} right rows, past MAX_BROADCAST_ROWS "
-                f"({MAX_BROADCAST_ROWS}): the JAX package joins it on its host engine, "
-                f"which is not ported ({_HOST_JOIN})"
-            )
+            return None
         mp = _safe_prefix("__mask__", j1.schema.names, j2.schema.names)
         lmp = _safe_prefix("__lmask__", j1.schema.names)
         kp = _safe_prefix("__xkey", j1.schema.names, j2.schema.names)
@@ -732,7 +837,7 @@ class TorchExecutionEngine(ExecutionEngine):
                 right_entries,
             )
         if res is None:
-            raise _expand_refusal("cross join")
+            return None
         new_cols, new_valid, _ = res
         null_masks = {c: new_cols.pop(f"{lmp}{c}") for c in j1.null_masks}
         null_masks.update({v: new_cols.pop(f"{mp}{v}") for v in j2.null_masks})
@@ -756,7 +861,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
     def _prepare_join_keys(
         self, j1: TorchDataFrame, j2: TorchDataFrame, keys: List[str]
-    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+    ) -> Optional[Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]]:
         """Align the two frames' key representations for hashing/equality:
         ``(left key tensors by mangled name, right key tensors)``.
 
@@ -765,8 +870,8 @@ class TorchExecutionEngine(ExecutionEngine):
         −1 left / −2 right so they never match); nullable numeric keys
         become float64 NaN views on both sides; epoch datetimes compare
         directly when the arrow types agree; plain keys of two dtypes meet
-        in their common type. Where the JAX engine declines (and joins on
-        its host engine) this raises ``NotImplementedError``."""
+        in their common type. None where the JAX engine declines (and joins
+        on its host engine)."""
         kp = _safe_prefix("__key", j1.schema.names)
         left_keys: Dict[str, torch.Tensor] = {}
         right_keys: List[torch.Tensor] = []
@@ -774,7 +879,7 @@ class TorchExecutionEngine(ExecutionEngine):
             lenc, renc = j1.encodings.get(k), j2.encodings.get(k)
             lm, rm = j1.null_masks.get(k), j2.null_masks.get(k)
             la, ra = j1.device_cols[k], j2.device_cols[k]
-            refusal = None
+            aligned = True
             if lenc is None and renc is None:
                 if lm is None and rm is None:
                     lk, rk = la, ra
@@ -790,7 +895,7 @@ class TorchExecutionEngine(ExecutionEngine):
                 elif la.is_floating_point() or (la.element_size() < 8 and ra.element_size() < 8):
                     lk, rk = _nullview(la, lm), _nullview(ra, rm)
                 else:
-                    refusal = "a 64-bit int key with NULLs loses exactness as a float64 view"
+                    aligned = False  # a 64-bit int with NULLs is inexact as a float64 view
             elif lenc is not None and renc is not None and lenc["kind"] == renc["kind"] == "dict":
                 lk, rk = la, _remap_dict_codes(lenc, renc, ra)
             elif (
@@ -800,56 +905,49 @@ class TorchExecutionEngine(ExecutionEngine):
                 and lenc["type"] == renc["type"]
             ):
                 if lm is not None or rm is not None:
-                    refusal = "a date or timestamp key with NULLs (a 64-bit masked key)"
+                    aligned = False  # a date or timestamp with NULLs (a 64-bit masked key)
                 else:
                     lk, rk = la, ra
             else:
-                refusal = (
-                    f"its types {j1.schema[k].type} and {j2.schema[k].type} have no "
-                    "common device representation"
-                )
-            if refusal is not None:
-                raise NotImplementedError(
-                    f"join key {k!r}: {refusal}; the JAX package joins it on its host "
-                    f"engine, which is not ported ({_HOST_JOIN})"
-                )
+                aligned = False  # the two types have no common device representation
+            if not aligned:
+                return None
             left_keys[f"{kp}{i}__"] = lk
             right_keys.append(rk)
         return left_keys, right_keys
 
     def _join_device(
         self, j1: TorchDataFrame, j2: TorchDataFrame, kernel_how: str, on: Any
-    ) -> TorchDataFrame:
+    ) -> Optional[TorchDataFrame]:
         """The device hash join of ``j2`` onto ``j1`` for one of the four
         kernel types: the unique probe, and the expansion when the right
-        keys repeat. Raises where the JAX engine joins on its host."""
+        keys repeat. None where the JAX engine joins on its host: a key type
+        it does not join on its device, uint64 against another type (past
+        2^63 it would wrap under an int64 cast), keys the preparers cannot
+        align, host columns on the right, or on the left when the rows move,
+        and an expansion past ``MAX_EXPAND_ROWS``."""
         key_schema, out_schema = get_join_schemas(
             j1, j2, how=_SCHEMA_HOW[kernel_how], on=on
         )
         keys = key_schema.names
-        for f in key_schema.fields:
-            if not _is_join_key_type(f.type):
-                raise NotImplementedError(
-                    f"join key {f.name!r} of type {f.type}: the JAX package joins it on "
-                    f"its host engine, which is not ported ({_HOST_JOIN})"
-                )
+        if not all(_is_join_key_type(f.type) for f in key_schema.fields):
+            return None
         for k in keys:
             t1, t2 = j1.schema[k].type, j2.schema[k].type
             if t1 != t2 and pa.uint64() in (t1, t2):
-                raise NotImplementedError(
-                    f"join key {k!r} of types {t1} and {t2}: uint64 past 2^63 would wrap "
-                    "under an int64 cast, so the JAX package joins it on its host "
-                    f"engine, which is not ported ({_HOST_JOIN})"
-                )
+                return None
             if k not in j1.device_cols or k not in j2.device_cols:
                 raise NotImplementedError(
                     f"join key {k!r} of types {t1} and {t2}: the port keeps unsigned "
                     f"types above uint8 on the host ({_ENCODED})"
                 )
         if j2.host_table is not None:
-            raise _host_refusal(j2.host_table, "the right side")
+            return _host_columns(j2.host_table, "the right side")
         with record_function("fugue::join_prep"):
-            left_key_arrs, right_key_arrs = self._prepare_join_keys(j1, j2, keys)
+            prepared = self._prepare_join_keys(j1, j2, keys)
+            if prepared is None:
+                return None
+            left_key_arrs, right_key_arrs = prepared
             value_names = [n for n in j2.schema.names if n not in keys and n in out_schema]
             # value entries: (out_name, tensor, left_outer miss fill); masked
             # columns ship their mask as an extra gathered tensor (miss = True)
@@ -897,7 +995,7 @@ class TorchExecutionEngine(ExecutionEngine):
             # match) pairs — rows move, host columns can't follow
             if kernel_how in ("inner", "left_outer"):
                 if j1.host_table is not None:
-                    raise _host_refusal(
+                    return _host_columns(
                         j1.host_table, "duplicate right keys move the left rows: the left side"
                     )
                 # the left masks ride along with the gathered rows
@@ -911,7 +1009,7 @@ class TorchExecutionEngine(ExecutionEngine):
                     right_valid, right_entries,
                 )
             if res is None:
-                raise _expand_refusal(f"{_SCHEMA_HOW[kernel_how]} join")
+                return None
             expanded = True
         new_cols, new_valid, match = res
         # reassemble: pop probe keys, split off mask arrays
@@ -1065,29 +1163,18 @@ def _is_join_key_type(t: pa.DataType) -> bool:
     )
 
 
-def _host_refusal(host_tbl: Optional[pa.Table], what: str) -> NotImplementedError:
-    """The refusal of a join over a frame with host columns. Unsigned
-    columns above uint8 live on the JAX package's device but on the port's
-    host (A.3); any other host column is on the JAX package's host too, and
-    it joins on its host engine (A.5b)."""
+def _host_columns(host_tbl: Optional[pa.Table], what: str) -> None:
+    """A device join cannot carry host columns: None (the host join), as
+    in the JAX engine, where one of them is on the JAX package's host too.
+    Where all of them are unsigned above uint8, they live on the JAX
+    package's device but on the port's host, and this raises (A.3)."""
     types = [] if host_tbl is None else list(host_tbl.schema.types)
-    if len(types) > 0 and all(
-        pa.types.is_unsigned_integer(t) and t.bit_width > 8 for t in types
-    ):
-        item = _ENCODED
-    else:
-        item = _HOST_JOIN
-    return NotImplementedError(
-        f"{what} has host columns {host_tbl.column_names if host_tbl is not None else []}; "
-        f"a device join cannot carry them ({item})"
-    )
-
-
-def _expand_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the expansion would pass MAX_EXPAND_ROWS ({MAX_EXPAND_ROWS}) rows; "
-        f"the JAX package joins it on its host engine, which is not ported ({_HOST_JOIN})"
-    )
+    if len(types) > 0 and all(pa.types.is_unsigned_integer(t) and t.bit_width > 8 for t in types):
+        raise NotImplementedError(
+            f"{what} has host columns {host_tbl.column_names}; a device join cannot carry "
+            f"them ({_ENCODED})"
+        )
+    return None
 
 
 def _nullview(arr: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,16 +1,14 @@
-"""The annotation of a device-compiled transformer, the port of
-``fugue_tpu/jax_annotations.py`` and of the JAX engine's
-``_sniff_jax_func``.
+"""The annotated parameter of a device-compiled transformer, the port of
+``fugue_tpu/jax_annotations.py``.
 
 A function annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``
-is the port's device transformer: ``api.transform`` runs it on the
-engine's device over the frame's columns, with no host round trip. The
-port has no function-wrapper registry; it reads the contract from
-``typing.get_type_hints``: one parameter, and it and the return are both
-``Dict[str, torch.Tensor]`` (``dict[str, torch.Tensor]`` is the same
-annotation). Any other function (pandas, arrow or list annotated, or one
-with more parameters) is a host transformer, which the port does not run:
-it raises ``NotImplementedError``.
+(code ``t``, ``dict[str, torch.Tensor]`` alike) is the port's device
+transformer. With that one parameter, ``api.transform`` runs it on the
+engine's device over the frame's columns, with no host round trip
+(``TorchMapEngine``, which reads the raw function through
+:func:`sniff_torch_func`). With more parameters it runs on the host
+engine, once a partition, over CPU tensors of the partition's columns, as
+the JAX package runs such a ``Dict[str, jax.Array]`` function.
 
 Contract: the input dict includes a reserved ``"__valid__"`` bool tensor
 marking real rows. A frame carried over from the JAX package keeps its
@@ -25,44 +23,63 @@ where the output does not depend on the shard layout (elementwise maps,
 or reductions through the keyed helpers).
 """
 
-import inspect
 import typing
-from typing import Any, Callable
+from typing import Any, Callable, Dict, Optional
 
+import pyarrow as pa
 import torch
 
-_HOST_UDFS = "ROADMAP.md A.4b host transformers"
+from .dataframe import ArrowDataFrame, DataFrame
+from .dataframe.function_wrapper import LocalDataFrameParam, fugue_annotated_param
+from .schema import Schema
+
+VALID = "__valid__"
 
 
 def _is_torch_dict(a: Any) -> bool:
     return typing.get_origin(a) is dict and typing.get_args(a) == (str, torch.Tensor)
 
 
-def torch_dict_udf(fn: Callable) -> Callable:
-    """``fn`` itself when it is annotated ``Dict[str, torch.Tensor] ->
-    Dict[str, torch.Tensor]`` with one parameter; otherwise raise
-    ``NotImplementedError``: the JAX package runs such a function on its
-    host engine, and the port has none."""
-    if not callable(fn):
-        raise TypeError(f"{fn!r} is not callable")
-    try:
-        hints = typing.get_type_hints(fn)
-        params = list(inspect.signature(fn).parameters.values())
-    except (NameError, TypeError, ValueError) as e:
-        raise NotImplementedError(
-            f"{fn!r} has no readable annotations ({e}); only Dict[str, torch.Tensor] "
-            f"transformers run on the port ({_HOST_UDFS})"
-        ) from e
-    ok = (
-        len(params) == 1
-        and params[0].kind in (params[0].POSITIONAL_ONLY, params[0].POSITIONAL_OR_KEYWORD)
-        and _is_torch_dict(hints.get(params[0].name))
-        and _is_torch_dict(hints.get("return"))
-    )
-    if not ok:
-        raise NotImplementedError(
-            f"{getattr(fn, '__name__', fn)!r} is not annotated Dict[str, torch.Tensor] -> "
-            "Dict[str, torch.Tensor] with one parameter; the JAX package runs such a "
-            f"transformer on its host engine, which is not ported ({_HOST_UDFS})"
-        )
-    return fn
+@fugue_annotated_param(code="t", matcher=_is_torch_dict)
+class TorchDictParam(LocalDataFrameParam):
+    """On the host engine: the partition's columns as CPU tensors (strings
+    as dictionary codes, NULLs filled, as the device holds them), and the
+    output dict back to a frame of the output schema."""
+
+    @property
+    def format_hint(self) -> Optional[str]:
+        return "torch"
+
+    @property
+    def need_schema(self) -> Optional[bool]:
+        return True
+
+    def to_input_data(self, df: DataFrame) -> Dict[str, torch.Tensor]:
+        from .torch.dataframe import encode_arrow_for_device
+
+        cols, _, _ = encode_arrow_for_device(df.as_arrow())
+        res = {k: torch.from_numpy(v.copy()) for k, v in cols.items()}
+        if len(res) > 0:
+            res[VALID] = torch.ones(next(iter(res.values())).shape[0], dtype=torch.bool)
+        return res
+
+    def to_output_df(self, output: Any, schema: Optional[Schema]) -> DataFrame:
+        if not isinstance(output, dict) or schema is None:
+            raise TypeError("a Dict[str, torch.Tensor] transformer must return a dict")
+        arrays = [
+            pa.array(output[f.name].detach().cpu().numpy()).cast(f.type, safe=False)
+            for f in schema.fields
+        ]
+        return ArrowDataFrame(pa.Table.from_arrays(arrays, schema=schema.pa_schema))
+
+
+def sniff_torch_func(map_func: Callable) -> Optional[Callable]:
+    """The raw ``Dict[str, torch.Tensor]`` function behind a transformer
+    runner's ``run``, when the transformer is an interfaceless function of
+    that one parameter (codes ``t`` → ``t``); None for any other
+    (``_sniff_jax_func``, ``fugue_tpu/jax/execution_engine.py`` :4328)."""
+    runner = getattr(map_func, "__self__", None)
+    wrapper = getattr(getattr(runner, "transformer", None), "_wrapper", None)
+    if wrapper is None or wrapper.input_code != "t" or wrapper.output_code != "t":
+        return None
+    return wrapper.func

@@ -5,7 +5,8 @@ forms: keyless, keyed on the dense plan, keyed on the sorted plan.
 
 The cases are the ten of ``tests/jax_engine/test_compiled_keyed.py``, plus
 keyless maps, the window helpers under a presort, bench.py's demean and
-ridge-HPO UDFs at small size, the choice of plan, and the refusals. Each
+ridge-HPO UDFs at small size, the choice of plan, the transformers both
+packages hand to their host engines, ``*`` schemas, and the refusals. Each
 UDF is written once as ``body(group_ops, cols, array module)`` and wrapped
 with each package's annotation, except where ``chip_smoke.py``'s
 ``transform_path`` UDFs (torch only) are held against the JAX package's;
@@ -20,6 +21,7 @@ keys and NULL placement. Floats: pandas' ``assert_frame_equal`` default
 """
 
 import decimal
+import unittest.mock as mock
 from typing import Any, Callable, Dict
 
 import jax
@@ -511,23 +513,94 @@ def test_refused_keyed_shapes(jax_engine, engine, case):
 
 
 def test_host_transformers_are_not_ported(engine):
-    """The JAX package runs these on its host engine; the port has none."""
-    def pandas_udf(df: pd.DataFrame) -> pd.DataFrame:
-        return df
-
-    def two_params(cols: Dict[str, torch.Tensor], a: int = 1) -> Dict[str, torch.Tensor]:
-        return cols
-
+    """What of the host transformers is still not ported: a function
+    annotated with ``jax.Array`` (the port never imports JAX to run it),
+    the host map's forked pool and callbacks (ROADMAP.md A.10). The
+    transformers both packages run on their host engines are held against
+    each other in ``test_host_transformers_run_on_the_host_engine``."""
     def jax_annotated(cols: Dict[str, jax.Array]) -> Dict[str, jax.Array]:
         return cols
 
-    for udf in (pandas_udf, two_params, jax_annotated, lambda cols: cols):
-        with pytest.raises(NotImplementedError, match="A.4b"):
-            api.transform(_frame(16), udf, schema="k:long,v:double", engine=engine)
-    # a keyless map over an encoded column is a host map in the JAX package
-    pdf = pd.DataFrame({"s": pd.Series(["a", "b"], dtype="str"), "v": [1.0, 2.0]})
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        api.transform(pdf, _pair(lambda go, cols, xp: cols)[1], schema="v:double", engine=engine)
+    with pytest.raises(NotImplementedError, match="jax.Array"):
+        api.transform(_frame(16), jax_annotated, schema="k:long,v:double", engine=engine)
+    pool = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.map.parallelism": 4})
+    with pytest.raises(NotImplementedError, match="A.10"):
+        api.transform(_frame(16), _pandas_identity, schema="*", partition={"by": ["k"]}, engine=pool)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        api.transform(_frame(16), _pandas_identity, schema="*", callback=print, engine=engine)
+
+
+def _pandas_identity(df: pd.DataFrame) -> pd.DataFrame:
+    return df
+
+
+def _host_udfs(case: str):
+    """The JAX package's and the port's transformer of one host case."""
+    if case == "pandas_udf":
+        def demean(df: pd.DataFrame) -> pd.DataFrame:
+            df["v"] = df["v"] - df["v"].mean()
+            return df
+
+        return demean, demean
+    if case == "two_params":
+        def jax_two(cols: Dict[str, jax.Array], a: int = 1) -> Dict[str, jax.Array]:
+            return {"k": cols["k"], "v": cols["v"] * a}
+
+        def torch_two(cols: Dict[str, torch.Tensor], a: int = 1) -> Dict[str, torch.Tensor]:
+            return {"k": cols["k"], "v": cols["v"] * a}
+
+        return jax_two, torch_two
+    if case == "lambda":
+        return (lambda cols: cols), (lambda cols: cols)
+    return _pair(lambda go, cols, xp: {"v": cols["v"] + 1})  # keyless_encoded
+
+
+@pytest.mark.parametrize("case", ["pandas_udf", "two_params", "lambda", "keyless_encoded"])
+def test_host_transformers_run_on_the_host_engine(jax_engine, engine, case):
+    """Transformers the JAX package maps on its host engine: a pandas UDF
+    grouped by key, a device-annotated function with a second parameter
+    (``params`` reach it), an unannotated lambda (both refuse it alike),
+    and a keyless compiled map over a dictionary-string column. The port
+    maps each on its host engine and gives the JAX engine's answer, or its
+    error."""
+    jf, tf = _host_udfs(case)
+    kw: Dict[str, Any] = {"schema": "*"}
+    pdf = _frame(64)
+    if case == "pandas_udf":
+        kw["partition"] = {"by": ["k"]}
+    elif case == "two_params":
+        kw["params"] = {"a": 3}
+    elif case == "keyless_encoded":
+        pdf = pd.DataFrame({"s": pd.Series(["b", "a", None, "b"], dtype="str"), "v": [1.0, 2.0, 3.0, 4.0]})
+        kw["schema"] = "v:double"
+    if case == "lambda":
+        with pytest.raises(Exception) as exp_err:
+            fa.transform(jax_engine.to_df(pdf), jf, engine=jax_engine, **kw)
+        with pytest.raises(Exception) as got_err:
+            api.transform(pdf, tf, engine=engine, **kw)
+        assert type(got_err.value).__name__ == type(exp_err.value).__name__ == "FugueInterfacelessError"
+        assert "input signature 'x'" in str(got_err.value)
+        return
+    host = engine._host_engine.map_engine
+    exp = fa.transform(jax_engine.to_df(pdf), jf, engine=jax_engine, as_fugue=True, **kw)
+    with mock.patch.object(type(host), "map_dataframe", autospec=True,
+                           side_effect=type(host).map_dataframe) as spy:
+        got = api.transform(pdf, tf, engine=engine, as_fugue=True, **kw)
+    assert spy.call_count == 1
+    assert isinstance(got, TorchDataFrame)
+    _assert_same(exp.as_arrow(), got.as_arrow())
+
+
+@pytest.mark.parametrize("partition", [None, {"by": ["k"]}])
+def test_star_schema_resolves_against_the_input(jax_engine, engine, partition):
+    """A compiled transformer's ``*`` schema is the input's columns."""
+    jf, tf = _pair(lambda go, cols, xp: {"k": cols["k"], "v": cols["v"] * 2})
+    exp = fa.transform(jax_engine.to_df(_frame(64)), jf, schema="*,w:double,-w", partition=partition,
+                       engine=jax_engine, as_fugue=True)
+    got = api.transform(_frame(64), tf, schema="*,w:double,-w", partition=partition, engine=engine,
+                        as_fugue=True)
+    assert str(got.schema) == "k:long,v:double"
+    _assert_same(exp.as_arrow(), got.as_arrow())
 
 
 def test_params_are_refused_where_the_reference_drops_them(jax_engine, engine):
@@ -546,16 +619,17 @@ def test_params_are_refused_where_the_reference_drops_them(jax_engine, engine):
 
 @pytest.mark.parametrize("case", ["not_a_dict", "missing_column", "not_row_aligned", "star_schema"])
 def test_bad_outputs_raise(engine, case):
+    """``star_schema``: ``*`` resolves to the input's columns (k, v), and an
+    output without ``v`` lacks one of them."""
     bodies = {
         "not_a_dict": lambda go, cols, xp: [cols["v"]],
         "missing_column": lambda go, cols, xp: {"k": cols["k"]},
         "not_row_aligned": lambda go, cols, xp: {"k": cols["k"][:3], "v": cols["v"][:3]},
-        "star_schema": lambda go, cols, xp: cols,
+        "star_schema": lambda go, cols, xp: {"k": cols["k"]},
     }
     tf = _pair(bodies[case])[1]
     schema = "*" if case == "star_schema" else "k:long,v:double"
-    err = NotImplementedError if case == "star_schema" else FugueInvalidOperation
-    with pytest.raises(err):
+    with pytest.raises(FugueInvalidOperation):
         api.transform(_frame(16), tf, schema=schema, partition={"by": ["k"]}, engine=engine)
 
 

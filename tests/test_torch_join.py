@@ -11,8 +11,8 @@ Results are compared after sorting by every column: exact for keys,
 integers, strings, row sets and NULL placement; floats with pandas'
 ``assert_frame_equal`` default (``rtol=1e-5``), as the reference's own
 tests compare. Where the JAX engine joins on its host engine, the port
-raises ``NotImplementedError`` naming ROADMAP.md A.5b: each such case
-checks both sides of that.
+joins on its own host engine at the same place: each such case spies on
+both host engines and compares the answers.
 """
 
 import contextlib
@@ -463,7 +463,7 @@ def test_user_errors_are_the_reference_errors(jax_engine, engine):
         assert str(got.value) == str(exp.value)
 
 
-# ---- refusals: where the JAX engine joins on its host engine ----------------
+# ---- where the JAX engine joins on its host engine ---------------------------
 
 
 def _host_case(case: str):
@@ -509,22 +509,31 @@ HOST_CASES = ["uint64-key", "int64-key-with-nulls", "timestamps-of-two-units", "
 
 @pytest.mark.parametrize("case", HOST_CASES)
 def test_joins_the_reference_sends_to_its_host_raise(jax_engine, engine, monkeypatch, case):
+    """Each case is a join the JAX engine makes on its host engine. The
+    test keeps the name it had while the port refused them: the port's
+    host engine now makes each join at the same place (its spy sees the
+    verb the JAX engine's spy sees), and the rows, types and NULLs that
+    come back to the device are the JAX engine's."""
     # a budget of 16 slots and a broadcast limit of 8 rows: cases at small size
     monkeypatch.setattr(oj, "MAX_EXPAND_ROWS", 16)
     monkeypatch.setattr(tj, "MAX_EXPAND_ROWS", 16)
     monkeypatch.setattr(te, "MAX_BROADCAST_ROWS", 8)
     left, right, how = _host_case(case)
-    host = jax_engine._host_engine
     # the full_outer case joins on the device and unions the two parts on the host
     verb = "union" if case == "full-outer-of-two-key-dtypes" else "join"
+    host = jax_engine._host_engine
     with mock.patch.object(host, verb, wraps=getattr(host, verb)) as spy:
         if case == "cross-past-broadcast":
             monkeypatch.setattr(oj, "MAX_BROADCAST_ROWS", 8)
         exp = jax_engine.join(jax_engine.to_df(left), jax_engine.to_df(right), how=how)
         assert spy.called
     assert exp.count() > 0
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        engine.join(engine.to_df(left), engine.to_df(right), how=how)
+    thost = engine._host_engine
+    with mock.patch.object(thost, verb, wraps=getattr(thost, verb)) as tspy:
+        got = engine.join(engine.to_df(left), engine.to_df(right), how=how)
+        assert tspy.call_count == 1
+    assert isinstance(got, TorchDataFrame) and got.device == engine.device
+    _same(got, exp)
 
 
 def test_unsigned_keys_stay_on_the_ports_host(jax_engine, engine):
