@@ -34,7 +34,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    after, timed and traced once (device busy/idle share, top device
    operations, host time of the merge and decode); then B1 alone at
    ``shipmode``'s shape beside its bound and ``index_add_``;
-7. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
+7. select_path: the column expressions and the row-local verbs on
+   ``sorted_path``'s lineitem frame, handed over (not built again), one
+   line a cell: ``q1-select`` (TPC-H Q1 without the tax column:
+   ``api.assign`` of ``disc_price``, then ``api.select`` of the grouped
+   sums, averages and COUNT(*) by the two string flags, WHERE
+   ``l_shipdate <= "1998-09-02"``: the device projection, the device
+   filter with its date literal rewritten, the sorted groupby),
+   ``q6-select`` (TPC-H Q6 as written: the five-term predicate on the
+   device, the global SUM of an expression on the host over the rows that
+   pass) and ``shipmode-where`` (a string predicate through the
+   dictionary's lookup table, then the dense partials route under the
+   mask: B1 twice a call, and HAVING on the host), each checked against a
+   float64 numpy oracle that compares in each column's own type, with the
+   launch counts set to 0 just before and read just after, timed (median
+   of ``SELECT_REPS`` calls) beside its bound, traced once, and its
+   filter (and Q1's projection) traced alone;
+8. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
    UDFs (``transform_udfs``) over frames of 100,000,000 rows built from
    ``--seed`` with numpy: ``map-keyless`` (elementwise), ``demean-dense``
    (bench.py's demean by 1,000 keys: the dense plan), ``demean-sorted``
@@ -46,7 +62,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to 0 just before and read just after, timed (median of
    ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
    a frame;
-8. join_path: the device joins at full width, one line a cell:
+9. join_path: the device joins at full width, one line a cell:
    ``north-star-100m`` (bench.py's ``_north_star`` in memory: the group
    means of 100,000,000 rows by ``api.aggregate``, joined back onto every
    row by ``api.join`` and subtracted by ``api.transform``),
@@ -58,7 +74,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
    bound, and traced once;
-9. host_path: the host engine behind the device engine, one line a cell:
+10. host_path: the host engine behind the device engine, one line a cell:
    ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
    ``transform(pdf, demean, schema="*", partition={"by": ["k"]})`` with a
    pandas UDF over bench.py's ``_make_frame`` cut to 1,000,000 rows,
@@ -70,7 +86,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each checked against a host oracle with the launch counts set to 0
    just before and read just after, timed, and traced once with the copy
    to the host, the pandas work and the copy back apart;
-10. stream_path: the streaming paths at full size, one line a cell:
+11. stream_path: the streaming paths at full size, one line a cell:
    ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
@@ -106,6 +122,8 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-3  # kernel vs plain: float32, other order
 ORACLE_RTOL = 1e-4  # f32 atomics vs f64 oracle over ~1e5..1e7 rows a group
 TIMING_REPS = 10  # medians of 10 timed calls, after a warm-up
 SORTED_REPS = 3  # the sorted-path aggregates: medians of 3 calls, after the checked one
+SELECT_REPS = 3  # select_path: medians of 3 calls, after the checked one
+Q6_RTOL = 1e-9  # Q6's revenue: float64 products summed in another order
 TRANSFORM_REPS = 5  # transform_path: medians of 5 calls, after the checked one
 # transform outputs vs the float64 oracle: pandas' assert_frame_equal
 # default, as the reference's tests compare; the ridge residuals with the
@@ -631,6 +649,7 @@ def _trace(torch, fn, calls: int = 1, all_threads: bool = False, warm_up=None) -
         **({"all_threads": all_threads} if asked else {}),
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
+        "device_ops": sum(e.count for e in device) / calls,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else None,
         "by_kernel": [{"name": e.key[:80], "ms": e.device_time_total / 1e3 / calls,
                        "calls": e.count / calls} for e in device[:10]],
@@ -650,6 +669,7 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
     tbl, aux = make_lineitem(np, pa, seed, orders)
     generate_s = time.perf_counter() - t0
     oracles = lineitem_oracles(np, pd, tbl, aux)
+    select_oracles = select_path_oracles(np, pd, tbl, aux)
     t0 = time.perf_counter()
     tdf = engine.persist(engine.to_df(tbl))
     ingest_s = time.perf_counter() - t0
@@ -707,6 +727,163 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
         "launches_per_aggregate": out["aggregates"]["shipmode"]["launches"]["bin_sum"],
     }
     emit(out)
+    # the frame and select_path's oracles go on to phase_select_path
+    out["handover"] = {"frame": tdf, "oracles": select_oracles}
+    return out
+
+
+# TPC-H Q1's and Q6's substitution parameters (TPC-H spec 2.4.1.3, 2.4.6.3):
+# DELTA = 90 days before 1998-12-01; DATE = 1994-01-01, DISCOUNT = 0.06 ± 0.01,
+# QUANTITY = 24
+Q1_SHIPDATE = "1998-09-02"
+Q6_DATES = ("1994-01-01", "1995-01-01")
+Q6_DISCOUNT = (0.05, 0.07)
+Q6_QUANTITY = 24
+
+
+def select_path_cells(api, ff, col, engine) -> dict:
+    """The three select_path cells: name → (``call(tdf)``, its WHERE, group
+    keys, bytes a row of the columns it reads)."""
+    q, p, d, s = col("l_quantity"), col("l_extendedprice"), col("l_discount"), col("l_shipdate")
+    q1_where = s <= Q1_SHIPDATE
+    q6_where = ((s >= Q6_DATES[0]) & (s < Q6_DATES[1]) & (d >= Q6_DISCOUNT[0])
+                & (d <= Q6_DISCOUNT[1]) & (q < Q6_QUANTITY))
+    ship_where = col("l_returnflag") == "R"
+
+    def q1(tdf):
+        a = api.assign(tdf, engine=engine, disc_price=p * (1 - d))
+        return api.select(
+            a, "l_returnflag", "l_linestatus", ff.sum(q).alias("sum_qty"),
+            ff.sum(p).alias("sum_base_price"), ff.sum(col("disc_price")).alias("sum_disc_price"),
+            ff.avg(q).alias("avg_qty"), ff.avg(p).alias("avg_price"), ff.avg(d).alias("avg_disc"),
+            ff.count(col("*")).alias("count_order"), where=q1_where, engine=engine)
+
+    def q6(tdf):
+        return api.select(tdf, ff.sum(p * d).alias("revenue"), where=q6_where, engine=engine)
+
+    def shipmode_where(tdf):
+        return api.select(
+            tdf, "l_shipmode", ff.sum(q).alias("sum_qty"), ff.avg(d).alias("avg_disc"),
+            ff.count(col("*")).alias("count_order"), where=ship_where, having=ff.sum(q) > 0,
+            engine=engine)
+
+    # bytes a row: date 4, string codes 4, quantity 4, price 8, discount 4
+    return {
+        "q1-select": (q1, q1_where, ["l_returnflag", "l_linestatus"], 4 + 4 + 4 + 4 + 8 + 4),
+        "q6-select": (q6, q6_where, [], 4 + 4 + 4 + 8),
+        "shipmode-where": (shipmode_where, ship_where, ["l_shipmode"], 4 + 4 + 4 + 4),
+    }
+
+
+def select_path_oracles(np, pd, tbl, aux) -> dict:
+    """float64 numpy answers of the three select_path cells, keyed by
+    name. Each predicate compares in its column's own type, as both
+    engines do: ``l_discount >= 0.05`` in float32 (a float64 comparison
+    would drop the rows at 0.07, as float32(0.07) > 0.07)."""
+    qty32 = tbl.column("l_quantity").to_numpy()
+    price = tbl.column("l_extendedprice").to_numpy()
+    disc32 = tbl.column("l_discount").to_numpy()
+    ship = tbl.column("l_shipdate").to_numpy()
+    out = {}
+    m = ship <= np.datetime64(Q1_SHIPDATE)
+    gid = (aux["flag"].astype(np.int64) * len(LINESTATUSES) + aux["status"])[m]
+    g = len(RETURNFLAGS) * len(LINESTATUSES)
+    cnt = np.bincount(gid, minlength=g)
+    # 1 - l_discount is float32 on both engines, its product with the price float64
+    disc_price = price[m] * (np.float32(1) - disc32[m]).astype(np.float64)
+    sums = {c: np.bincount(gid, weights=w, minlength=g) for c, w in (
+        ("q", qty32[m].astype(np.float64)), ("p", price[m]), ("dp", disc_price),
+        ("d", disc32[m].astype(np.float64)))}
+    have = np.nonzero(cnt)[0]
+    out["q1-select"] = pd.DataFrame({
+        "l_returnflag": [RETURNFLAGS[x // len(LINESTATUSES)] for x in have],
+        "l_linestatus": [LINESTATUSES[x % len(LINESTATUSES)] for x in have],
+        "sum_qty": sums["q"][have], "sum_base_price": sums["p"][have],
+        "sum_disc_price": sums["dp"][have], "avg_qty": sums["q"][have] / cnt[have],
+        "avg_price": sums["p"][have] / cnt[have], "avg_disc": sums["d"][have] / cnt[have],
+        "count_order": cnt[have],
+    })
+    m = ((ship >= np.datetime64(Q6_DATES[0])) & (ship < np.datetime64(Q6_DATES[1]))
+         & (disc32 >= np.float32(Q6_DISCOUNT[0])) & (disc32 <= np.float32(Q6_DISCOUNT[1]))
+         & (qty32 < np.float32(Q6_QUANTITY)))
+    out["q6-select"] = pd.DataFrame({"revenue": [float((price[m] * disc32[m].astype(np.float64)).sum())]})
+    out["q6-rows"] = int(m.sum())
+    m = aux["flag"] == RETURNFLAGS.index("R")
+    k = len(SHIPMODES)
+    mode = aux["mode"][m]
+    cnt = np.bincount(mode, minlength=k)
+    sq = np.bincount(mode, weights=qty32[m].astype(np.float64), minlength=k)
+    have = np.nonzero((cnt > 0) & (sq > 0))[0]
+    out["shipmode-where"] = pd.DataFrame({
+        "l_shipmode": [SHIPMODES[x] for x in have],
+        "sum_qty": sq[have],
+        "avg_disc": np.bincount(mode, weights=disc32[m].astype(np.float64), minlength=k)[have] / cnt[have],
+        "count_order": cnt[have],
+    })
+    return out
+
+
+def phase_select_path(torch, np, bg, api, ff, col, engine, tdf, oracles: dict) -> dict:
+    """The three select_path cells over the lineitem frame ``tdf``, one
+    line each: checked against ``oracles`` with the launch counts set to 0
+    just before the first call and read just after, timed (median of
+    ``SELECT_REPS`` calls) beside the bound of the bytes of the columns it
+    reads, traced once; and its filter alone (and Q1's projection alone)
+    traced, for the device passes and time they take."""
+    rows = tdf.count()
+    out = {"cells": {}}
+    for name, (fn, where, keys, row_bytes) in select_path_cells(api, ff, col, engine).items():
+        def call(fn=fn):
+            return fn(tdf)
+
+        for k in bg.LAUNCHES:
+            bg.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        got = res.as_pandas()
+        if name == "q6-select":
+            require(list(got.columns) == ["revenue"] and len(got) == 1, f"q6-select: {got}")
+            require(np.allclose(got["revenue"].to_numpy(), oracles[name]["revenue"].to_numpy(),
+                                rtol=Q6_RTOL, atol=0), f"q6-select: revenue {got['revenue'][0]} vs oracle")
+        else:
+            check_lineitem(np, got, oracles[name], keys, name)
+        if name == "shipmode-where":
+            expected = 2 if engine.device.type == "cuda" else 0
+            require(launches["bin_sum"] == expected,
+                    f"shipmode-where: bin_sum launched {launches['bin_sum']} times, expected {expected}")
+        del res, got
+        wall = []
+        for _ in range(SELECT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        profile = _trace(torch, call)
+        if name == "q1-select":
+            # the WHERE and the projection run on the device: no row goes to the host
+            require("fugue::to_host" not in profile["host_spans_ms"],
+                    f"q1-select: a copy to the host {profile['host_spans_ms']}")
+        bound_ms, bound_by = _bound(rows, row_bytes, 0)
+        line = {
+            "phase": "select_path", "cell": name, "rows": rows,
+            "rows_selected": oracles["q6-rows"] if name == "q6-select" else int(oracles[name]["count_order"].sum()),
+            "launches": launches, "first_call_s": first_s,
+            "ms": statistics.median(wall), "ms_all": wall, "rows_per_s": rows / statistics.median(wall) * 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "checks": ("revenue rtol=1e-9" if name == "q6-select" else
+                       f"keys, counts exact; sums/averages rtol={ORACLE_RTOL}") + " vs float64 oracle",
+            "profile": profile,
+            "filter_profile": _trace(torch, lambda w=where: engine.filter(tdf, w)),
+        }
+        if name == "q1-select":
+            line["project_profile"] = _trace(torch, lambda: api.assign(
+                tdf, engine=engine, disc_price=col("l_extendedprice") * (1 - col("l_discount"))))
+        emit(line)
+        out["cells"][name] = line
     return out
 
 
@@ -1354,7 +1531,8 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
     past ``MAX_EXPAND_ROWS``: the join the JAX engine makes on its host).
     Each is held against a host oracle with its kernel launches counted
     from 0, timed, and traced once (idle share, device operations, and the
-    D2H, pandas and H2D steps apart)."""
+    D2H, pandas and H2D steps apart); the two large cells time their
+    traced call, so each runs its UDF or join twice."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1433,13 +1611,11 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
     check_demean(np, "pandas-demean-100m", res.device_cols["k"], res.device_cols["v"],
                  cols["k"], cols["v"], torch=torch)
     del res
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    big_call()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    # one call is long enough to trace alone: a tiny op is the warm-up step
+    # one call is long enough to trace alone: a tiny op is the warm-up step.
+    # The traced call is the timed one (host-bound: the profiler records
+    # the torch ops, not pandas), so the cell runs the UDF twice, not three times
     profile = _trace(torch, big_call, warm_up=lambda: torch.ones(1, device=engine.device) + 1)
+    ms = profile["wall_ms"]
     line.update(rows=rows, groups=TRANSFORM_KEYS, generate_s=generate_s, ms=ms, rows_per_s=rows / ms * 1e3,
                 compiled_ms=compiled_ms, copies_bytes={"d2h": 16 * rows, "h2d": 16 * rows},
                 split=_copy_split(profile, "fugue::host_map"), profile=profile)
@@ -1468,12 +1644,8 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
     check_expand(np, pa, res, tbl, aux, oaux)
     rows_out = res.count()
     del res
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    join_call()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     profile = _trace(torch, join_call, warm_up=lambda: torch.ones(1, device=engine.device) + 1)
+    ms = profile["wall_ms"]  # the traced call is the timed one, as above
     d2h = _tensor_bytes(_frame_tensors(odf)) + _tensor_bytes(_frame_tensors(lineitem))
     line.update(plan="host", rows_in=[odf.count(), lineitem.count()], rows_out=rows_out,
                 generate_s=generate_s, ingest_s=ingest_s, ms=ms, left_rows_per_s=odf.count() / ms * 1e3,
@@ -1729,6 +1901,9 @@ def main() -> int:
     del main_path["frames"]
     torch.cuda.empty_cache()
     sorted_path = phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, args.seed, args.orders)
+    handover = sorted_path.pop("handover")
+    select_path = phase_select_path(torch, np, bg, api, ff, col, engine, handover["frame"], handover["oracles"])
+    del handover
     torch.cuda.empty_cache()
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
                                           args.rows)
@@ -1749,6 +1924,7 @@ def main() -> int:
         name = t["name"]
         by_path = {"dense": main_path["out"]["launches"][name],
                    "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()},
+                   "select_path": {c: r["launches"][name] for c, r in select_path["cells"].items()},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
@@ -1767,7 +1943,7 @@ def main() -> int:
             "source": sources[name],
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
-            + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
+            + sum(by_path["select_path"].values()) + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",

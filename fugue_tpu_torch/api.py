@@ -15,6 +15,7 @@ import pandas as pd
 import pyarrow as pa
 
 from .collections.partition import PartitionSpec
+from .column import SelectColumns, col, lit
 from .column.expressions import ColumnExpr
 from .dataframe import DataFrame
 from .dataframe.api import get_native_as_df
@@ -49,11 +50,12 @@ def aggregate(
     as_fugue: bool = False,
     **agg_kwcols: ColumnExpr,
 ) -> Any:
-    """Group ``df`` by ``partition_by`` (a name or a list of names) and
-    compute each keyword's aggregate, named by the keyword::
+    """Group ``df`` by ``partition_by`` (a name or a list of names; None:
+    one group of every row) and compute each keyword's aggregate, named by
+    the keyword; an aggregate may sit inside an expression::
 
         aggregate(df, partition_by="k", engine="torch",
-                  s=sum(col("v")), n=count(col("v")))
+                  s=sum(col("v")), n=count(col("v")), r=max(col("v")) - min(col("v")))
 
     The result is a frame of the engine when ``as_fugue`` or when ``df`` is
     one; otherwise it has the input's type (pandas or arrow)."""
@@ -65,6 +67,75 @@ def aggregate(
         else PartitionSpec(by=[partition_by] if isinstance(partition_by, str) else list(partition_by))
     )
     return _adjust_result(e.aggregate(df, spec, cols), df, as_fugue)
+
+
+def select(
+    df: Any,
+    *columns: Any,
+    where: Optional[ColumnExpr] = None,
+    having: Optional[ColumnExpr] = None,
+    distinct: bool = False,  # noqa: A002
+    engine: Any = None,
+    device: Any = None,
+    as_fugue: bool = False,
+) -> Any:
+    """SQL SELECT: ``columns`` (names or expressions; ``col("*")`` for
+    every column), rows filtered by ``where``, grouped by the columns that
+    hold no aggregate where any does, groups filtered by ``having``,
+    without repeats if ``distinct``::
+
+        select(df, col("k"), sum(col("v")).alias("s"), where=col("v") > 0, engine="torch")
+    """
+    cols = SelectColumns(*[col(c) if isinstance(c, str) else c for c in columns], arg_distinct=distinct)
+    return _verb(lambda e, d: e.select(d, cols, where=where, having=having), df, engine, device, as_fugue)
+
+
+def filter(df: Any, condition: ColumnExpr, engine: Any = None, device: Any = None,  # noqa: A001
+           as_fugue: bool = False) -> Any:
+    """The rows of ``df`` where ``condition`` is TRUE (FALSE and NULL drop)."""
+    return _verb(lambda e, d: e.filter(d, condition), df, engine, device, as_fugue)
+
+
+def assign(df: Any, engine: Any = None, device: Any = None, as_fugue: bool = False,
+           **columns: Any) -> Any:
+    """``df`` with each keyword's expression (or constant) as the column of
+    its name: replacing the column of that name in place, or added after."""
+    cols = [(v if isinstance(v, ColumnExpr) else lit(v)).alias(k) for k, v in columns.items()]
+    return _verb(lambda e, d: e.assign(d, cols), df, engine, device, as_fugue)
+
+
+def dropna(df: Any, how: str = "any", thresh: Optional[int] = None, subset: Optional[List[str]] = None,
+           engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """``df`` without the rows that hold a NULL (``how="any"``), that hold
+    only NULLs (``"all"``), or that have fewer than ``thresh`` values, over
+    ``subset`` of the columns."""
+    return _verb(lambda e, d: e.dropna(d, how=how, thresh=thresh, subset=subset), df, engine, device,
+                 as_fugue)
+
+
+def fillna(df: Any, value: Any, subset: Optional[List[str]] = None, engine: Any = None,
+           device: Any = None, as_fugue: bool = False) -> Any:
+    """``df`` with its NULLs replaced by ``value`` (or a dict of column to
+    value), over ``subset`` of the columns."""
+    return _verb(lambda e, d: e.fillna(d, value, subset=subset), df, engine, device, as_fugue)
+
+
+def broadcast(df: Any, engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """``df`` made available whole to every worker: on one device, as it is."""
+    return _verb(lambda e, d: e.broadcast(d), df, engine, device, as_fugue)
+
+
+def persist(df: Any, lazy: bool = False, engine: Any = None, device: Any = None,
+            as_fugue: bool = False, **kwargs: Any) -> Any:
+    """``df`` materialized on the engine's device (unless ``lazy``, the
+    call returns once it is there)."""
+    return _verb(lambda e, d: e.persist(d, lazy=lazy, **kwargs), df, engine, device, as_fugue)
+
+
+def _verb(fn: Callable[[ExecutionEngine, DataFrame], DataFrame], df: Any, engine: Any, device: Any,
+          as_fugue: bool) -> Any:
+    e = make_execution_engine(engine, device)
+    return _adjust_result(fn(e, e.to_df(df)), df, as_fugue)
 
 
 def transform(

@@ -1,4 +1,14 @@
 from . import functions
-from .expressions import ColumnExpr, col, function, lit
+from .expressions import ColumnExpr, all_cols, col, function, lit, null
+from .sql import SelectColumns
 
-__all__ = ["ColumnExpr", "col", "function", "functions", "lit"]
+__all__ = [
+    "ColumnExpr",
+    "SelectColumns",
+    "all_cols",
+    "col",
+    "function",
+    "functions",
+    "lit",
+    "null",
+]

@@ -45,3 +45,8 @@ class FugueInterfacelessError(FugueTPUError):
 
 class FugueInvalidOperation(FugueTPUError):
     """The requested operation is not allowed in the current state."""
+
+
+class FugueSQLError(FugueTPUError):
+    """A select breaks the rules of SQL (an empty or ambiguous projection,
+    HAVING without an aggregate in the SELECT list)."""

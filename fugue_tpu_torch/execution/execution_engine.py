@@ -1,22 +1,29 @@
 """ExecutionEngine and MapEngine ABCs, copied from
 ``fugue_tpu/execution/execution_engine.py`` and trimmed to the verbs the
-port's engines have: ``to_df``, ``persist``, the map behind ``transform``
-(``MapEngine.map_dataframe`` :276, with ``on_init`` and the format hint),
-``aggregate``, ``join``, the set operations, ``distinct``, ``dropna``,
-``fillna``, ``sample``, ``take``, ``load_df`` and ``save_df``.
+port's engines have: ``to_df``, ``persist``, ``broadcast``, the map behind
+``transform`` (``MapEngine.map_dataframe`` :276, with ``on_init`` and the
+format hint), ``select``, ``filter``, ``assign``, ``aggregate``, ``join``,
+the set operations, ``distinct``, ``dropna``, ``fillna``, ``sample``,
+``take``, ``load_df`` and ``save_df``.
 
-A verb an engine does not implement raises ``NotImplementedError``: the
-host engine (``NativeExecutionEngine``) has all of them but ``aggregate``,
-whose host form goes with ROADMAP.md A.8; the device engine has the ones
-it runs and those it hands to its host engine where the JAX engine does."""
+``select``, ``filter``, ``assign`` and ``aggregate`` have their host
+forms here, as in the JAX package (:716-806): the frame on the host, the
+column IR evaluated over pandas (``column/eval.py``). A verb an engine
+does not implement raises ``NotImplementedError``: the host engine
+(``NativeExecutionEngine``) has all of them; the device engine has the
+ones it runs and those it hands to its host engine where the JAX engine
+does."""
 
 from abc import ABC, abstractmethod
 from typing import Any, Callable, List, Optional
 
 from .._utils.params import ParamDict
 from ..collections.partition import PartitionCursor, PartitionSpec
+from .._utils.assertion import assert_or_throw
+from ..column import SelectColumns, all_cols, col
 from ..column.expressions import ColumnExpr
-from ..dataframe import DataFrame, LocalDataFrame
+from ..dataframe import DataFrame, LocalDataFrame, PandasDataFrame
+from ..exceptions import FugueInvalidOperation
 
 _VERBS = "ROADMAP.md A.8 remaining verbs"
 
@@ -90,11 +97,59 @@ class ExecutionEngine(ABC):
         return only when it is there."""
         raise self._missing("persist")
 
+    def broadcast(self, df: DataFrame) -> DataFrame:
+        """``df`` made available whole to every worker of the engine."""
+        raise self._missing("broadcast")
+
+    def select(
+        self, df: DataFrame, cols: SelectColumns, where: Optional[ColumnExpr] = None,
+        having: Optional[ColumnExpr] = None,
+    ) -> DataFrame:
+        """SQL SELECT over ``df``: WHERE, then the projection or the
+        aggregate (grouped by the columns that are not aggregates), then
+        HAVING and DISTINCT. The host form evaluates the IR over pandas."""
+        from ..column.eval import eval_select
+
+        local = self.to_df(df).as_local_bounded()
+        res = eval_select(local.as_pandas(), local.schema, cols, where, having)
+        schema = cols.replace_wildcard(local.schema).infer_schema(local.schema)
+        return self.to_df(PandasDataFrame(res, schema))
+
+    def filter(self, df: DataFrame, condition: ColumnExpr) -> DataFrame:
+        """The rows of ``df`` where ``condition`` is TRUE (not FALSE, not NULL)."""
+        return self.select(df, SelectColumns(all_cols()), where=condition)
+
+    def assign(self, df: DataFrame, columns: List[ColumnExpr]) -> DataFrame:
+        """``df`` with ``columns`` (each with an output name) replacing the
+        columns of their names, in place, or added after them."""
+        assert_or_throw(
+            all(c.output_name != "" for c in columns),
+            FugueInvalidOperation("all assignments must have output names"),
+        )
+        replaced = {c.output_name: c for c in columns}
+        sel: List[ColumnExpr] = []
+        for name in df.schema.names:
+            # a replaced column takes the NEW expression's type
+            sel.append(replaced.pop(name) if name in replaced else col(name))
+        sel.extend(replaced.values())
+        return self.select(df, SelectColumns(*sel))
+
     def aggregate(
         self, df: DataFrame, partition_spec: Optional[PartitionSpec], agg_cols: List[ColumnExpr]
     ) -> DataFrame:
-        """Group ``df`` by the spec's keys and compute ``agg_cols``."""
-        raise self._missing("aggregate")
+        """Group ``df`` by the spec's keys (none: one group of every row)
+        and compute ``agg_cols``, each an expression with an aggregate."""
+        from ..column.functions import is_agg
+
+        assert_or_throw(len(agg_cols) > 0, FugueInvalidOperation("agg_cols is empty"))
+        assert_or_throw(
+            all(is_agg(c) for c in agg_cols),
+            FugueInvalidOperation("all agg_cols must contain aggregation"),
+        )
+        keys: List[ColumnExpr] = []
+        if partition_spec is not None and len(partition_spec.partition_by) > 0:
+            keys = [col(k) for k in partition_spec.partition_by]
+        return self.select(df, SelectColumns(*keys, *agg_cols))
 
     def join(self, df1: DataFrame, df2: DataFrame, how: str, on: Optional[List[str]] = None) -> DataFrame:
         """Join ``df1`` with ``df2`` (``how``: inner, left_outer,

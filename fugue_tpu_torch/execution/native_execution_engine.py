@@ -11,10 +11,12 @@ device engine hands to its host engine, as ``JaxExecutionEngine`` does
   ``fugue.tpu.map.parallelism`` above 1 raises;
 - ``join`` (:345) with SQL NULL semantics (a NULL key matches nothing),
   ``union``, ``subtract``, ``intersect``, ``distinct``, ``dropna``,
-  ``fillna``, ``sample``, ``take``, ``load_df`` and ``save_df``.
+  ``fillna``, ``sample``, ``take``, ``broadcast``, ``persist``,
+  ``load_df`` and ``save_df``;
+- ``select``, ``filter``, ``assign`` and ``aggregate`` from the base
+  class: the column IR evaluated over pandas (``column/eval.py``).
 
-Not ported here: the host ``select``, ``filter`` and ``aggregate`` (the
-column-expression evaluator, ROADMAP.md A.8) and SQL (A.11)."""
+Not ported here: SQL (ROADMAP.md A.11)."""
 
 from typing import Any, Callable, List, Optional, Union
 
@@ -154,6 +156,15 @@ class NativeExecutionEngine(ExecutionEngine):
             return ArrayDataFrame(df, schema)
         fdf = as_fugue_df(df) if schema is None else as_fugue_df(df, schema=schema)
         return fdf.as_local_bounded()
+
+    def broadcast(self, df: DataFrame) -> DataFrame:
+        return df
+
+    def persist(self, df: DataFrame, lazy: bool = False, **kwargs: Any) -> DataFrame:
+        res = self.to_df(df)
+        if df.has_metadata:
+            res.reset_metadata(df.metadata)
+        return res
 
     def join(self, df1: DataFrame, df2: DataFrame, how: str, on: Optional[List[str]] = None) -> DataFrame:
         how = parse_join_type(how)

@@ -129,12 +129,15 @@ def _agg_outputs(
                 part = torch.where(_nn(vidx) > 0, part, float("nan"))  # all-null → NULL
         elif agg == "count":
             part = _nn(vidx)
-        elif agg == "min":
-            part = min_of(torch.where(ev, v, _max_of(v.dtype)))
-            if may_null:
-                part = torch.where(_nn(vidx) > 0, part, float("nan"))
-        elif agg == "max":
-            part = max_of(torch.where(ev, v, _min_of(v.dtype)))
+        elif agg in ("min", "max"):
+            # bools reduce as uint8: CUDA's scatter min/max have no bool
+            # kernel (ROADMAP.md C9)
+            u = v.to(torch.uint8) if v.dtype == torch.bool else v
+            if agg == "min":
+                part = min_of(torch.where(ev, u, _max_of(u.dtype)))
+            else:
+                part = max_of(torch.where(ev, u, _min_of(u.dtype)))
+            part = part.to(torch.bool) if v.dtype == torch.bool else part
             if may_null:
                 part = torch.where(_nn(vidx) > 0, part, float("nan"))
         else:  # pragma: no cover

@@ -157,8 +157,14 @@ def expression_to_schema(expr: str) -> pa.Schema:
 
 def to_pa_datatype(obj: Any) -> pa.DataType:
     """Convert a string expression / python type / numpy dtype to arrow."""
+    import datetime
+
     import numpy as np
 
+    if obj is datetime.datetime:
+        return pa.timestamp("us")
+    if obj is datetime.date:
+        return pa.date32()
     if isinstance(obj, pa.DataType):
         return obj
     if isinstance(obj, str):

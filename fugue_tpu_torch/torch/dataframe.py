@@ -296,13 +296,19 @@ class TorchDataFrame(DataFrame):
         return arr.cast(f.type, safe=False)
 
     def as_arrow(self) -> pa.Table:
+        """The valid rows as an arrow table of the schema. Each device
+        column's valid rows are gathered on the device first, so only
+        they cross to the host."""
         mask: Optional[np.ndarray] = None
+        idx: Optional[torch.Tensor] = None
         if self._valid_mask is not None:
-            mask = self._valid_mask.cpu().numpy()
+            idx = torch.nonzero(self._valid_mask).squeeze(1)
+            if self._host_tbl is not None:
+                mask = self._valid_mask.cpu().numpy()
 
         def rows(a: torch.Tensor) -> np.ndarray:
-            host = a.cpu().numpy()
-            return host[mask] if mask is not None else host[: self._row_count]
+            sel = a.index_select(0, idx) if idx is not None else a[: self._row_count]
+            return sel.cpu().numpy()
 
         arrays = []
         for f in self.schema.fields:
@@ -312,7 +318,7 @@ class TorchDataFrame(DataFrame):
             else:
                 assert self._host_tbl is not None
                 col = self._host_tbl.column(f.name)
-                if mask is not None:
+                if self._valid_mask is not None:
                     col = col.filter(pa.array(mask[: len(col)]))
                 else:
                     col = col.slice(0, self._row_count)

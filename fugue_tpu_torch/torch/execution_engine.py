@@ -1,13 +1,14 @@
 """TorchExecutionEngine — the port of ``JaxExecutionEngine``
 (``fugue_tpu/jax/execution_engine.py``) for one CUDA device.
 
-The port has ``to_df``, ``persist``, the device ``aggregate``, the maps
-behind ``transform`` (``TorchMapEngine``), the device ``join`` of every
-type, ``union`` without ``distinct``, ``load_df`` and ``save_df``. A
-one-pass stream (``LocalDataFrameIterableDataFrame``) given to
-``aggregate``, ``join`` or ``transform`` goes through the device chunk by
-chunk (``torch/streaming.py``) where the plan allows it, as in the JAX
-engine.
+The port has ``to_df``, ``persist``, ``broadcast``, the device
+``aggregate``, the maps behind ``transform`` (``TorchMapEngine``), the
+device ``join`` of every type, ``union`` without ``distinct``, the
+row-local verbs ``filter``, ``select``, ``assign``, ``dropna`` and
+``fillna``, ``load_df`` and ``save_df``. A one-pass stream
+(``LocalDataFrameIterableDataFrame``) given to ``aggregate``, ``join`` or
+``transform`` goes through the device chunk by chunk
+(``torch/streaming.py``) where the plan allows it, as in the JAX engine.
 
 ``aggregate`` takes any number of keys of any integer, float, bool,
 string, date or timestamp column, nullable or not, with
@@ -18,19 +19,32 @@ other plan runs the device groupby (``ops/segment.py``) into per-group
 partials, merges them on the host and comes back to the device as the
 result frame, as the JAX engine does.
 
+The row-local verbs run the column IR on the device
+(``column/torch_eval.py``): ``filter`` (and ``select``'s WHERE, and
+``dropna``) turns the predicate into a new validity mask, so no row
+moves; ``select`` lowers a grouped aggregate of named columns to the
+device ``aggregate`` and a projection to ``_device_project``; ``fillna``
+fills NaN floats and masked cells in place.
+
 Like the JAX engine, it holds a host engine (``NativeExecutionEngine``,
 ``execution/native_execution_engine.py``) and calls it exactly where the
 JAX engine calls its own: the map of any transformer that is not a
 compiled ``Dict[str, torch.Tensor]`` function, the joins the device plans
 decline, the union of a full_outer join's parts that the device union
-declines, and ``load_df``/``save_df``. A frame goes to the host through
-``_host`` (one copy of its valid rows) and the result comes back through
+declines, the aggregates and selects the device plans decline (a global
+aggregate, COUNT DISTINCT, an aggregate of an expression, a predicate or
+projection the device evaluator refuses), the fills of encoded columns,
+and ``load_df``/``save_df``. A frame goes to the host through ``_host``
+(one copy of its valid rows) and the result comes back through
 ``_back``; the spans ``fugue::to_host``, ``fugue::host_map`` /
-``fugue::host_join`` / ``fugue::host_union`` and ``fugue::to_device``
-name the three steps in a ``torch.profiler`` trace. Every other plan the
-JAX engine hands to its host engine (the host ``aggregate``, ``select``
-and the other verbs of ROADMAP.md A.8) raises ``NotImplementedError``
-here, naming its ROADMAP.md item.
+``fugue::host_join`` / ``fugue::host_union`` / ``fugue::host_select`` and
+``fugue::to_device`` name the steps in a ``torch.profiler`` trace, and
+``fugue::filter`` and ``fugue::project`` the device predicate and
+projection. Unsigned columns above uint8, which the JAX package keeps on
+its device and the port on its host, raise ``NotImplementedError`` naming
+ROADMAP.md A.3 where the JAX engine would run them on its device; the
+other verbs of ROADMAP.md A.8 (distinct, set operations, sample, take)
+raise naming it.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -43,8 +57,12 @@ import torch
 from torch.profiler import record_function
 
 from ..collections.partition import PartitionSpec
+from ..column import SelectColumns
+from ..column.eval import rewrite_having_aggs
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
-from ..dataframe import DataFrame, LocalBoundedDataFrame, LocalDataFrame
+from ..column.functions import is_agg
+from ..column.torch_eval import can_evaluate_on_device, device_predicate_plan, evaluate_torch, evaluate_torch_3v
+from ..dataframe import ArrowDataFrame, DataFrame, LocalBoundedDataFrame, LocalDataFrame
 from ..dataframe.utils import get_join_schemas, parse_join_type
 from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
@@ -480,6 +498,266 @@ class TorchExecutionEngine(ExecutionEngine):
             torch.cuda.synchronize(tdf.device)
         return tdf
 
+    def broadcast(self, df: Any) -> TorchDataFrame:
+        """On one device every frame is already whole: the same tensors,
+        with the valid mask, null masks and encodings they carry."""
+        return self.to_df(df)
+
+    def _host_call(
+        self, verb: Callable[[NativeExecutionEngine, LocalBoundedDataFrame], DataFrame], df: Any
+    ) -> TorchDataFrame:
+        """A row-local ``verb`` of the host engine (select, filter,
+        aggregate, dropna, fillna) over ``df``'s host copy, back on the
+        device; span ``fugue::host_select``."""
+        local = self._host(df)
+        with record_function("fugue::host_select"):
+            res = verb(self._host_engine, local)
+        return self._back(res)
+
+    # ---- row-local verbs -------------------------------------------------------
+
+    def filter(self, df: Any, condition: ColumnExpr, _plan: Any = None) -> TorchDataFrame:
+        """Device filter: the condition becomes a validity mask — no rows
+        move, downstream device verbs and the way to the host honor it.
+
+        SQL three-valued NULL semantics (a row where the predicate is NULL
+        is dropped): NaN floats and null masks are NULLs, and predicates on
+        dictionary strings run on the host over the dictionary into a
+        lookup table the device gathers by code. ``_plan`` lets ``select``
+        reuse its predicate plan. A predicate the device evaluator refuses,
+        or a frame with host columns, takes the host engine's filter."""
+        tdf = self.to_df(df)
+        if len(tdf.device_cols) > 0 and tdf.host_table is None:
+            plan = _plan if _plan is not None else device_predicate_plan(
+                condition, tdf.device_cols, tdf.encodings
+            )
+            if plan is not None:
+                with record_function("fugue::filter"):
+                    return _with_mask(tdf, self._predicate_mask(tdf, plan))
+        _refuse_a3_route(tdf, condition, "filter")
+        return self._host_call(lambda h, d: h.filter(d, condition), tdf)
+
+    def _predicate_mask(self, tdf: TorchDataFrame, plan: Any) -> torch.Tensor:
+        """The frame's valid rows where the planned predicate is TRUE."""
+        tables, cond = plan  # datetime literals rewritten to epochs
+        dict_tables = {
+            u: (name, torch.from_numpy(np.require(t, requirements=["C", "W"])).to(self._device))
+            for u, (name, t) in tables.items()
+        }
+        code_cols = frozenset(c for c, e in tdf.encodings.items() if e["kind"] == "dict")
+        v, nl = evaluate_torch_3v(tdf.device_cols, tdf.null_masks, dict_tables, cond, code_cols)
+        mask = tdf.device_valid_mask()
+        for keep in (v, _not_null(nl)):
+            if isinstance(keep, torch.Tensor):
+                mask = mask & keep.to(torch.bool)
+            elif not keep:
+                mask = torch.zeros_like(mask)
+        return mask
+
+    def select(
+        self,
+        df: Any,
+        cols: SelectColumns,
+        where: Optional[ColumnExpr] = None,
+        having: Optional[ColumnExpr] = None,
+    ) -> TorchDataFrame:
+        """SQL SELECT as the JAX engine plans it: a WHERE the device
+        evaluator takes becomes a device filter; then a grouped aggregate
+        of named keys goes to the device ``aggregate`` (HAVING filters its
+        groups on the host, the declared column order is restored); a
+        projection of device columns runs in ``_device_project``;
+        everything else (a global aggregate, DISTINCT, host columns, a
+        WHERE or expression the device refuses) runs on the host engine
+        over the (filtered) frame's host copy."""
+        tdf = self.to_df(df)
+        sc = cols.replace_wildcard(tdf.schema)
+        if where is not None and len(tdf.device_cols) > 0 and tdf.host_table is None:
+            where_plan = device_predicate_plan(where, tdf.device_cols, tdf.encodings)
+            if where_plan is not None:
+                tdf = self.filter(tdf, where, _plan=where_plan)
+                where = None
+        if where is not None:
+            _refuse_a3_route(tdf, where, "select's WHERE")
+        if where is None and sc.has_agg and not sc.is_distinct:
+            keys = [c for c in sc.all_cols if not is_agg(c)]
+            aggs = [c for c in sc.all_cols if is_agg(c)]
+            if len(keys) > 0 and all(
+                isinstance(k, _NamedColumnExpr) and k.as_type is None and k.as_name == ""
+                for k in keys
+            ):
+                spec = PartitionSpec(by=[k.name for k in keys])
+                if _plan_device_agg(tdf, spec.partition_by, aggs) is not None:
+                    res = self.aggregate(tdf, spec, aggs)
+                    if having is not None:
+                        # O(groups) rows: aggregate subexpressions read their
+                        # computed output columns
+                        cond = rewrite_having_aggs(having, aggs)
+                        res = self._host_call(lambda h, d: h.filter(d, cond), res)
+                    order = [c.output_name for c in sc.all_cols]
+                    return res if res.schema.names == order else res[order]
+        plain_cols = {
+            k: v for k, v in tdf.device_cols.items()
+            if k not in tdf.encodings and k not in tdf.null_masks
+        }
+        if (
+            where is None
+            and having is None
+            and not sc.has_agg
+            and not sc.is_distinct
+            and len(tdf.device_cols) > 0
+        ):
+            if all(
+                _is_passthrough(c, tdf.device_cols) or can_evaluate_on_device(c, plain_cols)
+                for c in sc.all_cols
+            ):
+                with record_function("fugue::project"):
+                    return self._device_project(tdf, sc)
+            _refuse_a3_project(tdf, sc)
+        return self._host_call(lambda h, d: h.select(d, cols, where=where, having=having), tdf)
+
+    def _device_project(self, tdf: TorchDataFrame, sc: SelectColumns) -> TorchDataFrame:
+        """A projection on the device: named columns pass through with
+        their encodings and masks; computed ones go through
+        ``evaluate_torch``. Rows, valid mask and count stay as they are."""
+        schema = sc.infer_schema(tdf.schema)
+        exprs = sc.all_cols
+        out_encodings: Dict[str, Any] = {}
+        out_masks: Dict[str, torch.Tensor] = {}
+        out_cols: Dict[str, torch.Tensor] = {}
+        n = next(iter(tdf.device_cols.values())).shape[0]
+        for c in exprs:
+            if _is_passthrough(c, tdf.device_cols):
+                out_cols[c.output_name] = tdf.device_cols[c.name]
+                if c.name in tdf.encodings:
+                    out_encodings[c.output_name] = tdf.encodings[c.name]
+                if c.name in tdf.null_masks:
+                    out_masks[c.output_name] = tdf.null_masks[c.name]
+                continue
+            v = evaluate_torch(tdf.device_cols, c)
+            if not isinstance(v, torch.Tensor):
+                # a Python literal fills as JAX fills it: bool, int64, float64
+                dt = torch.bool if isinstance(v, bool) else (torch.int64 if isinstance(v, int) else torch.float64)
+                v = torch.full((n,), v, dtype=dt, device=self._device)
+            elif v.dim() == 0:
+                v = v.to(self._device).expand(n).clone()
+            out_cols[c.output_name] = v
+        if schema is None:
+            schema = Schema([
+                pa.field(c.output_name, c.infer_type(tdf.schema)
+                         or pa.from_numpy_dtype(_np_dtype(out_cols[c.output_name].dtype)))
+                for c in exprs
+            ])
+        # pass-through named columns keep their NaN-free proof; computed
+        # float expressions may hold NaN (left out of the set is only safe
+        # when the set is known, so start from the source's)
+        nan_cols: Optional[set] = None
+        if tdf._nan_cols is not None:
+            nan_cols = set()
+            for c in exprs:
+                if isinstance(c, _NamedColumnExpr) and c.as_type is None:
+                    if c.name in tdf._nan_cols:
+                        nan_cols.add(c.output_name)
+                elif out_cols[c.output_name].is_floating_point():
+                    nan_cols.add(c.output_name)
+        return TorchDataFrame(
+            _internal=dict(
+                device=self._device,
+                device_cols=out_cols,
+                host_tbl=None,
+                row_count=tdf._row_count,
+                valid_mask=tdf.valid_mask,
+                nan_cols=nan_cols,
+                encodings=out_encodings,
+                null_masks=out_masks,
+                schema=schema,
+            )
+        )
+
+    def dropna(
+        self, df: Any, how: str = "any", thresh: Optional[int] = None,
+        subset: Optional[List[str]] = None,
+    ) -> TorchDataFrame:
+        """Frames whose every column is on the device: a NULL (NaN float,
+        masked cell, negative dictionary code) drops its row by a new
+        validity mask, no data moves. Others take the host engine."""
+        tdf = self.to_df(df)
+        if tdf.host_table is None and len(tdf.device_cols) == len(tdf.schema):
+            with record_function("fugue::filter"):
+                notnull = []
+                for c in subset or tdf.schema.names:
+                    arr = tdf.device_cols[c]
+                    nn = None
+                    if arr.is_floating_point():
+                        nn = ~torch.isnan(arr)
+                    if c in tdf.null_masks:
+                        m = ~tdf.null_masks[c]
+                        nn = m if nn is None else nn & m
+                    if tdf.encodings.get(c, {}).get("kind") == "dict":
+                        m = arr >= 0
+                        nn = m if nn is None else nn & m
+                    notnull.append(torch.ones_like(tdf.device_valid_mask()) if nn is None else nn)
+                stacked = torch.stack(notnull, dim=0)
+                if thresh is not None:
+                    keep = stacked.sum(dim=0) >= thresh
+                elif how == "all":
+                    keep = stacked.any(dim=0)
+                else:
+                    keep = stacked.all(dim=0)
+                return _with_mask(tdf, tdf.device_valid_mask() & keep)
+        _refuse_a3_frame(tdf, "dropna")
+        return self._host_call(
+            lambda h, d: h.dropna(d, how=how, thresh=thresh, subset=subset), tdf
+        )
+
+    def fillna(self, df: Any, value: Any, subset: Optional[List[str]] = None) -> TorchDataFrame:
+        """Frames whose every column is on the device: NaN floats and
+        masked cells filled on the device (filled masks clear), the value
+        cast to the column's dtype. ``value`` is checked as the host engine
+        checks it; fills of dictionary or datetime columns, and frames with
+        host columns, take the host engine."""
+        tdf = self.to_df(df)
+        if tdf.host_table is None and len(tdf.device_cols) == len(tdf.schema):
+            # validate the value exactly like the host engine (no data moves)
+            self._host_engine.fillna(ArrowDataFrame(None, tdf.schema), value, subset=subset)
+            fills = dict(value) if isinstance(value, dict) else {
+                c: value for c in (subset or tdf.schema.names)
+            }
+            if any(c in tdf.encodings for c in fills):
+                return self._host_call(lambda h, d: h.fillna(d, value, subset=subset), tdf)
+            with record_function("fugue::project"):
+                out = dict(tdf.device_cols)
+                filled = set()
+                for c, v in fills.items():
+                    arr = tdf.device_cols.get(c)
+                    if arr is None:
+                        continue
+                    if c in tdf.null_masks:
+                        out[c] = torch.where(tdf.null_masks[c], _fill_value(v, arr), arr)
+                        filled.add(c)
+                    elif arr.is_floating_point():
+                        out[c] = torch.where(torch.isnan(arr), _fill_value(v, arr), arr)
+            return TorchDataFrame(
+                _internal=dict(
+                    device=self._device,
+                    device_cols=out,
+                    host_tbl=None,
+                    row_count=tdf._row_count,
+                    valid_mask=tdf.valid_mask,
+                    # filled columns become NaN-free — unless the fill value
+                    # is itself NaN (a no-op fill must not fake the proof)
+                    nan_cols=(
+                        None if tdf._nan_cols is None else tdf._nan_cols - {
+                            c for c, v in fills.items() if not (isinstance(v, float) and v != v)
+                        }
+                    ),
+                    encodings=dict(tdf.encodings),
+                    null_masks={c: m for c, m in tdf.null_masks.items() if c not in filled},
+                    schema=tdf.schema,
+                )
+            )
+        _refuse_a3_frame(tdf, "fillna")
+        return self._host_call(lambda h, d: h.fillna(d, value, subset=subset), tdf)
+
     def aggregate(
         self,
         df: Any,
@@ -488,18 +766,20 @@ class TorchExecutionEngine(ExecutionEngine):
     ) -> TorchDataFrame:
         """Two-phase device groupby of ``df`` by the spec's keys. A stream
         runs the streaming dense aggregate where its plan allows, and is
-        materialized otherwise, as in the JAX engine."""
+        materialized otherwise, as in the JAX engine. A plan the device
+        declines runs on the host engine (``fugue::host_select``)."""
         if is_stream_frame(df):
             res = streaming_dense_aggregate(self, df, partition_spec, agg_cols)
             if res is not None:
                 return res
         tdf = self.to_df(df)
         keys = list(partition_spec.partition_by) if partition_spec is not None else []
-        if len(keys) == 0:
-            raise NotImplementedError(
-                f"aggregate by 0 keys (a global aggregate) is not ported ({_VERBS})"
-            )
         plan = _plan_device_agg(tdf, keys, agg_cols)
+        if plan is None:
+            # a global aggregate, DISTINCT, an aggregate of an expression or
+            # of a column the device plan does not reduce: the host engine,
+            # as in the JAX engine
+            return self._host_call(lambda h, d: h.aggregate(d, partition_spec, agg_cols), tdf)
         # dict codes / epoch ints group by device identity; nullable keys add
         # their mask as an extra key so NULL is its own group
         key_cols, mask_names = _group_key_cols(tdf, keys)
@@ -1365,29 +1645,115 @@ def _virtual_agg_array(tdf: TorchDataFrame, tag: str, src: Optional[str]) -> tor
     return torch.where(m, ii.max if tag == "minfill" else ii.min, a)
 
 
-def _not_on_device(tdf: TorchDataFrame, name: str, what: str) -> Exception:
-    if name not in tdf.schema:
-        return KeyError(f"{what} {name!r} not in {tdf.schema}")
+def _a3_host_cols(tdf: TorchDataFrame) -> List[str]:
+    """The host columns the JAX package keeps on its device: the unsigned
+    types above uint8 (ROADMAP.md A.3)."""
+    if tdf.host_table is None:
+        return []
+    return [
+        f.name for f in tdf.host_table.schema
+        if pa.types.is_unsigned_integer(f.type) and f.type.bit_width > 8
+    ]
+
+
+def _a3_error(tdf: TorchDataFrame, names: List[str], what: str) -> NotImplementedError:
+    cols = ", ".join(f"{n} ({tdf.schema[n].type})" for n in names)
     return NotImplementedError(
-        f"{what} {name!r} of type {tdf.schema[name].type} stays on the host; an "
-        f"aggregate over it is not ported ({_ENCODED})"
+        f"{what} over {cols}: unsigned columns above uint8 live on the JAX package's "
+        f"device, which runs this there, but on the port's host ({_ENCODED})"
     )
+
+
+def _a3_only_host_cols(tdf: TorchDataFrame) -> List[str]:
+    """The host columns when all of them are A.3's: the JAX package then
+    holds the whole frame on its device (its all-device routes)."""
+    a3 = _a3_host_cols(tdf)
+    return a3 if a3 and len(a3) == tdf.host_table.num_columns else []  # type: ignore[union-attr]
+
+
+def _refuse_a3_frame(tdf: TorchDataFrame, what: str) -> None:
+    """Raise where the JAX engine would run ``what`` over the whole frame
+    on its device."""
+    a3 = _a3_only_host_cols(tdf)
+    if a3:
+        raise _a3_error(tdf, a3, what)
+
+
+def _refuse_a3_route(tdf: TorchDataFrame, condition: ColumnExpr, what: str) -> None:
+    """Raise where the JAX engine's filter would run ``condition`` on its device."""
+    a3 = _a3_only_host_cols(tdf)
+    if a3 and device_predicate_plan(condition, set(tdf.device_cols) | set(a3), tdf.encodings) is not None:
+        raise _a3_error(tdf, a3, what)
+
+
+def _refuse_a3_project(tdf: TorchDataFrame, sc: SelectColumns) -> None:
+    """Raise where the JAX engine would project ``sc`` on its device."""
+    a3 = _a3_host_cols(tdf)
+    if not a3:
+        return
+    dev = set(tdf.device_cols) | set(a3)
+    plain = {k for k in tdf.device_cols if k not in tdf.encodings and k not in tdf.null_masks}
+    plain |= {c for c in a3 if tdf.host_table.column(c).null_count == 0}  # type: ignore[union-attr]
+    if all(_is_passthrough(c, dev) or can_evaluate_on_device(c, plain) for c in sc.all_cols):
+        raise _a3_error(tdf, a3, "a projection")
+
+
+def _is_passthrough(c: ColumnExpr, device_cols: Any) -> bool:
+    """A bare (possibly renamed) named column over a device column — copies
+    tensors and metadata without evaluation, so any encoding is fine."""
+    return (
+        isinstance(c, _NamedColumnExpr)
+        and not c.wildcard
+        and c.as_type is None
+        and c.name in device_cols
+    )
+
+
+def _not_null(nl: Any) -> Any:
+    return torch.logical_not(nl) if isinstance(nl, torch.Tensor) else not nl
+
+
+def _with_mask(tdf: TorchDataFrame, mask: torch.Tensor) -> TorchDataFrame:
+    """``tdf``'s tensors under a new validity mask; the row count is
+    computed lazily from it."""
+    return TorchDataFrame(
+        _internal=dict(
+            device=tdf.device,
+            device_cols=dict(tdf.device_cols),
+            host_tbl=None,
+            row_count=-1,
+            valid_mask=mask,
+            nan_cols=tdf._nan_cols,
+            encodings=dict(tdf.encodings),
+            null_masks=dict(tdf.null_masks),
+            schema=tdf.schema,
+        )
+    )
+
+
+def _fill_value(v: Any, arr: torch.Tensor) -> torch.Tensor:
+    """``v`` in ``arr``'s dtype, as ``jnp.asarray(v, arr.dtype)``."""
+    return torch.tensor(v, dtype=arr.dtype, device=arr.device)
 
 
 def _plan_device_agg(
     tdf: TorchDataFrame, keys: List[str], agg_cols: List[ColumnExpr]
-) -> dict:
-    """The device-aggregation plan of the JAX engine: ``aggs`` (name, agg,
-    source column), ``post`` (how each output is finished, ``fn`` over the
-    merged partials), the output ``schema``, and the sources that need a
-    view: ``dict_srcs`` (dictionary codes), ``masked_srcs`` (nullable
-    int/bool) and ``virtual`` (``{name: (tag, real source)}``).
+) -> Optional[dict]:
+    """The device-aggregation plan of the JAX engine, or None where the
+    JAX engine's is None (its host aggregate): ``aggs`` (name, agg, source
+    column), ``post`` (how each output is finished, ``fn`` over the merged
+    partials), the output ``schema``, and the sources that need a view:
+    ``dict_srcs`` (dictionary codes), ``masked_srcs`` (nullable int/bool)
+    and ``virtual`` (``{name: (tag, real source)}``).
 
-    Where the JAX engine hands the plan to its host engine, this raises
-    ``NotImplementedError`` naming the ROADMAP.md item that would port it."""
-    for k in keys:
-        if k not in tdf.device_cols:
-            raise _not_on_device(tdf, k, "key")
+    A key or source that the JAX package keeps on its device but the port
+    on its host (unsigned above uint8) raises ``NotImplementedError``
+    naming ROADMAP.md A.3."""
+    a3 = set(_a3_host_cols(tdf))
+    if len(keys) == 0 or not all(k in tdf.device_cols or k in a3 for k in keys):
+        return None
+    if any(k in a3 for k in keys):
+        raise _a3_error(tdf, [k for k in keys if k in a3], "a groupby")
     aggs: List[Any] = []
     post: List[dict] = []
     virtual: Dict[str, Any] = {}  # vname -> (tag, real src)
@@ -1395,18 +1761,9 @@ def _plan_device_agg(
     dict_srcs: set = set()
     fields: List[pa.Field] = [tdf.schema[k] for k in keys]
     for c in agg_cols:
-        if not isinstance(c, _FuncExpr) or not c.is_agg:
-            raise NotImplementedError(
-                f"{c!r} is not an aggregate function; expressions over "
-                f"aggregates are not ported ({_VERBS})"
-            )
-        if c.is_distinct or len(c.args) != 1:
-            raise NotImplementedError(
-                f"{c!r}: DISTINCT and multi-argument aggregates are not ported ({_VERBS})"
-            )
+        if not isinstance(c, _FuncExpr) or not c.is_agg or c.is_distinct or len(c.args) != 1:
+            return None
         name = c.output_name
-        if name == "":
-            raise ValueError(f"{c!r} needs an alias")
         func = c.func.upper()
         arg = c.args[0]
         if func == "COUNT" and (
@@ -1415,6 +1772,8 @@ def _plan_device_agg(
         ):
             # COUNT(*) / COUNT(1): every row in the group counts, NULLs
             # included — a ones column summed under the validity mask
+            if name == "":
+                return None
             virtual["__ones__"] = ("ones", None)
             aggs.append((name, "sum", "__ones__"))
             post.append({"name": name, "kind": "pass", "fn": (lambda m, _n=name: m[_n])})
@@ -1422,21 +1781,19 @@ def _plan_device_agg(
             fields.append(pa.field(name, tp if tp is not None else pa.int64()))
             continue
         if not isinstance(arg, _NamedColumnExpr):
-            raise NotImplementedError(
-                f"{c!r}: aggregates of expressions are not ported ({_VERBS})"
-            )
+            return None
         src = arg.name
+        if src in a3:
+            raise _a3_error(tdf, [src], func)
         if src not in tdf.device_cols:
-            raise _not_on_device(tdf, src, "column")
+            return None
         enc = tdf.encodings.get(src)
         if enc is not None:
             # sorted-dictionary strings: code order == value order, so
             # MIN/MAX/COUNT reduce over codes (as NaN-null float views) and
             # the min/max code decodes back to its string
             if not (enc["kind"] == "dict" and enc.get("sorted") and func in ("MIN", "MAX", "COUNT")):
-                raise NotImplementedError(
-                    f"{c!r}: {func} over a {enc['type']} column is not ported ({_ENCODED})"
-                )
+                return None
             dict_srcs.add(src)
         big_int_masked = False
         if src in tdf.null_masks:
@@ -1448,9 +1805,9 @@ def _plan_device_agg(
                 big_int_masked = True
             else:
                 masked_srcs.add(src)
+        if name == "" or func not in ("SUM", "AVG", "MIN", "MAX", "COUNT"):
+            return None
         tp = c.infer_type(tdf.schema)
-        if func not in ("SUM", "AVG", "MIN", "MAX", "COUNT"):
-            raise NotImplementedError(f"aggregate {func} is not ported ({_VERBS})")
         if big_int_masked:
             nn = f"{name}__nn"
             virtual[f"{src}__nn__"] = ("notnull", src)

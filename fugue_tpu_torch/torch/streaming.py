@@ -278,8 +278,8 @@ def streaming_dense_aggregate(
     Eligibility is decided from the schema alone, before any chunk is
     read: one plain integer key, numeric values, SUM/COUNT/AVG/MIN/MAX.
     Otherwise this returns None, and the caller materializes the stream.
-    A plan the in-memory aggregate refuses raises its
-    ``NotImplementedError`` here too. The key range comes from
+    A key or value the in-memory aggregate refuses (ROADMAP.md A.3) raises
+    its ``NotImplementedError`` here too. The key range comes from
     ``fugue.tpu.stream.key_range`` or the first chunk; a key outside it,
     and a NULL key or int value, raise ``FugueInvalidOperation``."""
     from ..ops.segment import _DENSE_MAX_RANGE, _dense_kernel, dense_buckets
@@ -295,7 +295,8 @@ def streaming_dense_aggregate(
     tdf0 = TorchDataFrame(Schema(df.schema).create_empty_arrow_table(), device=device)
     plan = _plan_device_agg(tdf0, keys, agg_cols)
     if (
-        plan["virtual"]
+        plan is None
+        or plan["virtual"]
         or plan["dict_srcs"]
         or plan["masked_srcs"]
         or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])

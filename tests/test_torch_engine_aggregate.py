@@ -17,6 +17,7 @@ import pytest
 
 from fugue_tpu.collections import PartitionSpec as JPartitionSpec
 from fugue_tpu.column import col as jcol
+from fugue_tpu.column import lit as jlit
 from fugue_tpu.column import functions as jff
 from fugue_tpu.dataframe import PandasDataFrame as JPandasDataFrame
 from fugue_tpu.execution import NativeExecutionEngine
@@ -242,6 +243,16 @@ def test_formerly_unported_plans_match_jax_engine(jax_engine, engine, pdf, by, w
 _DATES = pd.DataFrame({"k": [1, 2], "d": pd.to_datetime(["2020-01-01", "2021-01-01"]).date})
 
 
+# the JAX package's form of each case's aggregates, by the case's ``why``
+_JAX_AGGS = {
+    "0 keys": [jff.sum(jcol("v"))],
+    "DISTINCT": [jff.count_distinct(jcol("v"))],
+    "MIN over a date32": [jff.min(jcol("d"))],
+    "not an aggregate": [jcol("v")],
+    "expressions": [jff.sum(jlit(2))],
+}
+
+
 @pytest.mark.parametrize(
     "pdf,by,aggs,why",
     [
@@ -256,10 +267,30 @@ _DATES = pd.DataFrame({"k": [1, 2], "d": pd.to_datetime(["2020-01-01", "2021-01-
         (pd.DataFrame({"k": [1, 2], "v": [1.0, 2.0]}), ["k"], [ff.sum(lit(2))], "expressions"),
     ],
 )
-def test_unported_plans_raise(engine, pdf, by, aggs, why):
-    with pytest.raises(NotImplementedError, match=why) as err:
-        engine.aggregate(engine.to_df(pdf), PartitionSpec(by=by), [a.alias("s") for a in aggs])
-    assert "ROADMAP.md A." in str(err.value)
+def test_unported_plans_raise(jax_engine, engine, pdf, by, aggs, why):
+    """Named for the refusals it pinned before the host engine's aggregate
+    was ported. The unsigned columns above uint8, on the JAX package's
+    device but on the port's host, still raise naming ROADMAP.md A.3;
+    every other case now gives the JAX engine's answer (a global
+    aggregate, COUNT DISTINCT, MIN over a date and SUM of an expression
+    run on both host engines), or raises as it does."""
+    tin = engine.to_df(pdf)
+    if why in ("uint16", "uint64"):
+        with pytest.raises(NotImplementedError, match=why) as err:
+            engine.aggregate(tin, PartitionSpec(by=by), [a.alias("s") for a in aggs])
+        assert "ROADMAP.md A.3" in str(err.value)
+        return
+    jaggs = [a.alias("s") for a in _JAX_AGGS[why]]
+    try:
+        exp = jax_engine.aggregate(jax_engine.to_df(pdf), JPartitionSpec(by=by), jaggs)
+    except Exception as e:  # noqa: BLE001 - the port raises as the reference does
+        with pytest.raises(Exception) as err:
+            engine.aggregate(tin, PartitionSpec(by=by), [a.alias("s") for a in aggs])
+        assert type(err.value).__name__ == type(e).__name__ == "FugueInvalidOperation"
+        return
+    got = engine.aggregate(tin, PartitionSpec(by=by), [a.alias("s") for a in aggs])
+    assert isinstance(got, TorchDataFrame) and str(got.schema) == str(exp.schema)
+    pd.testing.assert_frame_equal(got.as_pandas(), exp.as_pandas())
 
 
 def test_nullable_int_column_is_not_ported(jax_engine, engine):
@@ -371,3 +402,28 @@ def test_avg_and_sum_of_a_bool_column(jax_engine, engine, keys):
         got.as_pandas().sort_values("k").reset_index(drop=True),
         jexp.as_pandas().sort_values("k").reset_index(drop=True),
     )
+
+
+@pytest.mark.parametrize("keys", [[1, 2, 1], [1, 1 << 40, 1]], ids=["dense", "sorted"])
+def test_min_max_of_a_bool_column(jax_engine, engine, keys):
+    """ROADMAP.md C9: MIN/MAX over a bool column. On the non-nullable
+    column the JAX engine raises (``jnp.iinfo`` of bool,
+    ``fugue_tpu/ops/segment.py:209``), a fault of the reference left as it
+    is; the port reduces the bools as uint8 and answers as the native
+    engine does. The nullable column (a float view on both) gives
+    the JAX engine's answer."""
+    native = NativeExecutionEngine()
+    jaggs = [jff.min(jcol("b")).alias("lo"), jff.max(jcol("b")).alias("hi")]
+    for b in (pa.array([True, False, False]), pa.array([True, None, False])):
+        data = pa.table({"k": keys, "b": b})
+        exp = native.aggregate(native.to_df(data), JPartitionSpec(by=["k"]), jaggs)
+        got = engine.aggregate(engine.to_df(data), PartitionSpec(by=["k"]),
+                               [ff.min(col("b")).alias("lo"), ff.max(col("b")).alias("hi")])
+        assert str(got.schema) == str(exp.schema) == "k:long,lo:bool,hi:bool"
+        assert got.as_arrow().sort_by("k").to_pylist() == exp.as_arrow().sort_by("k").to_pylist()
+        if b.null_count == 0:
+            with pytest.raises(ValueError, match="integer data type"):
+                jax_engine.aggregate(jax_engine.to_df(data), JPartitionSpec(by=["k"]), jaggs)
+        else:
+            jexp = jax_engine.aggregate(jax_engine.to_df(data), JPartitionSpec(by=["k"]), jaggs)
+            assert got.as_arrow().sort_by("k").to_pylist() == jexp.as_arrow().sort_by("k").to_pylist()

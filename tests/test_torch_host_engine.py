@@ -1,9 +1,11 @@
 """The port's ``NativeExecutionEngine`` (``fugue_tpu_torch/execution``)
 against ``fugue_tpu``'s, verb by verb, on the same inputs made from a seed
 with numpy: the joins of every type with NULL keys, the set operations,
-``distinct``, ``dropna``, ``fillna``, a seeded ``sample``, ``take``, and
-``load_df``/``save_df`` round trips in parquet, csv and json; then the
-device engine's ``load_df``/``save_df`` and ``api.load``/``api.save``.
+``distinct``, ``dropna``, ``fillna``, a seeded ``sample``, ``take``,
+``select``/``filter``/``assign``/``aggregate`` (the column IR over
+pandas), ``broadcast``, ``persist``, and ``load_df``/``save_df`` round
+trips in parquet, csv and json; then the device engine's
+``load_df``/``save_df`` and ``api.load``/``api.save``.
 
 The two engines run the same pandas code, so results are compared exactly
 (schema, rows in order, NULLs), floats included, except where a verb's
@@ -17,9 +19,14 @@ import pyarrow as pa
 import pytest
 
 from fugue_tpu.collections import PartitionSpec as JPartitionSpec
+from fugue_tpu.column import SelectColumns as JSelectColumns
+from fugue_tpu.column import col as jcol
+from fugue_tpu.column import functions as jff
 from fugue_tpu.execution import NativeExecutionEngine as JNative
 from fugue_tpu_torch import api
 from fugue_tpu_torch.collections import PartitionSpec
+from fugue_tpu_torch.column import SelectColumns, col
+from fugue_tpu_torch.column import functions as ff
 from fugue_tpu_torch.dataframe import ArrayDataFrame
 from fugue_tpu_torch.execution import NativeExecutionEngine
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
@@ -173,3 +180,28 @@ def test_device_engine_loads_onto_its_device_and_saves_from_it(tmp_path):
     assert e.save_df(got, str(tmp_path / "g.csv"), header=True) is got
     back = api.load(str(tmp_path / "g.csv"), columns="k:long,s:str,v:double", header=True, engine=e)
     assert back.count() == got.count()
+
+
+def _row_local(c, f, SC, PS):
+    return {
+        "select": lambda e, d: e.select(d, SC(c("s"), (c("v") * 2 + c("k")).alias("x")), where=c("v") > 0),
+        "select_grouped": lambda e, d: e.select(d, SC(c("s"), f.sum(c("v")).alias("sv"), f.count(c("k")).alias("n")),
+                                                having=f.count(c("k")) > 1),
+        "filter": lambda e, d: e.filter(d, c("k").is_null() | (c("s") == "bee")),
+        "assign": lambda e, d: e.assign(d, [(c("v") + 1).alias("v"), c("k").cast("double").alias("kd")]),
+        "aggregate": lambda e, d: e.aggregate(d, PS(by=["s"]), [f.avg(c("v")).alias("m"), f.max(c("k")).alias("mk")]),
+        "aggregate_no_keys": lambda e, d: e.aggregate(d, None, [(f.max(c("v")) - f.min(c("v"))).alias("r")]),
+        "broadcast": lambda e, d: e.broadcast(d),
+        "persist": lambda e, d: e.persist(d),
+    }
+
+
+@pytest.mark.parametrize("verb", list(_row_local(col, ff, SelectColumns, PartitionSpec)))
+def test_row_local_verbs(engines, verb):
+    """The host forms of the row-local verbs: the same pandas evaluator
+    (``column/eval.py``) on both sides."""
+    je, te = engines
+    left = _left()
+    exp = _row_local(jcol, jff, JSelectColumns, JPartitionSpec)[verb](je, je.to_df(left))
+    got = _row_local(col, ff, SelectColumns, PartitionSpec)[verb](te, te.to_df(left))
+    _same(got, exp, ordered=verb not in ("select_grouped", "aggregate"))
