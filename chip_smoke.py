@@ -50,7 +50,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launch counts set to 0 just before and read just after, timed (median
    of ``SELECT_REPS`` calls) beside its bound, traced once, and its
    filter (and Q1's projection) traced alone;
-8. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
+8. setop_path: the set verbs, ``sample`` and ``take`` on the same frame,
+   one line a cell: ``distinct-flags-mode`` (``api.distinct`` of the
+   three string flags), ``distinct-qty-disc`` (of two float32 columns),
+   ``union-distinct-modes`` (``api.union`` of two filtered selects, then
+   its distinct), ``intersect-qty-disc`` and ``subtract-qty-disc`` (the
+   device distincts of two filtered selects, then the device semi and
+   anti join on every column), ``take-top-price`` (100 rows by price
+   desc, order key, ship date) and ``take-last-ship`` (10 by ship date
+   desc, price desc), and ``sample-1pct`` (``frac=0.01``, its mask held
+   bit for bit to the CPU draw at each end of the frame), each checked
+   against a numpy oracle with the launch counts set to 0 just before and
+   read just after, timed (median of ``SETOP_REPS`` calls) beside the
+   bound of the bytes it reads, traced once, with its peak device memory;
+   then ``stream-take`` and ``stream-distinct`` over a stream cut in scale
+   to 2·10^7 rows in chunks of 4·10^6 (``--setop-stream-rows``), each
+   against ``np.lexsort`` or ``np.unique``, and a take with no presort
+   that stops after its first chunk;
+9. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
    UDFs (``transform_udfs``) over frames of 100,000,000 rows built from
    ``--seed`` with numpy: ``map-keyless`` (elementwise), ``demean-dense``
    (bench.py's demean by 1,000 keys: the dense plan), ``demean-sorted``
@@ -62,7 +79,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to 0 just before and read just after, timed (median of
    ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
    a frame;
-9. join_path: the device joins at full width, one line a cell:
+10. join_path: the device joins at full width, one line a cell:
    ``north-star-100m`` (bench.py's ``_north_star`` in memory: the group
    means of 100,000,000 rows by ``api.aggregate``, joined back onto every
    row by ``api.join`` and subtracted by ``api.transform``),
@@ -74,7 +91,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
    bound, and traced once;
-10. host_path: the host engine behind the device engine, one line a cell:
+11. host_path: the host engine behind the device engine, one line a cell:
    ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
    ``transform(pdf, demean, schema="*", partition={"by": ["k"]})`` with a
    pandas UDF over bench.py's ``_make_frame`` cut to 1,000,000 rows,
@@ -86,7 +103,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each checked against a host oracle with the launch counts set to 0
    just before and read just after, timed, and traced once with the copy
    to the host, the pandas work and the copy back apart;
-11. stream_path: the streaming paths at full size, one line a cell:
+12. stream_path: the streaming paths at full size, one line a cell:
    ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
@@ -103,7 +120,8 @@ last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
 N`` cuts the dense, the transform, the north-star and the 100m host frames,
 ``--orders N`` the lineitem frames and ``--expand-orders N`` the expansion's, for a quick
-try; ``--stream-rows N`` cuts the streamed north star). With no CUDA
+try; ``--stream-rows N`` cuts the streamed north star, ``--setop-stream-rows N``
+setop_path's streams). With no CUDA
 device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -670,6 +688,7 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
     generate_s = time.perf_counter() - t0
     oracles = lineitem_oracles(np, pd, tbl, aux)
     select_oracles = select_path_oracles(np, pd, tbl, aux)
+    setop_oracles = setop_path_oracles(np, pd, pa, tbl, aux)
     t0 = time.perf_counter()
     tdf = engine.persist(engine.to_df(tbl))
     ingest_s = time.perf_counter() - t0
@@ -727,8 +746,8 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
         "launches_per_aggregate": out["aggregates"]["shipmode"]["launches"]["bin_sum"],
     }
     emit(out)
-    # the frame and select_path's oracles go on to phase_select_path
-    out["handover"] = {"frame": tdf, "oracles": select_oracles}
+    # the frame and the oracles go on to phase_select_path and phase_setop_path
+    out["handover"] = {"frame": tdf, "oracles": select_oracles, "setop_oracles": setop_oracles}
     return out
 
 
@@ -884,6 +903,296 @@ def phase_select_path(torch, np, bg, api, ff, col, engine, tdf, oracles: dict) -
                 tdf, engine=engine, disc_price=col("l_extendedprice") * (1 - col("l_discount"))))
         emit(line)
         out["cells"][name] = line
+    return out
+
+
+# setop_path: the set verbs, sample and take on the lineitem frame, and
+# two streamed cells cut in scale to SETOP_STREAM_ROWS rows
+SETOP_REPS = 3  # medians of 3 calls, after the checked one
+SAMPLE_SEED, SAMPLE_FRAC = 20261017, 0.01
+SAMPLE_WINDOW = 1_000_000  # the card's mask held bit for bit at each end of the frame
+SETOP_STREAM_ROWS, SETOP_STREAM_CHUNK = 20_000_000, 4_000_000
+STREAM_KEYS = 1 << 17  # stream k uniform over [0, 2**17), b over [0, 8)
+
+
+def setop_path_cells(api, col, engine) -> dict:
+    """The in-memory cells of setop_path: name → (``call(tdf)``, the
+    columns it reads: a take's are its sort keys, in order). Each call
+    takes the lineitem frame."""
+    q, d = col("l_quantity"), col("l_discount")
+    flag, mode = col("l_returnflag"), col("l_shipmode")
+
+    def qd_side(tdf, where):
+        return api.select(tdf, "l_quantity", "l_discount", where=where, engine=engine)
+
+    def sides(tdf):
+        return (qd_side(tdf, (flag == "R") & (q <= 40)), qd_side(tdf, (mode == "MAIL") & (d >= 0.05)))
+
+    return {
+        "distinct-flags-mode": (
+            lambda tdf: api.distinct(api.select(tdf, "l_returnflag", "l_linestatus", "l_shipmode",
+                                                engine=engine), engine=engine),
+            ["l_returnflag", "l_linestatus", "l_shipmode"]),
+        "distinct-qty-disc": (
+            lambda tdf: api.distinct(api.select(tdf, "l_quantity", "l_discount", engine=engine), engine=engine),
+            ["l_quantity", "l_discount"]),
+        "union-distinct-modes": (
+            lambda tdf: api.union(
+                api.select(tdf, "l_returnflag", "l_shipmode", where=q < 10, engine=engine),
+                api.select(tdf, "l_returnflag", "l_shipmode", where=d >= 0.09, engine=engine), engine=engine),
+            ["l_returnflag", "l_shipmode", "l_quantity", "l_discount"]),
+        "intersect-qty-disc": (lambda tdf: api.intersect(*sides(tdf), engine=engine),
+                               ["l_returnflag", "l_shipmode", "l_quantity", "l_discount"]),
+        "subtract-qty-disc": (lambda tdf: api.subtract(*sides(tdf), engine=engine),
+                              ["l_returnflag", "l_shipmode", "l_quantity", "l_discount"]),
+        "take-top-price": (
+            lambda tdf: api.take(tdf, 100, presort="l_extendedprice desc, l_orderkey, l_shipdate", engine=engine),
+            ["l_extendedprice", "l_orderkey", "l_shipdate"]),
+        "take-last-ship": (
+            lambda tdf: api.take(tdf, 10, presort="l_shipdate desc, l_extendedprice desc", engine=engine),
+            ["l_shipdate", "l_extendedprice"]),
+        "sample-1pct": (lambda tdf: api.sample(tdf, frac=SAMPLE_FRAC, seed=SAMPLE_SEED, engine=engine), []),
+    }
+
+
+def _top_rows(np, keys_desc, n: int):
+    """The indices of the first ``n`` rows by ``keys_desc`` (``(array,
+    descending)`` pairs, the first the most significant), the row index
+    last: the candidates at or above the first key's n-th value, then
+    ``np.lexsort``."""
+    first, desc = keys_desc[0]
+    image = -first.astype(np.float64) if desc else first.astype(np.float64)
+    cut = np.partition(image, n - 1)[n - 1]
+    cand = np.nonzero(image <= cut)[0]
+    lex = [cand] + [(-k[cand].astype(np.float64) if dsc else k[cand]) for k, dsc in reversed(keys_desc)]
+    return cand[np.lexsort(lex)][:n]
+
+
+def setop_path_oracles(np, pd, pa, tbl, aux) -> dict:
+    """The answers of setop_path's in-memory cells, from the generator's
+    codes and the table's columns: distinct rows and set operations by
+    ``np.bincount`` over combined codes (sorted frames), the takes as the
+    table's rows by ``np.lexsort`` with the row index last."""
+    qty, disc = tbl.column("l_quantity").to_numpy(), tbl.column("l_discount").to_numpy()
+    qi, di = qty.astype(np.int64), np.rint(disc.astype(np.float64) * 100).astype(np.int64)
+    flag, status, mode = aux["flag"].astype(np.int64), aux["status"].astype(np.int64), aux["mode"].astype(np.int64)
+    ns, nm = len(LINESTATUSES), len(SHIPMODES)
+
+    def present(codes, size, mask=None):
+        return set(np.nonzero(np.bincount(codes if mask is None else codes[mask], minlength=size))[0].tolist())
+
+    def qd(codes):
+        idx = np.array(sorted(codes), dtype=np.int64)
+        return pd.DataFrame({"l_quantity": (idx // 11).astype(np.float32),
+                             "l_discount": ((idx % 11) / 100).astype(np.float32)})
+
+    out = {}
+    fsm = present((flag * ns + status) * nm + mode, len(RETURNFLAGS) * ns * nm)
+    out["distinct-flags-mode"] = pd.DataFrame(
+        [(RETURNFLAGS[x // (ns * nm)], LINESTATUSES[x // nm % ns], SHIPMODES[x % nm]) for x in sorted(fsm)],
+        columns=["l_returnflag", "l_linestatus", "l_shipmode"])
+    pair = qi * 11 + di  # quantity 1..50, discount 0.00..0.10
+    out["distinct-qty-disc"] = qd(present(pair, 51 * 11))
+    fm = flag * nm + mode
+    modes = present(fm, len(RETURNFLAGS) * nm, qty < np.float32(10)) | present(
+        fm, len(RETURNFLAGS) * nm, disc >= np.float32(0.09))
+    out["union-distinct-modes"] = pd.DataFrame([(RETURNFLAGS[x // nm], SHIPMODES[x % nm]) for x in sorted(modes)],
+                                               columns=["l_returnflag", "l_shipmode"])
+    a = present(pair, 51 * 11, (flag == RETURNFLAGS.index("R")) & (qty <= np.float32(40)))
+    b = present(pair, 51 * 11, (mode == SHIPMODES.index("MAIL")) & (disc >= np.float32(0.05)))
+    out["intersect-qty-disc"], out["subtract-qty-disc"] = qd(a & b), qd(a - b)
+    price, okey = tbl.column("l_extendedprice").to_numpy(), tbl.column("l_orderkey").to_numpy()
+    ship = tbl.column("l_shipdate").cast(pa.int32()).to_numpy()
+    out["take-top-price"] = tbl.take(_top_rows(np, [(price, True), (okey, False), (ship, False)], 100))
+    out["take-last-ship"] = tbl.take(_top_rows(np, [(ship, True), (price, True)], 10))
+    return out
+
+
+def _same_rows(np, got, exp, what: str) -> None:
+    """Two pandas frames with the same columns hold the same rows."""
+    require(list(got.columns) == list(exp.columns) and len(got) == len(exp),
+            f"{what}: {list(got.columns)} {len(got)} rows vs {list(exp.columns)} {len(exp)}")
+    cols = list(exp.columns)
+    g = got.sort_values(cols).reset_index(drop=True)
+    e = exp.sort_values(cols).reset_index(drop=True)
+    for c in cols:
+        require(np.array_equal(g[c].to_numpy(), e[c].to_numpy().astype(g[c].to_numpy().dtype)),
+                f"{what}: column {c} differs from the oracle")
+
+
+def _same_take(got, exp, keys, what: str) -> None:
+    """A take against its oracle (arrow tables): the key columns in order,
+    and the whole rows as a set."""
+    got, exp = got.replace_schema_metadata(None), exp.replace_schema_metadata(None)
+    require(got.schema.equals(exp.schema) and got.num_rows == exp.num_rows, f"{what}: {got.schema} vs {exp.schema}")
+    require(got.select(keys).equals(exp.select(keys)), f"{what}: the key columns differ from the oracle")
+    order = [(c, "ascending") for c in exp.column_names]
+    require(got.sort_by(order).equals(exp.sort_by(order)), f"{what}: the rows differ from the oracle")
+
+
+def check_sample(torch, np, uniform, res, tdf, what: str) -> dict:
+    """A sample of the lineitem frame: its count within 6 sigma of n·frac,
+    and its mask, at each end of the frame, bit for bit the port's CPU
+    draw (``ops.random.uniform``) ANDed with the frame's validity."""
+    n = tdf.count()
+    mean, sigma = n * SAMPLE_FRAC, (n * SAMPLE_FRAC * (1 - SAMPLE_FRAC)) ** 0.5
+    got = res.count()
+    require(abs(got - mean) <= 6 * sigma, f"{what}: {got} rows, expected {mean:.2f} ± {6 * sigma:.2f}")
+    mask, valid = res.valid_mask, tdf.device_valid_mask()
+    cpu = torch.device("cpu")
+    for start in (0, max(0, mask.shape[0] - SAMPLE_WINDOW)):
+        count = min(SAMPLE_WINDOW, mask.shape[0] - start)
+        exp = (uniform(SAMPLE_SEED, start, count, cpu) < SAMPLE_FRAC) & valid[start:start + count].cpu()
+        require(torch.equal(mask[start:start + count].cpu(), exp), f"{what}: the mask of rows [{start}, +{count}) "
+                "is not the CPU draw's")
+    return {"rows": got, "expected": mean, "sigma": sigma}
+
+
+def stream_setop_chunks(np, pd, PandasDataFrame, seed: int, rows: int = SETOP_STREAM_ROWS,
+                        chunk: int = SETOP_STREAM_CHUNK) -> list:
+    """The streamed cells' chunks, made once: chunk i from
+    ``default_rng(seed + 10_000 + i)``, ``k`` int64 uniform over
+    [0, 2**17), ``b`` int8 over [0, 8), ``v`` float32 uniform."""
+    out = []
+    for i in range((rows + chunk - 1) // chunk):
+        rng = np.random.default_rng(seed + 10_000 + i)
+        n = min(chunk, rows - i * chunk)
+        out.append(pd.DataFrame({"k": rng.integers(0, STREAM_KEYS, n), "b": rng.integers(0, 8, n).astype(np.int8),
+                                 "v": rng.random(n, dtype=np.float32)}))
+    return out
+
+
+def phase_setop_path(torch, np, pd, pa, bg, api, col, engine, tdf, oracles: dict, seed: int,
+                     stream_rows: int = SETOP_STREAM_ROWS, stream_chunk: int = SETOP_STREAM_CHUNK) -> dict:
+    """The set verbs, sample and take over the lineitem frame ``tdf``, one
+    line a cell: checked against ``oracles`` with the launch counts set to
+    0 just before the first call and read just after, timed (median of
+    ``SETOP_REPS`` calls) beside the bound of the bytes of the columns it
+    reads, traced once, with its peak device memory. Then two streamed
+    cells, ``stream-take`` and ``stream-distinct``, over ``stream_rows``
+    rows in chunks of ``stream_chunk``."""
+    from fugue_tpu_torch.constants import FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH
+    from fugue_tpu_torch.dataframe import LocalDataFrameIterableDataFrame, PandasDataFrame
+    from fugue_tpu_torch.ops.random import uniform
+    from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
+    from fugue_tpu_torch.torch.pipeline import prefetch_depth
+
+    start = time.perf_counter()
+    rows = tdf.count()
+    out = {"cells": {}}
+
+    def emit_cell(cell: str, line: dict) -> None:
+        line = {"phase": "setop_path", "cell": cell, **line, "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"][cell] = line
+
+    for name, (fn, reads) in setop_path_cells(api, col, engine).items():
+        def call(fn=fn):
+            return fn(tdf)
+
+        for k in bg.LAUNCHES:
+            bg.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(bg.LAUNCHES)
+        if name == "sample-1pct":
+            checked = check_sample(torch, np, uniform, res, tdf, name)
+            again = call()
+            require(torch.equal(again.valid_mask, res.valid_mask), f"{name}: the same seed drew another mask")
+            checks = ("count within 6 sigma of n·frac; the mask of rows [0, 1e6) and [n-1e6, n) bit for bit the "
+                      "CPU draw; a second call's mask the same")
+            rows_out = checked["rows"]
+            del again
+        elif name.startswith("take"):
+            _same_take(res.as_arrow(), oracles[name], reads, name)  # a take reads its keys
+            checks, rows_out = "key columns in order exact, rows as a set, vs np.lexsort", res.count()
+        else:
+            _same_rows(np, res.as_pandas(), oracles[name], name)
+            checks, rows_out = "rows exact vs the oracle's set", res.count()
+        require(sum(launches.values()) == 0, f"{name}: a hand kernel launched {launches}")
+        del res
+        wall = []
+        for _ in range(SETOP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        row_bytes = sum(tdf.device_cols[c].element_size() for c in reads) if reads else 2  # sample: mask in, out
+        bound_ms, bound_by = _bound(rows, row_bytes, 0)
+        emit_cell(name, {
+            "rows": rows, "rows_out": rows_out, "launches": launches, "first_call_s": first_s,
+            "ms": statistics.median(wall), "ms_all": wall, "rows_per_s": rows / statistics.median(wall) * 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by, "peak_device_gb": peak / 1e9, "checks": checks,
+            "profile": _trace(torch, call),
+        })
+
+    # the streamed cells: host pandas a chunk, as in the JAX package
+    t0 = time.perf_counter()
+    chunks = stream_setop_chunks(np, pd, PandasDataFrame, seed, rows=stream_rows, chunk=stream_chunk)
+    generate_s = time.perf_counter() - t0
+    k = np.concatenate([c["k"].to_numpy() for c in chunks])
+    b = np.concatenate([c["b"].to_numpy() for c in chunks])
+    v = np.concatenate([c["v"].to_numpy() for c in chunks])
+    schema = "k:long,b:byte,v:float"
+    take_exp = pa.table({"k": k, "b": b, "v": v}).take(_top_rows(np, [(v, True), (k, False), (b, False)], 100))
+    pairs = np.unique(k * 8 + b)
+    distinct_exp = pd.DataFrame({"k": pairs // 8, "b": (pairs % 8).astype(np.int8)})
+    del k, b, v
+
+    def stream(cols=None, produced=None):
+        def gen():
+            for c in chunks:
+                if produced is not None:
+                    produced[0] += 1
+                yield PandasDataFrame(c if cols is None else c[cols], schema if cols is None else "k:long,b:byte")
+
+        return LocalDataFrameIterableDataFrame(gen(), schema=schema if cols is None else "k:long,b:byte")
+
+    def streamed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    res, wall_s, peak = streamed(lambda: api.take(stream(), 100, presort="v desc, k, b", engine=engine))
+    _same_take(res.as_arrow(), take_exp, ["v", "k", "b"], "stream-take")
+    stats = dict(streaming.last_run_stats)
+    require(stats["chunks"] == len(chunks), f"stream-take: read {stats['chunks']} of {len(chunks)} chunks")
+    # no presort: the first chunk holds the 1000 rows; the pipeline's
+    # read-ahead may have made up to its depth + 1 more, serial none
+    early = {}
+    for depth in (0, None):
+        conf = {} if depth is None else {FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH: depth}
+        eng = TorchExecutionEngine(device=engine.device, conf=conf)
+        made = [0]
+        head = api.take(stream(produced=made), 1000, presort="", engine=eng)
+        require(head.count() == 1000 and streaming.last_run_stats["chunks"] == 1,
+                f"stream-take: no presort read {streaming.last_run_stats['chunks']} chunks")
+        limit = 1 if depth == 0 else 2 + prefetch_depth(eng.conf, eng.device)
+        require(made[0] <= limit, f"stream-take: {made[0]} chunks made after an early stop (limit {limit})")
+        early["serial" if depth == 0 else "prefetch"] = {"chunks_made": made[0], "limit": limit}
+    emit_cell("stream-take", {
+        "rows": stream_rows, "chunk": stream_chunk, "generate_s": generate_s, "s": wall_s,
+        "rows_per_s": stream_rows / wall_s, "peak_device_gb": peak / 1e9, "stream_stats": stats,
+        "early_stop": early, "checks": "take(100, 'v desc, k, b'): key columns in order and rows vs np.lexsort; "
+                                      "take(1000) with no presort reads one chunk",
+    })
+    res, wall_s, peak = streamed(lambda: api.distinct(stream(["k", "b"]), engine=engine))
+    got = res.as_pandas()
+    _same_rows(np, got, distinct_exp, "stream-distinct")
+    emit_cell("stream-distinct", {
+        "rows": stream_rows, "chunk": stream_chunk, "rows_out": len(got), "s": wall_s,
+        "rows_per_s": stream_rows / wall_s, "peak_device_gb": peak / 1e9,
+        "stream_stats": dict(streaming.last_run_stats), "checks": "rows exact vs np.unique",
+    })
     return out
 
 
@@ -1867,6 +2176,7 @@ def main() -> int:
     ap.add_argument("--orders", type=int, default=SF10_ORDERS)
     ap.add_argument("--expand-orders", type=int, default=EXPAND_ORDERS)
     ap.add_argument("--stream-rows", type=int, default=NS_STREAM_ROWS)
+    ap.add_argument("--setop-stream-rows", type=int, default=SETOP_STREAM_ROWS)
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -1903,6 +2213,8 @@ def main() -> int:
     sorted_path = phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, args.seed, args.orders)
     handover = sorted_path.pop("handover")
     select_path = phase_select_path(torch, np, bg, api, ff, col, engine, handover["frame"], handover["oracles"])
+    setop_path = phase_setop_path(torch, np, pd, pa, bg, api, col, engine, handover["frame"],
+                                  handover["setop_oracles"], args.seed, stream_rows=args.setop_stream_rows)
     del handover
     torch.cuda.empty_cache()
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
@@ -1925,6 +2237,8 @@ def main() -> int:
         by_path = {"dense": main_path["out"]["launches"][name],
                    "sorted_path": {a: r["launches"][name] for a, r in sorted_path["aggregates"].items()},
                    "select_path": {c: r["launches"][name] for c, r in select_path["cells"].items()},
+                   "setop_path": {c: r["launches"][name] for c, r in setop_path["cells"].items()
+                                  if "launches" in r},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
@@ -1943,7 +2257,8 @@ def main() -> int:
             "source": sources[name],
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
-            + sum(by_path["select_path"].values()) + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
+            + sum(by_path["select_path"].values()) + sum(by_path["setop_path"].values())
+            + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",

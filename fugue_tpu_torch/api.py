@@ -5,8 +5,9 @@ and ``fugue_tpu/workflow/api.py`` (``transform``, ``out_transform``).
 :class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device`` with
 ``conf``), or an engine instance. The names resolve here; nothing is
 registered into ``fugue_tpu``'s plugin system. A one-pass stream
-(``LocalDataFrameIterableDataFrame``) goes to the engine as it is, never
-through ``to_df``, and a stream result comes back as the stream.
+(``LocalDataFrameIterableDataFrame``, or the row stream
+``IterableDataFrame``) goes to the engine as it is, never through
+``to_df``, and a stream result comes back as the stream.
 """
 
 from typing import Any, Callable, List, Optional
@@ -132,10 +133,40 @@ def persist(df: Any, lazy: bool = False, engine: Any = None, device: Any = None,
     return _verb(lambda e, d: e.persist(d, lazy=lazy, **kwargs), df, engine, device, as_fugue)
 
 
+def distinct(df: Any, engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """The rows of ``df`` without repeats (SELECT DISTINCT; NULL equals
+    NULL). A one-pass stream is deduped chunk by chunk."""
+    return _verb(lambda e, d: e.distinct(d), df, engine, device, as_fugue)
+
+
+def sample(df: Any, n: Optional[int] = None, frac: Optional[float] = None, replace: bool = False,
+           seed: Optional[int] = None, engine: Any = None, device: Any = None,
+           as_fugue: bool = False) -> Any:
+    """``n`` rows, or each row with probability ``frac``, of ``df``, drawn
+    with ``seed`` (TABLESAMPLE); give one of ``n`` and ``frac``."""
+    return _verb(lambda e, d: e.sample(d, n=n, frac=frac, replace=replace, seed=seed), df, engine,
+                 device, as_fugue)
+
+
+def take(df: Any, n: int, presort: str = "", na_position: str = "last", partition: Any = None,
+         engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """The first ``n`` rows of ``df`` (of each group of ``partition``'s
+    keys) in the order of ``presort`` (such as ``"v desc, k"``), NULLs
+    ``na_position`` (ORDER BY ... LIMIT)::
+
+        take(df, 10, presort="price desc", engine="torch")
+    """
+    return _verb(
+        lambda e, d: e.take(d, n, presort=presort, na_position=na_position,
+                            partition_spec=None if partition is None else PartitionSpec(partition)),
+        df, engine, device, as_fugue,
+    )
+
+
 def _verb(fn: Callable[[ExecutionEngine, DataFrame], DataFrame], df: Any, engine: Any, device: Any,
           as_fugue: bool) -> Any:
     e = make_execution_engine(engine, device)
-    return _adjust_result(fn(e, e.to_df(df)), df, as_fugue)
+    return _adjust_result(fn(e, df if is_stream_frame(df) else e.to_df(df)), df, as_fugue)
 
 
 def transform(
@@ -264,12 +295,8 @@ def join(
 
     The result is a frame of the engine when ``as_fugue`` or when any input
     is one; otherwise it has the type of ``df1`` (pandas or arrow)."""
-    e = make_execution_engine(engine, device)
-    frames = [df1, df2, *dfs]
-    res = e.join(df1, df2, how=how, on=on)
-    for x in dfs:
-        res = e.join(res, x, how=how, on=on)
-    return _adjust_result(res, df1, as_fugue or any(isinstance(d, DataFrame) for d in frames))
+    return _fold(lambda e, a, b: e.join(a, b, how=how, on=on), [df1, df2, *dfs], engine, device,
+                 as_fugue)
 
 
 def semi_join(df1: Any, df2: Any, *dfs: Any, on=None, engine=None, device=None, as_fugue=False) -> Any:
@@ -307,6 +334,40 @@ def full_outer_join(
 
 def cross_join(df1: Any, df2: Any, *dfs: Any, engine=None, device=None, as_fugue=False) -> Any:
     return join(df1, df2, *dfs, how="cross", engine=engine, device=device, as_fugue=as_fugue)
+
+
+def union(df1: Any, df2: Any, *dfs: Any, distinct: bool = True,  # noqa: A002
+          engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """The rows of ``df1``, ``df2`` and each of ``dfs`` (UNION; without
+    repeats unless ``distinct=False``, UNION ALL)."""
+    return _fold(lambda e, a, b: e.union(a, b, distinct=distinct), [df1, df2, *dfs], engine, device,
+                 as_fugue)
+
+
+def subtract(df1: Any, df2: Any, *dfs: Any, distinct: bool = True,  # noqa: A002
+             engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """The distinct rows of ``df1`` in none of ``df2`` and ``dfs``
+    (EXCEPT)."""
+    return _fold(lambda e, a, b: e.subtract(a, b, distinct=distinct), [df1, df2, *dfs], engine,
+                 device, as_fugue)
+
+
+def intersect(df1: Any, df2: Any, *dfs: Any, distinct: bool = True,  # noqa: A002
+              engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
+    """The distinct rows in ``df1``, ``df2`` and each of ``dfs``
+    (INTERSECT)."""
+    return _fold(lambda e, a, b: e.intersect(a, b, distinct=distinct), [df1, df2, *dfs], engine,
+                 device, as_fugue)
+
+
+def _fold(fn: Callable[[ExecutionEngine, Any, Any], DataFrame], frames: List[Any], engine: Any,
+          device: Any, as_fugue: bool) -> Any:
+    """``fn`` over the frames from the left: ``fn(fn(f1, f2), f3)``..."""
+    e = make_execution_engine(engine, device)
+    res = fn(e, frames[0], frames[1])
+    for x in frames[2:]:
+        res = fn(e, res, x)
+    return _adjust_result(res, frames[0], as_fugue or any(isinstance(d, DataFrame) for d in frames))
 
 
 def _adjust_result(res: DataFrame, df: Any, as_fugue: bool) -> Any:

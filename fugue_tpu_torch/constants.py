@@ -1,7 +1,7 @@
 """Configuration keys of the port, copied from ``fugue_tpu/constants.py``
-(:131-140, :41) and trimmed to the streaming keys and the host map's
-pool. The names are the JAX package's, so one conf dict drives either
-engine."""
+(:131-140, :41, :35) and trimmed to the streaming keys, the host map's
+pool and the distinct's guard. The names are the JAX package's, so one
+conf dict drives either engine."""
 
 # rows per host→device chunk of a stream; the device working set is
 # O(chunk_rows × columns), not O(stream)
@@ -19,3 +19,6 @@ FUGUE_TPU_CONF_STREAM_KEY_RANGE = "fugue.tpu.stream.key_range"
 # ported (ROADMAP.md A.10): the map runs serially, and a value above 1
 # raises
 FUGUE_TPU_CONF_MAP_PARALLELISM = "fugue.tpu.map.parallelism"
+# the most groups a device ``distinct`` brings to the host (default 2**22,
+# the JAX engine's); above it the host engine dedupes the frame
+FUGUE_TPU_CONF_MAX_PARTIAL_ROWS = "fugue.tpu.max_partial_rows"

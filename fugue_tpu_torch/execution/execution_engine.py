@@ -10,9 +10,9 @@ the set operations, ``distinct``, ``dropna``, ``fillna``, ``sample``,
 forms here, as in the JAX package (:716-806): the frame on the host, the
 column IR evaluated over pandas (``column/eval.py``). A verb an engine
 does not implement raises ``NotImplementedError``: the host engine
-(``NativeExecutionEngine``) has all of them; the device engine has the
-ones it runs and those it hands to its host engine where the JAX engine
-does."""
+(``NativeExecutionEngine``) and the device engine
+(``TorchExecutionEngine``) have all of them. What neither has yet, zip,
+comap and repartition, is not in this contract (ROADMAP.md A.7, A.8)."""
 
 from abc import ABC, abstractmethod
 from typing import Any, Callable, List, Optional
@@ -159,15 +159,19 @@ class ExecutionEngine(ABC):
         raise self._missing("join")
 
     def union(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
-        """The rows of ``df1`` and of ``df2``; without repeats if ``distinct``."""
+        """The rows of ``df1`` and of ``df2`` (UNION ALL); without repeats
+        if ``distinct`` (UNION, NULL equal to NULL). The two schemas must
+        be the same."""
         raise self._missing("union")
 
     def subtract(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
-        """The distinct rows of ``df1`` that are not in ``df2``."""
+        """The distinct rows of ``df1`` that are not in ``df2`` (EXCEPT,
+        NULL equal to NULL); ``distinct=False`` (EXCEPT ALL) raises."""
         raise self._missing("subtract")
 
     def intersect(self, df1: DataFrame, df2: DataFrame, distinct: bool = True) -> DataFrame:
-        """The distinct rows in both ``df1`` and ``df2``."""
+        """The distinct rows in both ``df1`` and ``df2`` (INTERSECT, NULL
+        equal to NULL); ``distinct=False`` (INTERSECT ALL) raises."""
         raise self._missing("intersect")
 
     def distinct(self, df: DataFrame) -> DataFrame:
@@ -191,14 +195,18 @@ class ExecutionEngine(ABC):
         self, df: DataFrame, n: Optional[int] = None, frac: Optional[float] = None,
         replace: bool = False, seed: Optional[int] = None,
     ) -> DataFrame:
-        """``n`` rows or a ``frac`` of the rows of ``df``, drawn with ``seed``."""
+        """``n`` rows of ``df``, or each row with probability ``frac``
+        (one of the two), drawn with ``seed``, with or without
+        ``replace``ment (TABLESAMPLE)."""
         raise self._missing("sample")
 
     def take(
         self, df: DataFrame, n: int, presort: str, na_position: str = "last",
         partition_spec: Optional[PartitionSpec] = None,
     ) -> DataFrame:
-        """The first ``n`` rows of ``df`` (of each partition) after ``presort``."""
+        """The first ``n`` rows of ``df`` (of each partition of
+        ``partition_spec``'s keys) in the order of ``presort`` (or the
+        spec's), NULLs ``na_position`` (ORDER BY ... LIMIT)."""
         raise self._missing("take")
 
     def load_df(

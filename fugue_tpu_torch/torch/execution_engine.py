@@ -3,11 +3,12 @@
 
 The port has ``to_df``, ``persist``, ``broadcast``, the device
 ``aggregate``, the maps behind ``transform`` (``TorchMapEngine``), the
-device ``join`` of every type, ``union`` without ``distinct``, the
-row-local verbs ``filter``, ``select``, ``assign``, ``dropna`` and
-``fillna``, ``load_df`` and ``save_df``. A one-pass stream
-(``LocalDataFrameIterableDataFrame``) given to ``aggregate``, ``join`` or
-``transform`` goes through the device chunk by chunk
+device ``join`` of every type, ``union``, ``subtract``, ``intersect``,
+``distinct``, ``sample``, ``take``, the row-local verbs ``filter``,
+``select``, ``assign``, ``dropna`` and ``fillna``, ``load_df`` and
+``save_df``. A one-pass stream (``LocalDataFrameIterableDataFrame``, or
+the row stream ``IterableDataFrame``) given to ``aggregate``, ``join``,
+``transform``, ``distinct`` or ``take`` goes through chunk by chunk
 (``torch/streaming.py``) where the plan allows it, as in the JAX engine.
 
 ``aggregate`` takes any number of keys of any integer, float, bool,
@@ -26,25 +27,36 @@ moves; ``select`` lowers a grouped aggregate of named columns to the
 device ``aggregate`` and a projection to ``_device_project``; ``fillna``
 fills NaN floats and masked cells in place.
 
+The set verbs follow the JAX engine's device plans: ``distinct`` is the
+device groupby of every column with one presence count, its O(groups)
+keys decoded on the host; ``union`` concatenates on the device (then
+``distinct``); ``subtract`` and ``intersect`` of NULL-free plain frames
+are the device anti and semi joins of their distinct rows on every
+column; ``sample(frac=...)`` ANDs the JAX engine's own uniform draw
+(``ops/random.py``, the same bits) into the validity mask; ``take`` sorts
+the rows by validity and its keys on the device and brings the first
+``n`` to the host for the JAX engine's pandas step.
+
 Like the JAX engine, it holds a host engine (``NativeExecutionEngine``,
 ``execution/native_execution_engine.py``) and calls it exactly where the
 JAX engine calls its own: the map of any transformer that is not a
 compiled ``Dict[str, torch.Tensor]`` function, the joins the device plans
-decline, the union of a full_outer join's parts that the device union
-declines, the aggregates and selects the device plans decline (a global
-aggregate, COUNT DISTINCT, an aggregate of an expression, a predicate or
-projection the device evaluator refuses), the fills of encoded columns,
-and ``load_df``/``save_df``. A frame goes to the host through ``_host``
-(one copy of its valid rows) and the result comes back through
-``_back``; the spans ``fugue::to_host``, ``fugue::host_map`` /
-``fugue::host_join`` / ``fugue::host_union`` / ``fugue::host_select`` and
-``fugue::to_device`` name the steps in a ``torch.profiler`` trace, and
-``fugue::filter`` and ``fugue::project`` the device predicate and
-projection. Unsigned columns above uint8, which the JAX package keeps on
-its device and the port on its host, raise ``NotImplementedError`` naming
-ROADMAP.md A.3 where the JAX engine would run them on its device; the
-other verbs of ROADMAP.md A.8 (distinct, set operations, sample, take)
-raise naming it.
+decline, the unions of frames the device union declines, the aggregates
+and selects the device plans decline (a global aggregate, COUNT
+DISTINCT, an aggregate of an expression, a predicate or projection the
+device evaluator refuses), the fills of encoded columns, the set verbs
+and ``sample``/``take`` their gates decline, and ``load_df``/``save_df``.
+A frame goes to the host through ``_host`` (one copy of its valid rows)
+and the result comes back through ``_back``; the spans ``fugue::to_host``,
+``fugue::host_map`` / ``fugue::host_join`` / ``fugue::host_union`` /
+``fugue::host_select`` / ``fugue::host_distinct`` / ``fugue::host_setop``
+/ ``fugue::host_sample`` / ``fugue::host_take`` and ``fugue::to_device``
+name the steps in a ``torch.profiler`` trace, and ``fugue::filter``,
+``fugue::project``, ``fugue::distinct``, ``fugue::sample_mask`` and
+``fugue::take_sort`` the device work. Unsigned columns above uint8, which
+the JAX package keeps on its device and the port on its host, raise
+``NotImplementedError`` naming ROADMAP.md A.3 where the JAX engine would
+run them on its device.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -62,16 +74,22 @@ from ..column.eval import rewrite_having_aggs
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
 from ..column.functions import is_agg
 from ..column.torch_eval import can_evaluate_on_device, device_predicate_plan, evaluate_torch, evaluate_torch_3v
-from ..dataframe import ArrowDataFrame, DataFrame, LocalBoundedDataFrame, LocalDataFrame
+from ..collections.partition import parse_presort_exp
+from ..constants import FUGUE_TPU_CONF_MAX_PARTIAL_ROWS
+from ..dataframe import ArrowDataFrame, DataFrame, LocalBoundedDataFrame, LocalDataFrame, PandasDataFrame
 from ..dataframe.utils import get_join_schemas, parse_join_type
 from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
 from ..execution.native_execution_engine import NativeExecutionEngine, PandasMapEngine
 from ..ops.join import MAX_BROADCAST_ROWS, device_expand_join, device_hash_join
+from ..ops.random import uniform
 from ..ops.segment import (
     _DENSE_MAX_RANGE,
+    PartialsTooLarge,
     _is_int,
     _keyed_order,
+    _order_by,
+    _sort_image,
     dense_buckets,
     dense_kernel_parts,
     device_groupby_partials,
@@ -88,12 +106,17 @@ from .streaming import (
     is_stream_frame,
     streaming_compiled_map,
     streaming_dense_aggregate,
+    streaming_distinct,
     streaming_hash_join,
     streaming_keyed_compiled_map,
+    streaming_take,
 )
 
 _ENCODED = "ROADMAP.md A.3 encoded columns"
-_VERBS = "ROADMAP.md A.8 remaining verbs"
+# the JAX engine's default of fugue.tpu.max_partial_rows (its distinct)
+_MAX_PARTIAL_ROWS = 1 << 22
+# the largest n of the device take
+_TAKE_MAX_N = 4096
 # the largest segment-id space of the dense keyed map: the JAX package's
 # default for FUGUE_TPU_CONF_DENSE_MAP_RANGE (the port has no such knob)
 _DENSE_MAP_RANGE = 1 << 20
@@ -504,14 +527,14 @@ class TorchExecutionEngine(ExecutionEngine):
         return self.to_df(df)
 
     def _host_call(
-        self, verb: Callable[[NativeExecutionEngine, LocalBoundedDataFrame], DataFrame], df: Any
+        self, verb: Callable[..., DataFrame], *dfs: Any, span: str = "fugue::host_select"
     ) -> TorchDataFrame:
-        """A row-local ``verb`` of the host engine (select, filter,
-        aggregate, dropna, fillna) over ``df``'s host copy, back on the
-        device; span ``fugue::host_select``."""
-        local = self._host(df)
-        with record_function("fugue::host_select"):
-            res = verb(self._host_engine, local)
+        """``verb(host engine, *host copies of dfs)`` (a row-local verb by
+        default: select, filter, aggregate, dropna, fillna), back on the
+        device; the host engine's work under the span ``span``."""
+        locals_ = [self._host(df) for df in dfs]
+        with record_function(span):
+            res = verb(self._host_engine, *locals_)
         return self._back(res)
 
     # ---- row-local verbs -------------------------------------------------------
@@ -1334,43 +1357,198 @@ class TorchExecutionEngine(ExecutionEngine):
             )
         )
 
-    # ---- union ---------------------------------------------------------------
+    # ---- union and the set verbs ---------------------------------------------
 
     def union(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
-        """Device union (``distinct=False``): both frames' rows, one after
-        the other. Dictionary columns unify into one sorted union dictionary
-        with both sides' codes remapped; null masks concatenate with their
-        columns; epoch datetimes concatenate when the arrow types agree.
-        ``distinct=True`` (the device distinct) and frames the JAX engine
-        unions on its host engine raise ``NotImplementedError``."""
-        if distinct:
-            raise NotImplementedError(f"union with distinct=True is not ported ({_VERBS})")
-        res = self._union_device(self.to_df(df1), self.to_df(df2))
-        if res is None:
-            raise NotImplementedError(
-                "union of frames whose schemas, column types or encodings differ, or "
-                "with host columns: the JAX package unions them on its host engine, "
-                f"which is not ported ({_VERBS})"
-            )
-        return res
+        """Device union: both frames' rows, one after the other, then the
+        device ``distinct`` when ``distinct``. Dictionary columns unify into
+        one sorted union dictionary with both sides' codes remapped; null
+        masks concatenate with their columns; epoch datetimes concatenate
+        when the arrow types agree. Frames whose schemas, column types or
+        encodings differ, or with host columns, are unioned by the host
+        engine (``fugue::host_union``), as in the JAX engine."""
+        j1, j2 = self.to_df(df1), self.to_df(df2)
+        res = self._union_device(j1, j2)
+        if res is not None:
+            return self.distinct(res) if distinct else res
+        if _a3_only_host_cols(j1) and _union_compatible(j1, j2, a3_on_device=True):
+            raise _a3_error(j1, _a3_only_host_cols(j1), "a union")
+        return self._host_call(
+            lambda h, a, b: h.union(a, b, distinct=distinct), j1, j2, span="fugue::host_union"
+        )
+
+    def subtract(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
+        """EXCEPT: with ``distinct`` over two NULL-free plain frames, the
+        device anti join of their distinct rows on every column; otherwise
+        the host engine (``fugue::host_setop``), which refuses EXCEPT ALL."""
+        return self._set_op(df1, df2, distinct, "anti", "subtract")
+
+    def intersect(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
+        """INTERSECT: with ``distinct`` over two NULL-free plain frames, the
+        device semi join of their distinct rows on every column; otherwise
+        the host engine (``fugue::host_setop``)."""
+        return self._set_op(df1, df2, distinct, "semi", "intersect")
+
+    def _set_op(self, df1: Any, df2: Any, distinct: bool, kernel_how: str, verb: str) -> TorchDataFrame:
+        j1, j2 = self.to_df(df1), self.to_df(df2)
+        if distinct and _setop_device_ok(j1) and _setop_device_ok(j2):
+            # set semantics treat NULL = NULL where the join kernels match
+            # no NULL key: only provably NULL-free frames take the device.
+            # The distinct right side has the unique keys of the probe.
+            d1, d2 = self.distinct(j1), self.distinct(j2)
+            res = self._join_device(d1, d2, kernel_how, on=list(j1.schema.names))
+            if res is not None:
+                return res
+        return self._host_call(
+            lambda h, a, b: getattr(h, verb)(a, b, distinct=distinct), j1, j2, span="fugue::host_setop"
+        )
+
+    def distinct(self, df: Any) -> TorchDataFrame:
+        """SELECT DISTINCT. A frame whose every column is on the device
+        runs the device groupby of all its columns with one presence count:
+        the keys of the O(groups) partials are the distinct rows.
+        Dictionary codes, epoch ints and null masks group by their device
+        identity (a mask and a maybe-NaN float's ``isnan`` as extra keys:
+        NULL = NULL, NaN = NaN, NULL != NaN) and decode on the host. Above
+        ``fugue.tpu.max_partial_rows`` groups, and for frames with host
+        columns, the host engine (``fugue::host_distinct``). A one-pass
+        stream dedupes chunk by chunk (``streaming_distinct``)."""
+        if is_stream_frame(df):
+            return streaming_distinct(self, df)
+        tdf = self.to_df(df)
+        if tdf.host_table is None and len(tdf.device_cols) > 0:
+            res = self._distinct_device(tdf)
+            if res is not None:
+                return res
+        else:
+            _refuse_a3_frame(tdf, "distinct")
+        return self._host_call(lambda h, d: h.distinct(d), tdf, span="fugue::host_distinct")
+
+    def _distinct_device(self, tdf: TorchDataFrame) -> Optional[TorchDataFrame]:
+        """The distinct rows as the keys of the device groupby's partials,
+        or None past ``fugue.tpu.max_partial_rows`` groups."""
+        with record_function("fugue::distinct"):
+            key_cols, mask_names = _group_key_cols(tdf, tdf.schema.names)
+            count_name = "__n__"
+            while count_name in tdf.schema:  # never shadow a user column
+                count_name = "_" + count_name
+            try:
+                partials = device_groupby_partials(
+                    key_cols,
+                    [(count_name, "count", next(iter(key_cols.values())))],
+                    tdf.device_valid_mask(),
+                    max_partial_rows=self.conf.get(FUGUE_TPU_CONF_MAX_PARTIAL_ROWS, _MAX_PARTIAL_ROWS),
+                )
+            except PartialsTooLarge:
+                return None  # near-unique rows: the O(groups) transfer stops paying off
+            res = partials.drop(columns=[count_name]).drop_duplicates(ignore_index=True)
+            res = _decode_partial_keys(tdf, res, mask_names)
+        return self.to_df(PandasDataFrame(res[tdf.schema.names], tdf.schema))
+
+    def sample(
+        self, df: Any, n: Optional[int] = None, frac: Optional[float] = None,
+        replace: bool = False, seed: Optional[int] = None,
+    ) -> TorchDataFrame:
+        """TABLESAMPLE. ``frac`` alone, without replacement: row ``i``
+        stays where the JAX engine's draw ``jax.random.uniform(PRNGKey(seed),
+        ...)[i]`` is below ``frac`` (``ops/random.py``, the same float64
+        bits), ANDed into the validity mask; no row moves, and a seed keeps
+        the JAX engine's rows. ``n`` rows, or with replacement: the host
+        engine (``fugue::host_sample``)."""
+        tdf = self.to_df(df)
+        if frac is not None and n is None and not replace:
+            if tdf.host_table is None and len(tdf.device_cols) > 0:
+                if seed is None:
+                    seed = int(np.random.default_rng().integers(0, 2**31 - 1))
+                with record_function("fugue::sample_mask"):
+                    valid = tdf.device_valid_mask()
+                    draw = uniform(seed, 0, valid.shape[0], valid.device)
+                    return _with_mask(tdf, valid & (draw < float(frac)))
+            _refuse_a3_frame(tdf, "sample")
+        return self._host_call(
+            lambda h, d: h.sample(d, n=n, frac=frac, replace=replace, seed=seed), tdf,
+            span="fugue::host_sample",
+        )
+
+    def take(
+        self, df: Any, n: int, presort: str, na_position: str = "last",
+        partition_spec: Optional[PartitionSpec] = None,
+    ) -> TorchDataFrame:
+        """ORDER BY ... LIMIT ``n``. With no partition keys, a presort,
+        ``na_position="last"``, sort keys that order like their values
+        (plain, datetime epochs, sorted dictionary codes) and ``n <=
+        4096``: one lexicographic sort of the rows by ``(not valid,
+        (isnull, key) for each sort key, row index)`` on the device, as the
+        JAX engine's ``lax.sort`` orders them (DESC negates floats and
+        inverts ints and bools; NaN and NULL last), then the first ``n``
+        rows to the host for the JAX engine's pandas step (decode, sort,
+        head). Everything else takes the host engine
+        (``fugue::host_take``). A one-pass stream keeps running top-``n``
+        buffers (``streaming_take``)."""
+        if is_stream_frame(df):
+            return streaming_take(self, df, n, presort, na_position, partition_spec)
+        tdf = self.to_df(df)
+        sorts = parse_presort_exp(presort) if presort else (
+            partition_spec.presort if partition_spec is not None else {}
+        )
+        if (
+            (partition_spec is None or len(partition_spec.partition_by) == 0)
+            and len(sorts) > 0
+            and na_position == "last"
+            and 0 < n <= _TAKE_MAX_N
+        ):
+            if tdf.host_table is None and all(_sortable(tdf, c) for c in sorts):
+                return self._take_device(tdf, n, list(sorts.items()))
+            a3 = _a3_only_host_cols(tdf)
+            if a3 and all(c in a3 or _sortable(tdf, c) for c in sorts):
+                raise _a3_error(tdf, a3, "take")
+        return self._host_call(
+            lambda h, d: h.take(d, n, presort, na_position=na_position, partition_spec=partition_spec),
+            tdf, span="fugue::host_take",
+        )
+
+    def _take_device(self, tdf: TorchDataFrame, n: int, sort_items: List[Tuple[str, bool]]) -> TorchDataFrame:
+        """The device take: the first ``min(n, rows)`` rows of the sort to
+        the host, then the JAX engine's pandas step over them."""
+        with record_function("fugue::take_sort"):
+            valid = tdf.device_valid_mask()
+
+            def images():
+                # least significant first: each key, then its NULL flag
+                for name, asc in reversed(sort_items):
+                    key = tdf.device_cols[name]
+                    isnull = _take_isnull(tdf, name)
+                    if not asc:
+                        if key.is_floating_point():
+                            key = -key if isnull is None else torch.where(isnull, key, -key)
+                        elif key.dtype == torch.bool:
+                            key = torch.logical_not(key)
+                        else:
+                            key = ~key  # a monotone reversal
+                    yield _sort_image(key)
+                    if isnull is not None:
+                        yield isnull.to(torch.uint8)
+
+            perm = _order_by(images(), valid)[: min(n, valid.shape[0])]
+            host = {c: a[perm].cpu().numpy() for c, a in tdf.device_cols.items()}
+            masks = {c: m[perm].cpu().numpy() for c, m in tdf.null_masks.items()}
+            keep = valid[perm].cpu().numpy()
+        pdf = pd.DataFrame({c: a[keep] for c, a in host.items()})
+        for c, m in masks.items():
+            pdf[c] = pdf[c].mask(m[keep])
+        # decode codes and epochs, so the host sorts and returns VALUES
+        pdf = _decode_partial_keys(tdf, pdf, {})
+        pdf = pdf.sort_values(
+            [c for c, _ in sort_items], ascending=[a for _, a in sort_items], na_position="last"
+        ).head(n)
+        return self.to_df(PandasDataFrame(pdf[tdf.schema.names].reset_index(drop=True), tdf.schema))
 
     def _union_device(self, j1: TorchDataFrame, j2: TorchDataFrame) -> Optional[TorchDataFrame]:
         """The device union of two frames, or None where the JAX engine
         takes its host engine."""
-        names = j1.schema.names
-        if not (
-            j1.schema == j2.schema
-            and j1.host_table is None
-            and j2.host_table is None
-            and all(j1.device_cols[c].dtype == j2.device_cols[c].dtype for c in names)
-            # per-column encodings must agree in KIND (schema equality
-            # already forces matching arrow types, incl. timestamp units)
-            and all(
-                j1.encodings.get(c, {}).get("kind") == j2.encodings.get(c, {}).get("kind")
-                for c in names
-            )
-        ):
+        if not _union_compatible(j1, j2):
             return None
+        names = j1.schema.names
         cols1, cols2 = dict(j1.device_cols), dict(j2.device_cols)
         encodings: Dict[str, Any] = {}
         for c in names:
@@ -1413,6 +1591,74 @@ class TorchExecutionEngine(ExecutionEngine):
                 schema=j1.schema,
             )
         )
+
+
+def _setop_device_ok(tdf: TorchDataFrame) -> bool:
+    """Whether the JAX engine's EXCEPT/INTERSECT takes its device: a plain
+    frame (no encoding, no null mask) proved NaN-free, every column on the
+    device. A.3's host columns count as the device columns they are in the
+    JAX package, masked where they hold a NULL (the device ``distinct``
+    then raises naming A.3)."""
+    a3 = _a3_only_host_cols(tdf)
+    return (
+        (tdf.host_table is None or (len(a3) > 0 and all(tdf.host_table.column(c).null_count == 0 for c in a3)))
+        and not tdf.has_encoded
+        and tdf._nan_cols is not None
+        and len(tdf._nan_cols) == 0
+        and len(tdf.schema) > 0
+    )
+
+
+def _sortable(tdf: TorchDataFrame, name: str) -> bool:
+    """A device column whose values order as its device tensor does:
+    plain, an epoch datetime, or sorted dictionary codes."""
+    if name not in tdf.device_cols:
+        return False
+    enc = tdf.encodings.get(name)
+    return enc is None or enc["kind"] == "datetime" or (enc["kind"] == "dict" and enc.get("sorted", False))
+
+
+def _take_isnull(tdf: TorchDataFrame, name: str) -> Optional[torch.Tensor]:
+    """The NULL flag of sort key ``name`` as the JAX engine's take builds
+    it (null mask, NaN, negative dictionary code), or None where no row can
+    be NULL (an all-False flag does not move a row)."""
+    key = tdf.device_cols[name]
+    flags = []
+    if name in tdf.null_masks:
+        flags.append(tdf.null_masks[name])
+    if key.is_floating_point() and tdf.maybe_nan(name):
+        flags.append(torch.isnan(key))
+    if tdf.encodings.get(name, {}).get("kind") == "dict":
+        flags.append(key < 0)
+    if len(flags) == 0:
+        return None
+    out = flags[0]
+    for f in flags[1:]:
+        out = out | f
+    return out
+
+
+def _union_compatible(j1: TorchDataFrame, j2: TorchDataFrame, a3_on_device: bool = False) -> bool:
+    """Whether the JAX engine unions the two frames on its device: one
+    schema, every column on the device, the same dtypes and encoding kinds
+    (schema equality already forces matching arrow types, timestamp units
+    included). With ``a3_on_device``, A.3's host columns count as the
+    device columns they are in the JAX package."""
+
+    def on_device(j: TorchDataFrame) -> bool:
+        return j.host_table is None or (a3_on_device and len(_a3_only_host_cols(j)) > 0)
+
+    return (
+        j1.schema == j2.schema
+        and len(j1.schema) > 0
+        and on_device(j1)
+        and on_device(j2)
+        and all(j1.device_cols[c].dtype == j2.device_cols[c].dtype for c in j1.device_cols)
+        and all(
+            j1.encodings.get(c, {}).get("kind") == j2.encodings.get(c, {}).get("kind")
+            for c in j1.schema.names
+        )
+    )
 
 
 # join type → the kernel's name for it; and back, for the join schemas

@@ -18,7 +18,11 @@ holds O(chunk) rows whatever the stream's length:
   ``Dict[str, torch.Tensor]`` UDF per fixed-capacity chunk, its output
   back on the host chunk by chunk, as a one-pass stream;
 - **keyed transform**, :func:`streaming_keyed_compiled_map`: keyed UDFs
-  over key-clustered streams, re-batched at key boundaries.
+  over key-clustered streams, re-batched at key boundaries;
+- **take**, :func:`streaming_take`, and **distinct**,
+  :func:`streaming_distinct`: running top-``n`` and distinct buffers over
+  pandas chunks, as in the JAX package (a take with no presort stops
+  reading after ``n`` rows).
 
 Chunks of ``fugue.tpu.stream.chunk_rows`` rows (default 2^20) come through
 the ingest pipeline (``torch/pipeline.py``). ``last_run_stats`` holds the
@@ -26,11 +30,13 @@ chunks, rows and peak device bytes of the most recent streaming run: on
 CUDA ``torch.cuda.max_memory_allocated`` since the stream started, on the
 CPU the bytes of the tensors the stream held at its fullest.
 
-Not ported yet (ROADMAP.md A.6b): the row-stream ``IterableDataFrame``,
-``streaming_take``, ``streaming_distinct``, ``streaming_fused_steps``,
-streaming zip/comap and the lowered-segment streams.
+A row stream (``IterableDataFrame``) streams as batches of
+``chunk_rows`` rows. Not ported yet (ROADMAP.md A.6b):
+``streaming_fused_steps``, streaming zip/comap and the lowered-segment
+streams.
 """
 
+from itertools import islice
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -40,16 +46,20 @@ import torch
 from torch.profiler import record_function
 
 from .._utils.assertion import assert_or_throw
+from ..collections.partition import parse_presort_exp
 from ..constants import FUGUE_TPU_CONF_STREAM_CHUNK_ROWS, FUGUE_TPU_CONF_STREAM_KEY_RANGE
 from ..dataframe import (
+    ArrayDataFrame,
     ArrowDataFrame,
     DataFrame,
+    IterableDataFrame,
     LocalBoundedDataFrame,
     LocalDataFrame,
     LocalDataFrameIterableDataFrame,
     PandasDataFrame,
 )
 from ..exceptions import FugueInvalidOperation
+from ..execution.native_execution_engine import _drop_duplicates
 from ..schema import Schema
 from .pipeline import HostToDevice, engine_prefetcher, prefetch_depth
 
@@ -60,16 +70,9 @@ last_run_stats: Dict[str, Any] = {}
 
 
 def is_stream_frame(df: Any) -> bool:
-    """Whether ``df`` is a one-pass stream of frames (which must not be
-    materialized). A row stream, which the port does not take, raises."""
-    if isinstance(df, LocalDataFrameIterableDataFrame):
-        return True
-    if isinstance(df, Iterator) or type(df).__name__ == "IterableDataFrame":
-        raise NotImplementedError(
-            f"a row stream ({type(df).__name__}) is not ported (ROADMAP.md A.6b); "
-            "stream pandas or arrow chunks as a LocalDataFrameIterableDataFrame"
-        )
-    return False
+    """Whether ``df`` is a one-pass stream, of frames or of rows (which
+    must not be materialized)."""
+    return isinstance(df, (IterableDataFrame, LocalDataFrameIterableDataFrame))
 
 
 def stream_parquet(
@@ -97,9 +100,18 @@ def stream_parquet(
 # --------------------------------------------------------------------------
 
 
-def _iter_local_frames(df: Any) -> Iterator[LocalDataFrame]:
+def _iter_local_frames(df: Any, chunk_rows: int) -> Iterator[LocalDataFrame]:
+    """A stream's local frames; a row stream's rows in batches of
+    ``chunk_rows``."""
     if isinstance(df, LocalDataFrameIterableDataFrame):
         yield from df.native
+    elif isinstance(df, IterableDataFrame):
+        it = iter(df.native)
+        while True:
+            rows = list(islice(it, chunk_rows))
+            if len(rows) == 0:
+                return
+            yield ArrayDataFrame(rows, df.schema)
     elif isinstance(df, LocalBoundedDataFrame):
         yield df
     else:
@@ -160,8 +172,9 @@ def _closing(chunks_it: Any) -> Iterator[Any]:
 
 def _prefetched_pandas_chunks(engine: Any, df: Any, verb: str) -> Any:
     """Chunks decoded to pandas on the producer's thread, for the paths
-    whose device work starts downstream (the keyed map)."""
-    return engine_prefetcher(engine, (f.as_pandas() for f in _iter_local_frames(df)), verb)
+    whose work starts downstream (the keyed map, take, distinct)."""
+    frames = _iter_local_frames(df, _chunk_rows(engine))
+    return engine_prefetcher(engine, (f.as_pandas() for f in frames), verb)
 
 
 def _chunk_rows(engine: Any) -> int:
@@ -316,7 +329,7 @@ def streaming_dense_aggregate(
         return None  # a declared range too wide for the dense plan
 
     # ---- the stream is read from here on: failures raise ----------------
-    frames = _rechunk(_iter_local_frames(df), capacity)
+    frames = _rechunk(_iter_local_frames(df, capacity), capacity)
     first = next(frames, None)
     if first is None:  # an empty stream: no groups, the declared schema
         return engine.to_df(plan["schema"].create_empty_arrow_table())
@@ -493,7 +506,7 @@ def streaming_hash_join(
     bk_dev = torch.from_numpy(np.ascontiguousarray(_key_image(bsorted))).to(device)
 
     def produce(stager: HostToDevice) -> Iterator[Tuple[int, Any]]:
-        for f in _rechunk(_iter_local_frames(stream_df), capacity):
+        for f in _rechunk(_iter_local_frames(stream_df, capacity), capacity):
             pf = f.as_pandas().reset_index(drop=True)
             n = len(pf)
             if n_build == 0:  # outer with an empty build side: no probe
@@ -600,7 +613,7 @@ def streaming_compiled_map(
     out_np = {f.name: np.dtype(f.type.to_pandas_dtype()) for f in out_schema.fields}
 
     def produce(stager: HostToDevice) -> Iterator[Tuple[int, Any]]:
-        for f in _rechunk(_iter_local_frames(df), capacity):
+        for f in _rechunk(_iter_local_frames(df, capacity), capacity):
             n, cols, nulls = _chunk_columns(f, names)
             for c in names:
                 if np_dtypes[c].kind != "f":
@@ -757,6 +770,73 @@ def streaming_keyed_compiled_map(
         last_run_stats = dict(stats, verb="keyed_map")
 
     return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+
+# --------------------------------------------------------------------------
+# streaming take / distinct
+# --------------------------------------------------------------------------
+
+
+def streaming_take(
+    engine: Any, df: Any, n: int, presort: Any, na_position: str = "last", partition_spec: Any = None
+) -> DataFrame:
+    """``take`` over a one-pass stream with a bounded working set, as the
+    JAX package's (``jax/streaming.py`` :1514):
+
+    - no presort, no keys: read until ``n`` rows, then stop (the stream's
+      tail is never read; closing the pipeline stops its read-ahead);
+    - a presort: a running top-``n`` buffer, merged a chunk at a time;
+    - partition keys: a running head of ``n`` rows a key.
+
+    Rows move in host pandas a chunk at a time: a take's output is
+    O(n × keys)."""
+    sorts = parse_presort_exp(presort) if presort else (
+        partition_spec.presort if partition_spec is not None else {}
+    )
+    keys = list(partition_spec.partition_by) if partition_spec is not None else []
+    names, asc = list(sorts.keys()), list(sorts.values())
+    schema = Schema(df.schema)
+    buf: Optional[pd.DataFrame] = None
+    stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+    chunks_it = _prefetched_pandas_chunks(engine, df, "take")
+    try:
+        for pf in chunks_it:
+            stats["chunks"] += 1
+            stats["rows"] += len(pf)
+            buf = pf if buf is None else pd.concat([buf, pf], ignore_index=True)
+            if len(names) > 0:
+                buf = buf.sort_values(names, ascending=asc, na_position=na_position, kind="stable")
+            if len(keys) == 0:
+                buf = buf.head(n)
+                if len(names) == 0 and len(buf) >= n:
+                    break  # the rest of the stream is moot
+            else:
+                buf = buf.groupby(keys, dropna=False, sort=False).head(n)
+            buf = buf.reset_index(drop=True)
+    finally:
+        chunks_it.close()  # stops the producer's read-ahead too
+    global last_run_stats
+    last_run_stats = dict(stats, verb="take")
+    out = buf if buf is not None else pd.DataFrame(columns=schema.names)
+    return engine.to_df(PandasDataFrame(out, schema))
+
+
+def streaming_distinct(engine: Any, df: Any) -> DataFrame:
+    """DISTINCT over a one-pass stream (``jax/streaming.py`` :1602): each
+    chunk deduped against the running distinct rows, NaN equal to NaN as
+    in the engines; memory O(distinct rows + chunk), whatever the
+    stream's length."""
+    schema = Schema(df.schema)
+    buf: Optional[pd.DataFrame] = None
+    stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+    for pf in _closing(_prefetched_pandas_chunks(engine, df, "distinct")):
+        stats["chunks"] += 1
+        stats["rows"] += len(pf)
+        buf = _drop_duplicates(pf if buf is None else pd.concat([buf, pf], ignore_index=True))
+    global last_run_stats
+    last_run_stats = dict(stats, verb="distinct")
+    out = buf if buf is not None else pd.DataFrame(columns=schema.names)
+    return engine.to_df(PandasDataFrame(out, schema))
 
 
 def _key_aligned_splits(

@@ -397,10 +397,16 @@ def test_union_remaps_dictionaries_and_concatenates_masks(jax_engine, engine):
     got = engine.union(engine.to_df(a), engine.to_df(b), distinct=False)
     _same(got, exp)
     assert got.encodings["s"]["dictionary"].to_pylist() == ["a", "b", "c"]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        engine.union(engine.to_df(a), engine.to_df(b))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        engine.union(engine.to_df(a), engine.to_df(b.rename(columns={"f": "g"})), distinct=False)
+    # distinct=True: the device distinct of the device union
+    _same(engine.union(engine.to_df(a), engine.to_df(b)),
+          jax_engine.union(jax_engine.to_df(a), jax_engine.to_df(b)))
+    # differing schemas: the host engine's union raises, in both
+    b2 = b.rename(columns={"f": "g"})
+    with pytest.raises(Exception) as jerr:
+        jax_engine.union(jax_engine.to_df(a), jax_engine.to_df(b2), distinct=False)
+    with pytest.raises(Exception) as terr:
+        engine.union(engine.to_df(a), engine.to_df(b2), distinct=False)
+    assert type(terr.value).__name__ == type(jerr.value).__name__
 
 
 # ---- the API ---------------------------------------------------------------

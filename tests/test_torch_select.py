@@ -500,8 +500,8 @@ def test_filters_mask_reaches_every_later_verb(jax_engine, engine, name):
 
 def test_fully_filtered_frame_ops(jax_engine, engine):
     """``test_nested_and_edges.py:107``: a filter that keeps no row, then
-    an aggregate, a join and a union. Its ``distinct`` and ``take`` are
-    not ported (ROADMAP.md A.8) and raise naming it."""
+    an aggregate, a join, a union, a ``distinct`` and a ``take``, each the
+    JAX engine's answer."""
     data = pa.table({"k": [1, 2, 3], "v": [1.0, 2.0, 3.0]})
     left = pa.table({"k": [1, 2], "w": [5.0, 6.0]})
     empty = engine.filter(engine.to_df(data), col("v") > lit(100.0))
@@ -515,9 +515,9 @@ def test_fully_filtered_frame_ops(jax_engine, engine):
         _same(engine.join(engine.to_df(left), empty, how=how, on=["k"]),
               jax_engine.join(jax_engine.to_df(JArrowDataFrame(left)), jempty, how=how, on=["k"]))
     assert engine.union(empty, empty, distinct=False).count() == 0
-    for verb in (lambda: engine.distinct(empty), lambda: engine.take(empty, 5, presort="v")):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            verb()
+    _same(engine.distinct(empty), jax_engine.distinct(jempty))
+    _same(engine.take(empty, 5, presort="v"), jax_engine.take(jempty, 5, presort="v"))
+    assert engine.distinct(empty).count() == 0 and engine.take(empty, 5, presort="v").count() == 0
 
 
 def test_aggregate_of_filtered_frame_then_downstream_filter(jax_engine, engine):

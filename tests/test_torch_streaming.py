@@ -221,8 +221,25 @@ def test_float32_sums_fold_in_float64(engines):
 
 
 def test_row_streams_are_not_ported(engines):
-    _, te = engines
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    """A row stream (``IterableDataFrame``) is a stream now: the streamed
+    aggregate reads it in batches of ``chunk_rows`` rows, as the JAX
+    engine does (more below, under take and distinct). A bare iterator is
+    no frame of the port, and ``to_df`` refuses it."""
+    from fugue_tpu.dataframe import IterableDataFrame as JRows
+
+    from fugue_tpu_torch.dataframe import IterableDataFrame
+
+    je, te = engines
+    pdf = _frame(10_000, 40, seed=4)
+    rows = pdf.values.tolist()
+    schema = "k:long,v:double,w:long"
+    assert streaming.is_stream_frame(IterableDataFrame(rows, schema))
+    jaggs, taggs = _aggs(AGGS)
+    exp = je.aggregate(JRows(rows, schema), JPartitionSpec(by=["k"]), jaggs)
+    got = te.aggregate(IterableDataFrame(rows, schema), PartitionSpec(by=["k"]), taggs)
+    _same(got, exp, by=["k"])
+    assert streaming.last_run_stats["chunks"] == 3  # 10,000 rows in batches of 4,096
+    with pytest.raises(NotImplementedError, match="not ported"):
         te.aggregate(iter([[1, 2.0]]), PartitionSpec(by=["k"]), [ff.sum(col("v")).alias("s")])
 
 
@@ -588,3 +605,106 @@ def test_chip_smoke_stream_path_on_the_cpu():
     assert ns["launches"] == {"bin_sum": 0, "bin_sum_count": 0}
     f32 = cells["f32-aggregate"]  # on the CPU, B1's wrapper takes its plain version
     assert f32["chunks"] == 3 and f32["launches"] == {"bin_sum": 0, "bin_sum_count": 0}
+
+
+# ---- take and distinct (test_streaming.py :490, :525; test_pipeline.py :180) --
+
+
+def test_streaming_take_variants():
+    rng = np.random.default_rng(5)
+    pdf = pd.DataFrame({"k": rng.integers(0, 6, 5000), "v": rng.random(5000)})
+    je, te = _engines(**{FUGUE_TPU_CONF_STREAM_CHUNK_ROWS: 700})
+    try:
+        # no presort: stops reading once it has n rows
+        js, ts = _streams(pdf, 10)
+        exp, got = je.take(js, 100, presort=""), te.take(ts, 100, presort="")
+        _same(got, exp)
+        assert got.count() == 100 and streaming.last_run_stats["rows"] < 5000
+        # a presort: the running top-n buffer reads every chunk
+        js, ts = _streams(pdf, 10)
+        exp, got = je.take(js, 5, presort="v desc"), te.take(ts, 5, presort="v desc")
+        pd.testing.assert_frame_equal(got.as_pandas(), exp.as_pandas(), check_dtype=False)
+        np.testing.assert_array_equal(got.as_pandas()["v"], pdf.sort_values("v", ascending=False).head(5)["v"])
+        assert streaming.last_run_stats == {"chunks": 10, "rows": 5000, "peak_device_bytes": 0, "verb": "take"}
+        # partition keys: a running head of n rows a key
+        js, ts = _streams(pdf, 10)
+        exp = je.take(js, 2, presort="v", partition_spec=JPartitionSpec(by=["k"]))
+        got = te.take(ts, 2, presort="v", partition_spec=PartitionSpec(by=["k"]))
+        _same(got, exp)
+        assert got.count() == 12 and isinstance(got, TorchDataFrame)
+    finally:
+        je.stop_engine()
+
+
+def test_streaming_distinct():
+    pdf = pd.DataFrame({"k": [1, 2, 1, 2, 3, np.nan, np.nan], "s": ["a", "b", "a", "b", "c", "d", "d"]})
+    je, te = _engines(**{FUGUE_TPU_CONF_STREAM_CHUNK_ROWS: 2})
+    try:
+        js, ts = _streams(pdf, 4)
+        exp, got = je.distinct(js), te.distinct(ts)
+        _same(got, exp)
+        assert got.count() == 4  # NaN == NaN
+        assert streaming.last_run_stats["verb"] == "distinct" and streaming.last_run_stats["chunks"] == 4
+    finally:
+        je.stop_engine()
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_take_stops_early_and_stops_the_read_ahead(depth):
+    """A take with no presort pulls its first chunk and at most the
+    pipeline's read-ahead more; with a presort it reads all and gives
+    the same rows at any depth."""
+    from fugue_tpu_torch.constants import FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH
+
+    pdf = _frame(40_000, 50, seed=8)
+    te = TorchExecutionEngine(device="cpu", conf={FUGUE_TPU_CONF_STREAM_CHUNK_ROWS: CHUNK,
+                                                  FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH: depth})
+    pulled = [0]
+
+    def counting_stream():
+        def gen():
+            for s in range(0, len(pdf), CHUNK):
+                pulled[0] += 1
+                yield PandasDataFrame(pdf.iloc[s: s + CHUNK], "k:long,v:double,w:long")
+
+        return LocalDataFrameIterableDataFrame(gen(), schema="k:long,v:double,w:long")
+
+    res = te.take(counting_stream(), n=7, presort="v desc")
+    np.testing.assert_array_equal(res.as_pandas()["v"], pdf.sort_values("v", ascending=False).head(7)["v"])
+    assert pulled[0] == 10
+    pulled[0] = 0
+    res = te.take(counting_stream(), n=5, presort=None)
+    pd.testing.assert_frame_equal(res.as_pandas(), pdf.head(5))
+    assert pulled[0] <= 1 + depth + 2
+
+
+def test_row_streams_through_take_and_distinct():
+    """``IterableDataFrame`` rows, batched by ``chunk_rows``, through the
+    streamed take (its three forms) and distinct, against the JAX engine."""
+    from fugue_tpu.dataframe import IterableDataFrame as JRows
+
+    from fugue_tpu_torch.dataframe import IterableDataFrame
+
+    rng = np.random.default_rng(6)
+    pdf = pd.DataFrame({"k": rng.integers(0, 5, 3000), "b": rng.integers(0, 3, 3000),
+                        "v": rng.integers(0, 10**6, 3000) / 7})
+    rows, schema = pdf.values.tolist(), "k:long,b:long,v:double"
+    je, te = _engines(**{FUGUE_TPU_CONF_STREAM_CHUNK_ROWS: 500})
+    try:
+        for kw in (dict(n=10, presort=""), dict(n=10, presort="v desc, k"),
+                   dict(n=2, presort="v", partition=["k"])):
+            part = kw.pop("partition", None)
+            exp = je.take(JRows(rows, schema), **kw,
+                          partition_spec=None if part is None else JPartitionSpec(by=part))
+            got = te.take(IterableDataFrame(rows, schema), **kw,
+                          partition_spec=None if part is None else PartitionSpec(by=part))
+            _same(got, exp)
+        assert streaming.last_run_stats["chunks"] == 6
+        exp = je.distinct(JRows(pdf[["k", "b"]].values.tolist(), "k:long,b:long"))
+        got = te.distinct(IterableDataFrame(pdf[["k", "b"]].values.tolist(), "k:long,b:long"))
+        _same(got, exp)
+        assert got.count() == 15 and streaming.last_run_stats["verb"] == "distinct"
+        got = api.take(IterableDataFrame(rows, schema), 3, presort="v", engine=te, as_fugue=True)
+        assert isinstance(got, TorchDataFrame) and got.count() == 3
+    finally:
+        je.stop_engine()
