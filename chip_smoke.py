@@ -67,7 +67,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to 2·10^7 rows in chunks of 4·10^6 (``--setop-stream-rows``), each
    against ``np.lexsort`` or ``np.unique``, and a take with no presort
    that stops after its first chunk;
-9. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
+9. sql_path: FugueSQL through ``api.fugue_sql`` on the same frame (the
+   table ``lineitem``), one line a cell: ``sql-q1`` (TPC-H Q1 with ORDER BY
+   l_returnflag, l_linestatus), ``sql-q6`` (Q6) and ``sql-shipmode-where``
+   (the shipmode aggregate WHERE l_returnflag = 'R' HAVING SUM > 0: B1
+   twice a call), each held against its select_path twin's oracle with
+   the launch counts set to 0 just before and read just after (equal to
+   the twin's), and ``sql-pipeline-4m`` (BASELINE.json config #2 as
+   bench.py writes it: LOAD parquet of 4·10^6 rows, ``--sql-rows``, → SELECT
+   WHERE/GROUP BY → TRANSFORM USING rescale) against a pandas oracle; each
+   with its first call, the compile apart, the median of ``SQL_REPS``
+   calls beside its twin's and the difference, and one traced call;
+10. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
    UDFs (``transform_udfs``) over frames of 100,000,000 rows built from
    ``--seed`` with numpy: ``map-keyless`` (elementwise), ``demean-dense``
    (bench.py's demean by 1,000 keys: the dense plan), ``demean-sorted``
@@ -79,7 +90,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to 0 just before and read just after, timed (median of
    ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
    a frame;
-10. join_path: the device joins at full width, one line a cell:
+11. join_path: the device joins at full width, one line a cell:
    ``north-star-100m`` (bench.py's ``_north_star`` in memory: the group
    means of 100,000,000 rows by ``api.aggregate``, joined back onto every
    row by ``api.join`` and subtracted by ``api.transform``),
@@ -91,7 +102,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
    bound, and traced once;
-11. host_path: the host engine behind the device engine, one line a cell:
+12. host_path: the host engine behind the device engine, one line a cell:
    ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
    ``transform(pdf, demean, schema="*", partition={"by": ["k"]})`` with a
    pandas UDF over bench.py's ``_make_frame`` cut to 1,000,000 rows,
@@ -103,7 +114,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each checked against a host oracle with the launch counts set to 0
    just before and read just after, timed, and traced once with the copy
    to the host, the pandas work and the copy back apart;
-12. stream_path: the streaming paths at full size, one line a cell:
+13. stream_path: the streaming paths at full size, one line a cell:
    ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
@@ -121,7 +132,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
 N`` cuts the dense, the transform, the north-star and the 100m host frames,
 ``--orders N`` the lineitem frames and ``--expand-orders N`` the expansion's, for a quick
 try; ``--stream-rows N`` cuts the streamed north star, ``--setop-stream-rows N``
-setop_path's streams). With no CUDA
+setop_path's streams, ``--sql-rows N`` sql_path's parquet file). With no CUDA
 device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -903,6 +914,204 @@ def phase_select_path(torch, np, bg, api, ff, col, engine, tdf, oracles: dict) -
                 tdf, engine=engine, disc_price=col("l_extendedprice") * (1 - col("l_discount"))))
         emit(line)
         out["cells"][name] = line
+    return out
+
+
+# sql_path: FugueSQL on the port (``api.fugue_sql``): TPC-H Q1, Q6 and the
+# shipmode WHERE aggregate over select_path's lineitem frame, each beside
+# its select_path twin, and BASELINE.json config #2 as bench.py writes it
+SQL_REPS = 3  # medians of 3 calls, after the checked one
+SQL_PIPELINE_ROWS = 4_000_000  # bench.py's SQL_ROWS
+SQL_PIPELINE_GROUPS = 1_000  # bench.py's N_GROUPS
+SQL_PIPELINE_RTOL, SQL_PIPELINE_ATOL = 1e-5, 1e-8
+
+
+def sql_path_queries() -> dict:
+    """The FugueSQL texts of sql_path's lineitem cells: name → (text over
+    the table ``lineitem``, its select_path twin).
+
+    Q1 computes its discounted price in a derived table, as its twin's
+    ``api.assign`` does: an aggregate over an expression
+    (``SUM(l_extendedprice * (1 - l_discount))``, as TPC-H writes it)
+    sends a grouped select to the host engine, on the JAX engine as on the
+    port (``_plan_device_agg`` takes column arguments only)."""
+    return {
+        "sql-q1": (f"""
+SELECT l_returnflag, l_linestatus,
+       SUM(l_quantity) AS sum_qty, SUM(l_extendedprice) AS sum_base_price,
+       SUM(disc_price) AS sum_disc_price,
+       AVG(l_quantity) AS avg_qty, AVG(l_extendedprice) AS avg_price,
+       AVG(l_discount) AS avg_disc, COUNT(*) AS count_order
+FROM (SELECT *, l_extendedprice * (1 - l_discount) AS disc_price FROM lineitem) AS li
+WHERE l_shipdate <= '{Q1_SHIPDATE}'
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus""", "q1-select"),
+        "sql-q6": (f"""
+SELECT SUM(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= '{Q6_DATES[0]}' AND l_shipdate < '{Q6_DATES[1]}'
+  AND l_discount BETWEEN {Q6_DISCOUNT[0]} AND {Q6_DISCOUNT[1]} AND l_quantity < {Q6_QUANTITY}""",
+                   "q6-select"),
+        "sql-shipmode-where": ("""
+SELECT l_shipmode, SUM(l_quantity) AS sum_qty, AVG(l_discount) AS avg_disc, COUNT(*) AS count_order
+FROM lineitem
+WHERE l_returnflag = 'R'
+GROUP BY l_shipmode
+HAVING SUM(l_quantity) > 0""", "shipmode-where"),
+    }
+
+
+def sql_pipeline_text(path: str) -> str:
+    """bench.py's ``_bench_sql_pipeline`` FugueSQL, verbatim, over ``path``."""
+    return f"""
+    src = LOAD "{path}"
+    agg = SELECT k, SUM(v) AS s, COUNT(*) AS n FROM src WHERE w > 0.1 GROUP BY k
+    TRANSFORM agg USING rescale SCHEMA k:long,s:double,n:long
+    """
+
+
+def sql_pipeline_frame(np, pd, rows: int = SQL_PIPELINE_ROWS, groups: int = SQL_PIPELINE_GROUPS):
+    """bench.py's config #2 frame: ``default_rng(11)``, keys in [0, groups)."""
+    rng = np.random.default_rng(11)
+    return pd.DataFrame({"k": rng.integers(0, groups, rows), "v": rng.random(rows), "w": rng.random(rows)})
+
+
+def sql_pipeline_oracle(pdf):
+    """The pipeline's answer in pandas: the filtered group sums and counts,
+    the sums over their largest, by key."""
+    g = pdf[pdf["w"] > 0.1].groupby("k").agg(s=("v", "sum"), n=("v", "size")).reset_index()
+    g["s"] = g["s"] / g["s"].max()
+    return g
+
+
+def check_sql_pipeline(np, got, exp) -> None:
+    got = got.sort_values("k").reset_index(drop=True)
+    require(list(got.columns) == ["k", "s", "n"], f"sql-pipeline: columns {list(got.columns)}")
+    require(np.array_equal(got["k"].to_numpy(), exp["k"].to_numpy())
+            and np.array_equal(got["n"].to_numpy(), exp["n"].to_numpy()), "sql-pipeline: keys or counts differ")
+    require(np.allclose(got["s"].to_numpy(), exp["s"].to_numpy(), rtol=SQL_PIPELINE_RTOL,
+                        atol=SQL_PIPELINE_ATOL), "sql-pipeline: s differs from the pandas oracle")
+
+
+def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_cells: dict,
+                   pipeline_rows: int = SQL_PIPELINE_ROWS) -> dict:
+    """FugueSQL through ``api.fugue_sql`` on the card, one line a cell:
+    ``sql-q1``, ``sql-q6`` and ``sql-shipmode-where`` over the lineitem
+    frame ``tdf`` (the table ``lineitem``), each held against its
+    select_path twin's oracle, and ``sql-pipeline-4m`` (bench.py's config
+    #2 text and ``rescale`` over a parquet file of ``pipeline_rows`` rows
+    in a temporary directory of the checkout, removed after) against a
+    pandas oracle. Each line: the first call's seconds with the launch
+    counts set to 0 just before and read just after (asserted equal to
+    the twin's), the compile (building the workflow) timed apart, the
+    median of ``SQL_REPS`` calls beside the twin's (``select_cells``) and
+    their difference, the SQL layer's cost, and one traced call."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    start = time.perf_counter()
+    out = {"cells": {}}
+
+    def rescale(df: pd.DataFrame) -> pd.DataFrame:
+        df["s"] = df["s"] / df["s"].max()
+        return df
+
+    def run_cell(cell: str, call, compile_only, check, twin=None, rows=0, extra=None) -> None:
+        for k in bg.LAUNCHES:
+            bg.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        checks = check(res)
+        del res
+        if twin is not None:
+            want = select_cells[twin]["launches"]
+            require(launches == want, f"{cell}: launches {launches}, its twin {twin} {want}")
+        if cell == "sql-shipmode-where":
+            require(launches["bin_sum"] == (2 if engine.device.type == "cuda" else 0),
+                    f"{cell}: bin_sum launched {launches['bin_sum']} times")
+        compile_ms = []
+        for _ in range(SQL_REPS):
+            t0 = time.perf_counter()
+            compile_only()
+            compile_ms.append((time.perf_counter() - t0) * 1e3)
+        wall = []
+        for _ in range(SQL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(wall)
+        line = {"phase": "sql_path", "cell": cell, "rows": rows, "launches": launches,
+                "first_call_s": first_s, "compile_ms": statistics.median(compile_ms),
+                "ms": ms, "ms_all": wall, "rows_per_s": rows / ms * 1e3, "checks": checks}
+        if twin is not None:
+            twin_ms = select_cells[twin]["ms"]
+            line.update(twin=twin, twin_ms=twin_ms, sql_cost_ms=ms - twin_ms)
+        line.update(extra or {})
+        line["profile"] = _trace(torch, call)
+        line["phase_s_so_far"] = time.perf_counter() - start
+        emit(line)
+        out["cells"][cell] = line
+
+    rows = tdf.count()
+    for cell, (query, twin) in sql_path_queries().items():
+        def call(query=query):
+            return api.fugue_sql(query, lineitem=tdf, engine=engine, as_fugue=True)
+
+        def compile_only(query=query):
+            return api.fugue_sql_flow(query, lineitem=tdf)
+
+        def check(res, cell=cell, twin=twin):
+            got = res.as_pandas()
+            if twin == "q6-select":
+                require(list(got.columns) == ["revenue"] and len(got) == 1, f"{cell}: {got}")
+                require(np.allclose(got["revenue"].to_numpy(), oracles[twin]["revenue"].to_numpy(),
+                                    rtol=Q6_RTOL, atol=0), f"{cell}: revenue {got['revenue'][0]} vs oracle")
+                return f"revenue rtol={Q6_RTOL} vs float64 oracle"
+            keys = [c for c in got.columns if c.startswith("l_")]
+            check_lineitem(np, got, oracles[twin], keys, cell)
+            if twin == "q1-select":
+                order = list(zip(got["l_returnflag"], got["l_linestatus"]))
+                require(order == sorted(order), f"{cell}: not in ORDER BY order {order}")
+            return f"keys, counts exact; sums/averages rtol={ORACLE_RTOL} vs float64 oracle"
+
+        run_cell(cell, call, compile_only, check, twin=twin, rows=rows)
+
+    # BASELINE config #2: LOAD parquet -> SELECT -> TRANSFORM, as bench.py writes it
+    t0 = time.perf_counter()
+    pdf = sql_pipeline_frame(np, pd, pipeline_rows)
+    expected = sql_pipeline_oracle(pdf)
+    tmp = Path(tempfile.mkdtemp(prefix=".sql_path_", dir=Path(__file__).resolve().parent))
+    try:
+        path = str(tmp / "bench.parquet")
+        pq.write_table(pa.Table.from_pandas(pdf, preserve_index=False), path)
+        del pdf
+        setup_s = time.perf_counter() - t0
+        sql = sql_pipeline_text(path)
+
+        def run(engine):
+            return api.fugue_sql(sql, rescale=rescale, engine=engine, as_fugue=True)
+
+        def check(res):
+            require(res.count() == len(expected), f"sql-pipeline-4m: {res.count()} groups")
+            check_sql_pipeline(np, res.as_pandas(), expected)
+            return (f"keys and counts exact; s rtol={SQL_PIPELINE_RTOL} atol={SQL_PIPELINE_ATOL} "
+                    "vs a pandas oracle of the same frame")
+
+        run_cell("sql-pipeline-4m", lambda: run(engine), lambda: api.fugue_sql_flow(sql, rescale=rescale),
+                 check, rows=pipeline_rows, extra={"groups": len(expected), "setup_s": setup_s})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - start
     return out
 
 
@@ -2177,6 +2386,7 @@ def main() -> int:
     ap.add_argument("--expand-orders", type=int, default=EXPAND_ORDERS)
     ap.add_argument("--stream-rows", type=int, default=NS_STREAM_ROWS)
     ap.add_argument("--setop-stream-rows", type=int, default=SETOP_STREAM_ROWS)
+    ap.add_argument("--sql-rows", type=int, default=SQL_PIPELINE_ROWS)
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -2215,6 +2425,8 @@ def main() -> int:
     select_path = phase_select_path(torch, np, bg, api, ff, col, engine, handover["frame"], handover["oracles"])
     setop_path = phase_setop_path(torch, np, pd, pa, bg, api, col, engine, handover["frame"],
                                   handover["setop_oracles"], args.seed, stream_rows=args.setop_stream_rows)
+    sql_path = phase_sql_path(torch, np, pd, bg, api, engine, handover["frame"], handover["oracles"],
+                              select_path["cells"], pipeline_rows=args.sql_rows)
     del handover
     torch.cuda.empty_cache()
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
@@ -2239,6 +2451,7 @@ def main() -> int:
                    "select_path": {c: r["launches"][name] for c, r in select_path["cells"].items()},
                    "setop_path": {c: r["launches"][name] for c, r in setop_path["cells"].items()
                                   if "launches" in r},
+                   "sql_path": {c: r["launches"][name] for c, r in sql_path["cells"].items()},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
@@ -2258,6 +2471,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
             + sum(by_path["select_path"].values()) + sum(by_path["setop_path"].values())
+            + sum(by_path["sql_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,

@@ -46,6 +46,11 @@ class ParamDict(Dict[str, Any]):
     def get_or_none(self, key: str, expected: Type[T]) -> Optional[T]:
         return _convert(self[key], expected) if key in self else None
 
+    def get_or_throw(self, key: str, expected: Type[T]) -> T:
+        if key not in self:
+            raise KeyError(f"{key} not found")
+        return _convert(self[key], expected)
+
 
 class IndexedOrderedDict(Dict[Any, Any]):
     """Ordered dict with positional access and a readonly latch."""

@@ -1,10 +1,13 @@
-"""User-facing functions of the port, mirroring ``fugue_tpu/execution/api.py``
-and ``fugue_tpu/workflow/api.py`` (``transform``, ``out_transform``).
+"""User-facing functions of the port, mirroring ``fugue_tpu/execution/api.py``,
+``fugue_tpu/workflow/api.py`` (``transform``, ``out_transform``,
+``raw_sql``) and ``fugue_tpu/sql/api.py`` (``fugue_sql``,
+``fugue_sql_flow``).
 
 ``engine`` is ``None``, ``"torch"`` or its alias ``"cuda"`` (a new
 :class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device`` with
-``conf``), or an engine instance. The names resolve here; nothing is
-registered into ``fugue_tpu``'s plugin system. A one-pass stream
+``conf``), ``"native"`` (the host engine), or an engine instance. The
+names resolve in ``execution/factory.py``; nothing is registered into
+``fugue_tpu``'s plugin system. A one-pass stream
 (``LocalDataFrameIterableDataFrame``, or the row stream
 ``IterableDataFrame``) goes to the engine as it is, never through
 ``to_df``, and a stream result comes back as the stream.
@@ -21,27 +24,10 @@ from .column.expressions import ColumnExpr
 from .dataframe import DataFrame
 from .dataframe.api import get_native_as_df
 from .execution.execution_engine import ExecutionEngine
+from .execution.factory import make_execution_engine
 from .extensions._builtins.processors import run_transformer
 from .extensions.transformer.convert import _to_output_transformer, _to_transformer
-from .torch.execution_engine import TorchExecutionEngine
 from .torch.streaming import is_stream_frame
-
-_ENGINE_NAMES = ("torch", "cuda")
-
-
-def make_execution_engine(
-    engine: Any = None, device: Any = None, conf: Any = None
-) -> ExecutionEngine:
-    """The engine that ``engine`` names, on ``device`` (``cuda:0`` unless
-    given; with no card, pass ``device="cpu"``) with ``conf``."""
-    if isinstance(engine, ExecutionEngine):
-        if device is not None or conf is not None:
-            raise ValueError("device and conf apply to an engine name, not an engine instance")
-        return engine
-    if engine is None or (isinstance(engine, str) and engine.lower() in _ENGINE_NAMES):
-        return TorchExecutionEngine(device=device, conf=conf)
-    raise ValueError(f"unknown engine {engine!r}: expected one of {_ENGINE_NAMES}")
-
 
 def aggregate(
     df: Any,
@@ -364,8 +350,9 @@ def _fold(fn: Callable[[ExecutionEngine, Any, Any], DataFrame], frames: List[Any
           device: Any, as_fugue: bool) -> Any:
     """``fn`` over the frames from the left: ``fn(fn(f1, f2), f3)``..."""
     e = make_execution_engine(engine, device)
-    res = fn(e, frames[0], frames[1])
-    for x in frames[2:]:
+    dfs = [x if isinstance(x, DataFrame) or is_stream_frame(x) else e.to_df(x) for x in frames]
+    res = fn(e, dfs[0], dfs[1])
+    for x in dfs[2:]:
         res = fn(e, res, x)
     return _adjust_result(res, frames[0], as_fugue or any(isinstance(d, DataFrame) for d in frames))
 
@@ -381,3 +368,53 @@ def _adjust_result(res: DataFrame, df: Any, as_fugue: bool) -> Any:
     if isinstance(df, pd.DataFrame):
         return res.as_pandas()
     return get_native_as_df(res)
+
+
+def fugue_sql(
+    query: str,
+    *args: Any,
+    engine: Any = None,
+    device: Any = None,
+    engine_conf: Any = None,
+    as_fugue: bool = False,
+    as_local: bool = False,
+    **kwargs: Any,
+) -> Any:
+    """Run FugueSQL and return the last statement's frame. Frames (pandas,
+    arrow, the port's) in ``kwargs``, in dicts of ``args`` or in the
+    caller's scope are its tables; other ``kwargs`` fill ``{{...}}``
+    templates; ``USING name`` finds ``name`` among the registered
+    extensions, then in the caller's scope::
+
+        fugue_sql('''
+            src = LOAD "data.parquet"
+            agg = SELECT k, SUM(v) AS s FROM src WHERE w > 0.1 GROUP BY k
+            TRANSFORM agg USING rescale SCHEMA k:long,s:double
+        ''', engine="torch")
+
+    The result is a frame of the engine with ``as_fugue`` (local with
+    ``as_local``), else what the frame wraps."""
+    from .sql.fsql import fugue_sql as _fugue_sql
+
+    return _fugue_sql(query, *args, engine=engine, engine_conf=engine_conf, device=device,
+                      as_fugue=as_fugue, as_local=as_local, **kwargs)
+
+
+def fugue_sql_flow(query: str, *args: Any, **kwargs: Any) -> Any:
+    """FugueSQL compiled into a workflow, to ``run(engine, conf, device=)``
+    later (``fugue_sql``'s arguments, without the engine's)."""
+    from .sql.fsql import fugue_sql_flow as _fugue_sql_flow
+
+    return _fugue_sql_flow(query, *args, **kwargs)
+
+
+def raw_sql(*statements: Any, engine: Any = None, device: Any = None, engine_conf: Any = None,
+            as_fugue: bool = False, as_local: bool = False) -> Any:
+    """A SQL statement of strings and frames, each frame a table::
+
+        raw_sql("SELECT k, SUM(v) AS s FROM ", pdf, " GROUP BY k", engine="torch")
+    """
+    from .workflow.api import raw_sql as _raw_sql
+
+    return _raw_sql(*statements, engine=engine, engine_conf=engine_conf, device=device,
+                    as_fugue=as_fugue, as_local=as_local)

@@ -1,0 +1,69 @@
+"""SQL text as table-reference and literal segments, copied from
+``fugue_tpu/collections/sql.py``: ``StructuredRawSQL`` keeps a statement
+as ``(is_table_ref, text)`` pieces so an engine can put its own table
+names in, and ``TempTableName`` is a unique reference to embed in raw SQL.
+
+The dialect transpiler (``fugue_tpu/sql/dialect.py``) is not ported
+(ROADMAP.md A.11): ``transpile_sql`` passes text through when the two
+dialects are the same or either is unset, and raises when they differ."""
+
+import uuid
+from typing import Any, Iterable, Optional, Tuple
+
+from .._utils.hash import to_uuid
+
+
+class TempTableName:
+    """A unique, safely-named temp table reference embeddable in raw SQL."""
+
+    def __init__(self):
+        self.key = "_" + str(uuid.uuid4())[:5]
+
+    @property
+    def ref(self) -> str:
+        return f"<tmpdf:{self.key}>"
+
+    def __repr__(self) -> str:
+        return self.ref
+
+
+def transpile_sql(raw: str, from_dialect: Optional[str], to_dialect: Optional[str]) -> str:
+    """``raw`` as it is when the dialects agree (or either is None)."""
+    if from_dialect is None or to_dialect is None or from_dialect == to_dialect:
+        return raw
+    raise NotImplementedError(
+        f"transpiling SQL from {from_dialect!r} to {to_dialect!r}: the dialect "
+        "transpiler is not ported (ROADMAP.md A.11)"
+    )
+
+
+class StructuredRawSQL:
+    """An immutable sequence of ``(is_table_ref, text)`` SQL segments."""
+
+    def __init__(self, statements: Iterable[Tuple[bool, str]], dialect: Optional[str] = None):
+        self._statements = list(statements)
+        self._dialect = dialect
+
+    @property
+    def dialect(self) -> Optional[str]:
+        return self._dialect
+
+    def __iter__(self):
+        return iter(self._statements)
+
+    def construct(self, name_map: Any = None, dialect: Optional[str] = None, log: Any = None) -> str:
+        """The SQL, table references mapped through ``name_map`` (a dict or
+        a callable), in ``dialect`` (see :func:`transpile_sql`)."""
+
+        def _map(name: str) -> str:
+            if name_map is None:
+                return name
+            if callable(name_map):
+                return name_map(name)
+            return name_map.get(name, name)
+
+        raw = " ".join(_map(t) if is_ref else t for is_ref, t in self._statements)
+        return transpile_sql(raw, self._dialect, dialect)
+
+    def __uuid__(self) -> str:
+        return to_uuid(self._dialect, self._statements)

@@ -4,7 +4,9 @@ with operators (``+ - * /``, comparisons, ``& | ~``, unary ``-``,
 ``is_null``/``not_null``), ``alias`` and ``cast``; ``case_when``,
 ``_InExpr`` and ``_LikeExpr``. One tree is evaluated on the host by
 ``column/eval.py`` (pandas) and on the device by ``column/torch_eval.py``.
-Window expressions (``_WindowExpr``) are not ported (ROADMAP.md A.8)."""
+``_WindowExpr`` (``func(args) OVER (...)``) is the expression class only:
+the SQL parser builds it, and no engine of the port evaluates it
+(ROADMAP.md A.11)."""
 
 from typing import Any, Iterable, List, Optional, Union
 
@@ -525,3 +527,78 @@ def derived_name(e: "ColumnExpr") -> str:
     if bare.as_type is not None:
         return f"CAST({repr(bare.cast(None))} AS {bare.as_type})"
     return repr(bare)
+
+
+class _WindowExpr(ColumnExpr):
+    """``func(args) OVER (PARTITION BY keys ORDER BY sorts)``.
+
+    Not an aggregate: it returns one value per input row.
+    """
+
+    def __init__(
+        self,
+        func: str,
+        args: List[Any],
+        partition_by: List[str],
+        order_by: List[Any],  # (name, ascending) pairs
+        frame: Any = None,  # (kind, start, end); None = dialect default
+    ):
+        super().__init__()
+        self._func = func.upper()
+        self._args = [_to_col(a) for a in args]
+        self._partition_by = list(partition_by)
+        self._order_by = list(order_by)
+        # frame: kind ∈ {"rows","range"}; bounds are "unb_prec"/"unb_foll"/
+        # "current"/("prec", n)/("foll", n)
+        self._frame = frame
+
+    @property
+    def func(self) -> str:
+        return self._func
+
+    @property
+    def args(self) -> List[ColumnExpr]:
+        return self._args
+
+    @property
+    def partition_by(self) -> List[str]:
+        return self._partition_by
+
+    @property
+    def order_by(self) -> List[Any]:
+        return self._order_by
+
+    @property
+    def frame(self) -> Any:
+        return self._frame
+
+    @property
+    def children(self) -> List[ColumnExpr]:
+        return list(self._args)
+
+    def infer_type(self, schema: Schema) -> Optional[pa.DataType]:
+        if self.as_type is not None:
+            return self.as_type
+        if self._func in ("ROW_NUMBER", "RANK", "DENSE_RANK", "COUNT"):
+            return pa.int64()
+        if self._func == "AVG":
+            return pa.float64()
+        if len(self._args) > 0:
+            return self._args[0].infer_type(schema)
+        return None
+
+    def __repr__(self) -> str:
+        inner = ",".join(repr(a) for a in self._args)
+        pb = f" PARTITION BY {self._partition_by}" if self._partition_by else ""
+        ob = f" ORDER BY {self._order_by}" if self._order_by else ""
+        s = f"{self._func}({inner}) OVER ({pb}{ob} )"
+        return s if self.as_name == "" else f"{s} AS {self.as_name}"
+
+    def _uuid_keys(self) -> List[Any]:
+        return [
+            "window",
+            self._func,
+            self._partition_by,
+            repr(self._order_by),
+            repr(self._frame),
+        ]

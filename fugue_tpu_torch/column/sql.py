@@ -1,8 +1,9 @@
 """SELECT-column validation, copied from ``fugue_tpu/column/sql.py``
 (``SelectColumns`` :28-155): the aggregate and group-key rules, the
 wildcard rules, unique output names, ``replace_wildcard`` and
-``infer_schema``. ``SQLExpressionGenerator`` goes with FugueSQL
-(ROADMAP.md A.11)."""
+``infer_schema``. ``SQLExpressionGenerator`` (the IR rendered as SQL
+text) serves the JAX package's warehouse engine (``fugue_tpu/warehouse``),
+which the port does not have (ROADMAP.md A.10)."""
 
 from typing import List, Optional
 

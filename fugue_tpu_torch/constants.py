@@ -22,3 +22,25 @@ FUGUE_TPU_CONF_MAP_PARALLELISM = "fugue.tpu.map.parallelism"
 # the most groups a device ``distinct`` brings to the host (default 2**22,
 # the JAX engine's); above it the host engine dedupes the frame
 FUGUE_TPU_CONF_MAX_PARTIAL_ROWS = "fugue.tpu.max_partial_rows"
+
+# the workflow's keys (``fugue_tpu/constants.py`` :18-26): tasks run at
+# once (1: inline, in order), the checkpoint directory, auto-persist of
+# frames with several consumers, and the dialect FugueSQL compiles from
+FUGUE_CONF_WORKFLOW_CONCURRENCY = "fugue.workflow.concurrency"
+FUGUE_CONF_WORKFLOW_CHECKPOINT_PATH = "fugue.workflow.checkpoint.path"
+FUGUE_CONF_WORKFLOW_AUTO_PERSIST = "fugue.workflow.auto_persist"
+FUGUE_CONF_WORKFLOW_AUTO_PERSIST_VALUE = "fugue.workflow.auto_persist_value"
+FUGUE_CONF_SQL_DIALECT = "fugue.sql.compile.dialect"
+
+# the JAX package's workflow services that the port does not have
+# (ROADMAP.md A.10): each key, set to turn its service on, makes a run
+# raise. Their defaults are a plain run
+A10_WORKFLOW_KEYS = {
+    "fugue.tpu.cache.enabled": "the result cache",
+    "fugue.tpu.dist.enabled": "the distributed pass",
+    "fugue.tpu.dist.board": "the distributed pass",
+    "fugue.tpu.retry.task.attempts": "task retries",
+    "fugue.tpu.fault.plan": "fault injection",
+    "fugue.tpu.tuning.enabled": "the tuner",
+    "fugue.tpu.trace.dir": "the trace export",
+}

@@ -1,6 +1,12 @@
 from .array_dataframe import ArrayDataFrame
 from .arrow_dataframe import ArrowDataFrame
-from .dataframe import DataFrame, LocalBoundedDataFrame, LocalDataFrame, LocalUnboundedDataFrame
+from .dataframe import (
+    DataFrame,
+    LocalBoundedDataFrame,
+    LocalDataFrame,
+    LocalUnboundedDataFrame,
+    YieldedDataFrame,
+)
 from .dataframe_iterable_dataframe import (
     IterableArrowDataFrame,
     IterablePandasDataFrame,
@@ -23,4 +29,5 @@ __all__ = [
     "LocalDataFrameIterableDataFrame",
     "LocalUnboundedDataFrame",
     "PandasDataFrame",
+    "YieldedDataFrame",
 ]

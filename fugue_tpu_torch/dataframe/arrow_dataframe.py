@@ -34,7 +34,23 @@ def build_arrow_table(df: Any, schema: Optional[Schema]) -> pa.Table:
         rows = [dict(zip(schema.names, row)) for row in df]
         if len(rows) == 0:
             return schema.create_empty_arrow_table()
-        return pa.Table.from_pylist(rows, schema=schema.pa_schema)
+        try:
+            return pa.Table.from_pylist(rows, schema=schema.pa_schema)
+        except pa.lib.ArrowTypeError:
+            # strings for date and timestamp columns ("2020-01-01"), as the
+            # JAX package takes them: built loose, then cast
+            arrays = []
+            for f in schema.pa_schema:
+                vals = [r.get(f.name) for r in rows]
+                if pa.types.is_date(f.type) or pa.types.is_timestamp(f.type):
+                    arr = pa.array(vals)
+                    if pa.types.is_string(arr.type):
+                        arr = arr.cast(pa.timestamp("us"))
+                    arr = arr.cast(f.type)
+                else:
+                    arr = pa.array(vals, type=f.type)
+                arrays.append(arr)
+            return pa.Table.from_arrays(arrays, schema=schema.pa_schema)
     raise FugueDataFrameInitError(f"can't build ArrowDataFrame from {type(df)}")
 
 

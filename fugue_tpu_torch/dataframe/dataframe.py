@@ -3,7 +3,13 @@ trimmed to what the port's frames and its transformers use: a schema, a
 row count, metadata, columnar conversions to arrow and pandas, the row
 views a list-annotated transformer reads (``as_array``,
 ``as_array_iterable``, ``as_dicts``, ``as_dict_iterable``, ``peek_array``,
-``peek_dict``), and the local frame classes (:179-207).
+``peek_dict``), the column verbs of the workflow (``rename``,
+``alter_columns``, ``drop``, ``df[cols]``), ``head`` and ``show``, the
+local frame classes (:179-207) and ``YieldedDataFrame`` (:209).
+
+The column verbs' generic forms go through arrow and return an
+``ArrowDataFrame``; a frame that can do better (pandas, the device's
+``TorchDataFrame``) overrides them.
 
 A frame that is not local (the device's ``TorchDataFrame``) reaches every
 row view through ``as_local_bounded``: one copy to the host, whose frame
@@ -17,8 +23,14 @@ import pyarrow as pa
 
 from .._utils.arrow import pa_table_to_pandas
 from .._utils.params import ParamDict
-from ..exceptions import FugueDataFrameEmptyError, FugueInvalidOperation
-from ..schema import Schema
+from .._utils.assertion import assert_or_throw
+from ..collections.yielded import Yielded
+from ..exceptions import (
+    FugueDataFrameEmptyError,
+    FugueDataFrameOperationError,
+    FugueInvalidOperation,
+)
+from ..schema import Schema, type_to_expression
 
 
 class DataFrame(ABC):
@@ -114,8 +126,116 @@ class DataFrame(ABC):
         for row in self.as_array_iterable(columns, type_safe=True):
             yield dict(zip(names, row))
 
+    # ---- column verbs (``fugue_tpu/dataframe/dataframe.py`` :85-160) ----------
+    def drop(self, columns: List[str]) -> "DataFrame":
+        """The frame without ``columns`` (each must be there, and one
+        column must stay)."""
+        assert_or_throw(len(columns) > 0, FugueDataFrameOperationError("columns can't be empty"))
+        missing = [c for c in columns if c not in self.schema]
+        assert_or_throw(
+            len(missing) == 0,
+            lambda: FugueDataFrameOperationError(f"columns {missing} not in {self.schema}"),
+        )
+        assert_or_throw(
+            len(columns) < len(self.schema),
+            FugueDataFrameOperationError("can't drop all columns"),
+        )
+        return self._select_cols([n for n in self.schema.names if n not in columns])
+
+    def __getitem__(self, columns: List[Any]) -> "DataFrame":
+        """The frame's ``columns``, in that order."""
+        assert_or_throw(
+            isinstance(columns, list) and len(columns) > 0,
+            FugueDataFrameOperationError("columns must be a non-empty list"),
+        )
+        missing = [c for c in columns if c not in self.schema]
+        assert_or_throw(
+            len(missing) == 0,
+            lambda: FugueDataFrameOperationError(f"columns {missing} not in {self.schema}"),
+        )
+        return self._select_cols(columns)
+
+    def _select_cols(self, cols: List[str]) -> "DataFrame":
+        from .arrow_dataframe import ArrowDataFrame
+
+        return ArrowDataFrame(self.as_arrow().select(cols))
+
+    def rename(self, columns: Dict[str, str]) -> "DataFrame":
+        """The frame with its columns renamed by ``columns`` (old → new)."""
+        from .arrow_dataframe import ArrowDataFrame
+
+        new_schema = self.schema.rename(columns)
+        return ArrowDataFrame(self.as_arrow().rename_columns(new_schema.names))
+
+    def alter_columns(self, columns: Any) -> "DataFrame":
+        """The frame with the columns of ``columns`` (schema-like) cast to
+        their new types."""
+        from .arrow_dataframe import ArrowDataFrame
+
+        new_schema = self.schema.alter(columns)
+        if new_schema == self.schema:
+            return self
+        try:
+            return ArrowDataFrame(self.as_arrow().cast(new_schema.pa_schema))
+        except pa.ArrowInvalid as e:
+            raise FugueDataFrameOperationError(str(e)) from e
+
+    def head(self, n: int, columns: Optional[List[str]] = None) -> "LocalBoundedDataFrame":
+        """The first ``n`` rows (of ``columns``) as a local frame."""
+        from .arrow_dataframe import ArrowDataFrame
+
+        tbl = self.as_arrow()
+        if columns is not None:
+            tbl = tbl.select(columns)
+        return ArrowDataFrame(tbl.slice(0, n))
+
+    def show(self, n: int = 10, with_count: bool = False, title: Optional[str] = None) -> None:
+        """Print the first ``n`` rows as a table under the column names and
+        types (``fugue_tpu`` ``DataFrameDisplay``)."""
+        rows = self.head(n).as_array(type_safe=True)
+        lines: List[str] = [] if title is None else [title]
+        headers = [f"{f.name}:{type_to_expression(f.type)}" for f in self.schema.fields]
+        widths = [
+            max(len(h), *(len(_cell(r[i])) for r in rows)) if len(rows) > 0 else len(h)
+            for i, h in enumerate(headers)
+        ]
+        lines.append("|".join(h.ljust(w) for h, w in zip(headers, widths)))
+        lines.append("+".join("-" * w for w in widths))
+        for r in rows:
+            lines.append("|".join(_cell(v).ljust(w) for v, w in zip(r, widths)))
+        if with_count:
+            lines.append(f"Total count: {self.count()}")
+        print("\n".join(lines))
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.schema})"
+
+
+def _cell(v: Any) -> str:
+    if v is None:
+        return "NULL"
+    s = str(v)
+    return s if len(s) <= 40 else s[:37] + "..."
+
+
+class YieldedDataFrame(Yielded):
+    """A frame yielded out of a workflow run (``yield_dataframe_as``)."""
+
+    def __init__(self, yid: str):
+        super().__init__(yid)
+        self._df: Optional[DataFrame] = None
+
+    @property
+    def is_set(self) -> bool:
+        return self._df is not None
+
+    def set_value(self, df: DataFrame) -> None:
+        self._df = df
+
+    @property
+    def result(self) -> DataFrame:
+        assert_or_throw(self.is_set, FugueInvalidOperation("value is not set"))
+        return self._df  # type: ignore
 
 
 class LocalDataFrame(DataFrame):

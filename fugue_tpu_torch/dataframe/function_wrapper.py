@@ -3,7 +3,8 @@ each parameter and return annotation of a plain function maps to an
 ``AnnotatedParam`` with a one-letter code, and the codes of a function are
 matched against a pattern per extension type. The codes (:454)::
 
-    d  DataFrame                c  DataFrames (several inputs)
+    e  ExecutionEngine          c  DataFrames (several inputs)
+    d  DataFrame
     l  LocalDataFrame           s  rows with no schema (List[List[Any]],
     p  pd.DataFrame, and           Iterable[List[Any]], List[Dict[str, Any]],
        Iterable[pd.DataFrame]      Iterable[Dict[str, Any]])
@@ -24,6 +25,7 @@ import pandas as pd
 import pyarrow as pa
 
 from .._utils.convert import annotation_of
+from .._utils.hash import to_uuid
 from .._utils.iter import EmptyAwareIterable, make_empty_aware
 from .._utils.params import IndexedOrderedDict
 from ..exceptions import FugueInterfacelessError
@@ -378,6 +380,14 @@ class DataFrameFunctionWrapper:
     @property
     def output_code(self) -> str:
         return self._rt.code
+
+    @property
+    def need_output_schema(self) -> Optional[bool]:
+        """Whether the return annotation needs a schema to become a frame."""
+        return self._rt.need_schema if isinstance(self._rt, DataFrameParam) else None
+
+    def __uuid__(self) -> str:
+        return to_uuid(self._func, self._input_code, self._rt.code)
 
     def get_format_hint(self) -> Optional[str]:
         for p in list(self._params.values()) + [self._rt]:

@@ -115,6 +115,13 @@ class PandasDataFrame(LocalBoundedDataFrame):
             self._native, schema=self.schema.pa_schema, preserve_index=False, safe=False
         )
 
+    def _select_cols(self, cols: List[str]) -> "PandasDataFrame":
+        return PandasDataFrame(self.native[cols], self.schema.extract(cols), pandas_df_wrapper=True)
+
+    def rename(self, columns: Dict[str, str]) -> "PandasDataFrame":
+        new_schema = self.schema.rename(columns)
+        return PandasDataFrame(self.native.rename(columns=columns), new_schema, pandas_df_wrapper=True)
+
     def peek_array(self) -> List[Any]:
         self.assert_not_empty()
         head = pa.Table.from_pandas(

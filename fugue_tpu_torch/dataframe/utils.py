@@ -1,7 +1,10 @@
-"""Join schemas, copied from ``fugue_tpu/dataframe/utils.py``
-(``parse_join_type`` :173, ``get_join_schemas`` :196) and trimmed to them."""
+"""Frame comparison and join schemas, copied from
+``fugue_tpu/dataframe/utils.py`` (``_df_eq`` :24, ``parse_join_type``
+:173, ``get_join_schemas`` :196) and trimmed to them."""
 
-from typing import Iterable, Optional, Tuple
+from typing import Any, Iterable, List, Optional, Tuple
+
+import pyarrow as pa
 
 from .._utils.assertion import assert_or_throw
 from ..exceptions import FugueDataFrameOperationError
@@ -80,3 +83,74 @@ def get_join_schemas(
         return key_schema, df1.schema.copy()
     out_schema = df1.schema + (df2.schema - on)
     return key_schema, out_schema
+
+
+def _df_eq(
+    df: DataFrame,
+    data: Any,
+    schema: Any = None,
+    check_order: bool = False,
+    check_schema: bool = True,
+    check_content: bool = True,
+    throw: bool = False,
+    digits: int = 5,
+) -> bool:
+    """Whether ``df`` holds ``data`` (a frame, or rows of ``schema``):
+    integer widths and float widths count as alike, floats compare
+    rounded to ``digits``, and rows in any order unless ``check_order``.
+    With ``throw`` a difference raises ``AssertionError``."""
+    from .array_dataframe import ArrayDataFrame
+
+    try:
+        if isinstance(data, DataFrame):
+            expected = data.as_local()
+            exp_schema = data.schema
+        else:
+            exp_schema = Schema(schema) if schema is not None else df.schema
+            expected = ArrayDataFrame(data, exp_schema)
+        actual = df.as_local()
+        if check_schema:
+            assert_or_throw(
+                df.schema.is_like(
+                    exp_schema, equal_groups=[[pa.types.is_integer], [pa.types.is_floating]]
+                ),
+                lambda: AssertionError(f"schema mismatch: {df.schema} vs {exp_schema}"),
+            )
+        if check_content:
+            a_rows = [_norm_row(r, digits) for r in actual.as_array(type_safe=True)]
+            e_rows = [
+                _norm_row(r, digits)
+                for r in expected.as_array(
+                    columns=df.schema.names if not check_schema else None, type_safe=True
+                )
+            ]
+            assert_or_throw(
+                len(a_rows) == len(e_rows),
+                lambda: AssertionError(f"row count {len(a_rows)} != {len(e_rows)}"),
+            )
+            if not check_order:
+                a_rows = sorted(a_rows, key=repr)
+                e_rows = sorted(e_rows, key=repr)
+            assert_or_throw(
+                a_rows == e_rows,
+                lambda: AssertionError(f"content mismatch:\n{a_rows}\nvs\n{e_rows}"),
+            )
+        return True
+    except AssertionError:
+        if throw:
+            raise
+        return False
+
+
+def _norm_row(row: List[Any], digits: int) -> List[Any]:
+    return [_norm_val(v, digits) for v in row]
+
+
+def _norm_val(v: Any, digits: int) -> Any:
+    if isinstance(v, float):
+        return round(v, digits)
+    if isinstance(v, (list, tuple)):
+        return tuple(_norm_val(x, digits) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _norm_val(x, digits)) for k, x in v.items()))
+    return v

@@ -1,5 +1,6 @@
 """Framework exception hierarchy, copied from ``fugue_tpu/exceptions.py``
-and trimmed to the classes the port raises. Every error raised by the
+and trimmed to the classes the port raises (the workflow's and SQL's
+among them). Every error raised by the
 port derives from :class:`FugueTPUError`, as in the JAX package, so user
 code catches one root type whichever engine it runs."""
 
@@ -27,15 +28,27 @@ class FugueDatasetEmptyError(FugueDataFrameError):
 FugueDataFrameEmptyError = FugueDatasetEmptyError
 
 
+class FugueBug(FugueTPUError):
+    """An internal invariant was violated: a framework bug, not a user error."""
+
+
 class FugueWorkflowError(FugueTPUError):
-    """Errors of a transformer's run."""
+    """Errors raised while building or running a workflow DAG."""
 
 
-class FugueWorkflowCompileValidationError(FugueWorkflowError):
+class FugueWorkflowCompileError(FugueWorkflowError):
+    """Error at DAG-construction (compile) time."""
+
+
+class FugueWorkflowCompileValidationError(FugueWorkflowCompileError):
     """A partition spec breaks a transformer's validation rules."""
 
 
-class FugueWorkflowRuntimeValidationError(FugueWorkflowError):
+class FugueWorkflowRuntimeError(FugueWorkflowError):
+    """Error while executing the DAG."""
+
+
+class FugueWorkflowRuntimeValidationError(FugueWorkflowRuntimeError):
     """An input schema breaks a transformer's validation rules."""
 
 
@@ -48,5 +61,14 @@ class FugueInvalidOperation(FugueTPUError):
 
 
 class FugueSQLError(FugueTPUError):
-    """A select breaks the rules of SQL (an empty or ambiguous projection,
-    HAVING without an aggregate in the SELECT list)."""
+    """Errors from parsing or executing SQL, and a select that breaks the
+    rules of SQL (an empty or ambiguous projection, HAVING without an
+    aggregate in the SELECT list)."""
+
+
+class FugueSQLSyntaxError(FugueSQLError):
+    """The SQL text could not be parsed."""
+
+
+class FugueSQLRuntimeError(FugueSQLError):
+    """The SQL executed but failed at runtime."""

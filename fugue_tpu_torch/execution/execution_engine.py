@@ -1,4 +1,4 @@
-"""ExecutionEngine and MapEngine ABCs, copied from
+"""ExecutionEngine, MapEngine and SQLEngine ABCs, copied from
 ``fugue_tpu/execution/execution_engine.py`` and trimmed to the verbs the
 port's engines have: ``to_df``, ``persist``, ``broadcast``, the map behind
 ``transform`` (``MapEngine.map_dataframe`` :276, with ``on_init`` and the
@@ -12,20 +12,36 @@ column IR evaluated over pandas (``column/eval.py``). A verb an engine
 does not implement raises ``NotImplementedError``: the host engine
 (``NativeExecutionEngine``) and the device engine
 (``TorchExecutionEngine``) have all of them. What neither has yet, zip,
-comap and repartition, is not in this contract (ROADMAP.md A.7, A.8)."""
+comap and repartition, is not in this contract (ROADMAP.md A.7, A.8).
 
+For the workflow: the ``SQLEngine`` facet (:124) and ``sql_engine``,
+``create_default_sql_engine`` and ``set_sql_engine`` (:267-297), the
+yields (:932-943), and ``run_conf_scope`` (:238), which binds a run's
+conf over the engine's for the current context only, so a workflow's
+conf never leaks into the engine's."""
+
+import logging
 from abc import ABC, abstractmethod
-from typing import Any, Callable, List, Optional
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
+from threading import RLock
+from typing import Any, Callable, ContextManager, Iterator, List, Optional
 
 from .._utils.params import ParamDict
 from ..collections.partition import PartitionCursor, PartitionSpec
 from .._utils.assertion import assert_or_throw
 from ..column import SelectColumns, all_cols, col
+from ..collections.sql import StructuredRawSQL
+from ..collections.yielded import PhysicalYielded, Yielded
 from ..column.expressions import ColumnExpr
-from ..dataframe import DataFrame, LocalDataFrame, PandasDataFrame
-from ..exceptions import FugueInvalidOperation
+from ..dataframe import DataFrame, DataFrames, LocalDataFrame, PandasDataFrame, YieldedDataFrame
+from ..exceptions import FugueBug, FugueInvalidOperation
 
 _VERBS = "ROADMAP.md A.8 remaining verbs"
+
+# (engine id, merged conf) of the run scopes entered in this context;
+# task threads inherit it through ``contextvars.copy_context``
+_RUN_CONF: ContextVar[tuple] = ContextVar("fugue_tpu_torch_run_conf", default=())
 
 
 class MapEngine(ABC):
@@ -61,16 +77,133 @@ class MapEngine(ABC):
         raise NotImplementedError
 
 
+class SQLEngine(ABC):
+    """SQL over a dict of named frames, bound to an execution engine
+    (``fugue_tpu`` ``SQLEngine`` :124)."""
+
+    def __init__(self, execution_engine: "ExecutionEngine"):
+        self._execution_engine = execution_engine
+
+    @property
+    def execution_engine(self) -> "ExecutionEngine":
+        return self._execution_engine
+
+    @property
+    def execution_engine_constraint(self) -> type:
+        """The engine type this facet requires (``set_sql_engine`` checks)."""
+        return ExecutionEngine
+
+    @property
+    def conf(self) -> ParamDict:
+        return self._execution_engine.conf
+
+    @property
+    def log(self) -> logging.Logger:
+        return self._execution_engine.log
+
+    @property
+    def dialect(self) -> Optional[str]:
+        return None
+
+    @abstractmethod
+    def select(self, dfs: DataFrames, statement: StructuredRawSQL) -> DataFrame:
+        raise NotImplementedError
+
+    def table_exists(self, table: str) -> bool:
+        raise NotImplementedError(f"{type(self)} doesn't support tables")
+
+    def save_table(
+        self, df: DataFrame, table: str, mode: str = "overwrite",
+        partition_spec: Optional[PartitionSpec] = None, **kwargs: Any,
+    ) -> None:
+        raise NotImplementedError(f"{type(self)} doesn't support tables")
+
+    def load_table(self, table: str, **kwargs: Any) -> DataFrame:
+        raise NotImplementedError(f"{type(self)} doesn't support tables")
+
+
 class ExecutionEngine(ABC):
     """The contract every engine of the port implements. ``conf`` takes
     the keys of ``fugue_tpu_torch/constants.py``."""
 
     def __init__(self, conf: Any = None):
         self._conf = ParamDict(conf)
+        self._rlock = RLock()
+        self._sql_engine: Optional[SQLEngine] = None
 
     @property
     def conf(self) -> ParamDict:
+        """The engine's conf, or the innermost run scope's view of it."""
+        me = id(self)
+        for eng_id, view in reversed(_RUN_CONF.get()):
+            if eng_id == me:
+                return view
         return self._conf
+
+    @contextmanager
+    def run_conf_scope(self, overlay: Any = None) -> Iterator[ParamDict]:
+        """Bind ``overlay`` over this engine's conf for the current context
+        (and the threads it starts through ``copy_context``): ``conf``
+        reads see it, and writes land in the scoped view and vanish at
+        exit. Nestable."""
+        if not overlay:
+            yield self.conf
+            return
+        merged = ParamDict(self.conf)
+        merged.update(overlay)
+        token = _RUN_CONF.set(_RUN_CONF.get() + ((id(self), merged),))
+        try:
+            yield merged
+        finally:
+            _RUN_CONF.reset(token)
+
+    @property
+    def log(self) -> logging.Logger:
+        return logging.getLogger(type(self).__name__)
+
+    def thread_scope(self) -> Callable[[], ContextManager]:
+        """Called on the thread that starts a workflow run: a factory of
+        the context a task thread of that run enters, so the task uses
+        this engine's device state. Nothing to carry on the host."""
+        return nullcontext
+
+    # ---- SQL (``fugue_tpu`` :267-297) --------------------------------------
+    def create_default_sql_engine(self) -> SQLEngine:
+        """The in-tree SQL engine over this engine's verbs."""
+        from ..sql.local_sql import LocalSQLEngine
+
+        return LocalSQLEngine(self)
+
+    @property
+    def sql_engine(self) -> SQLEngine:
+        if self._sql_engine is None:
+            with self._rlock:
+                if self._sql_engine is None:
+                    self._sql_engine = self.create_default_sql_engine()
+        return self._sql_engine
+
+    def set_sql_engine(self, engine: SQLEngine) -> None:
+        assert_or_throw(
+            isinstance(self, engine.execution_engine_constraint),
+            lambda: FugueInvalidOperation(
+                f"{type(engine)} requires {engine.execution_engine_constraint}"
+            ),
+        )
+        with self._rlock:
+            self._sql_engine = engine
+
+    # ---- yields (``fugue_tpu`` :932-943) -----------------------------------
+    def convert_yield_dataframe(self, df: DataFrame, as_local: bool) -> DataFrame:
+        return df.as_local() if as_local else df
+
+    def load_yielded(self, df: Yielded) -> DataFrame:
+        if isinstance(df, YieldedDataFrame):
+            return self.to_df(df.result)
+        if isinstance(df, PhysicalYielded):
+            if df.storage_type == "file":
+                return self.load_df(df.name)
+            return self.sql_engine.load_table(df.name)
+        raise FugueBug(f"unknown yield type {type(df)}")
 
     def get_current_parallelism(self) -> int:
         """The engine's concurrency (``CONCURRENCY`` in a partition number):

@@ -14,9 +14,8 @@ device engine hands to its host engine, as ``JaxExecutionEngine`` does
   ``fillna``, ``sample``, ``take``, ``broadcast``, ``persist``,
   ``load_df`` and ``save_df``;
 - ``select``, ``filter``, ``assign`` and ``aggregate`` from the base
-  class: the column IR evaluated over pandas (``column/eval.py``).
-
-Not ported here: SQL (ROADMAP.md A.11)."""
+  class: the column IR evaluated over pandas (``column/eval.py``), and
+  the base class's SQL engine (``sql/local_sql.py``) over these verbs."""
 
 from typing import Any, Callable, List, Optional, Union
 

@@ -1,20 +1,34 @@
-"""The transformer's run, copied from
-``fugue_tpu/extensions/_builtins/processors.py`` and trimmed to
-``RunTransformer._run_transform`` (:54) and ``_TransformerRunner`` (:120).
-There is no workflow (ROADMAP.md A.11): ``api.transform`` and
-``api.out_transform`` call :func:`run_transformer` directly, where the JAX
-package reaches the processor through a one-task DAG
-(``fugue_tpu/workflow/api.py`` :18-47)."""
+"""Built-in processors, copied from ``fugue_tpu/extensions/_builtins/processors.py``:
+the implementations behind the workflow's verbs. ``RunTransformer`` runs
+a transformer through :func:`run_transformer` (``_run_transform`` :54,
+``_TransformerRunner`` :120), which ``api.transform`` and
+``api.out_transform`` also call; ``RunSQLSelect`` (:223-255) runs a
+statement on the engine's SQL facet.
+
+Not ported: ``Zip`` and the cotransformer runner (ROADMAP.md A.11), and
+transformer callbacks (A.10): each raises naming its item."""
 
 from typing import Any, List, Optional, Type
 
+from ..._utils.assertion import assert_or_throw
 from ..._utils.convert import to_type
 from ..._utils.params import ParamDict
 from ...collections.partition import PartitionCursor, PartitionSpec
-from ...dataframe import ArrayDataFrame, DataFrame, LocalDataFrame
+from ...collections.sql import StructuredRawSQL
+from ...column import SelectColumns as ColSelectColumns
+from ...dataframe import ArrayDataFrame, DataFrame, DataFrames, LocalDataFrame
+from ...exceptions import FugueWorkflowError
 from ...schema import Schema
 from .._utils import validate_input_schema, validate_partition_spec
+from ..processor.processor import Processor
 from ..transformer.transformer import Transformer
+
+
+def refuse_callback(callback: Any) -> None:
+    if callback is not None:
+        raise NotImplementedError(
+            "transformer callbacks need the RPC server, which is not ported (ROADMAP.md A.10)"
+        )
 
 
 def run_transformer(
@@ -72,3 +86,198 @@ class _TransformerRunner:
         s = self.transformer.partition_spec
         self.transformer._cursor = s.get_cursor(self.schema, partition_no)  # type: ignore[attr-defined]
         self.transformer.on_init(df)
+
+
+class RunTransformer(Processor):
+    """A transformer's run as a task of the workflow (:23); the workflow
+    checks the transformer's partition rules when it adds the task."""
+
+    def process(self, dfs: DataFrames) -> DataFrame:
+        refuse_callback(self.params.get_or_none("callback", object))
+        return run_transformer(
+            self.execution_engine,
+            dfs[0],
+            self.params.get_or_throw("transformer", object),
+            params=self.params.get("params", dict()),
+            partition_spec=self.partition_spec,
+            ignore_errors=self.params.get("ignore_errors", []),
+        )
+
+
+class RunJoin(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        if len(dfs) == 1:
+            return dfs[0]
+        how = self.params.get_or_throw("how", str)
+        on = self.params.get("on", [])
+        df = dfs[0]
+        for i in range(1, len(dfs)):
+            df = self.execution_engine.join(df, dfs[i], how=how, on=on)
+        return df
+
+
+class RunSetOperation(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        if len(dfs) == 1:
+            return dfs[0]
+        how = self.params.get_or_throw("how", str)
+        unique = self.params.get("distinct", True)
+        ops = {
+            "union": self.execution_engine.union,
+            "subtract": self.execution_engine.subtract,
+            "intersect": self.execution_engine.intersect,
+        }
+        assert_or_throw(how in ops, FugueWorkflowError(f"invalid set op {how}"))
+        df = dfs[0]
+        for i in range(1, len(dfs)):
+            df = ops[how](df, dfs[i], distinct=unique)
+        return df
+
+
+class Distinct(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("distinct takes one input"))
+        return self.execution_engine.distinct(dfs[0])
+
+
+class Dropna(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("dropna takes one input"))
+        how = self.params.get("how", "any")
+        assert_or_throw(
+            how in ("any", "all"), FugueWorkflowError("how' needs to be either 'any' or 'all'")
+        )
+        return self.execution_engine.dropna(
+            dfs[0], how=how, thresh=self.params.get_or_none("thresh", int),
+            subset=self.params.get_or_none("subset", list),
+        )
+
+
+class Fillna(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("fillna takes one input"))
+        return self.execution_engine.fillna(
+            dfs[0], value=self.params.get_or_none("value", object),
+            subset=self.params.get_or_none("subset", list),
+        )
+
+
+class RunSQLSelect(Processor):
+    """A SQL statement on the engine's SQL facet; with ``sql_engine`` (a
+    FugueSQL ``CONNECT``), on the named one: ``local``/``sql`` (the
+    in-tree SQL engine over this engine) or an engine of the port
+    (``native``, ``torch``). Another name raises naming ROADMAP.md A.10."""
+
+    def process(self, dfs: DataFrames) -> DataFrame:
+        from ...execution.factory import is_engine_name, make_execution_engine
+        from ...sql.local_sql import LocalSQLEngine
+
+        statement = self.params.get_or_throw("statement", StructuredRawSQL)
+        engine = self.execution_engine
+        spec = self.params.get_or_none("sql_engine", object)
+        if spec is None:
+            return engine.sql_engine.select(dfs, statement)
+        if isinstance(spec, str) and spec.lower() in ("local", "sql"):
+            return LocalSQLEngine(engine).select(dfs, statement)
+        if not is_engine_name(spec):
+            raise NotImplementedError(
+                f"CONNECT {spec}: the port has no such engine; other engines and SQL "
+                "backends are not ported (ROADMAP.md A.10)"
+            )
+        kw = dict(self.params.get("sql_engine_params", dict()))
+        device = getattr(engine, "device", None) if spec.lower() in ("torch", "cuda") else None
+        other = make_execution_engine(spec, device=kw.pop("device", device), conf=engine.conf)
+        res = other.sql_engine.select(dfs, statement)
+        return engine.to_df(res.as_local_bounded())
+
+
+class Select(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("select takes one input"))
+        return self.execution_engine.select(
+            dfs[0], self.params.get_or_throw("columns", ColSelectColumns),
+            where=self.params.get_or_none("where", object),
+            having=self.params.get_or_none("having", object),
+        )
+
+
+class Filter(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("filter takes one input"))
+        return self.execution_engine.filter(dfs[0], self.params.get_or_throw("condition", object))
+
+
+class Assign(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("assign takes one input"))
+        return self.execution_engine.assign(dfs[0], self.params.get_or_throw("columns", list))
+
+
+class Aggregate(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("aggregate takes one input"))
+        return self.execution_engine.aggregate(
+            dfs[0], self.partition_spec, self.params.get_or_throw("columns", list)
+        )
+
+
+class Rename(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("rename takes one input"))
+        return dfs[0].rename(self.params.get_or_throw("columns", dict))
+
+
+class AlterColumns(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("alter_columns takes one input"))
+        return dfs[0].alter_columns(self.params.get_or_throw("columns", object))
+
+
+class DropColumns(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("drop takes one input"))
+        columns = self.params.get_or_throw("columns", list)
+        if self.params.get("if_exists", False):
+            columns = [c for c in columns if c in dfs[0].schema]
+        return dfs[0].drop(columns)
+
+
+class SelectColumns(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("select takes one input"))
+        return dfs[0][self.params.get_or_throw("columns", list)]
+
+
+class Sample(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("sample takes one input"))
+        return self.execution_engine.sample(
+            dfs[0], n=self.params.get_or_none("n", int), frac=self.params.get_or_none("frac", float),
+            replace=self.params.get("replace", False), seed=self.params.get_or_none("seed", int),
+        )
+
+
+class Take(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("take takes one input"))
+        return self.execution_engine.take(
+            dfs[0],
+            n=self.params.get_or_none("n", int),  # type: ignore[arg-type]
+            presort=self.params.get("presort", ""),
+            na_position=self.params.get("na_position", "last"),
+            partition_spec=self.partition_spec,
+        )
+
+
+class SaveAndUse(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        assert_or_throw(len(dfs) == 1, FugueWorkflowError("save takes one input"))
+        path = self.params.get_or_throw("path", str)
+        format_hint = self.params.get("fmt", "")
+        engine = self.execution_engine
+        engine.save_df(
+            df=dfs[0], path=path, format_hint=format_hint or None,
+            mode=self.params.get("mode", "overwrite"), partition_spec=self.partition_spec,
+            force_single=self.params.get("single", False), **self.params.get("params", dict()),
+        )
+        return engine.load_df(path, format_hint=format_hint or None)

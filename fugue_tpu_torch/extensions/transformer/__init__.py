@@ -1,4 +1,20 @@
-from .convert import output_transformer, transformer
+from .convert import (
+    output_transformer,
+    parse_output_transformer,
+    parse_transformer,
+    register_output_transformer,
+    register_transformer,
+    transformer,
+)
 from .transformer import OutputTransformer, Transformer
 
-__all__ = ["OutputTransformer", "Transformer", "output_transformer", "transformer"]
+__all__ = [
+    "OutputTransformer",
+    "Transformer",
+    "output_transformer",
+    "parse_output_transformer",
+    "parse_transformer",
+    "register_output_transformer",
+    "register_transformer",
+    "transformer",
+]

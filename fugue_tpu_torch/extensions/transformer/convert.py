@@ -1,23 +1,26 @@
-"""Transformers from classes and functions, copied from
+"""Transformers from classes, functions and names, copied from
 ``fugue_tpu/extensions/transformer/convert.py`` and trimmed: the
-``@transformer``/``@output_transformer`` decorators, ``_to_transformer``,
-and the interfaceless ``_FuncAsTransformer`` whose output schema comes
-from an argument or a ``# schema:`` comment, ``*`` expressions included.
+``@transformer``/``@output_transformer`` decorators, ``_to_transformer``
+with the registry of names (``register_transformer``) and the
+``parse_transformer`` hooks, a name resolved in the caller's scope, and
+the interfaceless ``_FuncAsTransformer`` whose output schema comes from an
+argument or a ``# schema:`` comment, ``*`` expressions included.
 
-Not ported: transformers named by a string (the extension registry and the
-workflow, ROADMAP.md A.11), cotransformers (A.8's zip/comap) and RPC
-callbacks (A.10): each raises ``NotImplementedError`` naming its item."""
+Not ported: cotransformers (zip/comap, ROADMAP.md A.11, where A.8 moved
+them) and RPC callbacks (A.10): each raises ``NotImplementedError``
+naming its item."""
 
 import copy
 import inspect
 from typing import Any, Callable, Dict, List, Optional
 
-from ..._utils.convert import to_instance
+from ..._utils.convert import get_caller_global_local_vars, to_instance
+from ..._utils.hash import to_uuid
 from ...dataframe import ArrayDataFrame, DataFrame, LocalDataFrame
 from ...dataframe.function_wrapper import DataFrameFunctionWrapper
 from ...exceptions import FugueInterfacelessError
 from ...schema import Schema
-from .._shared import parse_comment_annotation
+from .._shared import ExtensionRegistry, ParseHook, parse_comment_annotation, resolve_extension_object
 from .._utils import parse_validation_rules_from_comment, to_validation_rules
 from .transformer import OutputTransformer, Transformer
 
@@ -25,6 +28,21 @@ OUTPUT_TRANSFORMER_DUMMY_SCHEMA = Schema("_0:int")
 # input: one frame, an optional callback, simple params, **kwargs; ``t`` is
 # the port's Dict[str, torch.Tensor] (the JAX package's ``j``)
 _INPUT_RE = "^[lspqt][fF]?x*z?$"
+
+
+_TRANSFORMER_REGISTRY = ExtensionRegistry("transformer")
+_OUT_TRANSFORMER_REGISTRY = ExtensionRegistry("output_transformer")
+parse_transformer = ParseHook()
+parse_output_transformer = ParseHook()
+
+
+def register_transformer(alias: str, obj: Any, on_dup: str = "overwrite") -> None:
+    """``USING alias`` (and ``transform(df, "alias")``) runs ``obj``."""
+    _TRANSFORMER_REGISTRY.register(alias, obj, on_dup)
+
+
+def register_output_transformer(alias: str, obj: Any, on_dup: str = "overwrite") -> None:
+    _OUT_TRANSFORMER_REGISTRY.register(alias, obj, on_dup)
 
 
 def transformer(schema: Any, **validation_rules: Any) -> Callable[[Callable], "_FuncAsTransformer"]:
@@ -45,20 +63,36 @@ def output_transformer(**validation_rules: Any) -> Callable[[Callable], "_FuncAs
     return deco
 
 
-def _to_transformer(obj: Any, schema: Any = None) -> Transformer:
-    return _to_general_transformer(obj, schema, _FuncAsTransformer)
+def _to_transformer(
+    obj: Any,
+    schema: Any = None,
+    global_vars: Optional[Dict[str, Any]] = None,
+    local_vars: Optional[Dict[str, Any]] = None,
+) -> Transformer:
+    global_vars, local_vars = get_caller_global_local_vars(global_vars, local_vars)
+    return _to_general_transformer(
+        parse_transformer(obj), schema, _TRANSFORMER_REGISTRY, global_vars, local_vars,
+        _FuncAsTransformer,
+    )
 
 
-def _to_output_transformer(obj: Any) -> Transformer:
-    return _to_general_transformer(obj, None, _FuncAsOutputTransformer)
+def _to_output_transformer(
+    obj: Any,
+    global_vars: Optional[Dict[str, Any]] = None,
+    local_vars: Optional[Dict[str, Any]] = None,
+) -> Transformer:
+    global_vars, local_vars = get_caller_global_local_vars(global_vars, local_vars)
+    return _to_general_transformer(
+        parse_output_transformer(obj), None, _OUT_TRANSFORMER_REGISTRY, global_vars, local_vars,
+        _FuncAsOutputTransformer,
+    )
 
 
-def _to_general_transformer(obj: Any, schema: Any, func_single: type) -> Transformer:
-    if isinstance(obj, str):
-        raise NotImplementedError(
-            f"transformer {obj!r} named by a string: the extension registry and the "
-            "workflow that resolve names are not ported (ROADMAP.md A.11)"
-        )
+def _to_general_transformer(
+    obj: Any, schema: Any, registry: ExtensionRegistry, global_vars: Any, local_vars: Any,
+    func_single: type,
+) -> Transformer:
+    obj = resolve_extension_object(obj, registry, Transformer, global_vars, local_vars)
     if isinstance(obj, Transformer):
         if schema is not None:
             raise FugueInterfacelessError("schema must be None when using an interface class")
@@ -69,7 +103,7 @@ def _to_general_transformer(obj: Any, schema: Any, func_single: type) -> Transfo
         if _is_cotransform_func(obj):
             raise NotImplementedError(
                 f"{obj!r} takes several frames: cotransformers go with zip/comap, "
-                "which are not ported (ROADMAP.md A.8)"
+                "which are not ported (ROADMAP.md A.11, moved there from A.8)"
             )
         return func_single.from_func(obj, schema, validation_rules={})
     raise FugueInterfacelessError(f"can't convert {obj!r} to a transformer")
@@ -104,6 +138,9 @@ class _FuncAsTransformer(Transformer):
         return self._wrapper.run(  # type: ignore
             self._args(df), self.params, ignore_unknown=False, output_schema=self.output_schema
         )
+
+    def __uuid__(self) -> str:
+        return to_uuid(self._wrapper.__uuid__(), str(self._output_schema_arg), self._validation_rules)  # type: ignore
 
     @classmethod
     def _wrap(cls, func: Callable, return_re: str, validation_rules: Dict[str, Any]) -> Any:

@@ -16,7 +16,7 @@ fields of a frame, derive the output types of an aggregate, the copy,
     name    := identifier | `backquoted name`
 """
 
-from typing import Any, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import pandas as pd
 import pyarrow as pa
@@ -379,6 +379,51 @@ class Schema(IndexedOrderedDict):
         """The schema without the fields named in ``names`` that it has."""
         drop = {names} if isinstance(names, str) else set(names)
         return Schema([f for f in self.fields if f.name not in drop])
+
+    def rename(self, columns: Dict[str, str]) -> "Schema":
+        """The schema with the fields renamed by ``columns`` (old → new;
+        each old name must be a field, and the new names must not
+        collide)."""
+        missing = [k for k in columns if k not in self]
+        if len(missing) > 0:
+            raise SchemaError(f"can't rename: {missing} not in schema")
+        new_names = [columns.get(n, n) for n in self.names]
+        if len(set(new_names)) != len(new_names):
+            raise SchemaError(f"rename causes duplicated names: {new_names}")
+        return Schema([pa.field(n, f.type) for n, f in zip(new_names, self.fields)])
+
+    def alter(self, subschema: Any) -> "Schema":
+        """The schema with the types of ``subschema``'s fields (each must
+        be a field here) in place of their own."""
+        if subschema is None:
+            return self
+        sub = subschema if isinstance(subschema, Schema) else Schema(subschema)
+        missing = [n for n in sub.names if n not in self]
+        if len(missing) > 0:
+            raise SchemaError(f"can't alter: {missing} not in schema {self}")
+        return Schema([sub[f.name] if f.name in sub else f for f in self.fields])
+
+    def is_like(self, other: Any, equal_groups: Optional[List[List[Callable]]] = None) -> bool:
+        """Equal names and types, the types of one group of
+        ``equal_groups`` (such as ``[[pa.types.is_integer]]``) counting
+        as equal."""
+        if other is None:
+            return False
+        try:
+            o = other if isinstance(other, Schema) else Schema(other)
+        except Exception:
+            return False
+        if self.names != o.names:
+            return False
+        for a, b in zip(self.types, o.types):
+            if a == b:
+                continue
+            if equal_groups is not None and any(
+                any(c(a) for c in grp) and any(c(b) for c in grp) for grp in equal_groups
+            ):
+                continue
+            return False
+        return True
 
     def transform(self, *args: Any) -> "Schema":
         """A derived schema (``fugue_tpu/schema.py`` ``transform``): each

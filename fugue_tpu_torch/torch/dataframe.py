@@ -328,7 +328,7 @@ class TorchDataFrame(DataFrame):
     def as_local_bounded(self) -> ArrowDataFrame:
         return ArrowDataFrame(self.as_arrow())
 
-    def __getitem__(self, cols: List[str]) -> "TorchDataFrame":
+    def _select_cols(self, cols: List[str]) -> "TorchDataFrame":
         """The columns ``cols``, in that order, over the same rows: their
         encodings, null masks and host columns come along, and the valid
         mask is shared (``JaxDataFrame._select_cols``)."""
@@ -348,6 +348,37 @@ class TorchDataFrame(DataFrame):
                 schema=schema,
             )
         )
+
+    def rename(self, columns: Dict[str, str]) -> "TorchDataFrame":
+        """The same tensors under new names (``JaxDataFrame.rename``)."""
+        schema = self.schema.rename(columns)
+
+        def names(d: Dict[str, Any]) -> Dict[str, Any]:
+            return {columns.get(k, k): v for k, v in d.items()}
+
+        ht = self._host_tbl
+        return TorchDataFrame(
+            _internal=dict(
+                device=self._device,
+                device_cols=names(self._cols),
+                host_tbl=None if ht is None else ht.rename_columns(
+                    [columns.get(n, n) for n in ht.column_names]),
+                row_count=self._row_count,
+                valid_mask=self._valid_mask,
+                nan_cols=None if self._nan_cols is None else {columns.get(n, n) for n in self._nan_cols},
+                encodings=names(self._encodings),
+                null_masks=names(self._null_masks),
+                schema=schema,
+            )
+        )
+
+    def alter_columns(self, columns: Any) -> "TorchDataFrame":
+        """The columns of ``columns`` cast to their new types, through
+        arrow and back onto the device (``JaxDataFrame.alter_columns``)."""
+        if self.schema.alter(columns) == self.schema:
+            return self
+        return TorchDataFrame(ArrowDataFrame(self.as_arrow()).alter_columns(columns).as_arrow(),
+                              device=self._device)
 
     def __repr__(self) -> str:
         return f"TorchDataFrame({self.schema}, device={self._device})"

@@ -59,7 +59,8 @@ the JAX package keeps on its device and the port on its host, raise
 run them on its device.
 """
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import Any, Callable, ContextManager, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -76,7 +77,15 @@ from ..column.functions import is_agg
 from ..column.torch_eval import can_evaluate_on_device, device_predicate_plan, evaluate_torch, evaluate_torch_3v
 from ..collections.partition import parse_presort_exp
 from ..constants import FUGUE_TPU_CONF_MAX_PARTIAL_ROWS
-from ..dataframe import ArrowDataFrame, DataFrame, LocalBoundedDataFrame, LocalDataFrame, PandasDataFrame
+from .._utils.params import ParamDict
+from ..dataframe import (
+    ArrayDataFrame,
+    ArrowDataFrame,
+    DataFrame,
+    LocalBoundedDataFrame,
+    LocalDataFrame,
+    PandasDataFrame,
+)
 from ..dataframe.utils import get_join_schemas, parse_join_type
 from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
@@ -465,14 +474,39 @@ class TorchExecutionEngine(ExecutionEngine):
     def __repr__(self) -> str:
         return f"TorchExecutionEngine(device={self._device})"
 
+    @contextmanager
+    def run_conf_scope(self, overlay: Any = None) -> Iterator[ParamDict]:
+        """The run's conf over this engine's and over its host engine's,
+        which runs the host maps and joins of the run."""
+        with super().run_conf_scope(overlay) as merged, self._host_engine.run_conf_scope(overlay):
+            yield merged
+
+    def thread_scope(self) -> Callable[[], ContextManager]:
+        """The device and the current stream of the thread that starts a
+        run, for its task threads to enter: a new thread would otherwise
+        run on the default stream of the current device."""
+        if self._device.type != "cuda":
+            return nullcontext
+        stream = torch.cuda.current_stream(self._device)
+
+        @contextmanager
+        def scope() -> Iterator[None]:
+            with torch.cuda.device(self._device), torch.cuda.stream(stream):
+                yield
+
+        return scope
+
     def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
-        """A pandas frame, an arrow table, a local frame or a
-        ``TorchDataFrame`` as a ``TorchDataFrame`` on this engine's device.
-        A stream (``LocalDataFrameIterableDataFrame``) is read whole."""
+        """A pandas frame, an arrow table, a local frame, rows with a
+        schema or a ``TorchDataFrame`` as a ``TorchDataFrame`` on this
+        engine's device. A stream (``LocalDataFrameIterableDataFrame``) is
+        read whole."""
         if isinstance(df, TorchDataFrame):
             if df.device == self._device and (schema is None or df.schema == Schema(schema)):
                 return df
             return TorchDataFrame(df.as_arrow(), schema=schema, device=self._device)
+        if isinstance(df, (list, tuple)):
+            df = ArrayDataFrame(df, schema)
         if isinstance(df, LocalDataFrame):
             df = df.as_arrow()
         if isinstance(df, (pd.DataFrame, pa.Table)):

@@ -329,12 +329,18 @@ def test_pool_and_callbacks_are_refused(engine, case):
 
 
 def test_strings_and_cotransformers_are_refused(engine):
+    """A transformer named by a string resolves since the extension
+    registry is ported (ROADMAP.md A.11's workflow part): in the caller's
+    scope, as the function it names. Cotransformers are still refused,
+    naming A.11, where A.8 moved them."""
+
     def two(a: pd.DataFrame, b: pd.DataFrame) -> pd.DataFrame:
         return a
 
-    with pytest.raises(NotImplementedError, match="A.11"):
-        api.transform(_frame(), "pandas_form", schema="*", engine=engine)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    by_name = api.transform(_frame(), "pandas_form", schema="*,n:long", engine=engine)
+    by_func = api.transform(_frame(), pandas_form, schema="*,n:long", engine=engine)
+    pd.testing.assert_frame_equal(by_name, by_func)
+    with pytest.raises(NotImplementedError, match="A.11.*A.8"):
         api.transform(_frame(), two, schema="*", engine=engine)
 
 
