@@ -78,7 +78,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    WHERE/GROUP BY → TRANSFORM USING rescale) against a pandas oracle; each
    with its first call, the compile apart, the median of ``SQL_REPS``
    calls beside its twin's and the difference, and one traced call;
-10. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
+10. window_path: window functions through ``api.fugue_sql`` on the same
+   frame, one line a cell: ``window-per-order`` (each order's lines
+   ranked by price: RANK, DENSE_RANK, LAG and the order's total, WHERE
+   l_discount > 0.05; ~15M partitions) and ``window-global`` (a global
+   OVER by order key: RANK, the peer-frame running sum of the price and a
+   RANGE 32 PRECEDING count), each through the device route (the pandas
+   evaluator poisoned, the ``fugue::window_device`` span traced) against
+   a numpy oracle of the generator's arrays with the launch counts set to
+   0 just before and read just after, timed after a warm-up call (median
+   of ``WINDOW_REPS`` calls and their range) beside the bound of the bytes it reads and
+   writes, with its peak device memory and one traced call; then
+   ``api.repartition`` by hash and per row (the frame's own tensors
+   back) and a per-row transform of 1,000 rows against the host engine;
+11. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
    UDFs (``transform_udfs``) over frames of 100,000,000 rows built from
    ``--seed`` with numpy: ``map-keyless`` (elementwise), ``demean-dense``
    (bench.py's demean by 1,000 keys: the dense plan), ``demean-sorted``
@@ -90,7 +103,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to 0 just before and read just after, timed (median of
    ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
    a frame;
-11. join_path: the device joins at full width, one line a cell:
+12. join_path: the device joins at full width, one line a cell:
    ``north-star-100m`` (bench.py's ``_north_star`` in memory: the group
    means of 100,000,000 rows by ``api.aggregate``, joined back onto every
    row by ``api.join`` and subtracted by ``api.transform``),
@@ -102,7 +115,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
    bound, and traced once;
-12. host_path: the host engine behind the device engine, one line a cell:
+13. host_path: the host engine behind the device engine, one line a cell:
    ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
    ``transform(pdf, demean, schema="*", partition={"by": ["k"]})`` with a
    pandas UDF over bench.py's ``_make_frame`` cut to 1,000,000 rows,
@@ -114,7 +127,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each checked against a host oracle with the launch counts set to 0
    just before and read just after, timed, and traced once with the copy
    to the host, the pandas work and the copy back apart;
-13. stream_path: the streaming paths at full size, one line a cell:
+14. stream_path: the streaming paths at full size, one line a cell:
    ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
@@ -700,6 +713,7 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
     oracles = lineitem_oracles(np, pd, tbl, aux)
     select_oracles = select_path_oracles(np, pd, tbl, aux)
     setop_oracles = setop_path_oracles(np, pd, pa, tbl, aux)
+    window_arrays = window_path_arrays(np, tbl)
     t0 = time.perf_counter()
     tdf = engine.persist(engine.to_df(tbl))
     ingest_s = time.perf_counter() - t0
@@ -757,8 +771,9 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
         "launches_per_aggregate": out["aggregates"]["shipmode"]["launches"]["bin_sum"],
     }
     emit(out)
-    # the frame and the oracles go on to phase_select_path and phase_setop_path
-    out["handover"] = {"frame": tdf, "oracles": select_oracles, "setop_oracles": setop_oracles}
+    # the frame and the oracles go on to select_path, setop_path, sql_path and window_path
+    out["handover"] = {"frame": tdf, "oracles": select_oracles, "setop_oracles": setop_oracles,
+                       "window_arrays": window_arrays}
     return out
 
 
@@ -1112,6 +1127,206 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# window_path: FugueSQL window functions on the lineitem frame
+WINDOW_REPS = 3  # medians of 3 calls, after the checked one
+WINDOW_SUM_RTOL = 1e-9  # float64 sums in another order than the oracle's
+WINDOW_PER_ROW_ROWS = 1_000
+
+
+def window_path_queries() -> dict:
+    """The two cells of window_path: name → SQL over the table ``lineitem``."""
+    return {
+        # each order's lines ranked by price (about 15M partitions of 1-7 rows)
+        "window-per-order": (
+            "SELECT l_orderkey, l_extendedprice, "
+            "RANK() OVER (PARTITION BY l_orderkey ORDER BY l_extendedprice DESC) AS r, "
+            "DENSE_RANK() OVER (PARTITION BY l_orderkey ORDER BY l_extendedprice DESC) AS dr, "
+            "LAG(l_extendedprice, 1, 0.0) OVER (PARTITION BY l_orderkey ORDER BY l_extendedprice DESC) AS prev, "
+            "SUM(l_extendedprice) OVER (PARTITION BY l_orderkey) AS order_total "
+            "FROM lineitem WHERE l_discount > 0.05"),
+        # a global OVER: one segment of every row, a peer-frame running sum
+        # and a value-range frame
+        "window-global": (
+            "SELECT l_orderkey, RANK() OVER (ORDER BY l_orderkey) AS r, "
+            "SUM(l_extendedprice) OVER (ORDER BY l_orderkey) AS running, "
+            "COUNT(l_quantity) OVER (ORDER BY l_orderkey RANGE BETWEEN 32 PRECEDING AND CURRENT ROW) AS near "
+            "FROM lineitem"),
+    }
+
+
+def window_path_arrays(np, tbl) -> dict:
+    """The generator's columns the window oracles read, as numpy arrays."""
+    return {c: tbl.column(c).to_numpy() for c in ("l_orderkey", "l_extendedprice", "l_discount", "l_quantity")}
+
+
+def window_path_oracles(np, arrays: dict) -> dict:
+    """Each window cell's rows, computed with numpy from the generator's
+    arrays (the rows come grouped by order key, keys ascending): per
+    order, its filtered lines by price descending, ranks from the starts
+    of equal prices, the previous price (0.0 first) and the order's total;
+    globally, the rank and running sum by order key and the count of lines
+    whose key lies within 32 below."""
+    okey, price = arrays["l_orderkey"], arrays["l_extendedprice"]
+    require(bool((np.diff(okey) >= 0).all()), "window oracles: the generator's rows are not by order key")
+    out = {}
+    keep = arrays["l_discount"] > np.float32(0.05)  # float32 against a weak literal, as JAX compares
+    k, p = okey[keep], price[keep]
+    o = _order_by(np, np.cumsum(np.r_[True, k[1:] != k[:-1]]) - 1, -p)
+    k, p = k[o], p[o]
+    n = len(k)
+    idx = np.arange(n)
+    seg = np.r_[True, k[1:] != k[:-1]] if n else np.zeros(0, bool)
+    peer = seg | np.r_[True, p[1:] != p[:-1]] if n else seg
+    seg_start = np.maximum.accumulate(np.where(seg, idx, 0))
+    dense = np.cumsum(peer)
+    starts = np.flatnonzero(seg)
+    out["window-per-order"] = {
+        "l_orderkey": k, "l_extendedprice": p,
+        "r": np.maximum.accumulate(np.where(peer, idx, 0)) - seg_start + 1,
+        "dr": dense - dense[seg_start] + 1,
+        "prev": np.where(seg, 0.0, np.r_[0.0, p[:-1]]),
+        "order_total": np.repeat(np.add.reduceat(p, starts) if n else p, np.diff(np.r_[starts, n])),
+    }
+    n = len(okey)
+    run_start = np.searchsorted(okey, okey, side="left")
+    run_end = np.searchsorted(okey, okey, side="right") - 1
+    out["window-global"] = {
+        "l_orderkey": okey, "r": run_start + 1, "running": np.cumsum(price)[run_end],
+        "near": run_end + 1 - np.searchsorted(okey, okey - 32, side="left"),
+    }
+    return out
+
+
+def check_window(torch, np, res, exp: dict, what: str) -> str:
+    """A window cell's rows against its oracle's, on the card: both sorted
+    by (key, price descending, previous price) where they have them, the
+    order key otherwise (rows of one key are then equal); ranks and counts
+    exact, sums within WINDOW_SUM_RTOL."""
+    require(res.schema.names == list(exp), f"{what}: columns {res.schema.names}")
+    require(res.count() == len(exp["l_orderkey"]), f"{what}: {res.count()} rows, expected {len(exp['l_orderkey'])}")
+    valid = res.device_valid_mask()
+    dev = valid.device
+    got = {c: res.device_cols[c][valid] for c in exp}
+    want = {c: torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev) for c, a in exp.items()}
+
+    def order(cols):
+        perm = torch.arange(len(cols["l_orderkey"]), device=dev)
+        keys = [cols["l_orderkey"]]
+        if "prev" in cols:
+            keys = [cols["l_orderkey"], -cols["l_extendedprice"], cols["prev"]]
+        for key in reversed(keys):
+            perm = perm[torch.sort(key[perm], stable=True).indices]
+        return perm
+
+    g, w = order(got), order(want)
+    for c in exp:
+        a, b = got[c][g], want[c][w].to(got[c].dtype)
+        if a.is_floating_point() and c not in ("l_extendedprice", "prev"):
+            require(bool(torch.isfinite(a).all()), f"{what}: non-finite {c}")
+            require(bool(torch.allclose(a, b, rtol=WINDOW_SUM_RTOL, atol=0)), f"{what}: {c} vs the oracle")
+        else:
+            require(bool(torch.equal(a, b)), f"{what}: {c} differs from the oracle")
+    return f"ranks, counts, keys, prices exact; sums rtol={WINDOW_SUM_RTOL} vs a numpy oracle"
+
+
+def phase_window_path(torch, np, pd, bg, api, engine, tdf, arrays: dict) -> dict:
+    """Window functions through ``api.fugue_sql`` on the card, one line a
+    cell of ``window_path_queries`` over the lineitem frame ``tdf``: the
+    first call with the pandas evaluator poisoned (the device route must
+    answer) and the launch counts set to 0 just before and read just
+    after, checked against ``window_path_oracles``; one warm-up call, then
+    the median of ``WINDOW_REPS`` calls and their range; one traced call (its
+    ``fugue::window_device`` span asserted); the bound of the bytes the
+    cell reads and writes; the peak device memory. Then repartition,
+    untimed: ``api.repartition`` by hash and per row returns the frame's
+    own tensors, and a per-row transform of WINDOW_PER_ROW_ROWS rows equals
+    the host engine's."""
+    import unittest.mock as mock
+
+    import fugue_tpu_torch.column.window as host_window
+
+    from fugue_tpu_torch.execution import NativeExecutionEngine
+
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    oracles = window_path_oracles(np, arrays)
+    oracle_s = time.perf_counter() - t0
+    out = {"cells": {}}
+    rows = tdf.count()
+
+    def poisoned(*a, **k):
+        raise AssertionError("the pandas window evaluator ran on the device engine")
+
+    for cell, query in window_path_queries().items():
+        def call(query=query):
+            return api.fugue_sql(query, lineitem=tdf, engine=engine, as_fugue=True)
+
+        for k in bg.LAUNCHES:
+            bg.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        with mock.patch.object(host_window, "eval_window", poisoned):
+            res = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(bg.LAUNCHES)
+        t0 = time.perf_counter()
+        checks = check_window(torch, np, res, oracles[cell], cell)
+        check_s = time.perf_counter() - t0
+        out_rows = res.count()
+        out_bytes = sum(t.element_size() for t in res.device_cols.values()) * out_rows
+        del res
+        call()  # warm-up: the check's device copies left the allocator's cache in other sizes
+        wall = []
+        for _ in range(WINDOW_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(wall)
+        read = ("l_orderkey", "l_extendedprice", "l_discount") if cell == "window-per-order" else (
+            "l_orderkey", "l_extendedprice", "l_quantity")
+        row_bytes = sum(tdf.device_cols[c].element_size() for c in read)
+        bound_ms, bound_by = _bound(rows, row_bytes, out_bytes)
+        profile = _trace(torch, call)
+        require("fugue::window_device" in profile["host_spans_ms"], f"{cell}: no fugue::window_device span")
+        line = {"phase": "window_path", "cell": cell, "rows": rows, "rows_out": out_rows, "launches": launches,
+                "first_call_s": first_s, "check_s": check_s, "ms": ms, "ms_range": [min(wall), max(wall)],
+                "ms_all": wall, "rows_per_s": rows / ms * 1e3, "bound_ms": bound_ms, "bound_by": bound_by,
+                "peak_device_gb": peak / 1e9, "peak_above_frame_gb": (peak - base) / 1e9, "checks": checks,
+                "profile": profile, "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"][cell] = line
+    # repartition on one device: no row moves, no copy
+    for spec in ({"by": ["l_orderkey"], "algo": "hash"}, "per_row"):
+        rep = api.repartition(tdf, spec, engine=engine)
+        require(rep.count() == rows and all(
+            rep.device_cols[c].data_ptr() == tdf.device_cols[c].data_ptr() for c in tdf.schema.names),
+            f"repartition {spec}: the rows were copied or changed")
+
+    def size(df: pd.DataFrame) -> pd.DataFrame:
+        return df.assign(n=len(df))
+
+    small = pd.DataFrame({"l_orderkey": arrays["l_orderkey"][:WINDOW_PER_ROW_ROWS],
+                          "l_extendedprice": arrays["l_extendedprice"][:WINDOW_PER_ROW_ROWS]})
+    got = api.transform(engine.to_df(small), size, schema="*,n:long", partition="per_row", engine=engine)
+    exp = api.transform(small, size, schema="*,n:long", partition="per_row", engine=NativeExecutionEngine())
+    require(got.device.type == engine.device.type, "per_row transform: the result left the device")
+    _same_rows(np, got.as_pandas(), exp, "per_row transform")
+    require(bool((exp["n"] == 1).all()), "per_row transform: a partition of more than one row")
+    out["repartition"] = {"checks": "hash and per_row: the frame's own tensors; per_row transform of "
+                          f"{WINDOW_PER_ROW_ROWS} rows equals the host engine's"}
+    out["oracle_s"] = oracle_s
+    out["seconds"] = time.perf_counter() - start
+    emit({"phase": "window_path_end", "oracle_s": oracle_s, "repartition": out["repartition"],
+          "seconds": out["seconds"]})
     return out
 
 
@@ -2427,6 +2642,7 @@ def main() -> int:
                                   handover["setop_oracles"], args.seed, stream_rows=args.setop_stream_rows)
     sql_path = phase_sql_path(torch, np, pd, bg, api, engine, handover["frame"], handover["oracles"],
                               select_path["cells"], pipeline_rows=args.sql_rows)
+    window_path = phase_window_path(torch, np, pd, bg, api, engine, handover["frame"], handover["window_arrays"])
     del handover
     torch.cuda.empty_cache()
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
@@ -2452,6 +2668,7 @@ def main() -> int:
                    "setop_path": {c: r["launches"][name] for c, r in setop_path["cells"].items()
                                   if "launches" in r},
                    "sql_path": {c: r["launches"][name] for c, r in sql_path["cells"].items()},
+                   "window_path": {c: r["launches"][name] for c, r in window_path["cells"].items()},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
@@ -2471,7 +2688,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
             + sum(by_path["select_path"].values()) + sum(by_path["setop_path"].values())
-            + sum(by_path["sql_path"].values())
+            + sum(by_path["sql_path"].values()) + sum(by_path["window_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,

@@ -107,6 +107,15 @@ def fillna(df: Any, value: Any, subset: Optional[List[str]] = None, engine: Any 
     return _verb(lambda e, d: e.fillna(d, value, subset=subset), df, engine, device, as_fugue)
 
 
+def repartition(df: Any, partition: Any, engine: Any = None, device: Any = None,
+                as_fugue: bool = False) -> Any:
+    """``df`` laid out by ``partition`` (a ``PartitionSpec``, its dict,
+    ``"per_row"`` or an algo name: ``hash``, ``even``, ``rand``,
+    ``coarse``). On one device no row moves: the device frame comes back
+    with no copy."""
+    return _verb(lambda e, d: e.repartition(d, PartitionSpec(partition)), df, engine, device, as_fugue)
+
+
 def broadcast(df: Any, engine: Any = None, device: Any = None, as_fugue: bool = False) -> Any:
     """``df`` made available whole to every worker: on one device, as it is."""
     return _verb(lambda e, d: e.broadcast(d), df, engine, device, as_fugue)
@@ -257,7 +266,7 @@ def _run(
 def _partition_spec(partition: Any) -> PartitionSpec:
     if partition is None:
         return PartitionSpec()
-    if isinstance(partition, (PartitionSpec, dict, int)):
+    if isinstance(partition, (PartitionSpec, dict, int)) or partition == "per_row":
         return PartitionSpec(partition)
     return PartitionSpec(by=partition)
 

@@ -1,26 +1,29 @@
 """``PartitionSpec`` and ``PartitionCursor``, copied from
 ``fugue_tpu/collections/partition.py``: a spec's keys (``by``), presort
-(``presort``) and partition count (``num``, an expression over
-``ROWCOUNT`` and ``CONCURRENCY``), and the cursor a transformer reads its
-partition's keys from. ``num`` splits a keyless host map into that many
-contiguous partitions, as the JAX package's host engine does. The spec's
-``algo`` steers a repartition, which the port does not have yet: asking
-for it raises ``NotImplementedError`` (ROADMAP.md A.7).
+(``presort``), partition count (``num``, an expression over ``ROWCOUNT``
+and ``CONCURRENCY``) and repartition algorithm (``algo``: ``hash``,
+``even``, ``rand`` or ``coarse``; ``"per_row"`` is ``algo="even",
+num="ROWCOUNT"``), and the cursor a transformer reads its partition's keys
+from. ``num`` splits a keyless host map into that many contiguous
+partitions, as the JAX package's host engine does.
 
-On one device the port needs no exchange: where the JAX package's keyed
-map asks for ``algo="hash"`` to bring every group onto one shard, every
-group is already whole on the one device."""
+On one device ``algo`` moves no row: where the JAX package exchanges rows
+between the shards of its mesh (``repartition``), every row is already on
+the one device, so every group is whole there."""
 
 import ast
+import json
 import operator
 from typing import Any, Callable, Dict, List
 
 from .._utils.assertion import assert_or_throw
+from .._utils.hash import to_uuid
 from .._utils.params import IndexedOrderedDict
 from ..exceptions import FugueTPUError
 
 KEYWORD_ROWCOUNT = "ROWCOUNT"
 KEYWORD_CONCURRENCY = "CONCURRENCY"
+_ALGOS = ("hash", "rand", "even", "coarse")
 _OPS: Dict[type, Callable] = {
     ast.Add: operator.add,
     ast.Sub: operator.sub,
@@ -124,20 +127,33 @@ class PartitionSpec:
                 continue
             if isinstance(a, PartitionSpec):
                 a = a.jsondict
+            elif isinstance(a, str):
+                if a == "per_row":
+                    a = {"algo": "even", "num": KEYWORD_ROWCOUNT}
+                elif a.lower() in _ALGOS + ("default",):
+                    a = {"algo": a.lower()}
+                else:
+                    a = json.loads(a)
             elif isinstance(a, int) and not isinstance(a, bool):
                 a = {"num": a}
             elif not isinstance(a, dict):
                 raise PartitionSpecError(f"can't initialize PartitionSpec with {a!r}")
             for k, v in a.items():
                 params[{"partition_by": "by", "num_partitions": "num"}.get(k, k)] = v
-        extra = sorted(k for k in params if k not in ("by", "presort", "num"))
-        if len(extra) > 0:
-            raise NotImplementedError(
-                f"PartitionSpec fields {extra} are not ported yet; the port "
-                "reads `by`, `presort` and `num` (ROADMAP.md A.7 repartition)"
-            )
+        extra = set(params) - {"by", "presort", "num", "algo"}
+        assert_or_throw(
+            len(extra) == 0,
+            lambda: PartitionSpecError(f"invalid PartitionSpec keys {extra}"),
+        )
         self._num = str(params.get("num", "0"))
-        by = params.get("by", [])
+        self._algo = str(params.get("algo", "")).lower()
+        assert_or_throw(
+            self._algo in ("", "default") + _ALGOS,
+            lambda: PartitionSpecError(f"invalid algo {self._algo!r}"),
+        )
+        if self._algo == "default":
+            self._algo = ""
+        by = params.get("by") or []
         self._by: List[str] = [by] if isinstance(by, str) else [str(x) for x in by]
         assert_or_throw(
             len(set(self._by)) == len(self._by),
@@ -149,6 +165,21 @@ class PartitionSpec:
             len(overlap) == 0,
             lambda: PartitionSpecError(f"presort keys {overlap} overlap partition keys"),
         )
+
+    @property
+    def empty(self) -> bool:
+        """No keys, presort, count or algorithm: the engine decides."""
+        return self._num in ("0", "") and self._algo == "" and len(self._by) == 0 and len(self._presort) == 0
+
+    @property
+    def num_partitions(self) -> str:
+        return self._num
+
+    @property
+    def algo(self) -> str:
+        """``hash``, ``even``, ``rand``, ``coarse``, or ``""`` (the engine's
+        default: hash with keys, even without)."""
+        return self._algo
 
     def get_num_partitions(self, **expr_map_funcs: Callable[[], int]) -> int:
         """The partition-number expression's value: ``expr_map_funcs`` maps
@@ -177,7 +208,10 @@ class PartitionSpec:
 
     @property
     def jsondict(self) -> Dict[str, Any]:
-        return {"num": self._num, "by": self.partition_by, "presort": self.presort_expr}
+        return {"num": self._num, "algo": self._algo, "by": self.partition_by, "presort": self.presort_expr}
+
+    def __uuid__(self) -> str:
+        return to_uuid(self.jsondict)
 
     def get_sorts(self, schema: Any, with_partition_keys: bool = True) -> IndexedOrderedDict:
         """Full sort map for a physical partition: partition keys (ascending)
@@ -206,7 +240,7 @@ class PartitionSpec:
         return PartitionCursor(schema, self, physical_partition_no)
 
     def __repr__(self) -> str:
-        return f"PartitionSpec(by={self._by!r}, presort={self.presort_expr!r})"
+        return f"PartitionSpec({json.dumps(self.jsondict)})"
 
 
 class PartitionCursor:

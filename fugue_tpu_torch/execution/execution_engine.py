@@ -1,8 +1,8 @@
 """ExecutionEngine, MapEngine and SQLEngine ABCs, copied from
 ``fugue_tpu/execution/execution_engine.py`` and trimmed to the verbs the
-port's engines have: ``to_df``, ``persist``, ``broadcast``, the map behind
-``transform`` (``MapEngine.map_dataframe`` :276, with ``on_init`` and the
-format hint), ``select``, ``filter``, ``assign``, ``aggregate``, ``join``,
+port's engines have: ``to_df``, ``repartition``, ``persist``,
+``broadcast``, the map behind ``transform`` (``MapEngine.map_dataframe``
+:276, with ``on_init`` and the format hint), ``select``, ``filter``, ``assign``, ``aggregate``, ``join``,
 the set operations, ``distinct``, ``dropna``, ``fillna``, ``sample``,
 ``take``, ``load_df`` and ``save_df``.
 
@@ -11,8 +11,8 @@ forms here, as in the JAX package (:716-806): the frame on the host, the
 column IR evaluated over pandas (``column/eval.py``). A verb an engine
 does not implement raises ``NotImplementedError``: the host engine
 (``NativeExecutionEngine``) and the device engine
-(``TorchExecutionEngine``) have all of them. What neither has yet, zip,
-comap and repartition, is not in this contract (ROADMAP.md A.7, A.8).
+(``TorchExecutionEngine``) have all of them. What neither has yet, zip
+and comap, is not in this contract (ROADMAP.md A.11).
 
 For the workflow: the ``SQLEngine`` facet (:124) and ``sql_engine``,
 ``create_default_sql_engine`` and ``set_sql_engine`` (:267-297), the
@@ -60,6 +60,14 @@ class MapEngine(ABC):
 
     def to_df(self, df: Any, schema: Any = None) -> DataFrame:
         return self._execution_engine.to_df(df, schema)
+
+    @property
+    def map_handles_repartition(self) -> bool:
+        """Whether ``map_dataframe`` groups the frame itself, so that a
+        transform needs no ``repartition`` first (``run_transformer``).
+        Both maps of the port do: the host map sorts and slices, the
+        device map sorts or buckets by the keys."""
+        return True
 
     @abstractmethod
     def map_dataframe(
@@ -224,6 +232,12 @@ class ExecutionEngine(ABC):
 
     def _missing(self, verb: str) -> NotImplementedError:
         return NotImplementedError(f"{verb} is not ported to {type(self).__name__} ({_VERBS})")
+
+    @abstractmethod
+    def repartition(self, df: DataFrame, partition_spec: PartitionSpec) -> DataFrame:
+        """``df`` laid out by ``partition_spec``: its ``algo`` (``hash``
+        by the keys, ``even``, ``rand``, ``coarse``) and ``num``."""
+        raise NotImplementedError
 
     def persist(self, df: DataFrame, lazy: bool = False, **kwargs: Any) -> DataFrame:
         """Materialize ``df`` in the engine's memory; unless ``lazy``,

@@ -11,7 +11,8 @@ device engine hands to its host engine, as ``JaxExecutionEngine`` does
   ``fugue.tpu.map.parallelism`` above 1 raises;
 - ``join`` (:345) with SQL NULL semantics (a NULL key matches nothing),
   ``union``, ``subtract``, ``intersect``, ``distinct``, ``dropna``,
-  ``fillna``, ``sample``, ``take``, ``broadcast``, ``persist``,
+  ``fillna``, ``sample``, ``take``, ``repartition`` (the frame itself:
+  the map partitions logically), ``broadcast``, ``persist``,
   ``load_df`` and ``save_df``;
 - ``select``, ``filter``, ``assign`` and ``aggregate`` from the base
   class: the column IR evaluated over pandas (``column/eval.py``), and
@@ -155,6 +156,10 @@ class NativeExecutionEngine(ExecutionEngine):
             return ArrayDataFrame(df, schema)
         fdf = as_fugue_df(df) if schema is None else as_fugue_df(df, schema=schema)
         return fdf.as_local_bounded()
+
+    def repartition(self, df: DataFrame, partition_spec: PartitionSpec) -> DataFrame:
+        # one process: the map partitions logically (map_dataframe)
+        return df
 
     def broadcast(self, df: DataFrame) -> DataFrame:
         return df

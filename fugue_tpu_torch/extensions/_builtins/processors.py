@@ -48,7 +48,9 @@ def run_transformer(
     tf._params = ParamDict(params)  # type: ignore[attr-defined]
     tf._partition_spec = spec  # type: ignore[attr-defined]
     tf._execution_engine = engine  # type: ignore[attr-defined]
-    # both map paths group inside map_dataframe: no repartition first
+    # a map that groups inside map_dataframe needs no exchange first
+    if not spec.empty and not engine.map_engine.map_handles_repartition:
+        df = engine.repartition(df, spec)
     validate_input_schema(df.schema, tf.validation_rules)
     schema = Schema(tf.get_output_schema(df))
     tf._output_schema = schema  # type: ignore[attr-defined]

@@ -7,12 +7,17 @@ ORDER BY sorts on the host, as the JAX package does; decorrelated
 subqueries, GROUPING SETS, GROUP BY expressions and the decoupled GROUP
 BY are the JAX package's.
 
-A windowed SELECT (``func(...) OVER (...)``) is not evaluated on any
-engine of the port (ROADMAP.md A.11, device windows): it raises."""
+A windowed SELECT (``func(...) OVER (...)``) runs WHERE → window →
+projection → DISTINCT: on ``TorchExecutionEngine`` through the device
+plan (``torch/window.py``, span ``fugue::window_device``) wherever it
+covers the query, as the JAX engine does, and otherwise on the host
+through the pandas evaluator (``column/window.py``, span
+``fugue::window_host``)."""
 
 from typing import Any, Dict, List, Optional
 
 import pandas as pd
+from torch.profiler import record_function
 
 from ..column import SelectColumns, col as _col
 from ..column.expressions import (
@@ -1117,8 +1122,95 @@ class SQLExecutor:
             grouped, SelectColumns(*finals, arg_distinct=node.distinct)
         )
 
+    def _try_device_windowed_select(
+        self, node: "SelectNode", child: DataFrame
+    ) -> Optional[DataFrame]:
+        """The device plan of a windowed SELECT (``torch/window.py``): the
+        WHERE as the device filter, every OVER column in one pass, the
+        projection through the engine's column IR; the frame never goes to
+        the host. None, before any device work, where the plan declines:
+        another engine, or a shape the plan does not cover."""
+        from ..torch.execution_engine import TorchExecutionEngine
+        from ..torch.window import plan_device_windows, run_device_windows
+
+        e = self._engine
+        if not isinstance(e, TorchExecutionEngine):
+            return None
+        items: List[Any] = []
+        projections: List[Any] = []
+        for i, c in enumerate(node.projections):
+            if isinstance(c, _WindowExpr):
+                items.append((f"__w{i}__", c))
+                sub = _col(f"__w{i}__").alias(c.output_name or f"_w{i}")
+                if c.as_type is not None:
+                    sub = sub.cast(c.as_type)
+                projections.append(sub)
+            elif _contains_window(c):
+                return None  # nested windows keep the host error path
+            else:
+                projections.append(c)
+        tdf = e.to_df(child)
+        # gate BEFORE the WHERE filter: a query the plan declines pays for
+        # no device work that the host path would redo
+        names = [n for c in projections for n in _referenced_names(c)]
+        plan = plan_device_windows(tdf, items, tdf.schema.names if "*" in names else names)
+        if plan is None:
+            return None
+        with record_function("fugue::window_device"):
+            if node.where is not None:
+                tdf = e.filter(tdf, node.where)
+            work = run_device_windows(e, tdf, plan)
+            cols = SelectColumns(
+                *[c.infer_alias() for c in projections], arg_distinct=node.distinct
+            )
+            return e.select(work, cols)
+
     def _exec_windowed_select(self, node: SelectNode, child: DataFrame) -> DataFrame:
-        raise NotImplementedError(
-            "windowed SELECT (func(...) OVER (...)): window functions are not ported to "
-            "any engine of the port (ROADMAP.md A.11, device windows)"
-        )
+        """SQL evaluation order: WHERE → window → projection → DISTINCT."""
+        import pyarrow as pa
+
+        from ..column.eval import eval_filter
+        from ..column.window import eval_window
+        from ..schema import Schema
+
+        e = self._engine
+        if len(node.group_by) > 0 or node.having is not None:
+            raise NotImplementedError(
+                "window functions can't be combined with GROUP BY/HAVING yet"
+            )
+        device = self._try_device_windowed_select(node, child)
+        if device is not None:
+            return device
+        with record_function("fugue::window_host"):
+            local = e.to_df(child).as_local_bounded()
+            pdf = local.as_pandas()
+            if node.where is not None:
+                pdf = eval_filter(pdf, node.where)
+            schema = local.schema
+            projections: List[Any] = []
+            extra_fields: List[Any] = []
+            for i, c in enumerate(node.projections):
+                # only top-level windows are supported
+                if isinstance(c, _WindowExpr):
+                    series = eval_window(pdf, c)
+                    pdf = pdf.assign(**{f"__w{i}__": series})
+                    tp = c.infer_type(schema)
+                    extra_fields.append(
+                        pa.field(f"__w{i}__", tp if tp is not None else pa.float64())
+                    )
+                    sub = _col(f"__w{i}__").alias(c.output_name or f"_w{i}")
+                    if c.as_type is not None:
+                        sub = sub.cast(c.as_type)
+                    projections.append(sub)
+                elif _contains_window(c):
+                    raise NotImplementedError(
+                        "window functions nested inside expressions are not supported"
+                    )
+                else:
+                    projections.append(c)
+            work_schema = Schema(list(schema.fields) + extra_fields)
+            work = PandasDataFrame(pdf, work_schema)
+            cols = SelectColumns(
+                *[c.infer_alias() for c in projections], arg_distinct=node.distinct
+            )
+            return e.select(work, cols)

@@ -1,8 +1,8 @@
 """TorchExecutionEngine — the port of ``JaxExecutionEngine``
 (``fugue_tpu/jax/execution_engine.py``) for one CUDA device.
 
-The port has ``to_df``, ``persist``, ``broadcast``, the device
-``aggregate``, the maps behind ``transform`` (``TorchMapEngine``), the
+The port has ``to_df``, ``repartition``, ``persist``, ``broadcast``, the
+device ``aggregate``, the maps behind ``transform`` (``TorchMapEngine``), the
 device ``join`` of every type, ``union``, ``subtract``, ``intersect``,
 ``distinct``, ``sample``, ``take``, the row-local verbs ``filter``,
 ``select``, ``assign``, ``dropna`` and ``fillna``, ``load_df`` and
@@ -219,15 +219,14 @@ class TorchMapEngine(MapEngine):
             return streaming_keyed_compiled_map(engine, df, fn, output_schema, partition_spec)
         tdf = engine.to_df(df)
         if len(keys) == 0:
-            if len(partition_spec.presort) > 0:
-                raise NotImplementedError(
-                    "a presort without partition keys orders the frame through a "
-                    "repartition, which is not ported (ROADMAP.md A.7 repartition)"
-                )
             if tdf.has_encoded:
                 # the JAX package renders encoded/masked columns as real
                 # values on its host engine
                 return None
+            # the map runs over the frame as it lies: a keyless spec (a
+            # presort, an algo, a count) only lays the rows out first
+            if not partition_spec.empty:
+                tdf = engine.repartition(tdf, partition_spec)
             return self._compiled_map(tdf, fn, output_schema)
         # encoded/masked columns have non-plain semantics the UDF can't see.
         # The ONE exception: dictionary-encoded PARTITION keys, whose codes
@@ -558,6 +557,23 @@ class TorchExecutionEngine(ExecutionEngine):
     def broadcast(self, df: Any) -> TorchDataFrame:
         """On one device every frame is already whole: the same tensors,
         with the valid mask, null masks and encodings they carry."""
+        return self.to_df(df)
+
+    def repartition(self, df: Any, partition_spec: PartitionSpec) -> Any:
+        """The JAX engine's exchange (``repartition`` :779) sends each row
+        to the shard its ``algo`` picks: by the hash of the keys (``hash``,
+        the default with keys), evenly (``even``, the default without) or
+        at random (``rand``); ``coarse`` moves none. On one device each of
+        them picks the one device, so the frame comes back as it lies, with
+        no copy. An empty spec returns ``df`` untouched."""
+        if partition_spec is None or partition_spec.empty:
+            return df
+        return self.to_df(df)
+
+    def _repartition_single(self, df: Any) -> TorchDataFrame:
+        """Every row on one device: the layout of a global (no PARTITION
+        BY) window, which the JAX engine builds by moving every row to
+        shard 0 (:855). On one device, the frame itself."""
         return self.to_df(df)
 
     def _host_call(

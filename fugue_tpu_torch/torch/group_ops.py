@@ -40,7 +40,7 @@ an empty segment holds 0, ``inf`` or ``-inf`` as ``jax.ops.segment_*``
 gives. The running (window) helpers need the sorted plan.
 """
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -192,7 +192,7 @@ def _minmax_identity(dtype: torch.dtype, kind: str) -> Any:
 
 
 def _segmented_scan(
-    cols: Dict[str, Any], x: torch.Tensor, combine: Callable, identity: Any
+    cols: Dict[str, Any], x: torch.Tensor, combine: Callable, identity: Any, span: Optional[int] = None
 ) -> torch.Tensor:
     """Generic inclusive per-group scan, as a log-step (Hillis–Steele) scan
     in place of the JAX package's ``lax.associative_scan``: ⌈log2 n⌉
@@ -200,7 +200,9 @@ def _segmented_scan(
     are in the same segment (segments are contiguous under the sorted
     plan, so that row's partial result lies wholly inside the group). NaN
     inputs (the device NULL) are masked to the identity, matching the
-    engine's SQL window semantics (NULLs are skipped, not propagated)."""
+    engine's SQL window semantics (NULLs are skipped, not propagated).
+    ``span``, the length of the longest segment where the caller knows it,
+    cuts the passes to ⌈log2 span⌉."""
     seg = cols[SEGMENTS]
     mask = cols[VALID]
     is_float = x.is_floating_point()
@@ -209,7 +211,8 @@ def _segmented_scan(
     out = torch.where(mask, x, torch.full((), identity, dtype=x.dtype, device=x.device))
     seen = mask  # any non-NULL value seen so far in the group
     n, d = out.shape[0], 1
-    while d < n:
+    limit = n if span is None else min(n, span)
+    while d < limit:
         same = seg[d:] == seg[:-d]
         out = torch.cat([out[:d], torch.where(same, combine(out[:-d], out[d:]), out[d:])])
         seen = torch.cat([seen[:d], seen[d:] | (same & seen[:-d])])

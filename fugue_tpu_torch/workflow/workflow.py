@@ -96,10 +96,7 @@ class WorkflowDataFrame:
         return self.partition(by=list(keys), algo="even")
 
     def per_row(self) -> "WorkflowDataFrame":
-        raise NotImplementedError(
-            "per_row: a partition of one row each is an even repartition, which is not "
-            "ported (ROADMAP.md A.7)"
-        )
+        return self.partition("per_row")
 
     # -- transforms ---------------------------------------------------------
     def transform(

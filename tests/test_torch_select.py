@@ -8,7 +8,7 @@ The cases are those of ``fugue_tpu_test/execution_suite.py``
 (``test_select`` :347, ``test_filter`` :356, ``test_assign`` :361,
 ``test_aggregate`` :366, ``test_aggregate_no_keys`` :378, ``test_dropna``
 :276, ``test_fillna`` :283, ``test_select_with_cast`` :579,
-``test_persist_broadcast`` :538, without its repartition: ROADMAP.md A.7),
+``test_persist_broadcast`` :538),
 of ``tests/jax_engine/test_encoded_columns.py`` :115-:160 and :246, the
 filtered-frame cases of ``test_nested_and_edges.py:107``,
 ``test_device_resident_agg.py:80`` and ``test_advice_r2.py:63``, a matrix
@@ -258,6 +258,9 @@ def test_suite_persist_broadcast(jax_engine, engine):
         got, _ = _both(jax_engine, engine, data, lambda e, d: getattr(e, verb)(d),
                        lambda e, d: getattr(e, verb)(d))
         assert got.as_arrow().to_pylist() == [{"a": 1}]
+    got, _ = _both(jax_engine, engine, data, lambda e, d: e.repartition(d, JPartitionSpec(num=2)),
+                   lambda e, d: e.repartition(d, PartitionSpec(num=2)))
+    assert got.as_arrow().to_pylist() == [{"a": 1}]
 
 
 # ---- tests/jax_engine/test_encoded_columns.py -------------------------------

@@ -8,9 +8,10 @@ the reference side on ``fugue_tpu``'s ``NativeExecutionEngine`` and
 the pairs ``native`` and ``device``. Then:
 
 - a windowed SELECT (``TestWindowFunctions``, ``TestWindowFrames``,
-  ``TestWindowFrameEdges``) raises ``NotImplementedError`` naming
-  ROADMAP.md A.11 on the port (or the same syntax error as the reference),
-  and ``CONNECT`` to an engine the port lacks names A.10;
+  ``TestWindowFrameEdges``) answers as on the reference, through the
+  pandas evaluator exactly where the reference uses its own (or raises the
+  same exception class, or the same syntax error), and ``CONNECT`` to an
+  engine the port lacks names A.10;
 - a parser differential: every SQL text of this file parsed by both
   parsers, the plan trees compared by a structural dump;
 - chip_smoke.py's sql_path texts at ~64k lineitem rows against the JAX
@@ -23,6 +24,7 @@ digits of the reference's comparator ``_df_eq``).
 
 import dataclasses
 import os
+import unittest.mock as mock
 from typing import Any, List
 
 import numpy as np
@@ -402,7 +404,7 @@ def test_fsql_on_the_device_engine(jax_engine):
     assert got.as_pandas()["s"].tolist() == [3.0, 3.0]
 
 
-# ---- windows and CONNECT: the refusals ----------------------------------------
+# ---- windows, and CONNECT's refusals -------------------------------------------
 
 _WDF = {"k": [1, 1, 1, 2, 2], "v": [10.0, 30.0, 20.0, 5.0, 15.0]}
 WINDOW_CASES = [
@@ -461,12 +463,38 @@ WINDOW_SYNTAX_ERRORS = [
 
 @pytest.mark.parametrize("name,data,sql", WINDOW_CASES, ids=[c[0] for c in WINDOW_CASES])
 def test_windowed_selects_are_refused(pair, name, data, sql):
-    """Every windowed SELECT of the reference's window tests raises naming
-    A.11 on both port engines; none runs on the host in its place."""
-    _, engine = pair
+    """Every windowed SELECT of the reference's window tests (once refused
+    here, hence the name) answers on both port engines as on the
+    reference's, or raises the same exception class where it raises
+    (``nested_window``, ``window_with_groupby``). The pandas evaluator
+    (``column/window.py`` ``eval_window``) runs on the port exactly where it
+    runs on the reference: always on the native pair, where the device plan
+    declines on the device pair."""
+    import fugue_tpu.column.window as jwindow
+    import fugue_tpu_torch.column.window as twindow
+
+    ref_engine, engine = pair
     t = pd.DataFrame(data)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        api.fugue_sql(sql, engine=engine)
+    if name in ("nested_window", "window_with_groupby"):
+        _both_raise(lambda: api.fugue_sql(sql, engine=engine), lambda: jfugue_sql(sql, engine=ref_engine))
+        return
+    calls = {}
+
+    def spy(module, key):
+        real = module.eval_window
+
+        def wrapped(*args, **kwargs):
+            calls[key] = calls.get(key, 0) + 1
+            return real(*args, **kwargs)
+
+        return mock.patch.object(module, "eval_window", wrapped)
+
+    with spy(jwindow, "ref"):
+        ref = jfugue_sql(sql, engine=ref_engine, as_fugue=True)
+    with spy(twindow, "port"):
+        got = api.fugue_sql(sql, engine=engine, as_fugue=True)
+    _same(got, ref)
+    assert ("port" in calls) == ("ref" in calls), calls
 
 
 @pytest.mark.parametrize("name,data,sql", WINDOW_SYNTAX_ERRORS, ids=[c[0] for c in WINDOW_SYNTAX_ERRORS])

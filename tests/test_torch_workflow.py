@@ -543,8 +543,9 @@ def test_cotransform_zip_and_callbacks_are_refused(port_engine):
 
     with pytest.raises(NotImplementedError, match="A.10"):
         a.transform(report, schema="*")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        a.per_row()
+    # per_row answers now: one row a partition, an even repartition
+    spec = a.per_row().partition_spec
+    assert (spec.algo, spec.num_partitions) == ("even", "ROWCOUNT")
     dag = twf.FugueWorkflow()
     dag.df([[1]], "a:long").transform(_string_ref_transformer, schema="*", callback=lambda x: x).show()
     with pytest.raises(NotImplementedError, match="A.10"):
