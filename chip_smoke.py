@@ -91,7 +91,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    writes, with its peak device memory and one traced call; then
    ``api.repartition`` by hash and per row (the frame's own tensors
    back) and a per-row transform of 1,000 rows against the host engine;
-11. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
+11. cogroup_path: zip and comap with a pandas cotransformer (BASELINE.json
+   config #3's cogroup), one line a cell: ``cogroup-uniform-1k`` (cut in
+   depth to 2·10^7 rows, ``--cogroup-rows``; ``k`` over 1,000 keys and ``v``
+   float32 with 1% NaN, made on the card, zipped inner by ``k`` with 10^6
+   rows over 1,100 keys through
+   ``FugueWorkflow``: ``dag.zip(a, b, partition={"by": ["k"]})
+   .transform(cogroup)``), ``sql-cogroup-uniform-1k`` (the same as
+   FugueSQL ``TRANSFORM a, b PREPARTITION BY k USING cogroup``) and
+   ``stream-cogroup`` (a key-sorted stream cut in scale to 2·10^7 rows in
+   chunks of 4·10^6, ``--cogroup-stream-rows``, zipped with a bounded
+   frame of 10^4 rows in shuffled order), each against a ``np.bincount``
+   oracle with the launch counts set to 0 just before and read just after
+   (B1 and B2 launch 0 times here), timed, with the copy to the host in
+   seconds and bytes, the peak device memory and one traced call; then
+   the tutorial's §2 block inside ``engine_context("torch")`` over
+   sql_path's parquet frame, checked once against pandas;
+12. transform_path: ``api.transform`` with ``Dict[str, torch.Tensor]``
    UDFs (``transform_udfs``) over frames of 100,000,000 rows built from
    ``--seed`` with numpy: ``map-keyless`` (elementwise), ``demean-dense``
    (bench.py's demean by 1,000 keys: the dense plan), ``demean-sorted``
@@ -103,7 +119,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to 0 just before and read just after, timed (median of
    ``TRANSFORM_REPS`` calls) beside its bound, and traced once; one line
    a frame;
-12. join_path: the device joins at full width, one line a cell:
+13. join_path: the device joins at full width, one line a cell:
    ``north-star-100m`` (bench.py's ``_north_star`` in memory: the group
    means of 100,000,000 rows by ``api.aggregate``, joined back onto every
    row by ``api.join`` and subtracted by ``api.transform``),
@@ -115,7 +131,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the launch counts set to 0 just before and read just after, its
    device syncs counted, timed (median of ``JOIN_REPS`` calls) beside its
    bound, and traced once;
-13. host_path: the host engine behind the device engine, one line a cell:
+14. host_path: the host engine behind the device engine, one line a cell:
    ``pandas-demean-1m`` (BASELINE.json config #1 as bench.py writes it:
    ``transform(pdf, demean, schema="*", partition={"by": ["k"]})`` with a
    pandas UDF over bench.py's ``_make_frame`` cut to 1,000,000 rows,
@@ -127,7 +143,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each checked against a host oracle with the launch counts set to 0
    just before and read just after, timed, and traced once with the copy
    to the host, the pandas work and the copy back apart;
-14. stream_path: the streaming paths at full size, one line a cell:
+15. stream_path: the streaming paths at full size, one line a cell:
    ``north-star`` (bench.py's ``_north_star`` on the port: 10^9 rows made
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
@@ -145,7 +161,9 @@ Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
 N`` cuts the dense, the transform, the north-star and the 100m host frames,
 ``--orders N`` the lineitem frames and ``--expand-orders N`` the expansion's, for a quick
 try; ``--stream-rows N`` cuts the streamed north star, ``--setop-stream-rows N``
-setop_path's streams, ``--sql-rows N`` sql_path's parquet file). With no CUDA
+setop_path's streams, ``--sql-rows N`` sql_path's parquet file and the
+engine-context check's, ``--cogroup-rows N`` and ``--cogroup-stream-rows N``
+cogroup_path's frames). With no CUDA
 device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -1327,6 +1345,283 @@ def phase_window_path(torch, np, pd, bg, api, engine, tdf, arrays: dict) -> dict
     out["seconds"] = time.perf_counter() - start
     emit({"phase": "window_path_end", "oracle_s": oracle_s, "repartition": out["repartition"],
           "seconds": out["seconds"]})
+    return out
+
+
+# cogroup_path: zip and comap with a cotransformer (BASELINE config #3's
+# cogroup), in memory through the workflow and FugueSQL, and streamed;
+# then the tutorial's engine-context block
+# a: cut in depth from config #3's 10^8 rows to 2·10^7, width kept: at 10^8
+# the phase took 194 s on the card (a call 15.6-19.0 s), over its 180 s budget
+COGROUP_ROWS, COGROUP_B_ROWS = 20_000_000, 1_000_000
+COGROUP_KEYS, COGROUP_B_KEYS = 1_000, 1_100  # the second frame holds 100 keys the first lacks
+COGROUP_REPS = 3  # medians of 3 calls, after the checked one
+COGROUP_STREAM_ROWS, COGROUP_STREAM_CHUNK = 20_000_000, 4_000_000  # cut in scale, as setop_path's streams
+COGROUP_STREAM_KEYS = 10_000  # ascending keys; the bounded frame holds each once, shuffled
+COGROUP_SCHEMA = "k:long,n_a:long,sum_v:double,n_b:long,mean_w:double"
+COGROUP_SQL = f"r = TRANSFORM a, b PREPARTITION BY k USING cogroup SCHEMA {COGROUP_SCHEMA}"
+
+
+def cogroup_oracle(np, ka, va, kb, wb):
+    """The inner cogroup by ``np.bincount``, in float64: the keys of both
+    frames, their rows in each, the sums of ``va`` without its NaN, the
+    means of ``wb``."""
+    size = int(max(ka.max(), kb.max())) + 1
+    nn = ~np.isnan(va)
+    n_a = np.bincount(ka, minlength=size)
+    s_a = np.bincount(ka[nn], weights=va[nn].astype(np.float64), minlength=size)
+    n_b = np.bincount(kb, minlength=size)
+    s_b = np.bincount(kb, weights=wb, minlength=size)
+    k = np.nonzero((n_a > 0) & (n_b > 0))[0]
+    return {"k": k, "n_a": n_a[k], "sum_v": s_a[k], "n_b": n_b[k], "mean_w": s_b[k] / n_b[k]}
+
+
+def check_cogroup(np, got, exp, what: str) -> str:
+    got = got.sort_values("k").reset_index(drop=True)
+    names = [f.split(":")[0] for f in COGROUP_SCHEMA.split(",")]
+    require(list(got.columns) == names, f"{what}: columns {list(got.columns)}")
+    require(len(got) == len(exp["k"]), f"{what}: {len(got)} keys, expected {len(exp['k'])}")
+    for c in ("k", "n_a", "n_b"):
+        require(np.array_equal(got[c].to_numpy(), exp[c]), f"{what}: {c} differs from the oracle")
+    for c in ("sum_v", "mean_w"):
+        g = got[c].to_numpy()
+        require(np.isfinite(g).all() and np.allclose(g, exp[c], rtol=ORACLE_RTOL, atol=0),
+                f"{what}: {c} vs oracle")
+    return f"keys, counts exact; sum_v, mean_w rtol={ORACLE_RTOL} vs a float64 np.bincount oracle"
+
+
+def _comap_split(profile: dict) -> dict:
+    """A traced comap's host time: the copy to the host, the copy of the
+    output back, and the pandas work between (grouping and the calls)."""
+    spans = profile["host_spans_ms"]
+    comap, to_host = spans.get("fugue::comap", 0.0), spans.get("fugue::comap_to_host", 0.0)
+    to_device = spans.get("fugue::to_device", 0.0)
+    return {"comap_ms": comap, "comap_to_host_ms": to_host, "to_device_ms": to_device,
+            "pandas_ms": comap - to_host - to_device}
+
+
+def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine, seed: int,
+                       rows: int = COGROUP_ROWS, b_rows: int = COGROUP_B_ROWS,
+                       stream_rows: int = COGROUP_STREAM_ROWS, stream_chunk: int = COGROUP_STREAM_CHUNK,
+                       stream_keys: int = COGROUP_STREAM_KEYS, ctx_rows: int = SQL_PIPELINE_ROWS) -> dict:
+    """Zip and comap on the card, one line a cell: ``cogroup-uniform-1k``
+    (``a``: ``rows`` rows, ``k`` over 1,000 keys and ``v`` float32 with 1%
+    NaN, made on the card by ``frame_from_numpy`` from ``_make_frame``'s
+    arrays; ``b``: ``b_rows`` rows, ``k`` over 1,100 keys and ``w``
+    float64; ``dag.zip(a, b, partition={"by": ["k"]}).transform(cogroup)``),
+    ``sql-cogroup-uniform-1k`` (the same in FugueSQL, ``TRANSFORM a, b
+    PREPARTITION BY k USING cogroup``) and ``stream-cogroup`` (a stream of
+    ``stream_rows`` rows in chunks of ``stream_chunk``, keys ascending over
+    ``stream_keys``, zipped with a bounded frame of a row a key in shuffled
+    order);
+    each checked against a ``np.bincount`` oracle with the launch counts
+    set to 0 just before the cell and read after it (0: no binned SUM on
+    this path), timed (the in-memory cell: median of ``COGROUP_REPS``
+    calls and their range; the others one call), with the seconds and
+    bytes of the copy to the host, one traced call (its idle share and
+    the comap's host spans) and the peak device memory. Then the
+    tutorial's §2 block inside ``engine_context("torch")`` over a parquet
+    file of ``ctx_rows`` rows (sql_path's frame) in a temporary directory
+    of the checkout, removed after: checked once against pandas, not
+    timed."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from fugue_tpu_torch.collections import PartitionSpec
+    from fugue_tpu_torch.dataframe import DataFrames, LocalDataFrameIterableDataFrame, PandasDataFrame
+    from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
+    from fugue_tpu_torch.torch.zipped import ZippedTorchDataFrame
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    out = {"cells": {}}
+
+    def cogroup(a: pd.DataFrame, b: pd.DataFrame) -> pd.DataFrame:
+        return pd.DataFrame({"k": [a["k"].iloc[0]], "n_a": [len(a)], "sum_v": [a["v"].sum()],
+                             "n_b": [len(b)], "mean_w": [b["w"].mean()]})
+
+    # the frames: a as the dense frames' uniform-1k, b with 100 keys more
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 12)
+    pdf = _make_frame(np, pd, rng, rows, "uniform")
+    ka, va = pdf["k"].to_numpy(), pdf["v"].to_numpy()
+    del pdf
+    kb = rng.integers(0, COGROUP_B_KEYS, b_rows, dtype=np.int64)
+    wb = rng.random(b_rows)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ta = engine.persist(frame_from_numpy({"k": ka, "v": va}, "k:long,v:float", nan_cols=("v",),
+                                         device=engine.device))
+    tb = engine.persist(frame_from_numpy({"k": kb, "w": wb}, "k:long,w:double", nan_cols=(),
+                                         device=engine.device))
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp = cogroup_oracle(np, ka, va, kb, wb)
+    oracle_s = time.perf_counter() - t0
+    del ka, va, kb, wb
+    frame_bytes = sum(t.numel() * t.element_size() for f in (ta, tb) for t in f.device_cols.values())
+    small = (engine.to_df(pd.DataFrame({"k": [1, 2], "v": [1.0, 2.0]}).astype({"v": "float32"})),
+             engine.to_df(pd.DataFrame({"k": [1, 2], "w": [3.0, 4.0]})))
+
+    def by_dag(a, b):
+        dag = FugueWorkflow()
+        dag.zip(dag.df(a), dag.df(b), partition={"by": ["k"]}).transform(
+            cogroup, schema=COGROUP_SCHEMA).yield_dataframe_as("r")
+        return dag.run(engine).yields["r"].result
+
+    def by_sql(a, b):
+        return api.fugue_sql(COGROUP_SQL, a=a, b=b, cogroup=cogroup, engine=engine, as_fugue=True)
+
+    def timed(fn, reps: int):
+        wall = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return wall
+
+    require(isinstance(engine.zip(DataFrames(ta, tb), partition_spec=PartitionSpec(by=["k"])),
+                       ZippedTorchDataFrame), "cogroup: the zip of the frames takes the blob protocol")
+    for cell, run, reps in (("cogroup-uniform-1k", by_dag, COGROUP_REPS), ("sql-cogroup-uniform-1k", by_sql, 1)):
+        for k in bg.LAUNCHES:
+            bg.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run(ta, tb)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        require(isinstance(res, TorchDataFrame) and res.device == engine.device,
+                f"{cell}: the output is not on {engine.device}")
+        checks = check_cogroup(np, res.as_pandas(), exp, cell)
+        rows_out = res.count()
+        del res
+        wall = timed(lambda: run(ta, tb), reps)
+        profile = _trace(torch, lambda: run(ta, tb), warm_up=lambda: run(*small))
+        launches = dict(bg.LAUNCHES)
+        require(launches == {k: 0 for k in launches}, f"{cell}: binned-sum launches {launches}")
+        require("fugue::comap" in profile["host_spans_ms"], f"{cell}: no fugue::comap span")
+        ms = statistics.median(wall)
+        line = {"phase": "cogroup_path", "cell": cell, "rows": rows, "rows_b": b_rows, "rows_out": rows_out,
+                "launches": launches, "generate_s": gen_s, "ingest_s": ingest_s, "oracle_s": oracle_s,
+                "first_call_s": first_s, "ms": ms, "ms_range": [min(wall), max(wall)], "ms_all": wall,
+                "rows_per_s": (rows + b_rows) / ms * 1e3, "to_host_bytes": frame_bytes,
+                "split": _comap_split(profile), "peak_device_gb": peak / 1e9, "checks": checks,
+                "profile": profile, "phase_s_so_far": time.perf_counter() - start}
+        if cell.startswith("sql-"):
+            twin = out["cells"]["cogroup-uniform-1k"]["ms"]
+            line.update(twin="cogroup-uniform-1k", twin_ms=twin, sql_cost_ms=ms - twin)
+        emit(line)
+        out["cells"][cell] = line
+    del ta, tb, small
+    torch.cuda.empty_cache()
+
+    # stream-cogroup: a key-sorted stream against a bounded frame in any order
+    n_keys = stream_keys
+    per_key = max(stream_rows // n_keys, 1)
+    stream_rows = per_key * n_keys
+
+    def chunk(i: int):
+        lo = i * stream_chunk
+        hi = min(lo + stream_chunk, stream_rows)
+        r = np.random.default_rng(seed + 1000 + i)
+        v = r.random(hi - lo, dtype=np.float32)
+        v[r.random(hi - lo) < 0.01] = np.nan
+        return np.arange(lo, hi, dtype=np.int64) // per_key, v
+
+    n_chunks = -(-stream_rows // stream_chunk)
+
+    def stream(chunks: int = n_chunks):
+        def gen():
+            for i in range(chunks):
+                k, v = chunk(i)
+                yield PandasDataFrame(pd.DataFrame({"k": k, "v": v}), "k:long,v:float")
+
+        return LocalDataFrameIterableDataFrame(gen(), schema="k:long,v:float")
+
+    r = np.random.default_rng(seed + 13)
+    dim = pd.DataFrame({"k": r.permutation(n_keys).astype(np.int64), "w": r.random(n_keys)})
+    t0 = time.perf_counter()
+    parts = [chunk(i) for i in range(n_chunks)]
+    sexp = cogroup_oracle(np, np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]),
+                          dim["k"].to_numpy(), dim["w"].to_numpy())
+    del parts
+    oracle_s = time.perf_counter() - t0
+    sengine = TorchExecutionEngine(device=engine.device, conf={"fugue.tpu.stream.chunk_rows": stream_chunk})
+
+    def stream_run(chunks: int = n_chunks):
+        dag = FugueWorkflow()
+        dag.zip(dag.df(stream(chunks)), dag.df(dim), partition={"by": ["k"]}).transform(
+            cogroup, schema=COGROUP_SCHEMA).yield_dataframe_as("r", as_local=True)
+        return dag.run(sengine).yields["r"].result
+
+    from fugue_tpu_torch.torch import streaming
+
+    for k in bg.LAUNCHES:
+        bg.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = stream_run()
+    got = res.as_pandas()
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    stats = dict(streaming.last_run_stats)
+    peak = torch.cuda.max_memory_allocated()
+    checks = check_cogroup(np, got, sexp, "stream-cogroup")
+    require(stats.get("verb") == "comap" and stats["rows"] == stream_rows + n_keys,
+            f"stream-cogroup: not the streamed comap ({stats})")
+    profile = _trace(torch, lambda: stream_run(1).as_pandas(), warm_up=lambda: stream_run(1).as_pandas())
+    launches = dict(bg.LAUNCHES)
+    require(launches == {k: 0 for k in launches}, f"stream-cogroup: binned-sum launches {launches}")
+    line = {"phase": "cogroup_path", "cell": "stream-cogroup", "rows": stream_rows, "rows_b": n_keys,
+            "rows_out": len(got), "chunk_rows": stream_chunk, "chunks": n_chunks, "launches": launches,
+            "oracle_s": oracle_s, "pass_s": pass_s, "ms": pass_s * 1e3,
+            "rows_per_s": (stream_rows + n_keys) / pass_s, "stream_stats": stats,
+            "peak_device_gb": peak / 1e9, "checks": checks,
+            "profile_one_chunk": profile, "split_one_chunk": _comap_split(profile),
+            "phase_s_so_far": time.perf_counter() - start}
+    emit(line)
+    out["cells"]["stream-cogroup"] = line
+    del res, got
+
+    # the tutorial's §2 block (docs/tutorial.md:46) in an engine context
+    pdf = sql_pipeline_frame(np, pd, ctx_rows)
+    expect = pdf[pdf["v"] > 0.5].groupby("k")["v"].sum()
+    tmp = Path(tempfile.mkdtemp(prefix=".cogroup_path_", dir=Path(__file__).resolve().parent))
+    try:
+        src, dst = str(tmp / "data.parquet"), str(tmp / "out.parquet")
+        pq.write_table(pa.Table.from_pandas(pdf, preserve_index=False), src)
+        del pdf
+        t0 = time.perf_counter()
+        with api.engine_context("torch", device=engine.device) as e:
+            big = api.load(src)
+            flt = api.filter(big, col("v") > 0.5)
+            agg = api.aggregate(flt, partition_by="k", s=ff.sum(col("v")))
+            api.save(agg, dst, partition={"by": ["k"]})
+            require(api.get_context_engine() is e and isinstance(e, TorchExecutionEngine)
+                    and e.device == engine.device, "engine context: not the torch engine on the card")
+            require(isinstance(agg, TorchDataFrame) and agg.device == e.device,
+                    "engine context: the verbs did not run on the context engine")
+        ctx_s = time.perf_counter() - t0
+        back = pd.read_parquet(dst)
+        back = back.assign(k=back["k"].astype(np.int64)).sort_values("k")
+        require(np.array_equal(back["k"].to_numpy(), expect.index.to_numpy())
+                and np.allclose(back["s"].to_numpy(), expect.to_numpy(), rtol=1e-9, atol=0),
+                "engine context: the saved aggregate differs from pandas")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["engine_context"] = {"rows": ctx_rows, "seconds": ctx_s,
+                             "checks": "keys exact, sums rtol=1e-9 vs pandas; verbs on the context engine"}
+    out["seconds"] = time.perf_counter() - start
+    emit({"phase": "cogroup_path_end", "engine_context": out["engine_context"], "seconds": out["seconds"]})
     return out
 
 
@@ -2602,6 +2897,8 @@ def main() -> int:
     ap.add_argument("--stream-rows", type=int, default=NS_STREAM_ROWS)
     ap.add_argument("--setop-stream-rows", type=int, default=SETOP_STREAM_ROWS)
     ap.add_argument("--sql-rows", type=int, default=SQL_PIPELINE_ROWS)
+    ap.add_argument("--cogroup-rows", type=int, default=COGROUP_ROWS)
+    ap.add_argument("--cogroup-stream-rows", type=int, default=COGROUP_STREAM_ROWS)
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -2645,6 +2942,10 @@ def main() -> int:
     window_path = phase_window_path(torch, np, pd, bg, api, engine, handover["frame"], handover["window_arrays"])
     del handover
     torch.cuda.empty_cache()
+    cogroup_path = phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine, args.seed,
+                                      rows=args.cogroup_rows, stream_rows=args.cogroup_stream_rows,
+                                      ctx_rows=args.sql_rows)
+    torch.cuda.empty_cache()
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
                                           args.rows)
     torch.cuda.empty_cache()
@@ -2669,6 +2970,7 @@ def main() -> int:
                                   if "launches" in r},
                    "sql_path": {c: r["launches"][name] for c, r in sql_path["cells"].items()},
                    "window_path": {c: r["launches"][name] for c, r in window_path["cells"].items()},
+                   "cogroup_path": {c: r["launches"][name] for c, r in cogroup_path["cells"].items()},
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
@@ -2689,6 +2991,7 @@ def main() -> int:
             "launches": by_path["dense"] + sum(by_path["sorted_path"].values())
             + sum(by_path["select_path"].values()) + sum(by_path["setop_path"].values())
             + sum(by_path["sql_path"].values()) + sum(by_path["window_path"].values())
+            + sum(by_path["cogroup_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
             "launches_by_path": by_path,

@@ -1,13 +1,23 @@
-"""User-facing functions of the port, mirroring ``fugue_tpu/execution/api.py``,
-``fugue_tpu/workflow/api.py`` (``transform``, ``out_transform``,
-``raw_sql``) and ``fugue_tpu/sql/api.py`` (``fugue_sql``,
-``fugue_sql_flow``).
+"""User-facing functions of the port, mirroring ``fugue_tpu/api.py``: every
+public name of it, from ``fugue_tpu/execution/api.py`` (the verbs and the
+engine context), ``fugue_tpu/workflow/api.py`` (``transform``,
+``out_transform``, ``raw_sql``), ``fugue_tpu/sql`` (``fugue_sql``,
+``fugue_sql_flow``, ``fsql``), ``fugue_tpu/dataframe/api.py`` and
+``fugue_tpu/dataset/api.py`` (the frame functions)::
 
-``engine`` is ``None``, ``"torch"`` or its alias ``"cuda"`` (a new
-:class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device`` with
-``conf``), ``"native"`` (the host engine), or an engine instance. The
-names resolve in ``execution/factory.py``; nothing is registered into
-``fugue_tpu``'s plugin system. A one-pass stream
+    import fugue_tpu_torch.api as fa
+
+    with fa.engine_context("torch"):
+        res = fa.transform(df, fn, schema="*", partition={"by": ["k"]})
+
+``engine`` is ``"torch"`` or its alias ``"cuda"`` (a new
+:class:`~fugue_tpu_torch.torch.TorchExecutionEngine` on ``device``),
+``"native"`` (the host engine), an engine instance, or ``None``: the
+context engine, else the global engine, else the torch engine on the
+device of a ``TorchDataFrame`` input, else a new torch engine on
+``device`` (``cuda:0`` unless given). The names resolve in
+``execution/factory.py``; nothing is registered into ``fugue_tpu``'s
+plugin system. A one-pass stream
 (``LocalDataFrameIterableDataFrame``, or the row stream
 ``IterableDataFrame``) goes to the engine as it is, never through
 ``to_df``, and a stream result comes back as the stream.
@@ -29,6 +39,48 @@ from .extensions._builtins.processors import run_transformer
 from .extensions.transformer.convert import _to_output_transformer, _to_transformer
 from .torch.streaming import is_stream_frame
 
+from .dataframe.api import (  # noqa: F401
+    alter_columns,
+    as_array,
+    as_array_iterable,
+    as_arrow,
+    as_dict_iterable,
+    as_dicts,
+    as_fugue_df,
+    as_local,
+    as_local_bounded,
+    as_pandas,
+    drop_columns,
+    get_column_names,
+    get_schema,
+    head,
+    is_df,
+    normalize_column_names,
+    peek_array,
+    peek_dict,
+    rename,
+    select_columns,
+)
+from .dataset.api import (  # noqa: F401
+    as_fugue_dataset,
+    count,
+    get_num_partitions,
+    is_bounded,
+    is_empty,
+    is_local,
+    show,
+)
+from .execution.api import (  # noqa: F401
+    as_fugue_engine_df,
+    clear_global_engine,
+    engine_context,
+    get_context_engine,
+    get_current_conf,
+    get_current_parallelism,
+    run_engine_function,
+    set_global_engine,
+)
+
 def aggregate(
     df: Any,
     partition_by: Any = None,
@@ -46,7 +98,7 @@ def aggregate(
 
     The result is a frame of the engine when ``as_fugue`` or when ``df`` is
     one; otherwise it has the input's type (pandas or arrow)."""
-    e = make_execution_engine(engine, device)
+    e = make_execution_engine(engine, device, infer_by=[df])
     cols = [v.alias(k) for k, v in agg_kwcols.items()]
     spec: Optional[PartitionSpec] = (
         None
@@ -160,7 +212,7 @@ def take(df: Any, n: int, presort: str = "", na_position: str = "last", partitio
 
 def _verb(fn: Callable[[ExecutionEngine, DataFrame], DataFrame], df: Any, engine: Any, device: Any,
           as_fugue: bool) -> Any:
-    e = make_execution_engine(engine, device)
+    e = make_execution_engine(engine, device, infer_by=[df])
     return _adjust_result(fn(e, df if is_stream_frame(df) else e.to_df(df)), df, as_fugue)
 
 
@@ -237,7 +289,7 @@ def save(
 ) -> None:
     """Write ``df`` to ``path`` (parquet, csv or json; ``mode`` overwrite,
     append or error; ``partition`` keys: hive-partitioned parquet)."""
-    e = make_execution_engine(engine, device)
+    e = make_execution_engine(engine, device, infer_by=[df])
     e.save_df(
         e.to_df(df), path, format_hint=format_hint, mode=mode,
         partition_spec=None if partition is None else _partition_spec(partition),
@@ -256,7 +308,7 @@ def _run(
         raise NotImplementedError(
             "transformer callbacks need the RPC server, which is not ported (ROADMAP.md A.10)"
         )
-    e = make_execution_engine(engine, device)
+    e = make_execution_engine(engine, device, infer_by=[df])
     return run_transformer(
         e, df if is_stream_frame(df) else e.to_df(df), make_transformer(), params=params,
         partition_spec=_partition_spec(partition), ignore_errors=ignore_errors,
@@ -358,7 +410,7 @@ def intersect(df1: Any, df2: Any, *dfs: Any, distinct: bool = True,  # noqa: A00
 def _fold(fn: Callable[[ExecutionEngine, Any, Any], DataFrame], frames: List[Any], engine: Any,
           device: Any, as_fugue: bool) -> Any:
     """``fn`` over the frames from the left: ``fn(fn(f1, f2), f3)``..."""
-    e = make_execution_engine(engine, device)
+    e = make_execution_engine(engine, device, infer_by=frames)
     dfs = [x if isinstance(x, DataFrame) or is_stream_frame(x) else e.to_df(x) for x in frames]
     res = fn(e, dfs[0], dfs[1])
     for x in dfs[2:]:
@@ -427,3 +479,6 @@ def raw_sql(*statements: Any, engine: Any = None, device: Any = None, engine_con
 
     return _raw_sql(*statements, engine=engine, engine_conf=engine_conf, device=device,
                     as_fugue=as_fugue, as_local=as_local)
+
+
+fsql = fugue_sql_flow  # the name the original fugue gives it

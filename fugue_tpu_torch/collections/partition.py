@@ -253,7 +253,6 @@ class PartitionCursor:
         self._schema = schema
         self._spec = spec
         self._physical_no = physical_partition_no
-        self._key_index = [schema.index_of_key(k) for k in spec.partition_by]
         self._item: Any = None
         self._item_factory: Any = None
         self._partition_no = 0
@@ -291,6 +290,12 @@ class PartitionCursor:
     @property
     def key_schema(self) -> Any:
         return self._schema.extract(self._spec.partition_by)
+
+    @property
+    def _key_index(self) -> List[int]:
+        # found when read: a cotransformer's ``on_init`` cursor has no row
+        # schema, only the spec
+        return [self._schema.index_of_key(k) for k in self._spec.partition_by]
 
     @property
     def key_value_array(self) -> List[Any]:

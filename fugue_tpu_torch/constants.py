@@ -1,7 +1,10 @@
 """Configuration keys of the port, copied from ``fugue_tpu/constants.py``
-(:131-140, :41, :35) and trimmed to the streaming keys, the host map's
-pool and the distinct's guard. The names are the JAX package's, so one
+(:131-140, :41, :35, :471) and trimmed to the streaming keys, the host
+map's pool, the distinct's guard, the workflow's keys and their global
+defaults. The names are the JAX package's, so one
 conf dict drives either engine."""
+
+from ._utils.params import ParamDict
 
 # rows per host→device chunk of a stream; the device working set is
 # O(chunk_rows × columns), not O(stream)
@@ -31,6 +34,16 @@ FUGUE_CONF_WORKFLOW_CHECKPOINT_PATH = "fugue.workflow.checkpoint.path"
 FUGUE_CONF_WORKFLOW_AUTO_PERSIST = "fugue.workflow.auto_persist"
 FUGUE_CONF_WORKFLOW_AUTO_PERSIST_VALUE = "fugue.workflow.auto_persist_value"
 FUGUE_CONF_SQL_DIALECT = "fugue.sql.compile.dialect"
+
+# the conf when no engine is in context (``fugue_tpu/constants.py`` :471,
+# trimmed to the keys above): what ``get_current_conf`` returns then
+_FUGUE_GLOBAL_CONF = ParamDict(
+    {
+        FUGUE_CONF_WORKFLOW_CONCURRENCY: 1,
+        FUGUE_CONF_WORKFLOW_AUTO_PERSIST: False,
+        FUGUE_CONF_SQL_DIALECT: "spark",
+    }
+)
 
 # the JAX package's workflow services that the port does not have
 # (ROADMAP.md A.10): each key, set to turn its service on, makes a run

@@ -73,6 +73,12 @@ class DataFrame(ABC):
         return True
 
     @property
+    def num_partitions(self) -> int:
+        """The physical partitions: 1, for a local frame and for a frame
+        on one device."""
+        return 1
+
+    @property
     def empty(self) -> bool:
         return self.count() == 0
 
@@ -244,9 +250,6 @@ class LocalDataFrame(DataFrame):
     @property
     def is_local(self) -> bool:
         return True
-
-    def as_local(self) -> "LocalDataFrame":
-        return self
 
 
 class LocalBoundedDataFrame(LocalDataFrame):

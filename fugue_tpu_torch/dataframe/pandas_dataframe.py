@@ -122,6 +122,13 @@ class PandasDataFrame(LocalBoundedDataFrame):
         new_schema = self.schema.rename(columns)
         return PandasDataFrame(self.native.rename(columns=columns), new_schema, pandas_df_wrapper=True)
 
+    def head(self, n: int, columns: Optional[List[str]] = None) -> "PandasDataFrame":
+        """The first ``n`` rows (of ``columns``), a pandas frame as in the
+        reference (``pandas_dataframe.py:195``)."""
+        pdf = self._native if columns is None else self._native[columns]
+        schema = self.schema if columns is None else self.schema.extract(columns)
+        return PandasDataFrame(pdf.head(n), schema, pandas_df_wrapper=True)
+
     def peek_array(self) -> List[Any]:
         self.assert_not_empty()
         head = pa.Table.from_pandas(

@@ -1,7 +1,10 @@
-"""Frame comparison and join schemas, copied from
-``fugue_tpu/dataframe/utils.py`` (``_df_eq`` :24, ``parse_join_type``
+"""Frame comparison, join schemas and the zip's blobs, copied from
+``fugue_tpu/dataframe/utils.py`` (``_df_eq`` :24, ``serialize_df`` :112,
+``deserialize_df`` :143, ``get_temp_df_path`` :154, ``parse_join_type``
 :173, ``get_join_schemas`` :196) and trimmed to them."""
 
+import os
+import uuid as _uuid
 from typing import Any, Iterable, List, Optional, Tuple
 
 import pyarrow as pa
@@ -9,7 +12,7 @@ import pyarrow as pa
 from .._utils.assertion import assert_or_throw
 from ..exceptions import FugueDataFrameOperationError
 from ..schema import Schema
-from .dataframe import DataFrame
+from .dataframe import DataFrame, LocalBoundedDataFrame
 
 _ALIASES = {
     "full": "full_outer",
@@ -154,3 +157,52 @@ def _norm_val(v: Any, digits: int) -> Any:
     if isinstance(v, dict):
         return tuple(sorted((k, _norm_val(x, digits)) for k, x in v.items()))
     return v
+
+
+# ---------------------------------------------------------------------------
+# partition serialization (arrow IPC), the zip's blob protocol
+# ---------------------------------------------------------------------------
+
+
+def serialize_df(
+    df: Optional[DataFrame], threshold: int = -1, file_path: Optional[str] = None
+) -> Optional[bytes]:
+    """A local frame as an arrow IPC blob: ``0x00`` and the stream inline,
+    or, when ``threshold >= 0`` and the blob is larger, the stream written
+    to ``file_path`` and ``0x01`` and the path returned."""
+    if df is None:
+        return None
+    tbl = df.as_arrow()
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, tbl.schema) as writer:
+        writer.write_table(tbl)
+    buf = sink.getvalue().to_pybytes()
+    blob = b"\x00" + buf
+    if threshold < 0 or len(blob) <= threshold:
+        return blob
+    assert_or_throw(
+        file_path is not None,
+        FugueDataFrameOperationError("file_path required beyond threshold"),
+    )
+    with open(file_path, "wb") as f:  # type: ignore[arg-type]
+        f.write(buf)
+    return b"\x01" + str(file_path).encode()
+
+
+def deserialize_df(blob: Optional[bytes]) -> Optional[LocalBoundedDataFrame]:
+    """The frame ``serialize_df`` wrote, inline or from its file."""
+    from .arrow_dataframe import ArrowDataFrame
+
+    if blob is None:
+        return None
+    kind, payload = blob[:1], blob[1:]
+    if kind == b"\x01":
+        with open(payload.decode(), "rb") as f:
+            payload = f.read()
+    with pa.ipc.open_stream(pa.BufferReader(payload)) as reader:
+        tbl = reader.read_all()
+    return ArrowDataFrame(tbl)
+
+
+def get_temp_df_path(base_path: str) -> str:
+    return os.path.join(base_path, str(_uuid.uuid4()) + ".arrow")

@@ -4,15 +4,28 @@ port's engines have: ``to_df``, ``repartition``, ``persist``,
 ``broadcast``, the map behind ``transform`` (``MapEngine.map_dataframe``
 :276, with ``on_init`` and the format hint), ``select``, ``filter``, ``assign``, ``aggregate``, ``join``,
 the set operations, ``distinct``, ``dropna``, ``fillna``, ``sample``,
-``take``, ``load_df`` and ``save_df``.
+``take``, ``load_df``, ``save_df``, and ``zip`` and ``comap``.
 
 ``select``, ``filter``, ``assign`` and ``aggregate`` have their host
 forms here, as in the JAX package (:716-806): the frame on the host, the
 column IR evaluated over pandas (``column/eval.py``). A verb an engine
 does not implement raises ``NotImplementedError``: the host engine
 (``NativeExecutionEngine``) and the device engine
-(``TorchExecutionEngine``) have all of them. What neither has yet, zip
-and comap, is not in this contract (ROADMAP.md A.11).
+(``TorchExecutionEngine``) have all of them.
+
+``zip`` and ``comap`` (:806-930) are the arrow-IPC blob protocol: each
+logical partition of each input becomes one row holding its rows as an
+IPC blob (``_PartitionSerializer``), the blob frames are unioned, and
+``comap`` regroups them by key and rebuilds the frames (``_Comap``). The
+host engine answers every zip with it; the device engine where the JAX
+engine does (``torch/execution_engine.py``).
+
+The engine context (:299-372): ``_as_context`` makes an engine the
+context engine of the current context (a ``ContextVar``, so the
+workflow's pool threads inherit it through ``copy_context``) and stops it
+at the last exit unless it is the global engine; ``set_global`` and
+``clear_global`` hold the process-wide one. ``execution/factory.py``
+resolves ``engine=None`` to them.
 
 For the workflow: the ``SQLEngine`` facet (:124) and ``sql_engine``,
 ``create_default_sql_engine`` and ``set_sql_engine`` (:267-297), the
@@ -25,7 +38,7 @@ from abc import ABC, abstractmethod
 from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
 from threading import RLock
-from typing import Any, Callable, ContextManager, Iterator, List, Optional
+from typing import Any, Callable, ContextManager, Dict, Iterator, List, Optional
 
 from .._utils.params import ParamDict
 from ..collections.partition import PartitionCursor, PartitionSpec
@@ -34,10 +47,30 @@ from ..column import SelectColumns, all_cols, col
 from ..collections.sql import StructuredRawSQL
 from ..collections.yielded import PhysicalYielded, Yielded
 from ..column.expressions import ColumnExpr
-from ..dataframe import DataFrame, DataFrames, LocalDataFrame, PandasDataFrame, YieldedDataFrame
+from ..dataframe import (
+    ArrayDataFrame,
+    ArrowDataFrame,
+    DataFrame,
+    DataFrames,
+    LocalBoundedDataFrame,
+    LocalDataFrame,
+    PandasDataFrame,
+    YieldedDataFrame,
+)
+from ..dataframe.utils import deserialize_df, get_temp_df_path, serialize_df
 from ..exceptions import FugueBug, FugueInvalidOperation
+from ..schema import Schema
 
 _VERBS = "ROADMAP.md A.8 remaining verbs"
+_FUGUE_BLOB_PREFIX = "__fugue_blob_"
+
+# the context engine of the current context (``engine_context``, a
+# workflow run); task threads inherit it through ``copy_context``
+_CONTEXT_ENGINE: ContextVar[Optional["ExecutionEngine"]] = ContextVar(
+    "fugue_tpu_torch_context_engine", default=None
+)
+_GLOBAL_ENGINE_LOCK = RLock()
+_GLOBAL_ENGINE: List[Optional["ExecutionEngine"]] = [None]
 
 # (engine id, merged conf) of the run scopes entered in this context;
 # task threads inherit it through ``contextvars.copy_context``
@@ -138,6 +171,9 @@ class ExecutionEngine(ABC):
         self._conf = ParamDict(conf)
         self._rlock = RLock()
         self._sql_engine: Optional[SQLEngine] = None
+        self._ctx_count = 0
+        self._is_global = False
+        self._stopped = False
 
     @property
     def conf(self) -> ParamDict:
@@ -174,6 +210,67 @@ class ExecutionEngine(ABC):
         the context a task thread of that run enters, so the task uses
         this engine's device state. Nothing to carry on the host."""
         return nullcontext
+
+    # ---- the engine context (``fugue_tpu`` :299-372) -----------------------
+    @property
+    def in_context(self) -> bool:
+        return self._ctx_count > 0
+
+    @property
+    def is_global(self) -> bool:
+        return self._is_global
+
+    @contextmanager
+    def _as_context(self, borrowed: bool = False) -> Iterator["ExecutionEngine"]:
+        """This engine as the context engine until exit; the last exit
+        stops it unless it is the global engine or ``borrowed`` (a
+        workflow run borrows the engine it is given)."""
+        with self._rlock:
+            self._ctx_count += 1
+        token = _CONTEXT_ENGINE.set(self)
+        try:
+            yield self
+        finally:
+            _CONTEXT_ENGINE.reset(token)
+            with self._rlock:
+                self._ctx_count -= 1
+                if self._ctx_count == 0 and not self._is_global and not borrowed:
+                    self.stop()
+
+    def set_global(self) -> "ExecutionEngine":
+        """Make this engine the process-wide one; the one it replaces is
+        stopped unless it is in a context."""
+        with _GLOBAL_ENGINE_LOCK:
+            old = _GLOBAL_ENGINE[0]
+            if old is not None and old is not self:
+                with old._rlock:
+                    old._is_global = False
+                if not old.in_context:
+                    old.stop()
+            with self._rlock:
+                self._is_global = True
+            _GLOBAL_ENGINE[0] = self
+        return self
+
+    @staticmethod
+    def clear_global() -> None:
+        with _GLOBAL_ENGINE_LOCK:
+            old = _GLOBAL_ENGINE[0]
+            if old is not None:
+                old._is_global = False
+                if not old.in_context:
+                    old.stop()
+            _GLOBAL_ENGINE[0] = None
+
+    def stop(self) -> None:
+        with self._rlock:
+            if not self._stopped:
+                self._stopped = True
+                self.stop_engine()
+
+    def stop_engine(self) -> None:
+        """What an engine releases when it stops: nothing on the port's
+        engines, whose tensors free with their frames."""
 
     # ---- SQL (``fugue_tpu`` :267-297) --------------------------------------
     def create_default_sql_engine(self) -> SQLEngine:
@@ -368,3 +465,184 @@ class ExecutionEngine(ABC):
     ) -> DataFrame:
         """Write ``df`` to ``path``; returns ``df``."""
         raise self._missing("save_df")
+
+    # ---- zip/comap: the blob protocol (``fugue_tpu`` :806-930) --------------
+    def zip(
+        self,
+        dfs: DataFrames,
+        how: str = "inner",
+        partition_spec: Optional[PartitionSpec] = None,
+        temp_path: Optional[str] = None,
+        to_file_threshold: int = -1,
+    ) -> DataFrame:
+        """Co-partition ``dfs`` by the spec's keys (default: the columns
+        they all share) into one frame: each logical partition of each
+        input is one row of the keys and an arrow IPC blob of its rows,
+        the rows of every input unioned, their schemas, names, ``how``
+        (inner, left_outer, right_outer, full_outer or cross) and keys in
+        the metadata. A blob above ``to_file_threshold`` bytes goes to a
+        file under ``temp_path``."""
+        assert_or_throw(len(dfs) > 0, FugueInvalidOperation("dfs is empty"))
+        how = how.lower()
+        assert_or_throw(
+            how in ("inner", "left_outer", "right_outer", "full_outer", "cross"),
+            lambda: FugueInvalidOperation(f"invalid zip type {how}"),
+        )
+        spec = partition_spec or PartitionSpec()
+        keys = list(spec.partition_by)
+        if how == "cross":
+            assert_or_throw(len(keys) == 0, FugueInvalidOperation("cross zip can't have keys"))
+        elif len(keys) == 0:
+            keys = [n for n in dfs[0].schema.names if all(n in d.schema for d in dfs.values())]
+            assert_or_throw(
+                len(keys) > 0, FugueInvalidOperation("can't infer zip keys: no common columns")
+            )
+        serialized: List[DataFrame] = []
+        schemas: List[str] = []
+        names: List[str] = []
+        n = len(dfs)
+        for i, (name, df) in enumerate(dfs.items()):
+            sub_spec = PartitionSpec(spec, by=keys) if len(keys) > 0 else PartitionSpec()
+            serialized.append(
+                self._serialize_by_partition(
+                    df, sub_spec, df_index=i, df_count=n, temp_path=temp_path,
+                    to_file_threshold=to_file_threshold,
+                )
+            )
+            schemas.append(str(df.schema))
+            names.append(name)
+        res = serialized[0]
+        for s in serialized[1:]:
+            res = self.union(res, s, distinct=False)
+        res.reset_metadata(
+            {
+                "serialized": True,
+                "serialized_cols": [f"{_FUGUE_BLOB_PREFIX}{i}" for i in range(n)],
+                "schemas": schemas,
+                "serialized_has_name": dfs.has_key,
+                "names": names,
+                "how": how,
+                "keys": keys,
+            }
+        )
+        return res
+
+    def _serialize_by_partition(
+        self,
+        df: DataFrame,
+        partition_spec: PartitionSpec,
+        df_index: int,
+        df_count: int,
+        temp_path: Optional[str] = None,
+        to_file_threshold: int = -1,
+    ) -> DataFrame:
+        keys = list(partition_spec.partition_by)
+        serializer = _PartitionSerializer(df_index, df_count, keys, temp_path, to_file_threshold)
+        return self.map_engine.map_dataframe(
+            df, serializer.run, _blob_schema(df.schema, keys, df_count), partition_spec
+        )
+
+    def comap(
+        self,
+        df: DataFrame,
+        map_func: Callable[[PartitionCursor, DataFrames], LocalDataFrame],
+        output_schema: Any,
+        partition_spec: Optional[PartitionSpec] = None,
+        on_init: Optional[Callable[[int, DataFrames], Any]] = None,
+    ) -> DataFrame:
+        """``map_func(cursor, frames)`` once a key of a zipped ``df``, its
+        frames rebuilt from their blobs; a key that an inner (or left or
+        right outer) zip leaves out is skipped, a missing side is an empty
+        frame. ``on_init(0, empty frames)`` runs once first."""
+        assert_or_throw(
+            df.metadata.get("serialized", False),
+            FugueInvalidOperation("df is not serialized (run zip first)"),
+        )
+        meta = dict(df.metadata)
+        keys = list(meta.get("keys", []))
+        spec = partition_spec or PartitionSpec()
+        if len(keys) > 0:
+            spec = PartitionSpec(spec, by=keys)
+        out_schema = output_schema if isinstance(output_schema, Schema) else Schema(output_schema)
+        runner = _Comap(meta, map_func, on_init, out_schema)
+        return self.map_engine.map_dataframe(df, runner.run, out_schema, spec, on_init=runner.on_init)
+
+
+def _blob_schema(schema: Schema, keys: List[str], df_count: int) -> Schema:
+    """The zip's row: the keys, then one binary blob column an input."""
+    blob_fields = ",".join(f"{_FUGUE_BLOB_PREFIX}{i}:binary" for i in range(df_count))
+    return Schema(str(schema.extract(keys)) + "," + blob_fields) if len(keys) > 0 else Schema(blob_fields)
+
+
+class _PartitionSerializer:
+    """One logical partition into one blob row (``fugue_tpu`` :954)."""
+
+    def __init__(
+        self, df_index: int, df_count: int, keys: List[str], temp_path: Optional[str],
+        to_file_threshold: int,
+    ):
+        self.df_index = df_index
+        self.df_count = df_count
+        self.keys = keys
+        self.temp_path = temp_path
+        self.to_file_threshold = to_file_threshold
+
+    def run(self, cursor: PartitionCursor, df: LocalDataFrame) -> LocalDataFrame:
+        file_path = get_temp_df_path(self.temp_path) if self.temp_path is not None else None
+        blob = serialize_df(df.as_local_bounded(), self.to_file_threshold, file_path)
+        row: List[Any] = list(cursor.key_value_array) if len(self.keys) > 0 else []
+        blobs: List[Any] = [None] * self.df_count
+        blobs[self.df_index] = blob
+        row.extend(blobs)
+        return ArrayDataFrame([row], _blob_schema(cursor.row_schema, self.keys, self.df_count))
+
+
+class _Comap:
+    """The frames of one key rebuilt from its blob rows, and the
+    cotransform run over them (``fugue_tpu`` :997-1068)."""
+
+    def __init__(
+        self, meta: Dict[str, Any], func: Callable, on_init: Optional[Callable], output_schema: Schema
+    ):
+        self.schemas = [Schema(s) for s in meta["schemas"]]
+        self.output_schema = output_schema
+        self.named = meta.get("serialized_has_name", False)
+        self.names = meta.get("names", [])
+        self.how = meta.get("how", "inner")
+        self.keys = meta.get("keys", [])
+        self.func = func
+        self._on_init = on_init
+
+    def on_init(self, partition_no: int, df: DataFrame) -> None:
+        if self._on_init is None:
+            return
+        empty = DataFrames({self._name(i): ArrayDataFrame([], s) for i, s in enumerate(self.schemas)})
+        self._on_init(partition_no, empty)
+
+    def _name(self, i: int) -> str:
+        if self.named and i < len(self.names):
+            return self.names[i]
+        return f"_{i}"
+
+    def run(self, cursor: PartitionCursor, df: LocalDataFrame) -> LocalDataFrame:
+        import pyarrow as pa
+
+        data = df.as_local_bounded().as_array()
+        blob_idx = [df.schema.index_of_key(f"{_FUGUE_BLOB_PREFIX}{i}") for i in range(len(self.schemas))]
+        frames: List[Optional[LocalBoundedDataFrame]] = []
+        for i in range(len(self.schemas)):
+            tables = [deserialize_df(row[blob_idx[i]]).native for row in data if row[blob_idx[i]] is not None]
+            frames.append(ArrowDataFrame(pa.concat_tables(tables)) if len(tables) > 0 else None)
+        if self.how == "inner" and any(f is None for f in frames):
+            return ArrayDataFrame([], self.output_schema)
+        if self.how == "left_outer" and frames[0] is None:
+            return ArrayDataFrame([], self.output_schema)
+        if self.how == "right_outer" and frames[-1] is None:
+            return ArrayDataFrame([], self.output_schema)
+        dfs = DataFrames(
+            {
+                self._name(i): f if f is not None else ArrayDataFrame([], self.schemas[i])
+                for i, f in enumerate(frames)
+            }
+        )
+        return self.func(cursor, dfs)

@@ -1,26 +1,51 @@
 """Engine names, the port's counterpart of ``fugue_tpu/execution/factory.py``
-(``make_execution_engine``) trimmed to the port's own engines, resolved
-here and registered into nothing: ``None``, ``"torch"`` or ``"cuda"`` is a
-new ``TorchExecutionEngine`` on ``device`` (``cuda:0`` unless given);
-``"native"`` or ``"pandas"`` is a new host ``NativeExecutionEngine``; an
-engine instance is itself."""
+(``make_execution_engine`` :123-163, ``try_get_context_execution_engine``
+:104) trimmed to the port's own engines, resolved here and registered
+into nothing.
 
-from typing import Any
+The resolution order is the reference's: an engine instance is itself;
+``"torch"`` or ``"cuda"`` is a new ``TorchExecutionEngine`` on ``device``
+(``cuda:0`` unless given), ``"native"`` or ``"pandas"`` a new host
+``NativeExecutionEngine``. ``None`` is the context engine
+(``engine_context``), then the global engine (``set_global_engine``),
+then the engine ``infer_by`` implies (a ``TorchDataFrame``: the torch
+engine on the frame's own device), then the default. The default differs
+from the reference's, whose last resort is its host engine: the port's
+is a new ``TorchExecutionEngine`` on ``device``, because the port runs on
+the card unless the caller asks for the CPU. ``device`` and ``conf``
+apply to an engine the factory makes, not to one it finds."""
 
-from .execution_engine import ExecutionEngine
+from typing import Any, List, Optional
+
+from .execution_engine import _CONTEXT_ENGINE, _GLOBAL_ENGINE, ExecutionEngine
 
 DEVICE_ENGINE_NAMES = ("torch", "cuda")
 HOST_ENGINE_NAMES = ("native", "pandas")
 
 
-def make_execution_engine(engine: Any = None, device: Any = None, conf: Any = None) -> ExecutionEngine:
+def try_get_context_execution_engine() -> Optional[ExecutionEngine]:
+    """The context engine, else the global engine, else None."""
+    e = _CONTEXT_ENGINE.get()
+    return e if e is not None else _GLOBAL_ENGINE[0]
+
+
+def make_execution_engine(
+    engine: Any = None, device: Any = None, conf: Any = None, infer_by: Optional[List[Any]] = None
+) -> ExecutionEngine:
     """The engine that ``engine`` names, on ``device`` (``cuda:0`` unless
-    given; with no card, pass ``device="cpu"``) with ``conf``."""
+    given; with no card, pass ``device="cpu"``) with ``conf``; for
+    ``None``, the context or global engine, or one ``infer_by`` implies."""
     if isinstance(engine, ExecutionEngine):
         if device is not None or conf is not None:
             raise ValueError("device and conf apply to an engine name, not an engine instance")
         return engine
     name = engine.lower() if isinstance(engine, str) else engine
+    if name is None:
+        ctx = try_get_context_execution_engine()
+        if ctx is not None:
+            return ctx
+        if device is None:
+            device = _infer_device(infer_by)
     if name is None or name in DEVICE_ENGINE_NAMES:
         from ..torch.execution_engine import TorchExecutionEngine
 
@@ -34,6 +59,16 @@ def make_execution_engine(engine: Any = None, device: Any = None, conf: Any = No
     raise ValueError(
         f"unknown engine {engine!r}: expected one of {DEVICE_ENGINE_NAMES + HOST_ENGINE_NAMES}"
     )
+
+
+def _infer_device(objs: Optional[List[Any]]) -> Any:
+    """The device of the first ``TorchDataFrame`` among ``objs``."""
+    from ..torch.dataframe import TorchDataFrame
+
+    for o in objs or []:
+        if isinstance(o, TorchDataFrame):
+            return o.device
+    return None
 
 
 def is_engine_name(name: Any) -> bool:

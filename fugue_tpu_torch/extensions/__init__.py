@@ -6,8 +6,12 @@ from .outputter.outputter import Outputter
 from .processor.convert import parse_processor, processor, register_processor
 from .processor.processor import Processor
 from .transformer import (
+    CoTransformer,
+    OutputCoTransformer,
     OutputTransformer,
     Transformer,
+    cotransformer,
+    output_cotransformer,
     output_transformer,
     parse_output_transformer,
     parse_transformer,
@@ -17,13 +21,17 @@ from .transformer import (
 )
 
 __all__ = [
+    "CoTransformer",
     "Creator",
     "ExtensionContext",
+    "OutputCoTransformer",
     "OutputTransformer",
     "Outputter",
     "Processor",
     "Transformer",
+    "cotransformer",
     "creator",
+    "output_cotransformer",
     "output_transformer",
     "outputter",
     "parse_creator",

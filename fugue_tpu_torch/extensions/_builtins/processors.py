@@ -2,11 +2,13 @@
 the implementations behind the workflow's verbs. ``RunTransformer`` runs
 a transformer through :func:`run_transformer` (``_run_transform`` :54,
 ``_TransformerRunner`` :120), which ``api.transform`` and
-``api.out_transform`` also call; ``RunSQLSelect`` (:223-255) runs a
-statement on the engine's SQL facet.
+``api.out_transform`` also call; a cotransformer goes to the engine's
+``comap`` of a zipped frame (``_run_cotransform`` :82,
+``_CoTransformerRunner`` :143), which ``Zip`` (:258) makes;
+``RunSQLSelect`` (:223-255) runs a statement on the engine's SQL facet.
 
-Not ported: ``Zip`` and the cotransformer runner (ROADMAP.md A.11), and
-transformer callbacks (A.10): each raises naming its item."""
+Not ported: transformer callbacks (ROADMAP.md A.10), which raise naming
+it."""
 
 from typing import Any, List, Optional, Type
 
@@ -21,7 +23,7 @@ from ...exceptions import FugueWorkflowError
 from ...schema import Schema
 from .._utils import validate_input_schema, validate_partition_spec
 from ..processor.processor import Processor
-from ..transformer.transformer import Transformer
+from ..transformer.transformer import CoTransformer, Transformer
 
 
 def refuse_callback(callback: Any) -> None:
@@ -40,7 +42,8 @@ def run_transformer(
     ignore_errors: Optional[List[Any]] = None,
 ) -> DataFrame:
     """Run transformer ``tf`` over ``df`` grouped by ``partition_spec``
-    through the engine's map; an exception of a type in ``ignore_errors``
+    through the engine's map (a cotransformer over a zipped ``df``
+    through its ``comap``); an exception of a type in ``ignore_errors``
     turns its partition's output into no rows."""
     spec = partition_spec if partition_spec is not None else PartitionSpec()
     validate_partition_spec(spec, tf.validation_rules)
@@ -48,6 +51,9 @@ def run_transformer(
     tf._params = ParamDict(params)  # type: ignore[attr-defined]
     tf._partition_spec = spec  # type: ignore[attr-defined]
     tf._execution_engine = engine  # type: ignore[attr-defined]
+    errors = [to_type(x, Exception) for x in ignore_errors or []]
+    if isinstance(tf, CoTransformer):
+        return _run_cotransform(engine, df, tf, spec, errors)
     # a map that groups inside map_dataframe needs no exchange first
     if not spec.empty and not engine.map_engine.map_handles_repartition:
         df = engine.repartition(df, spec)
@@ -55,7 +61,7 @@ def run_transformer(
     schema = Schema(tf.get_output_schema(df))
     tf._output_schema = schema  # type: ignore[attr-defined]
     tf._key_schema = spec.get_key_schema(df.schema)  # type: ignore[attr-defined]
-    runner = _TransformerRunner(df, tf, [to_type(x, Exception) for x in ignore_errors or []])
+    runner = _TransformerRunner(df, tf, errors)
     fmt = tf.get_format_hint() if hasattr(tf, "get_format_hint") else None
     return engine.map_engine.map_dataframe(
         df,
@@ -65,6 +71,31 @@ def run_transformer(
         on_init=runner.on_init,
         map_func_format_hint=fmt,
     )
+
+
+def _run_cotransform(
+    engine: Any, df: DataFrame, tf: CoTransformer, spec: PartitionSpec,
+    ignore_errors: List[Type[Exception]],
+) -> DataFrame:
+    assert_or_throw(
+        df.metadata.get("serialized", False),
+        FugueWorkflowError("the input of cotransform must be a zipped dataframe"),
+    )
+    if spec.empty:
+        keys = df.metadata.get("keys", [])
+        spec = PartitionSpec(by=keys) if len(keys) > 0 else spec
+    empty_dfs = DataFrames(
+        {
+            (df.metadata["names"][i] if df.metadata.get("serialized_has_name", False) else f"_{i}"):
+            ArrayDataFrame([], s)
+            for i, s in enumerate(df.metadata["schemas"])
+        }
+    )
+    schema = Schema(tf.get_output_schema(empty_dfs))
+    tf._output_schema = schema  # type: ignore[attr-defined]
+    tf._key_schema = df.schema.extract(df.metadata.get("keys", []))  # type: ignore[attr-defined]
+    runner = _CoTransformerRunner(tf, ignore_errors, schema)
+    return engine.comap(df, runner.run, output_schema=schema, partition_spec=spec, on_init=runner.on_init)
 
 
 class _TransformerRunner:
@@ -88,6 +119,28 @@ class _TransformerRunner:
         s = self.transformer.partition_spec
         self.transformer._cursor = s.get_cursor(self.schema, partition_no)  # type: ignore[attr-defined]
         self.transformer.on_init(df)
+
+
+class _CoTransformerRunner:
+    def __init__(self, transformer: CoTransformer, ignore_errors: List[Type[Exception]], schema: Schema):
+        self.transformer = transformer
+        self.ignore_errors = tuple(ignore_errors)
+        self.schema = schema
+
+    def run(self, cursor: PartitionCursor, dfs: DataFrames) -> LocalDataFrame:
+        self.transformer._cursor = cursor  # type: ignore[attr-defined]
+        if len(self.ignore_errors) == 0:
+            return self.transformer.transform(dfs)
+        try:
+            return self.transformer.transform(dfs).as_local_bounded()
+        except self.ignore_errors:
+            return ArrayDataFrame([], self.schema)
+
+    def on_init(self, partition_no: int, dfs: DataFrames) -> None:
+        self.transformer._cursor = PartitionCursor(  # type: ignore[attr-defined]
+            Schema(), self.transformer.partition_spec, partition_no
+        )
+        self.transformer.on_init(dfs)
 
 
 class RunTransformer(Processor):
@@ -191,6 +244,17 @@ class RunSQLSelect(Processor):
         other = make_execution_engine(spec, device=kw.pop("device", device), conf=engine.conf)
         res = other.sql_engine.select(dfs, statement)
         return engine.to_df(res.as_local_bounded())
+
+
+class Zip(Processor):
+    def process(self, dfs: DataFrames) -> DataFrame:
+        return self.execution_engine.zip(
+            dfs,
+            how=self.params.get("how", "inner"),
+            partition_spec=self.partition_spec,
+            temp_path=self.params.get_or_none("temp_path", str),
+            to_file_threshold=self.params.get("to_file_threshold", -1),
+        )
 
 
 class Select(Processor):

@@ -1,4 +1,6 @@
 from .convert import (
+    cotransformer,
+    output_cotransformer,
     output_transformer,
     parse_output_transformer,
     parse_transformer,
@@ -6,11 +8,15 @@ from .convert import (
     register_transformer,
     transformer,
 )
-from .transformer import OutputTransformer, Transformer
+from .transformer import CoTransformer, OutputCoTransformer, OutputTransformer, Transformer
 
 __all__ = [
+    "CoTransformer",
+    "OutputCoTransformer",
     "OutputTransformer",
     "Transformer",
+    "cotransformer",
+    "output_cotransformer",
     "output_transformer",
     "parse_output_transformer",
     "parse_transformer",

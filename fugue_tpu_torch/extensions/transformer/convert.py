@@ -1,33 +1,38 @@
 """Transformers from classes, functions and names, copied from
-``fugue_tpu/extensions/transformer/convert.py`` and trimmed: the
-``@transformer``/``@output_transformer`` decorators, ``_to_transformer``
-with the registry of names (``register_transformer``) and the
+``fugue_tpu/extensions/transformer/convert.py``: the ``@transformer``,
+``@output_transformer``, ``@cotransformer`` and ``@output_cotransformer``
+decorators (:52-90), ``_to_transformer`` and ``_to_output_transformer``
+(:92-154) with the registry of names (``register_transformer``) and the
 ``parse_transformer`` hooks, a name resolved in the caller's scope, and
-the interfaceless ``_FuncAsTransformer`` whose output schema comes from an
-argument or a ``# schema:`` comment, ``*`` expressions included.
+the interfaceless wrappers whose output schema comes from an argument or
+a ``# schema:`` comment, ``*`` expressions included: a function of one
+frame is a ``Transformer``, a function of several frames (or of one
+``DataFrames``) a ``CoTransformer``, which runs on a zipped frame.
 
-Not ported: cotransformers (zip/comap, ROADMAP.md A.11, where A.8 moved
-them) and RPC callbacks (A.10): each raises ``NotImplementedError``
-naming its item."""
+Not ported: RPC callbacks (ROADMAP.md A.10): a function that requires
+one raises ``NotImplementedError`` naming A.10; an optional one gets
+None."""
 
 import copy
 import inspect
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 from ..._utils.convert import get_caller_global_local_vars, to_instance
 from ..._utils.hash import to_uuid
-from ...dataframe import ArrayDataFrame, DataFrame, LocalDataFrame
+from ...dataframe import ArrayDataFrame, DataFrame, DataFrames, LocalDataFrame
 from ...dataframe.function_wrapper import DataFrameFunctionWrapper
 from ...exceptions import FugueInterfacelessError
 from ...schema import Schema
 from .._shared import ExtensionRegistry, ParseHook, parse_comment_annotation, resolve_extension_object
 from .._utils import parse_validation_rules_from_comment, to_validation_rules
-from .transformer import OutputTransformer, Transformer
+from .transformer import CoTransformer, OutputCoTransformer, OutputTransformer, Transformer
 
 OUTPUT_TRANSFORMER_DUMMY_SCHEMA = Schema("_0:int")
 # input: one frame, an optional callback, simple params, **kwargs; ``t`` is
 # the port's Dict[str, torch.Tensor] (the JAX package's ``j``)
 _INPUT_RE = "^[lspqt][fF]?x*z?$"
+# a cotransformer's: one DataFrames, or several frames
+_CO_INPUT_RE = "^(c|[lspqt]+)[fF]?x*z?$"
 
 
 _TRANSFORMER_REGISTRY = ExtensionRegistry("transformer")
@@ -46,9 +51,11 @@ def register_output_transformer(alias: str, obj: Any, on_dup: str = "overwrite")
 
 
 def transformer(schema: Any, **validation_rules: Any) -> Callable[[Callable], "_FuncAsTransformer"]:
-    """A function as a transformer of output ``schema``."""
+    """A function of one frame as a transformer of output ``schema``."""
 
     def deco(func: Callable) -> _FuncAsTransformer:
+        if _is_cotransform_func(func):
+            raise FugueInterfacelessError("multi-dataframe functions must use @cotransformer")
         return _FuncAsTransformer.from_func(func, schema, to_validation_rules(validation_rules))
 
     return deco
@@ -63,16 +70,34 @@ def output_transformer(**validation_rules: Any) -> Callable[[Callable], "_FuncAs
     return deco
 
 
+def cotransformer(schema: Any, **validation_rules: Any) -> Callable[[Callable], "_FuncAsCoTransformer"]:
+    """A function of several frames as a cotransformer of output ``schema``."""
+
+    def deco(func: Callable) -> _FuncAsCoTransformer:
+        return _FuncAsCoTransformer.from_func(func, schema, to_validation_rules(validation_rules))
+
+    return deco
+
+
+def output_cotransformer(**validation_rules: Any) -> Callable[[Callable], "_FuncAsOutputCoTransformer"]:
+    """A function of several frames as an output cotransformer."""
+
+    def deco(func: Callable) -> _FuncAsOutputCoTransformer:
+        return _FuncAsOutputCoTransformer.from_func(func, None, to_validation_rules(validation_rules))
+
+    return deco
+
+
 def _to_transformer(
     obj: Any,
     schema: Any = None,
     global_vars: Optional[Dict[str, Any]] = None,
     local_vars: Optional[Dict[str, Any]] = None,
-) -> Transformer:
+) -> Union[Transformer, CoTransformer]:
     global_vars, local_vars = get_caller_global_local_vars(global_vars, local_vars)
     return _to_general_transformer(
         parse_transformer(obj), schema, _TRANSFORMER_REGISTRY, global_vars, local_vars,
-        _FuncAsTransformer,
+        _FuncAsTransformer, _FuncAsCoTransformer,
     )
 
 
@@ -80,31 +105,28 @@ def _to_output_transformer(
     obj: Any,
     global_vars: Optional[Dict[str, Any]] = None,
     local_vars: Optional[Dict[str, Any]] = None,
-) -> Transformer:
+) -> Union[Transformer, CoTransformer]:
     global_vars, local_vars = get_caller_global_local_vars(global_vars, local_vars)
     return _to_general_transformer(
         parse_output_transformer(obj), None, _OUT_TRANSFORMER_REGISTRY, global_vars, local_vars,
-        _FuncAsOutputTransformer,
+        _FuncAsOutputTransformer, _FuncAsOutputCoTransformer,
     )
 
 
 def _to_general_transformer(
     obj: Any, schema: Any, registry: ExtensionRegistry, global_vars: Any, local_vars: Any,
-    func_single: type,
-) -> Transformer:
+    func_single: type, func_multi: type,
+) -> Union[Transformer, CoTransformer]:
     obj = resolve_extension_object(obj, registry, Transformer, global_vars, local_vars)
-    if isinstance(obj, Transformer):
+    if isinstance(obj, (Transformer, CoTransformer)):
         if schema is not None:
             raise FugueInterfacelessError("schema must be None when using an interface class")
         return copy.copy(obj)
-    if inspect.isclass(obj) and issubclass(obj, Transformer):
-        return to_instance(obj, Transformer)
+    if inspect.isclass(obj) and issubclass(obj, (Transformer, CoTransformer)):
+        return to_instance(obj, object)
     if callable(obj):
         if _is_cotransform_func(obj):
-            raise NotImplementedError(
-                f"{obj!r} takes several frames: cotransformers go with zip/comap, "
-                "which are not ported (ROADMAP.md A.11, moved there from A.8)"
-            )
+            return func_multi.from_func(obj, schema, validation_rules={})
         return func_single.from_func(obj, schema, validation_rules={})
     raise FugueInterfacelessError(f"can't convert {obj!r} to a transformer")
 
@@ -187,6 +209,82 @@ class _FuncAsOutputTransformer(_FuncAsTransformer, OutputTransformer):
         if schema is not None:
             raise FugueInterfacelessError("schema must be None for output transformers")
         tr = _FuncAsOutputTransformer._wrap(func, "^[lspnqt]$", validation_rules)
+        tr._output_schema_arg = None  # type: ignore
+        return tr
+
+
+class _FuncAsCoTransformer(CoTransformer):
+    """A plain function of several frames as a CoTransformer (reference
+    ``:263``): the frames go to its parameters in the zip's order, or all
+    at once to one ``DataFrames`` parameter."""
+
+    @property
+    def validation_rules(self) -> Dict[str, Any]:
+        return self._validation_rules  # type: ignore
+
+    def get_output_schema(self, dfs: DataFrames) -> Any:
+        # no "*": a cotransformer has several inputs
+        return Schema(self._output_schema_arg)  # type: ignore
+
+    def get_format_hint(self) -> Optional[str]:
+        return self._wrapper.get_format_hint()  # type: ignore
+
+    def _args(self, dfs: DataFrames) -> List[Any]:
+        args: List[Any] = [dfs] if self._dfs_input else list(dfs.values())  # type: ignore
+        # an Optional[Callable] parameter gets None: no callback is ported
+        return args + [None] if "F" in self._wrapper.input_code else args  # type: ignore
+
+    def transform(self, dfs: DataFrames) -> LocalDataFrame:
+        return self._wrapper.run(  # type: ignore
+            self._args(dfs), self.params, ignore_unknown=False, output_schema=self.output_schema
+        )
+
+    def __uuid__(self) -> str:
+        return to_uuid(self._wrapper.__uuid__(), str(self._output_schema_arg), self._validation_rules)  # type: ignore
+
+    @classmethod
+    def _wrap(cls, func: Callable, return_re: str, validation_rules: Dict[str, Any]) -> Any:
+        if len(validation_rules) > 0 or len(parse_validation_rules_from_comment(func)) > 0:
+            raise FugueInterfacelessError("cotransformers take no validation rules")
+        tr = cls()
+        tr._wrapper = DataFrameFunctionWrapper(func, _CO_INPUT_RE, return_re)  # type: ignore
+        if "f" in tr._wrapper.input_code:  # type: ignore
+            raise NotImplementedError(
+                f"{func!r} requires a callback: RPC callbacks are not ported (ROADMAP.md A.10)"
+            )
+        tr._dfs_input = tr._wrapper.input_code.startswith("c")  # type: ignore
+        tr._validation_rules = {}  # type: ignore
+        return tr
+
+    @staticmethod
+    def from_func(func: Callable, schema: Any, validation_rules: Dict[str, Any]) -> "_FuncAsCoTransformer":
+        if schema is None:
+            schema = parse_comment_annotation(func, "schema")
+        tr = _FuncAsCoTransformer._wrap(func, "^[lspqt]$", validation_rules)
+        if schema is None:
+            raise FugueInterfacelessError("schema is required for interfaceless cotransformers")
+        tr._output_schema_arg = str(schema) if isinstance(schema, Schema) else schema  # type: ignore
+        return tr
+
+
+class _FuncAsOutputCoTransformer(_FuncAsCoTransformer, OutputCoTransformer):
+    """A plain function of several frames as an OutputCoTransformer
+    (reference ``:331``)."""
+
+    def get_output_schema(self, dfs: DataFrames) -> Any:
+        return OUTPUT_TRANSFORMER_DUMMY_SCHEMA
+
+    def transform(self, dfs: DataFrames) -> LocalDataFrame:
+        self._wrapper.run(self._args(dfs), self.params, ignore_unknown=False, output=False)  # type: ignore
+        return ArrayDataFrame([], OUTPUT_TRANSFORMER_DUMMY_SCHEMA)
+
+    @staticmethod
+    def from_func(
+        func: Callable, schema: Any, validation_rules: Dict[str, Any]
+    ) -> "_FuncAsOutputCoTransformer":
+        if schema is not None:
+            raise FugueInterfacelessError("schema must be None for output cotransformers")
+        tr = _FuncAsOutputCoTransformer._wrap(func, "^[lspnqt]$", validation_rules)
         tr._output_schema_arg = None  # type: ignore
         return tr
 

@@ -1,11 +1,11 @@
-"""Transformer and OutputTransformer, copied from
-``fugue_tpu/extensions/transformer/transformer.py`` (:12, :30): the logic
-that runs once a logical partition. Cotransformers go with the zip/comap
-of ROADMAP.md A.8."""
+"""Transformer, OutputTransformer, CoTransformer and OutputCoTransformer,
+copied from ``fugue_tpu/extensions/transformer/transformer.py`` (:12, :30,
+:48, :64): the logic that runs once a logical partition, or once a key
+of a zipped frame (``zip``, then ``comap``)."""
 
 from typing import Any
 
-from ...dataframe import ArrayDataFrame, DataFrame, LocalDataFrame
+from ...dataframe import ArrayDataFrame, DataFrame, DataFrames, LocalDataFrame
 from ..context import ExtensionContext
 
 
@@ -43,3 +43,39 @@ class OutputTransformer(Transformer):
     def transform(self, df: LocalDataFrame) -> LocalDataFrame:
         self.process(df)
         return ArrayDataFrame([], self.get_output_schema(df))
+
+
+class CoTransformer(ExtensionContext):
+    """A transformation of each key of a zipped frame: ``transform`` gets
+    the key's frames, one an input of the zip (an empty frame for a side
+    an outer zip leaves without rows)."""
+
+    def get_output_schema(self, dfs: DataFrames) -> Any:
+        raise NotImplementedError
+
+    def on_init(self, dfs: DataFrames) -> None:
+        pass
+
+    def transform(self, dfs: DataFrames) -> LocalDataFrame:
+        raise NotImplementedError
+
+    @property
+    def validation_rules(self) -> dict:
+        return {}
+
+
+class OutputCoTransformer(CoTransformer):
+    """A cotransformer run for its side effects: ``process`` once a key,
+    and no output."""
+
+    def get_output_schema(self, dfs: DataFrames) -> Any:
+        from .convert import OUTPUT_TRANSFORMER_DUMMY_SCHEMA
+
+        return OUTPUT_TRANSFORMER_DUMMY_SCHEMA
+
+    def process(self, dfs: DataFrames) -> None:
+        raise NotImplementedError
+
+    def transform(self, dfs: DataFrames) -> LocalDataFrame:
+        self.process(dfs)
+        return ArrayDataFrame([], self.get_output_schema(dfs))

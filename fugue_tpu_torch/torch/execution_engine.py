@@ -5,8 +5,8 @@ The port has ``to_df``, ``repartition``, ``persist``, ``broadcast``, the
 device ``aggregate``, the maps behind ``transform`` (``TorchMapEngine``), the
 device ``join`` of every type, ``union``, ``subtract``, ``intersect``,
 ``distinct``, ``sample``, ``take``, the row-local verbs ``filter``,
-``select``, ``assign``, ``dropna`` and ``fillna``, ``load_df`` and
-``save_df``. A one-pass stream (``LocalDataFrameIterableDataFrame``, or
+``select``, ``assign``, ``dropna`` and ``fillna``, ``load_df``,
+``save_df``, and ``zip`` and ``comap``. A one-pass stream (``LocalDataFrameIterableDataFrame``, or
 the row stream ``IterableDataFrame``) given to ``aggregate``, ``join``,
 ``transform``, ``distinct`` or ``take`` goes through chunk by chunk
 (``torch/streaming.py``) where the plan allows it, as in the JAX engine.
@@ -53,7 +53,13 @@ and the result comes back through ``_back``; the spans ``fugue::to_host``,
 / ``fugue::host_sample`` / ``fugue::host_take`` and ``fugue::to_device``
 name the steps in a ``torch.profiler`` trace, and ``fugue::filter``,
 ``fugue::project``, ``fugue::distinct``, ``fugue::sample_mask`` and
-``fugue::take_sort`` the device work. Unsigned columns above uint8, which
+``fugue::take_sort`` the device work.
+
+``zip`` holds its frames on the device (``torch/zipped.py``) where the
+JAX engine's device zip does, and ``comap`` copies each to the host once
+(``fugue::comap_to_host``) and calls the cotransformer once a key under
+``fugue::comap``; the other zips take the base engine's blob protocol,
+and a zip of streams ``streaming_zip``. Unsigned columns above uint8, which
 the JAX package keeps on its device and the port on its host, raise
 ``NotImplementedError`` naming ROADMAP.md A.3 where the JAX engine would
 run them on its device.
@@ -82,6 +88,7 @@ from ..dataframe import (
     ArrayDataFrame,
     ArrowDataFrame,
     DataFrame,
+    DataFrames,
     LocalBoundedDataFrame,
     LocalDataFrame,
     PandasDataFrame,
@@ -112,6 +119,7 @@ from .dataframe import TorchDataFrame
 from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
 from .pipeline import PipelineStats
 from .streaming import (
+    ZippedStreamDataFrame,
     is_stream_frame,
     streaming_compiled_map,
     streaming_dense_aggregate,
@@ -119,7 +127,10 @@ from .streaming import (
     streaming_hash_join,
     streaming_keyed_compiled_map,
     streaming_take,
+    streaming_zip,
+    streaming_comap,
 )
+from .zipped import ZippedTorchDataFrame
 
 _ENCODED = "ROADMAP.md A.3 encoded columns"
 # the JAX engine's default of fugue.tpu.max_partial_rows (its distinct)
@@ -575,6 +586,154 @@ class TorchExecutionEngine(ExecutionEngine):
         BY) window, which the JAX engine builds by moving every row to
         shard 0 (:855). On one device, the frame itself."""
         return self.to_df(df)
+
+    # ---- zip/comap (``JaxExecutionEngine`` :2367-2456, :2522-2656) ------------
+
+    def zip(
+        self,
+        dfs: DataFrames,
+        how: str = "inner",
+        partition_spec: Optional[PartitionSpec] = None,
+        temp_path: Optional[str] = None,
+        to_file_threshold: int = -1,
+    ) -> DataFrame:
+        """The device zip: the input frames held on the device as they are
+        (``torch/zipped.py``), no blob built. On one card a key's rows are
+        already together, so nothing moves: the JAX engine's hash exchange
+        and the union dictionary that co-locates string keys across shards
+        (``_zip_repartition`` :2458) have no work here. A zip that holds a
+        stream goes to ``streaming_zip``. Cross and keyless zips, frames
+        with columns on the host, and keys that are nullable or may hold
+        NaN (not dictionary strings, whose NULL is a code) take the base
+        engine's blob protocol, exactly where the JAX engine takes it; the
+        route is decided from the schema before any work."""
+        spec = partition_spec if partition_spec is not None else PartitionSpec()
+        if any(is_stream_frame(d) for d in dfs.values()):
+            zs = streaming_zip(self, dfs, how, spec)
+            if zs is not None:
+                return zs
+        keys = list(spec.partition_by)
+        if how.lower() != "cross" and len(keys) == 0 and len(dfs) > 0:
+            keys = [n for n in dfs[0].schema.names if all(n in d.schema for d in dfs.values())]
+        if how.lower() != "cross" and len(keys) > 0:
+            tdfs = [self.to_df(d) for d in dfs.values()]
+
+            def _key_ok(t: TorchDataFrame, k: str) -> bool:
+                if k not in t.device_cols:
+                    return False
+                enc = t.encodings.get(k)
+                if enc is not None and enc["kind"] == "dict":
+                    return True
+                # NULL and NaN keys do not group across frames on the host
+                return enc is None and k not in t.null_masks and not t.maybe_nan(k)
+
+            if all(
+                t.host_table is None
+                and len(t.device_cols) == len(t.schema)
+                and all(_key_ok(t, k) for k in keys)
+                for t in tdfs
+            ):
+                return ZippedTorchDataFrame(
+                    frames=tdfs,
+                    names=list(dfs.keys()),
+                    named=dfs.has_key,
+                    how=how.lower(),
+                    keys=keys,
+                    schemas=[t.schema for t in tdfs],
+                    device=self._device,
+                    presort=dict(spec.presort),
+                )
+        return super().zip(
+            dfs, how=how, partition_spec=partition_spec, temp_path=temp_path,
+            to_file_threshold=to_file_threshold,
+        )
+
+    def comap(
+        self,
+        df: DataFrame,
+        map_func: Callable,
+        output_schema: Any,
+        partition_spec: Optional[PartitionSpec] = None,
+        on_init: Optional[Callable] = None,
+    ) -> DataFrame:
+        """The comap of a device zip: each frame copied to the host once
+        (span ``fugue::comap_to_host``), sorted by the presort (the
+        comap's over the zip's), grouped by the keys in the order they
+        first appear, and ``map_func`` called once a key that ``how``
+        keeps; the output back on the device. No blob is built or read.
+        A zipped stream goes to ``streaming_comap``, a blob frame to the
+        base engine's comap."""
+        if isinstance(df, ZippedStreamDataFrame):
+            return streaming_comap(
+                self, df, map_func, output_schema, partition_spec=partition_spec, on_init=on_init
+            )
+        if not isinstance(df, ZippedTorchDataFrame):
+            return super().comap(
+                df, map_func, output_schema, partition_spec=partition_spec, on_init=on_init
+            )
+        with record_function("fugue::comap"):
+            return self._comap_device(df, map_func, output_schema, partition_spec, on_init)
+
+    def _comap_device(
+        self, df: ZippedTorchDataFrame, map_func: Callable, output_schema: Any,
+        partition_spec: Optional[PartitionSpec], on_init: Optional[Callable],
+    ) -> TorchDataFrame:
+        out_schema = output_schema if isinstance(output_schema, Schema) else Schema(output_schema)
+        keys, how, schemas = df._zip_keys, df._zip_how, df._zip_schemas
+        names = [df._zip_names[i] if df._zip_named else f"_{i}" for i in range(len(schemas))]
+        spec = PartitionSpec(partition_spec, by=keys) if partition_spec is not None else PartitionSpec(by=keys)
+        cursor = spec.get_cursor(df.schema, 0)
+        if on_init is not None:
+            on_init(0, DataFrames({n: ArrayDataFrame([], s) for n, s in zip(names, schemas)}))
+        # a comap-time presort overrides the zip-time one, as the blob
+        # protocol serializes under the effective spec
+        presort = dict(spec.presort) if len(spec.presort) > 0 else dict(df._zip_presort)
+        with record_function("fugue::comap_to_host"):
+            frames_pd = [f.as_pandas() for f in df.zip_frames]
+        if len(presort) > 0:
+            # NULLs first, as the host map's presort puts them
+            frames_pd = [
+                p.sort_values(
+                    by=[c for c in presort if c in p.columns],
+                    ascending=[v for c, v in presort.items() if c in p.columns],
+                    kind="mergesort",
+                    na_position="first",
+                )
+                if len(p) > 0 and any(c in p.columns for c in presort)
+                else p
+                for p in frames_pd
+            ]
+        grouped: List[Dict[Any, pd.DataFrame]] = []
+        key_order: List[Any] = []
+        seen: set = set()
+        for p in frames_pd:
+            g: Dict[Any, pd.DataFrame] = {}
+            if len(p) > 0:
+                for kv, sub in p.groupby(keys, dropna=False, sort=False):
+                    kt = _null_safe_key(kv)
+                    g[kt] = sub
+                    if kt not in seen:
+                        seen.add(kt)
+                        key_order.append(kt)
+            grouped.append(g)
+        results: List[pa.Table] = []
+        for no, kt in enumerate(k for k in key_order if _zip_keeps(how, [g.get(k) for g in grouped])):
+            subs = [g.get(kt) for g in grouped]
+            dfs = DataFrames(
+                {
+                    n: PandasDataFrame(s.reset_index(drop=True), sch, pandas_df_wrapper=True)
+                    if s is not None
+                    else ArrayDataFrame([], sch)
+                    for n, s, sch in zip(names, subs, schemas)
+                }
+            )
+            row = list(kt) + [None] * len(schemas)
+            cursor.set(lambda r=row: r, no, 0)
+            results.append(map_func(cursor, dfs).as_local_bounded().as_arrow())
+        with record_function("fugue::to_device"):
+            if len(results) == 0:
+                return self.to_df(ArrayDataFrame([], out_schema))
+            return self.to_df(ArrowDataFrame(pa.concat_tables([t.cast(out_schema.pa_schema) for t in results])))
 
     def _host_call(
         self, verb: Callable[..., DataFrame], *dfs: Any, span: str = "fugue::host_select"
@@ -1641,6 +1800,31 @@ class TorchExecutionEngine(ExecutionEngine):
                 schema=j1.schema,
             )
         )
+
+
+def _null_safe_key(kv: Any) -> tuple:
+    """A group key as a tuple, every NULL (None, NaN, NaT) as None: NaN
+    hashes by identity, so two frames' NaN keys would never meet
+    (``JaxExecutionEngine`` :4068)."""
+    out = []
+    for v in kv if isinstance(kv, tuple) else (kv,):
+        try:
+            isna = pd.isna(v)
+        except (TypeError, ValueError):
+            isna = False
+        out.append(None if isna is True else v)
+    return tuple(out)
+
+
+def _zip_keeps(how: str, subs: List[Any]) -> bool:
+    """Whether a key with these sides (None: no rows) reaches the comap."""
+    if how == "inner":
+        return all(s is not None for s in subs)
+    if how == "left_outer":
+        return subs[0] is not None
+    if how == "right_outer":
+        return subs[-1] is not None
+    return True
 
 
 def _setop_device_ok(tdf: TorchDataFrame) -> bool:

@@ -30,10 +30,14 @@ chunks, rows and peak device bytes of the most recent streaming run: on
 CUDA ``torch.cuda.max_memory_allocated`` since the stream started, on the
 CPU the bytes of the tensors the stream held at its fullest.
 
+- **zip and comap**, :func:`streaming_zip`, :func:`streaming_comap`:
+  key-sorted streams (and bounded frames, sorted on the host) cut into
+  batches at the least last key the open inputs have read, each batch
+  through the engine's ``zip`` and ``comap``.
+
 A row stream (``IterableDataFrame``) streams as batches of
 ``chunk_rows`` rows. Not ported yet (ROADMAP.md A.6b):
-``streaming_fused_steps``, streaming zip/comap and the lowered-segment
-streams.
+``streaming_fused_steps`` and the lowered-segment streams.
 """
 
 from itertools import islice
@@ -862,3 +866,307 @@ def _key_aligned_splits(
         cur = int(bounds[gi + 1])
     if cur > start:
         yield batch.iloc[start:cur].reset_index(drop=True)
+
+
+# --------------------------------------------------------------------------
+# streaming zip/comap (key-sorted streams, co-batched at key horizons)
+# --------------------------------------------------------------------------
+
+
+class ZippedStreamDataFrame(DataFrame):
+    """``zip`` of key-sorted one-pass streams, and of bounded frames that
+    ride along as single-chunk streams (``jax/streaming.py`` :1849). It
+    holds the streams under the blob protocol's schema and metadata
+    (``"stream_zip": True``); only ``comap`` (``streaming_comap``) reads
+    it, and anything else raises: a one-pass stream cannot be read
+    twice."""
+
+    def __init__(
+        self,
+        streams: List[Any],
+        names: List[str],
+        named: bool,
+        how: str,
+        keys: List[str],
+        schemas: List[Schema],
+        presort: Dict[str, bool],
+    ):
+        from .zipped import _BLOB_PREFIX
+
+        blob_fields = ",".join(f"{_BLOB_PREFIX}{i}:binary" for i in range(len(streams)))
+        super().__init__(Schema(str(schemas[0].extract(keys)) + "," + blob_fields))
+        self.zip_streams = streams
+        self.zip_names = names
+        self.zip_named = named
+        self.zip_how = how
+        self.zip_keys = keys
+        self.zip_schemas = schemas
+        self.zip_presort = presort
+        self.reset_metadata(
+            {
+                "serialized": True,
+                "serialized_cols": [f"{_BLOB_PREFIX}{i}" for i in range(len(streams))],
+                "schemas": [str(s) for s in schemas],
+                "serialized_has_name": named,
+                "names": names,
+                "how": how,
+                "keys": keys,
+                "stream_zip": True,
+            }
+        )
+
+    @property
+    def is_local(self) -> bool:
+        return True
+
+    @property
+    def is_bounded(self) -> bool:
+        return False
+
+    @property
+    def empty(self) -> bool:
+        return False
+
+    def _no(self, what: str) -> Any:
+        raise FugueInvalidOperation(
+            f"{what} is not available on a zipped one-pass stream; "
+            "apply a cotransformer (comap) to consume it"
+        )
+
+    def peek_array(self) -> List[Any]:
+        return self._no("peek")
+
+    def count(self) -> int:
+        return self._no("count")
+
+    def as_arrow(self) -> pa.Table:
+        return self._no("as_arrow")
+
+    def as_local_bounded(self) -> Any:
+        return self._no("as_local_bounded")
+
+    def as_array(self, columns: Any = None, type_safe: bool = False) -> Any:
+        return self._no("as_array")
+
+    def as_array_iterable(self, columns: Any = None, type_safe: bool = False) -> Any:
+        return self._no("as_array_iterable")
+
+    def drop(self, columns: Any) -> Any:
+        return self._no("drop")
+
+    def _select_cols(self, cols: Any) -> Any:
+        return self._no("select")
+
+    def rename(self, columns: Any) -> Any:
+        return self._no("rename")
+
+    def alter_columns(self, columns: Any) -> Any:
+        return self._no("alter_columns")
+
+    def head(self, n: int, columns: Any = None) -> Any:
+        return self._no("head")
+
+
+def streaming_zip(engine: Any, dfs: Any, how: str, partition_spec: Any) -> Optional[DataFrame]:
+    """A :class:`ZippedStreamDataFrame` when a zip input is a one-pass
+    stream (``jax/streaming.py`` :1952): a zip that is not cross, by keys
+    given or shared, with no NULL key in a bounded input (a NULL group
+    needs the blob protocol; streams are checked chunk by chunk). Bounded
+    inputs are sorted by the keys on the host; streams must come sorted.
+    None otherwise: the engine then reads the streams whole."""
+    if how.lower() == "cross":
+        return None
+    keys = list(partition_spec.partition_by) if partition_spec is not None else []
+    if len(keys) == 0 and len(dfs) > 0:
+        keys = [n for n in dfs[0].schema.names if all(n in d.schema for d in dfs.values())]
+    if len(keys) == 0:
+        return None
+    inputs: List[Any] = []
+    for d in dfs.values():
+        if is_stream_frame(d):
+            inputs.append(d)
+            continue
+        pf = d.as_pandas()
+        if len(pf) > 0 and pf[keys].isna().any().any():
+            return None
+        inputs.append(
+            PandasDataFrame(pf.sort_values(keys, kind="stable").reset_index(drop=True), Schema(d.schema))
+        )
+    return ZippedStreamDataFrame(
+        streams=inputs,
+        names=list(dfs.keys()),
+        named=dfs.has_key,
+        how=how.lower(),
+        keys=keys,
+        schemas=[Schema(d.schema) for d in dfs.values()],
+        presort=dict(partition_spec.presort) if partition_spec is not None else {},
+    )
+
+
+def _key_view(frame: pd.DataFrame, keys: List[str]) -> Any:
+    """The keys, comparable in order: the numpy column of one key, a
+    MultiIndex of several."""
+    if len(keys) == 1:
+        return frame[keys[0]].to_numpy()
+    return pd.MultiIndex.from_frame(frame[keys])
+
+
+def _is_sorted(kv: Any) -> bool:
+    if isinstance(kv, pd.MultiIndex):
+        return kv.is_monotonic_increasing
+    return bool(np.all(kv[1:] >= kv[:-1])) if len(kv) > 1 else True
+
+
+def _split_below(b: pd.DataFrame, keys: List[str], horizon: Tuple) -> int:
+    """The first row of the sorted ``b`` whose key is at or above
+    ``horizon``."""
+    kv = _key_view(b, keys)
+    if isinstance(kv, pd.MultiIndex):
+        lo, hi = 0, len(kv)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if tuple(kv[mid]) < horizon:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+    return int(np.searchsorted(kv, horizon[0], side="left"))
+
+
+def streaming_comap(
+    engine: Any,
+    zdf: ZippedStreamDataFrame,
+    map_func: Callable,
+    output_schema: Any,
+    partition_spec: Any = None,
+    on_init: Optional[Callable] = None,
+) -> DataFrame:
+    """The cotransform over zipped key-sorted streams in bounded memory
+    (``jax/streaming.py`` :2033): each input keeps a buffer of chunks; the
+    horizon is the least last key over the inputs still open; the rows
+    below it are whole on every input and go through the engine's
+    ``zip`` and ``comap`` as one batch; the rest wait. Memory is
+    O(chunk × inputs) whatever the streams' length. A NULL key, or a
+    chunk out of order within itself or after the one before, raises
+    ``FugueInvalidOperation``. The result is a one-pass stream."""
+    from ..collections.partition import PartitionSpec
+    from ..dataframe import DataFrames
+
+    out_schema = output_schema if isinstance(output_schema, Schema) else Schema(output_schema)
+    keys = zdf.zip_keys
+    chunk_rows = _chunk_rows(engine)
+    # a comap-time presort overrides the zip-time one, as in memory
+    presort = dict(zdf.zip_presort)
+    if partition_spec is not None and len(partition_spec.presort) > 0:
+        presort = dict(partition_spec.presort)
+    spec = (
+        PartitionSpec(partition_spec, by=keys, presort=presort)
+        if partition_spec is not None
+        else PartitionSpec(by=keys, presort=presort)
+    )
+
+    def frames(parts: List[pd.DataFrame]) -> Any:
+        pieces = [PandasDataFrame(p, s) for p, s in zip(parts, zdf.zip_schemas)]
+        return DataFrames(dict(zip(zdf.zip_names, pieces)) if zdf.zip_named else pieces)
+
+    def gen() -> Iterator[LocalDataFrame]:
+        stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
+        _reset_peak(engine.device)
+        iters = [_iter_local_frames(s, chunk_rows) for s in zdf.zip_streams]
+        # lists of chunks, concatenated only when a batch is cut: a hot key
+        # that spans many chunks is not copied once a pull
+        bufs: List[List[pd.DataFrame]] = [[] for _ in iters]
+        last_key: List[Optional[Tuple]] = [None] * len(iters)
+        done = [False] * len(iters)
+        first = [True]
+
+        def _nrows(i: int) -> int:
+            return sum(len(c) for c in bufs[i])
+
+        def pull(i: int) -> None:
+            """One checked chunk onto input ``i``'s buffer: every chunk
+            enters here, so the sorted contract is checked here only."""
+            try:
+                f = next(iters[i])
+            except StopIteration:
+                done[i] = True
+                return
+            pf = f.as_pandas().reset_index(drop=True)
+            stats["chunks"] += 1
+            stats["rows"] += len(pf)
+            if len(pf) == 0:
+                return
+            assert_or_throw(
+                not pf[keys].isna().any().any(),
+                FugueInvalidOperation("streaming zip: NULL keys are not supported on the sorted-stream path"),
+            )
+            assert_or_throw(
+                _is_sorted(_key_view(pf, keys)),
+                FugueInvalidOperation(f"streaming zip: input {i} is not sorted ascending by {keys} within a chunk"),
+            )
+            lo = tuple(pf[keys].iloc[0])
+            if last_key[i] is not None:
+                assert_or_throw(
+                    lo >= last_key[i],
+                    FugueInvalidOperation(
+                        f"streaming zip: input {i} is not sorted ascending by {keys} "
+                        f"({lo!r} after {last_key[i]!r})"
+                    ),
+                )
+            bufs[i].append(pf)
+            last_key[i] = tuple(pf[keys].iloc[-1])
+
+        def run_batch(parts: List[pd.DataFrame]) -> pd.DataFrame:
+            z = engine.zip(frames(parts), how=zdf.zip_how, partition_spec=spec)
+            res = engine.comap(
+                z, map_func, out_schema, partition_spec=spec, on_init=on_init if first[0] else None
+            )
+            first[0] = False
+            out = res.as_pandas()
+            stats["peak_device_bytes"] = max(stats["peak_device_bytes"], _device_peak_bytes(engine.device, []))
+            return out
+
+        while True:
+            for i in range(len(iters)):
+                while not done[i] and _nrows(i) == 0:
+                    pull(i)
+            live = [i for i in range(len(iters)) if _nrows(i) > 0]
+            if len(live) == 0:
+                break
+            # the horizon: the least last key of the inputs that may grow
+            horizons = [last_key[i] for i in live if not done[i]]
+            horizon = min(horizons) if len(horizons) > 0 else None
+            parts: List[pd.DataFrame] = []
+            any_rows = False
+            for i in range(len(iters)):
+                empty = pd.DataFrame(columns=zdf.zip_schemas[i].names)
+                if _nrows(i) == 0 or (horizon is not None and tuple(bufs[i][0][keys].iloc[0]) >= horizon):
+                    # nothing of this input below the horizon: no concat
+                    parts.append(empty)
+                    continue
+                b = bufs[i][0] if len(bufs[i]) == 1 else pd.concat(bufs[i], ignore_index=True)
+                cut = len(b) if horizon is None else _split_below(b, keys, horizon)
+                parts.append(b.iloc[:cut].reset_index(drop=True))
+                rest = b.iloc[cut:].reset_index(drop=True)
+                bufs[i] = [rest] if len(rest) > 0 else []
+                any_rows = any_rows or cut > 0
+            if any_rows:
+                yield PandasDataFrame(run_batch(parts), out_schema)
+            elif horizon is not None:
+                # nothing below the horizon: only the inputs pinned at it
+                # can move it, one chunk each (the others must not grow)
+                progressed = False
+                for i in range(len(iters)):
+                    if not done[i] and _nrows(i) > 0 and last_key[i] == horizon:
+                        pull(i)
+                        progressed = True
+                assert_or_throw(
+                    progressed, FugueInvalidOperation("streaming zip: no progress possible (internal)")
+                )
+        if first[0] and on_init is not None:
+            # no batch ran: on_init still runs once, over empty frames
+            on_init(0, frames([pd.DataFrame(columns=s.names) for s in zdf.zip_schemas]))
+        global last_run_stats
+        last_run_stats = dict(stats, verb="comap")
+
+    return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)

@@ -2,13 +2,12 @@
 operation *describes* a task, and ``run(engine)`` executes the graph on
 an engine of the port. ``WorkflowDataFrame`` mirrors the frame's API
 lazily and adds partitioning hints, checkpoints, yields, persist,
-broadcast, joins, set operations and SQL.
+broadcast, joins, set operations, zips and SQL.
 
 ``run`` keeps the workflow's conf to the run (``run_conf_scope``): it
 never leaks into the engine's conf. It runs the DAG as compiled: the plan
 optimizer and its lowering (ROADMAP.md A.11) rewrite only for speed, and
-the tracer, the tuner and the result cache are not ported (A.10). ``zip``
-raises naming A.11."""
+the tracer, the tuner and the result cache are not ported (A.10)."""
 
 from typing import Any, Dict, List, Optional
 
@@ -738,9 +737,25 @@ class FugueWorkflow:
     def intersect(self, *dfs: Any, distinct: bool = True) -> WorkflowDataFrame:
         return self.set_op("intersect", *dfs, distinct=distinct)
 
-    def zip(self, *dfs: Any, **kwargs: Any) -> WorkflowDataFrame:
-        raise NotImplementedError(
-            "zip (and the cotransformers that run on it) is not ported (ROADMAP.md A.11)"
+    def zip(
+        self,
+        *dfs: Any,
+        how: str = "inner",
+        partition: Any = None,
+        temp_path: Optional[str] = None,
+        to_file_threshold: int = -1,
+    ) -> WorkflowDataFrame:
+        """The frames co-partitioned by ``partition``'s keys (default: the
+        columns they share), for a cotransformer to ``transform``;
+        ``how``: inner, left_outer, right_outer, full_outer or cross.
+        Frames given in a dict keep their names."""
+        inputs, names = self._to_dfs(dfs)
+        return self.add_process_task(
+            bp.Zip(),
+            inputs,
+            params=dict(how=how, temp_path=temp_path, to_file_threshold=to_file_threshold),
+            pre_partition=partition,
+            input_names=names,
         )
 
     def select(
@@ -811,15 +826,16 @@ class FugueWorkflow:
     # -- run -------------------------------------------------------------------
     def run(self, engine: Any = None, conf: Any = None, device: Any = None) -> FugueWorkflowResult:
         """Run the DAG on ``engine`` (an engine, or a name that
-        ``execution/factory.py`` resolves, with ``device`` and ``conf``),
-        the workflow's conf bound over the engine's for this run only.
-        ``conf`` with an engine instance goes into its conf, as in the JAX
-        package."""
+        ``execution/factory.py`` resolves, with ``device`` and ``conf``;
+        ``None``: the context or global engine, or the one the DAG's data
+        implies), the workflow's conf bound over the engine's for this run
+        only, the engine the context engine of the run. ``conf`` with an
+        engine instance goes into its conf, as in the JAX package."""
         if isinstance(engine, ExecutionEngine):
             e = make_execution_engine(engine, device=device)
             e.conf.update(ParamDict(conf))
         else:
-            e = make_execution_engine(engine, device=device, conf=conf)
+            e = make_execution_engine(engine, device=device, conf=conf, infer_by=self._collect_raw_inputs())
         plan_conf = ParamDict(e.conf)
         plan_conf.update(self._conf)
         _refuse_a10(plan_conf)
@@ -827,9 +843,13 @@ class FugueWorkflow:
         ctx = FugueWorkflowContext(e, conf=plan_conf)
         self._last_context = ctx
         self._apply_auto_persist(e, plan_conf)
-        with e.run_conf_scope(self._conf):
+        with e.run_conf_scope(self._conf), e._as_context(borrowed=True):
             ctx.run(self._tasks)
         return FugueWorkflowResult(self._yields)
+
+    def _collect_raw_inputs(self) -> List[Any]:
+        """The data the DAG's ``df``/``create_data`` tasks hold."""
+        return [t.params["data"] for t in self._tasks if isinstance(t, CreateTask) and "data" in t.params]
 
     def release_task_results(self) -> None:
         """Drop the per-task result frames held by the last run's context.

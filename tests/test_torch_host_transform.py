@@ -328,20 +328,36 @@ def test_pool_and_callbacks_are_refused(engine, case):
             api.out_transform(_frame(), pandas_form, callback=lambda x: x, engine=engine)
 
 
-def test_strings_and_cotransformers_are_refused(engine):
+def test_strings_and_cotransformers_are_refused(engine, jax_engine):
     """A transformer named by a string resolves since the extension
     registry is ported (ROADMAP.md A.11's workflow part): in the caller's
-    scope, as the function it names. Cotransformers are still refused,
-    naming A.11, where A.8 moved them."""
+    scope, as the function it names. A cotransformer (a function of two
+    frames) runs over a zipped frame as the JAX engine runs it, and over a
+    frame that is not zipped raises what the reference raises, with the
+    same exception class (the test keeps its name from when the port
+    refused cotransformers)."""
+    from fugue_tpu.collections import PartitionSpec as JPartitionSpec
+    from fugue_tpu_torch.collections import PartitionSpec
 
     def two(a: pd.DataFrame, b: pd.DataFrame) -> pd.DataFrame:
-        return a
+        return pd.DataFrame({"k": [a["k"].iloc[0]], "n": [len(a) + len(b)], "s": [a["v"].sum()]})
 
     by_name = api.transform(_frame(), "pandas_form", schema="*,n:long", engine=engine)
     by_func = api.transform(_frame(), pandas_form, schema="*,n:long", engine=engine)
     pd.testing.assert_frame_equal(by_name, by_func)
-    with pytest.raises(NotImplementedError, match="A.11.*A.8"):
-        api.transform(_frame(), two, schema="*", engine=engine)
+    a, b = _frame(120, 1), _frame(80, 2)
+    z = engine.zip(tdf.DataFrames(engine.to_df(a), engine.to_df(b)), partition_spec=PartitionSpec(by=["k"]))
+    jz = jax_engine.zip(jdf.DataFrames(jax_engine.to_df(a), jax_engine.to_df(b)),
+                        partition_spec=JPartitionSpec(by=["k"]))
+    got = api.transform(z, two, schema="k:long,n:long,s:double", engine=engine, as_fugue=True).as_pandas()
+    exp = fa.transform(jz, two, schema="k:long,n:long,s:double", engine=jax_engine, as_fugue=True).as_pandas()
+    pd.testing.assert_frame_equal(_sorted(got), _sorted(exp), check_dtype=False)
+    errs = []
+    for mod, eng in ((fa, jax_engine), (api, engine)):
+        with pytest.raises(Exception, match="the input of cotransform must be a zipped dataframe") as err:
+            mod.transform(_frame(), two, schema="*", engine=eng)
+        errs.append(type(err.value).__name__)
+    assert errs == ["FugueWorkflowError"] * 2
 
 
 # ---- chip_smoke.py's host_path phase, at small size ----------------------------------

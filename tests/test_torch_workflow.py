@@ -12,9 +12,9 @@ its yields compared: rows exact, floats within 1e-5 relative (the
 reference comparator's 5 digits). The DAGs' own ``assert_eq`` tasks run
 on each side too.
 
-Cotransform, zip and callback cases assert the port's refusals, naming
-ROADMAP.md A.11 and A.10; so do the conf keys of the workflow services
-the port lacks (A.10). Then what the port adds: concurrent task threads,
+Zip and cotransform cases answer as the reference's; callbacks and the
+conf keys of the workflow services the port lacks raise, naming ROADMAP.md
+A.10. Then what the port adds: concurrent task threads,
 the run-scoped conf, ``@module`` and the extension registry.
 """
 
@@ -523,19 +523,39 @@ def test_any_column_name(jax_engine, port_engine, tmp_path):
 # ---- the refusals ------------------------------------------------------------------
 
 
-def test_cotransform_zip_and_callbacks_are_refused(port_engine):
+def case_zip_cotransform(ns, dag, tmpdir):
+    def merge(d1: pd.DataFrame, d2: pd.DataFrame) -> pd.DataFrame:
+        k = d1["k"].iloc[0] if len(d1) else d2["k"].iloc[0]
+        return pd.DataFrame({"k": [k], "n1": [len(d1)], "n2": [len(d2)]})
+
+    a = dag.df([[1, "a"], [1, "b"], [2, "c"]], "k:long,v:str")
+    b = dag.df([[1, 1.0], [3, 2.0]], "k:long,w:double")
+    return {
+        "by_dag": dag.zip(a, b, partition={"by": ["k"]}).transform(merge, schema="k:long,n1:long,n2:long"),
+        "by_frame": a.zip(b, how="full_outer").transform(merge, schema="k:long,n1:long,n2:long"),
+    }
+
+
+def test_cotransform_zip_and_callbacks_are_refused(jax_engine, port_engine, tmp_path):
+    """``dag.zip`` and ``WorkflowDataFrame.zip`` answer as the JAX
+    package's, and a cotransformer of a frame that is not zipped raises
+    what the reference raises (the test keeps its name from when the port
+    refused them); callbacks are still refused, naming A.10."""
+    _check(case_zip_cotransform, jax_engine, port_engine, tmp_path)
+
     def merge(d1: pd.DataFrame, d2: pd.DataFrame) -> pd.DataFrame:
         return d1
 
+    errs = []
+    for ns, eng in ((REF, jax_engine), (PORT, port_engine)):
+        dag = ns.FugueWorkflow()
+        dag.df([[1, "a"]], "k:long,v:str").transform(merge, schema="k:long,v:str").show()
+        with pytest.raises(ns.exc.FugueWorkflowError, match="must be a zipped dataframe") as err:
+            dag.run(eng)
+        errs.append(type(err.value).__name__)
+    assert errs[0] == errs[1]
     dag = twf.FugueWorkflow()
     a = dag.df([[1, "a"]], "k:long,v:str")
-    b = dag.df([[1, 1.0]], "k:long,w:double")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        dag.zip(a, b, partition={"by": ["k"]})
-    with pytest.raises(NotImplementedError, match="A.11"):
-        a.zip(b)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        a.transform(merge, schema="k:long,v:str")
 
     def report(df: pd.DataFrame, cb: callable) -> pd.DataFrame:
         cb(len(df))
