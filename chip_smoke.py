@@ -153,7 +153,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    peak device bytes (under 1 GiB), the ingest pipeline's stats and a
    traced window of 6 chunks a pass, every thread's spans) and
    ``f32-aggregate`` (``--rows`` rows with ``v`` as float32, streamed into
-   SUM/COUNT/AVG: B1 once a chunk, against a float64 oracle).
+   SUM/COUNT/AVG: B1 once a chunk, against a float64 oracle);
+16. plan_path: the plan optimizer through ``FugueWorkflow`` on config
+   #3's frame (``--rows`` rows, plus ``w`` float32), one line a cell with
+   the PlanReport in short (pushdowns, prunes, fusions, segments lowered
+   and executed): ``lowered-uniform-1k`` (``filter(v > 0.25) →
+   select(k, v * w AS z) → aggregate`` of ``z``: one lowered segment, B1
+   once a call), ``stream-lowered-f32`` (the same chain over the rows
+   streamed in chunks of 4·10^6, ``--plan-stream-rows``: B1 once a chunk,
+   the peak device bytes under 1 GiB), each beside its twin with
+   ``fugue.tpu.plan.lower_segments=false``; ``unsigned-keys`` (``k`` as
+   uint32 aggregated on the dense route, then a join of 10^6 rows by a
+   uint64 key straddling 2**63) and ``sql-dialect`` (a FugueSQL query
+   under the postgres compile dialect against its spark twin); each
+   checked against a float64 numpy oracle and its twin, timed (median of
+   ``PLAN_REPS`` calls) and traced once. sql_path's lines carry the same
+   PlanReport summary.
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
@@ -163,12 +178,13 @@ N`` cuts the dense, the transform, the north-star and the 100m host frames,
 try; ``--stream-rows N`` cuts the streamed north star, ``--setop-stream-rows N``
 setop_path's streams, ``--sql-rows N`` sql_path's parquet file and the
 engine-context check's, ``--cogroup-rows N`` and ``--cogroup-stream-rows N``
-cogroup_path's frames). With no CUDA
+cogroup_path's frames, ``--plan-stream-rows N`` plan_path's stream). With no CUDA
 device, or outside the repository, it
 exits non-zero and prints no result.
 """
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -1056,12 +1072,15 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
     def run_cell(cell: str, call, compile_only, check, twin=None, rows=0, extra=None) -> None:
         for k in bg.LAUNCHES:
             bg.LAUNCHES[k] = 0
+        before = engine.plan_stats.as_dict()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = call()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = dict(bg.LAUNCHES)
+        # the optimizer's report of the same DAG, nothing run
+        plan = _plan_summary(compile_only().plan_report(engine=engine), before, engine.plan_stats.as_dict())
         checks = check(res)
         del res
         if twin is not None:
@@ -1083,7 +1102,7 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
         ms = statistics.median(wall)
-        line = {"phase": "sql_path", "cell": cell, "rows": rows, "launches": launches,
+        line = {"phase": "sql_path", "cell": cell, "rows": rows, "launches": launches, "plan": plan,
                 "first_call_s": first_s, "compile_ms": statistics.median(compile_ms),
                 "ms": ms, "ms_all": wall, "rows_per_s": rows / ms * 1e3, "checks": checks}
         if twin is not None:
@@ -2888,6 +2907,346 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
     return out
 
 
+# plan_path: the plan optimizer and its lowered segments through FugueWorkflow
+PLAN_REPS = 5  # medians of 5 calls, after the checked one
+PLAN_STREAM_CHUNK = 4_000_000  # stream_path's f32-aggregate chunk
+PLAN_JOIN_ROWS = 1_000_000
+PLAN_DIM_ROWS = 1_000
+PLAN_U64_BASE = (1 << 63) - PLAN_DIM_ROWS // 2  # the dimension keys straddle 2**63
+LOWER_KEY = "fugue.tpu.plan.lower_segments"
+PLAN_SQL = {
+    "postgres": ('SELECT "k", SUM("v") AS s, COUNT(*) AS n FROM t '
+                 'WHERE CAST("w" AS DOUBLE PRECISION) > 0.5 GROUP BY "k"'),
+    "spark": "SELECT `k`, SUM(`v`) AS s, COUNT(*) AS n FROM t WHERE CAST(`w` AS double) > 0.5 GROUP BY `k`",
+}
+
+
+def plan_frame(np, pd, rows: int, seed: int):
+    """Config #3's frame as ``_make_frame`` makes it (``k`` over 1,000
+    uniform keys, ``v`` float32 with 1% NaN), plus ``w`` float32 uniform
+    in [0, 1)."""
+    rng = np.random.default_rng(seed + 13)
+    pdf = _make_frame(np, pd, rng, rows, "uniform")
+    pdf["w"] = rng.random(rows, dtype=np.float32)
+    return pdf
+
+
+def plan_oracle(np, pd, k, v, w=None):
+    """Per key of ``k`` over the rows the chain keeps (``v > 0.25``, NaN
+    dropped), of ``z = v * w`` in float32 as the card computes it (``v``
+    itself with ``w`` None, every row): count, float64 sum and mean, and
+    the float32 min and max (NaN where a group has no non-NULL value)."""
+    if w is not None:
+        keep = v > 0.25
+        k, z = k[keep], v[keep] * w[keep]
+    else:
+        z = v
+    nn = ~np.isnan(z)
+    groups = np.bincount(k)
+    n = np.bincount(k[nn], minlength=len(groups))
+    s = np.bincount(k[nn], weights=z[nn].astype(np.float64), minlength=len(groups))
+    keys = np.nonzero(groups > 0)[0]
+    mm = pd.DataFrame({"k": k[nn], "z": z[nn]}).groupby("k")["z"].agg(["min", "max"])
+    exp = pd.DataFrame({"k": keys, "n": n[keys]})
+    with np.errstate(invalid="ignore", divide="ignore"):
+        exp["s"] = np.where(n[keys] > 0, s[keys], np.nan)
+        exp["m"] = exp["s"] / np.where(n[keys] > 0, n[keys], np.nan)
+    exp["lo"] = mm["min"].reindex(keys).to_numpy()
+    exp["hi"] = mm["max"].reindex(keys).to_numpy()
+    return exp[["k", "s", "n", "m", "lo", "hi"]]
+
+
+def _plan_summary(report, stats_before: dict, stats_after: dict) -> dict:
+    """A PlanReport in short, with the segments the run executed and the
+    ones that took the per-verb path."""
+    return {
+        "pushdowns": report.filters_pushed, "prunes": report.cols_pruned, "fusions": report.verbs_fused,
+        "segments_lowered": report.segments_lowered,
+        "segments_executed": stats_after["segments_executed"] - stats_before["segments_executed"],
+        "segments_fallback": stats_after["segments_fallback"] - stats_before["segments_fallback"],
+    }
+
+
+def _wall_ms(torch, fn, reps: int) -> list:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows: int,
+                    stream_rows: int, stream_chunk: int = PLAN_STREAM_CHUNK, cells=None) -> dict:
+    """The plan optimizer on the card, through ``FugueWorkflow``, one line
+    a cell (``cells`` names a subset; None: all):
+
+    - ``lowered-uniform-1k``: config #3's frame (``plan_frame``, ``rows``
+      rows) on the card, ``filter(v > 0.25) → select(k, v * w AS z) →
+      aggregate`` SUM/COUNT/AVG/MIN/MAX of ``z`` by ``k``: one lowered
+      segment, B1 once a call; beside its twin with
+      ``fugue.tpu.plan.lower_segments=false`` (the per-verb path);
+    - ``stream-lowered-f32``: the same chain over ``stream_rows`` of the
+      same rows streamed in chunks of ``stream_chunk`` rows: B1 once a
+      chunk, the peak device bytes under ``STREAM_PEAK_LIMIT``, one traced
+      call; beside its per-verb twin;
+    - ``unsigned-keys``: the frame's ``k`` as uint32, aggregated
+      SUM/COUNT/AVG/MIN/MAX of ``v`` (the dense route, B1 once), then an
+      inner join of ``PLAN_JOIN_ROWS`` rows by a uint64 key straddling
+      2**63 with ``PLAN_DIM_ROWS`` dimension rows;
+    - ``sql-dialect``: one FugueSQL query compiled under
+      ``fugue.sql.compile.dialect=postgres`` (double-quoted names, ``CAST
+      ... AS DOUBLE PRECISION``) against the same query in spark's.
+
+    Each is checked once against a float64 numpy oracle (keys, counts,
+    MIN/MAX and rows exact; float32 sums ``ORACLE_RTOL``) and against its
+    twin, with the launch counts set to 0 just before the checked call and
+    read just after, then timed (median of ``PLAN_REPS`` calls, the twin's
+    beside it) and traced once; each line has the PlanReport in short."""
+    from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
+    from fugue_tpu_torch.sql import FugueSQLWorkflow
+    from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    cells = set(cells or ("lowered-uniform-1k", "stream-lowered-f32", "unsigned-keys", "sql-dialect"))
+    out = {"phase": "plan_path", "cells": {}}
+    t0 = time.perf_counter()
+    pdf = plan_frame(np, pd, rows, seed)
+    k, v, w = (pdf[c].to_numpy() for c in ("k", "v", "w"))
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp = plan_oracle(np, pd, k, v, w)
+    oracle_s = time.perf_counter() - t0
+    aggs = dict(s=ff.sum(col("z")), n=ff.count(col("z")), m=ff.avg(col("z")),
+                lo=ff.min(col("z")), hi=ff.max(col("z")))
+    on_card = engine.device.type == "cuda"
+
+    def chain(src, conf=None):
+        dag = FugueWorkflow(conf)
+        (dag.df(src).filter(col("v") > 0.25).select(col("k"), (col("v") * col("w")).alias("z"))
+         .partition_by("k").aggregate(**aggs).yield_dataframe_as("r"))
+        return dag
+
+    def run_dag(eng, make):
+        dag = make()
+        before = eng.plan_stats.as_dict()
+        dag.run(eng)
+        res = dag.yields["r"].result
+        return res, _plan_summary(dag.last_plan_report, before, eng.plan_stats.as_dict())
+
+    def checked(eng, make, what: str, oracle) -> tuple:
+        """The first call: launches counted from 0, the result held to
+        ``oracle``; ``(result pandas, launches, plan summary, first s)``."""
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, plan = run_dag(eng, make)
+        got = res.as_pandas().sort_values("k").reset_index(drop=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        _check_agg(np, got, oracle, what)
+        return got, dict(bg.LAUNCHES), plan, first_s
+
+    def same_as_twin(got, twin, what: str) -> None:
+        for c in ("k", "n", "lo", "hi"):
+            require(np.array_equal(got[c].to_numpy(), twin[c].to_numpy(), equal_nan=True), f"{what}: {c} vs twin")
+        for c in ("s", "m"):
+            require(np.allclose(got[c].to_numpy(), twin[c].to_numpy(), rtol=ORACLE_RTOL, atol=0, equal_nan=True),
+                    f"{what}: {c} vs twin")
+
+    if "lowered-uniform-1k" in cells:
+        t0 = time.perf_counter()
+        tdf = engine.persist(engine.to_df(pdf))
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        got, launches, plan, first_s = checked(engine, lambda: chain(tdf), "lowered-uniform-1k", exp)
+        require(plan["segments_executed"] == 1 and plan["segments_fallback"] == 0,
+                f"lowered-uniform-1k: plan {plan}")
+        require(launches["bin_sum"] == (1 if on_card else 0),
+                f"lowered-uniform-1k: bin_sum launched {launches['bin_sum']} times")
+        twin_got, twin_launches, twin_plan, _ = checked(
+            engine, lambda: chain(tdf, {LOWER_KEY: False}), "lowered-uniform-1k twin", exp)
+        require(twin_plan["segments_lowered"] == 0, f"lowered-uniform-1k twin: plan {twin_plan}")
+        same_as_twin(got, twin_got, "lowered-uniform-1k")
+        call = lambda: run_dag(engine, lambda: chain(tdf))[0].count()  # noqa: E731
+        twin_call = lambda: run_dag(engine, lambda: chain(tdf, {LOWER_KEY: False}))[0].count()  # noqa: E731
+        call()
+        ms_all = _wall_ms(torch, call, PLAN_REPS)
+        twin_call()
+        twin_all = _wall_ms(torch, twin_call, PLAN_REPS)
+        # reads k (8 B), v, w (4 B each) a row; writes six columns a bucket
+        bound_ms, bound_by = _bound(rows, 16, 1024 * (8 + 8 + 8 + 8 + 4 + 4 + 1))
+        line = {"phase": "plan_path", "cell": "lowered-uniform-1k", "rows": rows, "groups": len(exp),
+                "generate_s": generate_s, "oracle_s": oracle_s, "ingest_s": ingest_s, "plan": plan,
+                "launches": launches, "twin_launches": twin_launches, "first_call_s": first_s,
+                "ms": statistics.median(ms_all), "ms_all": ms_all, "twin_ms": statistics.median(twin_all),
+                "twin_ms_all": twin_all, "bound_ms": bound_ms, "bound_by": bound_by,
+                "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle and twin",
+                "profile": _trace(torch, call), "twin_profile": _trace(torch, twin_call),
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["lowered-uniform-1k"] = line
+        del tdf
+        torch.cuda.empty_cache()
+
+    if "stream-lowered-f32" in cells:
+        n_stream = min(stream_rows, rows)
+        tbl = pa.table({"k": k[:n_stream], "v": v[:n_stream], "w": w[:n_stream]})
+        chunks = (n_stream + stream_chunk - 1) // stream_chunk
+        stream_exp = exp if n_stream == rows else plan_oracle(np, pd, k[:n_stream], v[:n_stream], w[:n_stream])
+        seng = TorchExecutionEngine(device=engine.device, conf={
+            "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+
+        def stream():
+            return LocalDataFrameIterableDataFrame(
+                (ArrowDataFrame(tbl.slice(s, stream_chunk)) for s in range(0, n_stream, stream_chunk)),
+                schema="k:long,v:float,w:float")
+
+        resident = torch.cuda.memory_allocated() if on_card else 0  # what earlier cells left on the card
+        torch.cuda.reset_peak_memory_stats()
+        got, launches, plan, first_s = checked(seng, lambda: chain(stream()), "stream-lowered-f32", stream_exp)
+        peak = torch.cuda.max_memory_allocated() if on_card else streaming.last_run_stats["peak_device_bytes"]
+        run_stats = dict(streaming.last_run_stats)
+        require(plan["segments_executed"] == 1 and plan["segments_fallback"] == 0,
+                f"stream-lowered-f32: plan {plan}")
+        require(launches["bin_sum"] == (chunks if on_card else 0),
+                f"stream-lowered-f32: bin_sum launched {launches['bin_sum']} times over {chunks} chunks")
+        require(peak < STREAM_PEAK_LIMIT, f"stream-lowered-f32: peak device bytes {peak}")
+        twin_got, twin_launches, twin_plan, twin_first_s = checked(
+            seng, lambda: chain(stream(), {LOWER_KEY: False}), "stream-lowered-f32 twin", stream_exp)
+        same_as_twin(got, twin_got, "stream-lowered-f32")
+        call = lambda: run_dag(seng, lambda: chain(stream()))[0].count()  # noqa: E731
+        twin_call = lambda: run_dag(seng, lambda: chain(stream(), {LOWER_KEY: False}))[0].count()  # noqa: E731
+        ms_all = _wall_ms(torch, call, PLAN_REPS)
+        twin_all = _wall_ms(torch, twin_call, PLAN_REPS)
+        bound_ms, bound_by = _bound(n_stream, 16, 1024 * 41)
+        line = {"phase": "plan_path", "cell": "stream-lowered-f32", "rows": n_stream, "chunk": stream_chunk,
+                "chunks": chunks, "plan": plan, "launches": launches, "twin_launches": twin_launches,
+                "first_call_s": first_s, "twin_first_call_s": twin_first_s, "ms": statistics.median(ms_all),
+                "ms_all": ms_all, "twin_ms": statistics.median(twin_all), "twin_ms_all": twin_all,
+                "rows_per_s": n_stream / statistics.median(ms_all) * 1e3, "bound_ms": bound_ms,
+                "bound_by": bound_by, "peak_device_bytes": peak, "resident_before_bytes": resident, "run": run_stats,
+                "pipeline": seng.pipeline_stats.as_dict(),
+                "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle and twin",
+                "profile": _trace(torch, call, all_threads=True),
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["stream-lowered-f32"] = line
+        del tbl, seng
+        torch.cuda.empty_cache()
+
+    if "unsigned-keys" in cells:
+        uexp = plan_oracle(np, pd, k, v)
+        tdf = engine.persist(engine.to_df(pd.DataFrame({"k": k.astype(np.uint32), "v": v})))
+        vaggs = dict(s=ff.sum(col("v")), n=ff.count(col("v")), m=ff.avg(col("v")),
+                     lo=ff.min(col("v")), hi=ff.max(col("v")))
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = api.aggregate(tdf, partition_by="k", engine=engine, **vaggs)
+        got = res.as_pandas().sort_values("k").reset_index(drop=True)
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        require(str(res.schema).startswith("k:uint32,"), f"unsigned-keys: schema {res.schema}")
+        require(launches["bin_sum"] == (1 if on_card else 0), f"unsigned-keys: bin_sum launched {launches}")
+        _check_agg(np, got.astype({"k": np.int64}), uexp, "unsigned-keys")
+        agg_all = _wall_ms(torch, lambda: api.aggregate(tdf, partition_by="k", engine=engine, **vaggs).count(),
+                           PLAN_REPS)
+        agg_profile = _trace(torch, lambda: api.aggregate(tdf, partition_by="k", engine=engine, **vaggs).count())
+        del tdf, res
+        # the join: uint64 keys on both sides of 2**63
+        rng = np.random.default_rng(seed + 17)
+        dim_keys = (np.uint64(PLAN_U64_BASE) + np.arange(PLAN_DIM_ROWS, dtype=np.uint64))
+        dim = pd.DataFrame({"u": dim_keys, "label": np.arange(PLAN_DIM_ROWS, dtype=np.int64)})
+        pick = rng.integers(0, PLAN_DIM_ROWS + PLAN_DIM_ROWS // 10, PLAN_JOIN_ROWS)  # ~9% miss
+        left = pd.DataFrame({"u": np.uint64(PLAN_U64_BASE) + pick.astype(np.uint64),
+                             "x": rng.random(PLAN_JOIN_ROWS)})
+        ldf, rdf = engine.persist(engine.to_df(left)), engine.persist(engine.to_df(dim))
+        jres = api.join(ldf, rdf, how="inner", on=["u"], engine=engine, as_fugue=True)
+        jgot = jres.as_pandas().sort_values(["u", "x"]).reset_index(drop=True)
+        hit = pick < PLAN_DIM_ROWS
+        jexp = pd.DataFrame({"u": left["u"][hit], "x": left["x"][hit], "label": pick[hit].astype(np.int64)}
+                            ).sort_values(["u", "x"]).reset_index(drop=True)
+        require(str(jres.schema) == "u:uint64,x:double,label:long", f"unsigned-keys join: schema {jres.schema}")
+        require(len(jgot) == len(jexp) and all(np.array_equal(jgot[c].to_numpy(), jexp[c].to_numpy())
+                                               for c in ("u", "x", "label")), "unsigned-keys join: rows")
+        require(int(jgot["u"].min()) < (1 << 63) <= int(jgot["u"].max()), "unsigned-keys join: keys straddle 2**63")
+        join_call = lambda: api.join(ldf, rdf, how="inner", on=["u"], engine=engine, as_fugue=True).count()  # noqa: E731
+        join_all = _wall_ms(torch, join_call, PLAN_REPS)
+        line = {"phase": "plan_path", "cell": "unsigned-keys", "rows": rows, "groups": len(uexp),
+                "launches": launches, "first_call_s": first_s, "ms": statistics.median(agg_all), "ms_all": agg_all,
+                "profile": agg_profile, "join_rows": {"left": PLAN_JOIN_ROWS, "right": PLAN_DIM_ROWS,
+                                                      "out": len(jgot)},
+                "join_ms": statistics.median(join_all), "join_ms_all": join_all,
+                "join_profile": _trace(torch, join_call),
+                "checks": (f"aggregate: keys, counts, min/max exact, sum/avg rtol={ORACLE_RTOL} vs float64 oracle; "
+                           "join: rows exact vs numpy"),
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["unsigned-keys"] = line
+        del ldf, rdf, jres
+        torch.cuda.empty_cache()
+
+    if "sql-dialect" in cells:
+        tdf = engine.persist(engine.to_df(pdf))
+        keep = w > 0.5
+        nn = keep & ~np.isnan(v)
+        sexp_n = np.bincount(k[keep], minlength=1000)
+        sexp_s = np.bincount(k[nn], weights=v[nn].astype(np.float64), minlength=1000)
+
+        def run_sql(dialect: str):
+            dag = FugueSQLWorkflow({"fugue.sql.compile.dialect": dialect})
+            dag(PLAN_SQL[dialect] + " YIELD DATAFRAME AS r", t=tdf)
+            before = engine.plan_stats.as_dict()
+            dag.run(engine)
+            return dag.yields["r"].result, _plan_summary(dag.last_plan_report, before, engine.plan_stats.as_dict())
+
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        res, plan = run_sql("postgres")
+        got = res.as_pandas().sort_values("k").reset_index(drop=True)
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        twin = run_sql("spark")[0].as_pandas().sort_values("k").reset_index(drop=True)
+        keys = np.nonzero(sexp_n)[0]
+        require(list(got.columns) == ["k", "s", "n"] and np.array_equal(got["k"].to_numpy(), keys),
+                f"sql-dialect: columns {list(got.columns)} or keys")
+        require(np.array_equal(got["n"].to_numpy(), sexp_n[keys]), "sql-dialect: counts")
+        require(np.allclose(got["s"].to_numpy(), sexp_s[keys], rtol=ORACLE_RTOL, atol=0), "sql-dialect: sums")
+        require(np.array_equal(got["n"].to_numpy(), twin["n"].to_numpy())
+                and np.allclose(got["s"].to_numpy(), twin["s"].to_numpy(), rtol=ORACLE_RTOL, atol=0),
+                "sql-dialect: postgres vs spark")
+        ms_all = _wall_ms(torch, lambda: run_sql("postgres")[0].count(), PLAN_REPS)
+        twin_all = _wall_ms(torch, lambda: run_sql("spark")[0].count(), PLAN_REPS)
+        line = {"phase": "plan_path", "cell": "sql-dialect", "rows": rows, "query": PLAN_SQL["postgres"],
+                "plan": plan, "launches": launches, "first_call_s": first_s, "ms": statistics.median(ms_all),
+                "ms_all": ms_all, "twin_ms": statistics.median(twin_all), "twin_ms_all": twin_all,
+                "checks": f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle and the spark twin",
+                "profile": _trace(torch, lambda: run_sql("postgres")[0].count()),
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["sql-dialect"] = line
+        del tdf
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+def _release(torch) -> None:
+    """Between phases: collect what the phase before left in reference
+    cycles (a ``FugueSQLWorkflow`` and its frames form one, as in the JAX
+    package), then hand the cached blocks back, so that no phase's peak
+    counts an earlier phase's frames."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2899,6 +3258,7 @@ def main() -> int:
     ap.add_argument("--sql-rows", type=int, default=SQL_PIPELINE_ROWS)
     ap.add_argument("--cogroup-rows", type=int, default=COGROUP_ROWS)
     ap.add_argument("--cogroup-stream-rows", type=int, default=COGROUP_STREAM_ROWS)
+    ap.add_argument("--plan-stream-rows", type=int, default=None)
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -2931,7 +3291,7 @@ def main() -> int:
     times = phase_times(torch, api, bg, engine, main_path)
     phase_profile(torch, api, engine, main_path)
     del main_path["frames"]
-    torch.cuda.empty_cache()
+    _release(torch)
     sorted_path = phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, args.seed, args.orders)
     handover = sorted_path.pop("handover")
     select_path = phase_select_path(torch, np, bg, api, ff, col, engine, handover["frame"], handover["oracles"])
@@ -2941,23 +3301,26 @@ def main() -> int:
                               select_path["cells"], pipeline_rows=args.sql_rows)
     window_path = phase_window_path(torch, np, pd, bg, api, engine, handover["frame"], handover["window_arrays"])
     del handover
-    torch.cuda.empty_cache()
+    _release(torch)
     cogroup_path = phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine, args.seed,
                                       rows=args.cogroup_rows, stream_rows=args.cogroup_stream_rows,
                                       ctx_rows=args.sql_rows)
-    torch.cuda.empty_cache()
+    _release(torch)
     transform_path = phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, args.seed,
                                           args.rows)
-    torch.cuda.empty_cache()
+    _release(torch)
     join_path = phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, args.seed,
                                 args.rows, args.orders, args.expand_orders)
-    torch.cuda.empty_cache()
+    _release(torch)
     host_path = phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, args.seed, args.rows,
                                 args.orders, transform_path["cells"]["demean-dense"]["transform_ms"])
     del engine
-    torch.cuda.empty_cache()
+    _release(torch)
     stream_path = phase_stream_path(torch, np, pd, bg, api, ff, col, None, args.seed,
                                     rows=args.stream_rows, f32_rows=args.rows)
+    _release(torch)
+    plan_path = phase_plan_path(torch, np, pd, pa, bg, api, ff, col, TorchExecutionEngine(), args.seed,
+                                rows=args.rows, stream_rows=args.plan_stream_rows or args.rows)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -2974,7 +3337,8 @@ def main() -> int:
                    "transform_path": {c: r["launches"][name] for c, r in transform_path["cells"].items()},
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
-                   "stream_path": {c: r["launches"][name] for c, r in stream_path["cells"].items()}}
+                   "stream_path": {c: r["launches"][name] for c, r in stream_path["cells"].items()},
+                   "plan_path": {c: r["launches"][name] for c, r in plan_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -2993,7 +3357,8 @@ def main() -> int:
             + sum(by_path["sql_path"].values()) + sum(by_path["window_path"].values())
             + sum(by_path["cogroup_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
-            + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values()),
+            + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
+            + sum(by_path["plan_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

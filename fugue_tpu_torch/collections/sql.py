@@ -3,12 +3,13 @@
 as ``(is_table_ref, text)`` pieces so an engine can put its own table
 names in, and ``TempTableName`` is a unique reference to embed in raw SQL.
 
-The dialect transpiler (``fugue_tpu/sql/dialect.py``) is not ported
-(ROADMAP.md A.11): ``transpile_sql`` passes text through when the two
-dialects are the same or either is unset, and raises when they differ."""
+``transpile_sql`` is the JAX package's plugin without the registry: text
+passes through when the two dialects are the same or either is unset, and
+goes through ``sql/dialect.py`` ``transpile`` when both are registered
+dialects (``fugue_tpu/sql/dialect.py`` :562-577)."""
 
 import uuid
-from typing import Any, Iterable, Optional, Tuple
+from typing import Any, Iterable, List, Optional, Tuple
 
 from .._utils.hash import to_uuid
 
@@ -28,13 +29,19 @@ class TempTableName:
 
 
 def transpile_sql(raw: str, from_dialect: Optional[str], to_dialect: Optional[str]) -> str:
-    """``raw`` as it is when the dialects agree (or either is None)."""
-    if from_dialect is None or to_dialect is None or from_dialect == to_dialect:
+    """``raw`` in ``to_dialect``: as it is when the dialects agree, either
+    is None or either is not a registered dialect."""
+    from ..sql.dialect import DIALECTS, transpile
+
+    if (
+        from_dialect is None
+        or to_dialect is None
+        or from_dialect == to_dialect
+        or from_dialect.lower() not in DIALECTS
+        or to_dialect.lower() not in DIALECTS
+    ):
         return raw
-    raise NotImplementedError(
-        f"transpiling SQL from {from_dialect!r} to {to_dialect!r}: the dialect "
-        "transpiler is not ported (ROADMAP.md A.11)"
-    )
+    return transpile(raw, from_dialect, to_dialect)
 
 
 class StructuredRawSQL:
@@ -64,6 +71,29 @@ class StructuredRawSQL:
 
         raw = " ".join(_map(t) if is_ref else t for is_ref, t in self._statements)
         return transpile_sql(raw, self._dialect, dialect)
+
+    @staticmethod
+    def from_expr(
+        sql: str, prefix: str = "<tmpdf:", suffix: str = ">", dialect: Optional[str] = None
+    ) -> "StructuredRawSQL":
+        """Parse raw text containing ``<tmpdf:key>`` markers into segments."""
+        statements: List[Tuple[bool, str]] = []
+        pos = 0
+        while True:
+            start = sql.find(prefix, pos)
+            if start < 0:
+                if pos < len(sql):
+                    statements.append((False, sql[pos:]))
+                break
+            end = sql.find(suffix, start)
+            if end < 0:
+                statements.append((False, sql[pos:]))
+                break
+            if start > pos:
+                statements.append((False, sql[pos:start]))
+            statements.append((True, sql[start + len(prefix) : end]))
+            pos = end + len(suffix)
+        return StructuredRawSQL(statements, dialect=dialect)
 
     def __uuid__(self) -> str:
         return to_uuid(self._dialect, self._statements)

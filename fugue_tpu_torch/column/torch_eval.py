@@ -22,6 +22,14 @@ saturates with NaN as 0. Torch's own promotion is never relied on:
 cast to it, and the op runs in that one dtype. A weakly typed tensor (the
 result of ``bool + 1`` or ``int32 + 0.5``) is carried as ``_Weak``.
 
+**Unsigned types.** uint16, uint32 and uint64 columns live widened on the
+device (``torch/dataframe.py``). :func:`typed_columns` hands them to the
+evaluator as ``_Uns``: the value in int32 (uint16) or int64 (uint32), or
+uint64's int64 bits. Arithmetic runs in the storage dtype and wraps to the
+type's width, as JAX's does in the type; comparisons of uint64 flip the
+top bit; a conversion to float reads uint64's bits as unsigned.
+:func:`to_column` turns a result into a column of its declared type.
+
 A null flag is a bool tensor or a Python bool (``False``: never NULL),
 so a column with no NULL source costs no pass."""
 
@@ -42,7 +50,6 @@ from .expressions import (
     _UnaryOpExpr,
 )
 
-_A3 = "ROADMAP.md A.3 encoded columns"
 
 
 def pa_type_to_np_dtype(tp: pa.DataType) -> Any:
@@ -69,6 +76,12 @@ _NODE = {
 _DTYPE = {n: d for d, n in _NODE.items()}
 _DTYPE.update({"i*": torch.int64, "f*": torch.float64})
 _WEAK = ("i*", "f*")
+# the unsigned nodes above u8: each one's storage dtype and width
+_U_STORE = {"u16": torch.int32, "u32": torch.int64, "u64": torch.int64}
+_U_MASK = {"u16": 0xFFFF, "u32": 0xFFFFFFFF}
+_U_OF_ARROW = {"uint16": "u16", "uint32": "u32", "uint64": "u64"}
+_ARROW_OF_U = {n: getattr(pa, a)() for a, n in _U_OF_ARROW.items()}
+_FLIP = -(1 << 63)  # uint64 columns live as their bits with this bit flipped
 
 
 def _above(n: str) -> frozenset:
@@ -91,9 +104,9 @@ def _inexact(n: str) -> str:
     """The float type true division promotes an integer type to."""
     if n == "i*":
         return "f*"
-    if n in ("i64", "u32", "u64"):
+    if n in ("i64", "u64"):
         return "f64"
-    if n in ("b1", "u8", "i8", "i16", "u16"):
+    if n in ("b1", "u8", "i8", "i16", "u16", "i32", "u32"):
         return "f32"
     return n
 
@@ -107,12 +120,53 @@ class _Weak:
         self.t = t
 
 
+class _Uns:
+    """A tensor of an unsigned node ``n`` (``u16``, ``u32``, ``u64``): the
+    values in int32 or int64, uint64 as its int64 bits."""
+
+    __slots__ = ("t", "n")
+
+    def __init__(self, t: torch.Tensor, n: str):
+        self.t = t
+        self.n = n
+
+
+def typed_columns(cols: Dict[str, torch.Tensor], schema: Any) -> Dict[str, Any]:
+    """``cols`` as the evaluator takes them: the columns of an unsigned type
+    of ``schema`` (uint16/32/64) as ``_Uns``, uint64's flipped storage
+    turned back into its bits."""
+    out: Dict[str, Any] = dict(cols)
+    for name, t in cols.items():
+        n = _U_OF_ARROW.get(str(schema[name].type)) if name in schema else None
+        if n is not None:
+            out[name] = _Uns(t ^ _FLIP if n == "u64" else t, n)
+    return out
+
+
+def to_column(v: Any, tp: Optional[pa.DataType]) -> Tuple[Any, Optional[pa.DataType]]:
+    """An evaluated value as a column of arrow type ``tp`` (None: the
+    value's own): ``(tensor or scalar, type)``. An unsigned result becomes
+    the storage of ``tp`` (an unsigned ``tp``: wrapped to its width, uint64
+    flipped; another: the value converted, uint64's bits as int64)."""
+    if not isinstance(v, _Uns):
+        return v, tp
+    if tp is None:
+        tp = _ARROW_OF_U[v.n]
+    n = _U_OF_ARROW.get(str(tp))
+    if n is not None:
+        t = _to_node(v, n, v.t.device)
+        return (t ^ _FLIP if n == "u64" else t), tp
+    return _tensor(v, _np_to_torch_dtype(pa_type_to_np_dtype(tp)), v.t.device), tp
+
+
 def _node(v: Any) -> str:
+    if isinstance(v, _Uns):
+        return v.n
     if isinstance(v, _Weak):
         return "f*" if v.t.is_floating_point() else "i*"
     if isinstance(v, torch.Tensor):
         if v.dtype not in _NODE:
-            raise NotImplementedError(f"{v.dtype} has no device arithmetic in the port ({_A3})")
+            raise NotImplementedError(f"{v.dtype} has no device arithmetic in the port")
         return _NODE[v.dtype]
     if isinstance(v, (bool, np.bool_)):
         return "b1"
@@ -124,12 +178,20 @@ def _node(v: Any) -> str:
 
 
 def _is_scalar(v: Any) -> bool:
-    return not isinstance(v, (torch.Tensor, _Weak))
+    return not isinstance(v, (torch.Tensor, _Weak, _Uns))
 
 
 def _tensor(v: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``v`` as a tensor of ``dtype``; a Python int wraps and a Python float
     rounds as JAX converts a weak literal."""
+    if isinstance(v, _Uns):
+        if v.n == "u64" and dtype.is_floating_point:
+            # the bits read as unsigned: a negative int64 is 2**64 more
+            f = v.t.to(torch.float64)
+            return torch.where(v.t < 0, f + 18446744073709551616.0, f).to(dtype)
+        if dtype == torch.bool:
+            return v.t != 0
+        return v.t.to(dtype)  # values of u16/u32; u64's bits (wrapping) in ints
     if isinstance(v, _Weak):
         v = v.t
     if isinstance(v, torch.Tensor):
@@ -143,18 +205,33 @@ def _tensor(v: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(v, dtype=src, device=device).to(dtype)
 
 
+def _to_node(v: Any, n: str, device: torch.device) -> torch.Tensor:
+    """``v`` in node ``n``'s representation: an unsigned node's storage
+    (an integer wrapped to its width), else a tensor of ``n``'s dtype."""
+    if n not in _U_STORE:
+        return _tensor(v, _DTYPE[n], device)
+    if isinstance(v, _Uns) and v.n == n:
+        return v.t
+    x = _tensor(v, torch.int64, device)
+    if n == "u64":
+        return x
+    return (x & _U_MASK[n]).to(_U_STORE[n])
+
+
 def _wrap(t: torch.Tensor, n: str) -> Any:
+    if n in _U_STORE:
+        return _Uns(t if n == "u64" else t & _U_MASK[n], n)
     return _Weak(t) if n in _WEAK else t
 
 
 def _strong(v: Any) -> Any:
-    return v.t if isinstance(v, _Weak) else v
+    return v.t if isinstance(v, (_Weak, _Uns)) else v
 
 
 def _device_of(*vs: Any) -> torch.device:
     """The device of the first tensor among ``vs`` (the CPU if none is one)."""
     for v in vs:
-        if isinstance(v, _Weak):
+        if isinstance(v, (_Weak, _Uns)):
             return v.t.device
         if isinstance(v, torch.Tensor):
             return v.device
@@ -186,8 +263,10 @@ def _binary(op: str, l: Any, r: Any) -> Any:
     elif op == "-" and n == "b1":
         raise TypeError("subtract does not accept dtype bool")
     dev = _device_of(l, r)
-    a, b = _tensor(l, _DTYPE[n], dev), _tensor(r, _DTYPE[n], dev)
+    a, b = _to_node(l, n, dev), _to_node(r, n, dev)
     if op in _CMP:
+        if n == "u64":  # unsigned order: the bits with the top one flipped
+            a, b = a ^ _FLIP, b ^ _FLIP
         return _CMP[op](a, b)
     if n == "b1":  # JAX adds bools as OR and multiplies them as AND
         return torch.logical_or(a, b) if op == "+" else torch.logical_and(a, b)
@@ -225,6 +304,8 @@ def _neg(v: Any) -> Any:
         raise TypeError("negative does not accept dtype bool")
     if isinstance(v, _Weak):
         return _Weak(-v.t)
+    if isinstance(v, _Uns):
+        return _wrap(-v.t, v.n)
     return -v
 
 
@@ -244,9 +325,9 @@ def _where(cond: Any, x: Any, y: Any) -> Any:
         pick = x if c else y
         if _is_scalar(pick) and n in ("b1", "i*", "f*"):
             return {"b1": bool, "i*": int, "f*": float}[n](pick)
-        return _wrap(_tensor(pick, _DTYPE[n], _device_of(x, y)), n)
+        return _wrap(_to_node(pick, n, _device_of(x, y)), n)
     dev = c.device
-    return _wrap(torch.where(c, _tensor(x, _DTYPE[n], dev), _tensor(y, _DTYPE[n], dev)), n)
+    return _wrap(torch.where(c, _to_node(x, n, dev), _to_node(y, n, dev)), n)
 
 
 def _np_to_torch_dtype(dt: Any) -> torch.dtype:
@@ -255,11 +336,13 @@ def _np_to_torch_dtype(dt: Any) -> torch.dtype:
 
 def _cast(v: Any, tp: pa.DataType, device: torch.device) -> torch.Tensor:
     """``jnp.asarray(v).astype(tp)``: a float cast to an integer saturates,
-    NaN as 0, as XLA converts."""
-    np_dt = np.dtype(pa_type_to_np_dtype(tp))
-    if np_dt.kind == "u" and np_dt.itemsize > 1:
-        raise NotImplementedError(f"a cast to {tp}: the port keeps {tp} on the host ({_A3})")
-    dtype = _np_to_torch_dtype(np_dt)
+    NaN as 0, as XLA converts; an integer cast to an unsigned type wraps."""
+    n = _U_OF_ARROW.get(str(tp))
+    if n is not None:
+        return _cast_unsigned(v, n, device)
+    dtype = _np_to_torch_dtype(np.dtype(pa_type_to_np_dtype(tp)))
+    if isinstance(v, _Uns):
+        return _tensor(v, dtype, device)
     v = _strong(v)
     if not isinstance(v, torch.Tensor):
         v = _tensor(v, _DTYPE[_node(v)], device)
@@ -273,10 +356,28 @@ def _cast(v: Any, tp: pa.DataType, device: torch.device) -> torch.Tensor:
     return v.to(dtype)
 
 
-def evaluate_torch(cols: Dict[str, torch.Tensor], expr: ColumnExpr) -> Any:
-    """Evaluate a non-aggregate expression over the tensors ``cols``: a
-    tensor, or a Python scalar where the expression is one."""
-    return _strong(_eval_node(cols, expr, _device_of(*cols.values())))
+def _cast_unsigned(v: Any, n: str, device: torch.device) -> _Uns:
+    """A cast to unsigned node ``n``: a float saturates to ``[0, max]``,
+    NaN as 0; an integer wraps."""
+    if isinstance(v, _Uns) or _node(v) not in ("f*", "f16", "bf16", "f32", "f64"):
+        return _Uns(_to_node(v, n, device), n)
+    f = _tensor(v, torch.float64, device)
+    f = torch.where(torch.isnan(f), 0.0, f).clamp(min=0.0)
+    if n != "u64":
+        return _Uns(f.clamp(max=float(_U_MASK[n])).to(_U_STORE[n]), n)
+    top = 9223372036854775808.0  # 2**63
+    big = f >= top
+    bits = torch.where(big, f - top, f).clamp(max=top - 1024).to(torch.int64)
+    bits = torch.where(big, bits ^ _FLIP, bits)
+    return _Uns(torch.where(f >= 2 * top, -1, bits), n)
+
+
+def evaluate_torch(cols: Dict[str, Any], expr: ColumnExpr) -> Any:
+    """Evaluate a non-aggregate expression over the tensors ``cols`` (see
+    :func:`typed_columns`): a tensor, a Python scalar where the expression
+    is one, or an unsigned result for :func:`to_column`."""
+    v = _eval_node(cols, expr, _device_of(*cols.values()))
+    return v if isinstance(v, _Uns) else _strong(v)
 
 
 def _eval_node(cols: Dict[str, torch.Tensor], expr: ColumnExpr, dev: torch.device) -> Any:
@@ -441,7 +542,7 @@ def evaluate_torch_3v(
                 return v, v < 0  # only the null flag is meaningful
             if e.name in masks:
                 return v, masks[e.name]
-            if v.is_floating_point():
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
                 return v, torch.isnan(v)
             return v, False
         if isinstance(e, _LitColumnExpr):
@@ -497,6 +598,10 @@ def evaluate_torch_3v(
         raise NotImplementedError(f"can't evaluate {type(e)} on device")
 
     v, nl = ev(expr)
+    # the two closures reference each other (and ``cols``): clear the cells,
+    # or the columns live until the cyclic GC runs (a stream held a chunk
+    # more a chunk on the device until it did)
+    ev = _ev3 = None  # type: ignore[assignment]  # noqa: F841
     return _strong(v), nl
 
 
@@ -664,7 +769,11 @@ def device_predicate_plan(
             return all(ok(c) for c in e.children)
         return False
 
-    return (tables, expr) if ok(expr) else None
+    fits = ok(expr)
+    # ``ok`` references itself (and ``device_cols``): clear the cell, or the
+    # frame's columns live until the cyclic GC runs
+    ok = None  # type: ignore[assignment]  # noqa: F841
+    return (tables, expr) if fits else None
 
 
 def can_evaluate_on_device(

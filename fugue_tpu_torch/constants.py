@@ -57,3 +57,26 @@ A10_WORKFLOW_KEYS = {
     "fugue.tpu.tuning.enabled": "the tuner",
     "fugue.tpu.trace.dir": "the trace export",
 }
+
+# the plan optimizer (``fugue_tpu_torch/plan``), rewriting the task DAG at
+# ``FugueWorkflow.run``: the master switch and one switch a pass, all on by
+# default (``fugue_tpu/constants.py`` :149-181). Every rewrite gives the
+# result of the DAG as compiled. Read from the engine's conf overlaid with
+# the workflow's, never written back into the engine's
+FUGUE_TPU_CONF_PLAN_OPTIMIZE = "fugue.tpu.plan.optimize"
+# column pruning: projections pushed into the creates, loads and stream
+# producers, so columns no task reads are never decoded or copied
+FUGUE_TPU_CONF_PLAN_PRUNE = "fugue.tpu.plan.prune"
+# filter pushdown: filters hoisted through row-local verbs and join sides
+# toward the producer
+FUGUE_TPU_CONF_PLAN_PUSHDOWN = "fugue.tpu.plan.pushdown"
+# verb fusion: adjacent select/filter/assign chains become one task
+FUGUE_TPU_CONF_PLAN_FUSE = "fugue.tpu.plan.fuse"
+# segment lowering: a row-local chain flowing into a dense aggregate, take,
+# distinct or broadcast-join probe becomes one task the torch engine runs
+# over the raw columns, with no frame between the verbs
+FUGUE_TPU_CONF_PLAN_LOWER_SEGMENTS = "fugue.tpu.plan.lower_segments"
+# the UDF analyzer's switches (``fugue_tpu/analysis``): read, and without
+# effect until the analyzer is ported (ROADMAP.md queue A)
+FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS = "fugue.tpu.plan.analyze_udfs"
+FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS = "fugue.tpu.plan.translate_udfs"

@@ -174,6 +174,7 @@ class ExecutionEngine(ABC):
         self._ctx_count = 0
         self._is_global = False
         self._stopped = False
+        self._plan_stats: Any = None
 
     @property
     def conf(self) -> ParamDict:
@@ -204,6 +205,20 @@ class ExecutionEngine(ABC):
     @property
     def log(self) -> logging.Logger:
         return logging.getLogger(type(self).__name__)
+
+    @property
+    def plan_stats(self) -> Any:
+        """Cumulative plan-optimizer counters of the workflows run on this
+        engine (``fugue_tpu_torch/plan/optimizer.py`` ``PlanStats``): what
+        the passes did, and how many lowered segments ran over the raw
+        columns or took the per-verb path."""
+        if self._plan_stats is None:
+            with self._rlock:
+                if self._plan_stats is None:
+                    from ..plan import PlanStats
+
+                    self._plan_stats = PlanStats()
+        return self._plan_stats
 
     def thread_scope(self) -> Callable[[], ContextManager]:
         """Called on the thread that starts a workflow run: a factory of
@@ -377,6 +392,31 @@ class ExecutionEngine(ABC):
             sel.append(replaced.pop(name) if name in replaced else col(name))
         sel.extend(replaced.values())
         return self.select(df, SelectColumns(*sel))
+
+    def fused_apply(self, df: DataFrame, steps: List[Any]) -> DataFrame:
+        """Execute a fused chain of row-local verbs (``plan/fused.py``). The
+        default interprets the steps with this engine's own verbs — the
+        unfused task chain; the torch engine overrides it."""
+        from ..plan.fused import apply_steps_engine
+
+        return apply_steps_engine(self, df, steps)
+
+    def lowered_segment(
+        self,
+        dfs: List[DataFrame],
+        steps: List[Any],
+        terminal: Any,
+        partition_spec: Optional[PartitionSpec],
+        fingerprint: str = "",
+    ) -> DataFrame:
+        """Execute a plan segment (``plan/lowering.py``): a row-local verb
+        chain flowing into a terminal aggregate / take / distinct / join.
+        The default runs it per verb — ``fused_apply``, then the terminal
+        with this engine's own verb, as the unlowered task pair runs; the
+        torch engine overrides it."""
+        from ..plan.lowering import apply_terminal_engine
+
+        return apply_terminal_engine(self, dfs, steps, tuple(terminal), partition_spec)
 
     def aggregate(
         self, df: DataFrame, partition_spec: Optional[PartitionSpec], agg_cols: List[ColumnExpr]

@@ -1,0 +1,220 @@
+"""Plan optimizer orchestration: conf gates, report, metrics, explain,
+copied from ``fugue_tpu/plan/optimizer.py``.
+
+``optimize_tasks`` is the single entry point ``FugueWorkflow.run`` calls
+before execution. Everything is gated by ``fugue.tpu.plan.optimize``
+(default ON) with per-pass switches; the unoptimized path is always one
+conf key away.
+
+Three passes of the reference wait for the layers they read, and the
+report notes each once: the UDF analyzer's pass (``fugue_tpu/analysis``;
+its two conf keys are read and do nothing yet), the join-strategy
+annotation (``annotate_join_strategies``, over ``shuffle/strategy.py``,
+ROADMAP.md A.7) and the delta-cache annotation
+(``annotate_delta_eligibility``, over ``cache/delta.py``, A.10). They
+only rewrite for speed or annotate; none changes a result on one card.
+"""
+
+import threading
+from typing import Any, Dict, List, Optional, Set, Tuple
+
+from ..constants import (
+    FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS,
+    FUGUE_TPU_CONF_PLAN_FUSE,
+    FUGUE_TPU_CONF_PLAN_LOWER_SEGMENTS,
+    FUGUE_TPU_CONF_PLAN_OPTIMIZE,
+    FUGUE_TPU_CONF_PLAN_PRUNE,
+    FUGUE_TPU_CONF_PLAN_PUSHDOWN,
+    FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS,
+)
+from ..workflow._tasks import FugueTask
+from .ir import LNode, build_graph
+from .lowering import lower_segments
+from .passes import emit, fuse_verbs, prune_columns, pushdown_filters
+
+__all__ = ["PlanReport", "PlanStats", "optimize_tasks"]
+
+# what the report says of the passes that wait for their layers
+_WAITING = (
+    "UDF analysis skipped: the analyzer (fugue_tpu/analysis) is not ported;"
+    " every transformer demands all columns and is never translated",
+    "join strategies not annotated: the shuffle ladder is ROADMAP.md A.7",
+    "delta eligibility not annotated: the delta cache is ROADMAP.md A.10",
+)
+
+
+class PlanStats:
+    """Engine-level optimizer counters (``engine.plan_stats``). Locked:
+    workflows on several threads may share one engine."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.runs = 0
+            self.cols_pruned = 0
+            self.filters_pushed = 0
+            self.verbs_fused = 0
+            self.bytes_skipped = 0
+            self.segments_lowered = 0
+            self.verbs_absorbed = 0
+            # execution-side counters (``inc`` from engine.lowered_segment):
+            # a lowered segment ran over the raw columns / took the per-verb
+            # path — together they make the "one step per segment" claim
+            # checkable from stats alone
+            self.segments_executed = 0
+            self.segments_fallback = 0
+            # chunks of a lowered stream that ran the chain per verb (a
+            # NULL in a non-float column)
+            self.chunks_per_verb = 0
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + n)
+
+    def absorb(self, report: "PlanReport") -> None:
+        with self._lock:
+            self.runs += 1
+            self.cols_pruned += report.cols_pruned
+            self.filters_pushed += report.filters_pushed
+            self.verbs_fused += report.verbs_fused
+            self.bytes_skipped += report.bytes_skipped
+            self.segments_lowered += report.segments_lowered
+            self.verbs_absorbed += report.verbs_absorbed
+
+    def as_dict(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "runs": self.runs,
+                "cols_pruned": self.cols_pruned,
+                "filters_pushed": self.filters_pushed,
+                "verbs_fused": self.verbs_fused,
+                "bytes_skipped": self.bytes_skipped,
+                "segments_lowered": self.segments_lowered,
+                "verbs_absorbed": self.verbs_absorbed,
+                "segments_executed": self.segments_executed,
+                "segments_fallback": self.segments_fallback,
+                "chunks_per_verb": self.chunks_per_verb,
+            }
+
+
+class PlanReport:
+    """What one optimization run did — rendered by ``workflow.explain()``."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self.cols_pruned = 0
+        self.filters_pushed = 0
+        self.verbs_fused = 0
+        self.bytes_skipped = 0
+        self.segments_lowered = 0
+        self.verbs_absorbed = 0
+        self.segments: List[str] = []
+        self.notes: List[str] = []
+        self.before: List[str] = []
+        self.after: List[str] = []
+
+    def note(self, msg: str) -> None:
+        if msg not in self.notes:
+            self.notes.append(msg)
+
+    @property
+    def changed(self) -> bool:
+        return (
+            self.cols_pruned
+            + self.filters_pushed
+            + self.verbs_fused
+            + self.segments_lowered
+        ) > 0
+
+    def render(self) -> str:
+        lines = ["== logical plan =="]
+        lines.extend("  " + s for s in self.before)
+        if not self.enabled:
+            lines.append("== optimizer disabled (fugue.tpu.plan.optimize=false) ==")
+            return "\n".join(lines)
+        lines.append(
+            "== optimized plan (cols_pruned=%d filters_pushed=%d "
+            "verbs_fused=%d segments_lowered=%d verbs_absorbed=%d "
+            "bytes_skipped~%d) =="
+            % (
+                self.cols_pruned,
+                self.filters_pushed,
+                self.verbs_fused,
+                self.segments_lowered,
+                self.verbs_absorbed,
+                self.bytes_skipped,
+            )
+        )
+        lines.extend("  " + s for s in self.after)
+        if self.notes:
+            lines.append("== notes ==")
+            lines.extend("  " + s for s in self.notes)
+        return "\n".join(lines)
+
+
+def _render_nodes(nodes: List[LNode]) -> List[str]:
+    idx = {id(n): i for i, n in enumerate(nodes)}
+    out = []
+    for i, n in enumerate(nodes):
+        ins = ",".join(f"t{idx[id(x)]}" for x in n.inputs if id(x) in idx)
+        label = n.kind
+        if n.task is not None:
+            label += f"<{type(n.task.extension).__name__}>"
+        ann = (" -- " + "; ".join(n.annotations)) if n.annotations else ""
+        pin = " [pinned]" if n.pinned else ""
+        out.append(f"t{i}: {label}({ins}){pin}{ann}")
+    return out
+
+
+def _flag(conf: Any, key: str, default: bool = True) -> bool:
+    try:
+        return bool(conf.get(key, default))
+    except Exception:
+        return default
+
+
+def optimize_tasks(
+    tasks: List[FugueTask],
+    conf: Any,
+    stats: Optional[PlanStats] = None,
+) -> Tuple[List[FugueTask], Dict[int, FugueTask], Set[int], PlanReport]:
+    """Rewrite the task DAG. Returns (tasks to execute, result-alias map
+    {id(original task): executed task}, ids of original tasks whose
+    intermediate result is no longer computed anywhere (fused interiors,
+    producers a filter commuted past), report). With the optimizer off
+    the ORIGINAL list round-trips untouched."""
+    enabled = _flag(conf, FUGUE_TPU_CONF_PLAN_OPTIMIZE, True)
+    report = PlanReport(enabled)
+    if not enabled or len(tasks) == 0:
+        return tasks, {}, set(), report
+    nodes = build_graph(tasks)
+    report.before = _render_nodes(nodes)
+    # the reference's first passes wait for their layers (module docstring)
+    _flag(conf, FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS, True)
+    _flag(conf, FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS, True)
+    for msg in _WAITING:
+        report.note(msg)
+    if _flag(conf, FUGUE_TPU_CONF_PLAN_PUSHDOWN, True):
+        pushdown_filters(nodes, report)
+    if _flag(conf, FUGUE_TPU_CONF_PLAN_PRUNE, True):
+        prune_columns(nodes, report)
+    if _flag(conf, FUGUE_TPU_CONF_PLAN_FUSE, True):
+        fuse_verbs(nodes, report)
+    if _flag(conf, FUGUE_TPU_CONF_PLAN_LOWER_SEGMENTS, True):
+        lower_segments(nodes, report)
+    report.after = _render_nodes(nodes)
+    if not report.changed:
+        return tasks, {}, set(), report
+    new_tasks, aliases = emit(nodes)
+    removed = {id(t) for t in tasks if id(t) not in aliases}
+    if removed:
+        report.note(
+            "%d intermediate result(s) optimized away; pin with "
+            "persist()/yield to keep them addressable" % len(removed)
+        )
+    if stats is not None:
+        stats.absorb(report)
+    return new_tasks, aliases, removed, report

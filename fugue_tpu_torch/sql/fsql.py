@@ -31,9 +31,10 @@ keyword / assignment. Jinja templating (``{{var}}``) fills from passed
 variables and the caller's locals. A name after ``USING`` resolves in the
 registry of extension names, then in the caller's scope.
 
-Not ported: ``CONNECT`` to an engine the port lacks raises at run time
-naming ROADMAP.md A.10, and a compile dialect other than ``spark`` (the
-transpiler) raises naming A.11.
+A SELECT written in another dialect (``fugue.sql.compile.dialect``, e.g.
+``postgres``) goes through the transpiler (``sql/dialect.py``) into the
+in-tree one before parsing. Not ported: ``CONNECT`` to an engine the port
+lacks raises at run time naming ROADMAP.md A.10.
 """
 
 import json
@@ -649,10 +650,14 @@ class FugueSQLCompiler:
         )
         compile_dialect = str(self._wf.conf.get(FUGUE_CONF_SQL_DIALECT, "spark")).lower()
         if compile_dialect not in ("spark", "fugue"):
-            raise NotImplementedError(
-                f"{FUGUE_CONF_SQL_DIALECT}={compile_dialect!r}: the dialect transpiler is "
-                "not ported (ROADMAP.md A.11)"
-            )
+            # a SELECT written in a foreign dialect goes to the in-tree one
+            # before parsing; an unknown dialect raises here, where a
+            # passthrough would parse foreign quoting as strings
+            from ..collections.sql import transpile_sql
+            from .dialect import get_dialect
+
+            get_dialect(compile_dialect)
+            text = transpile_sql(text, compile_dialect, "fugue")
         # find referenced table names: parse and collect Scan nodes
         from .parser import SQLParser, Scan as ScanNode, PlanNode, JoinNode, Subquery, SelectNode, SetOpNode, SortNode, LimitNode
 

@@ -11,8 +11,13 @@ The port of ``JaxDataFrame`` (``fugue_tpu/jax/dataframe.py``):
   tensor whose NULLs are filled (0 or False); dates and timestamps live as
   epoch ints, with a mask where NULLs exist, and get their arrow type back
   on conversion;
-- every other type (decimal, binary, list, struct, and the unsigned types
-  above uint8, for which PyTorch has no arithmetic) stays in a host arrow
+- the unsigned types above uint8, for which PyTorch has no arithmetic,
+  live widened: uint16 as int32 and uint32 as int64, holding their values;
+  uint64 as int64 with the top bit flipped (``x ^ 2**63``), so that signed
+  order is unsigned order (``ops/shuffle.py`` ``unsigned_order``). The
+  schema keeps the unsigned type, which ``as_arrow`` gives back, and the
+  evaluator (``column/torch_eval.py``) computes in it;
+- every other type (decimal, binary, list, struct) stays in a host arrow
   table aligned with the device rows by position;
 - ``row_count`` is the logical length, and an optional bool tensor marks
   the valid rows. Rows it marks invalid (the JAX frame's padding, or rows a
@@ -48,20 +53,56 @@ from ..ops.segment import minmax_probe
 from ..parallel.device import resolve_device
 from ..schema import Schema
 
-# arrow type name → numpy dtype of the device tensor. The unsigned types
-# beyond uint8 stay on the host: PyTorch has no arithmetic for them
-# (ROADMAP.md A.3).
+# arrow type name → numpy dtype of the device tensor; the unsigned types
+# above uint8 live widened (``to_storage``)
 _DEVICE_DTYPES = {
     "int8": np.int8,
     "int16": np.int16,
     "int32": np.int32,
     "int64": np.int64,
     "uint8": np.uint8,
+    "uint16": np.int32,
+    "uint32": np.int64,
+    "uint64": np.int64,
     "halffloat": np.float16,
     "float": np.float32,
     "double": np.float64,
     "bool": np.bool_,
 }
+
+
+# the top bit of int64: uint64 ``x`` lives as ``x ^ _FLIP`` (signed order is
+# then unsigned order)
+_FLIP = np.int64(-(1 << 63))
+# numpy dtype of each unsigned type above uint8
+_UNSIGNED = {"uint16": np.uint16, "uint32": np.uint32, "uint64": np.uint64}
+
+
+def is_wide_unsigned(tp: pa.DataType) -> bool:
+    """uint16, uint32 or uint64: a type that lives widened on the device."""
+    return str(tp) in _UNSIGNED
+
+
+def to_storage(arr: np.ndarray, tp: pa.DataType) -> np.ndarray:
+    """The device form of values of arrow type ``tp`` (numpy, any integer
+    dtype): uint64 flipped into int64, uint16 and uint32 widened; other
+    types as they are."""
+    name = str(tp)
+    if name not in _UNSIGNED:
+        return arr
+    if name == "uint64":
+        return np.ascontiguousarray(arr).astype(np.uint64, copy=False).view(np.int64) ^ _FLIP
+    return arr.astype(_DEVICE_DTYPES[name], copy=False)
+
+
+def from_storage(arr: np.ndarray, tp: pa.DataType) -> np.ndarray:
+    """The inverse of :func:`to_storage`: numpy values of ``tp``'s dtype."""
+    name = str(tp)
+    if name not in _UNSIGNED:
+        return arr
+    if name == "uint64":
+        return (np.ascontiguousarray(arr).astype(np.int64, copy=False) ^ _FLIP).view(np.uint64)
+    return arr.astype(_UNSIGNED[name])
 
 
 def _to_numpy(col: pa.Array) -> np.ndarray:
@@ -81,13 +122,14 @@ def _encode_column(col: pa.Array, f: pa.Field) -> Tuple[Optional[np.ndarray], di
     if str(t) in _DEVICE_DTYPES:
         if col.null_count == 0 or pa.types.is_floating(t):
             # arrow float → numpy turns nulls into NaN — the device NULL
-            arr = _to_numpy(col).astype(_DEVICE_DTYPES[str(t)], copy=False)
+            arr = _to_numpy(col)
+            arr = to_storage(arr, t) if is_wide_unsigned(t) else arr.astype(_DEVICE_DTYPES[str(t)], copy=False)
             nan = arr.dtype.kind == "f" and (col.null_count > 0 or bool(np.isnan(arr).any()))
             return arr, ({"nan": True} if nan else {})
         # nullable int/bool: value array + null mask
         mask = _to_numpy(col.is_null())
         fill = False if pa.types.is_boolean(t) else 0
-        return _to_numpy(col.fill_null(fill)), {"null_mask": mask}
+        return to_storage(_to_numpy(col.fill_null(fill)), t), {"null_mask": mask}
     if pa.types.is_string(t) or pa.types.is_large_string(t):
         d = col.dictionary_encode()
         codes = _to_numpy(d.indices.fill_null(-1)).astype(np.int32)
@@ -281,6 +323,8 @@ class TorchDataFrame(DataFrame):
         form: NaN → NULL, dictionary codes → values, epochs → dates and
         timestamps."""
         enc = self._encodings.get(f.name)
+        if enc is None and is_wide_unsigned(f.type):
+            return pa.array(from_storage(host, f.type), mask=nulls, type=f.type)
         if enc is None:
             if host.dtype.kind == "f" and self.maybe_nan(f.name):
                 nn = np.isnan(host)  # device convention: NaN IS NULL
@@ -401,8 +445,9 @@ def frame_from_numpy(
     ``{c: np.asarray(m) for c, m in jdf.null_masks.items()}`` and
     ``jdf.host_table``.
 
-    ``columns`` hold every row, padding included; ``valid`` marks the rows
-    that belong to the frame (None: all of them). ``nan_cols`` names the
+    ``columns`` hold every row, padding included (an unsigned column in its
+    own dtype, as the JAX package holds it); ``valid`` marks the rows that
+    belong to the frame (None: all of them). ``nan_cols`` names the
     float columns that may hold NaN (None: any float column may). The
     schema's other columns come from ``host_table``, whose rows line up
     with the device rows by position."""
@@ -422,10 +467,9 @@ def frame_from_numpy(
     for name, arr in columns.items():
         tp = s[name].type
         if name not in encodings and str(tp) not in _DEVICE_DTYPES:
-            raise NotImplementedError(
-                f"column {name!r} of type {tp} cannot live on the torch device: "
-                "the unsigned types above uint8 are not ported (ROADMAP.md A.3)"
-            )
+            raise FugueDataFrameInitError(f"column {name!r} of type {tp} cannot live on the torch device")
+        if name not in encodings and is_wide_unsigned(tp):
+            arr = to_storage(arr, tp)
         dt = arr.dtype if name in encodings else _DEVICE_DTYPES[str(tp)]
         cols[name] = torch.from_numpy(np.require(arr, dt, ["C", "W"])).to(dev)
     masks = {

@@ -59,10 +59,17 @@ name the steps in a ``torch.profiler`` trace, and ``fugue::filter``,
 JAX engine's device zip does, and ``comap`` copies each to the host once
 (``fugue::comap_to_host``) and calls the cotransformer once a key under
 ``fugue::comap``; the other zips take the base engine's blob protocol,
-and a zip of streams ``streaming_zip``. Unsigned columns above uint8, which
-the JAX package keeps on its device and the port on its host, raise
-``NotImplementedError`` naming ROADMAP.md A.3 where the JAX engine would
-run them on its device.
+and a zip of streams ``streaming_zip``.
+
+The unsigned types above uint8 live on the device widened
+(``torch/dataframe.py``) and run every verb there as in the JAX engine:
+the evaluator computes in their type, the aggregate wraps a SUM in it, and
+the keys decode back on the host. A compiled map over them and a window
+over them run on the host path (their device form is not theirs).
+
+``fused_apply`` and ``lowered_segment`` run the plan optimizer's steps
+(``fugue_tpu_torch/plan``): a fused chain as one device step, a lowered
+segment over the raw columns with no frame between its verbs.
 """
 
 from contextlib import contextmanager, nullcontext
@@ -80,7 +87,14 @@ from ..column import SelectColumns
 from ..column.eval import rewrite_having_aggs
 from ..column.expressions import ColumnExpr, _FuncExpr, _LitColumnExpr, _NamedColumnExpr
 from ..column.functions import is_agg
-from ..column.torch_eval import can_evaluate_on_device, device_predicate_plan, evaluate_torch, evaluate_torch_3v
+from ..column.torch_eval import (
+    can_evaluate_on_device,
+    device_predicate_plan,
+    evaluate_torch,
+    evaluate_torch_3v,
+    to_column,
+    typed_columns,
+)
 from ..collections.partition import parse_presort_exp
 from ..constants import FUGUE_TPU_CONF_MAX_PARTIAL_ROWS
 from .._utils.params import ParamDict
@@ -115,7 +129,7 @@ from ..ops.segment import (
 from ..parallel.device import resolve_device
 from ..schema import Schema
 from ..torch_annotations import sniff_torch_func
-from .dataframe import TorchDataFrame
+from .dataframe import TorchDataFrame, from_storage, is_wide_unsigned
 from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
 from .pipeline import PipelineStats
 from .streaming import (
@@ -132,7 +146,6 @@ from .streaming import (
 )
 from .zipped import ZippedTorchDataFrame
 
-_ENCODED = "ROADMAP.md A.3 encoded columns"
 # the JAX engine's default of fugue.tpu.max_partial_rows (its distinct)
 _MAX_PARTIAL_ROWS = 1 << 22
 # the largest n of the device take
@@ -213,7 +226,8 @@ class TorchMapEngine(MapEngine):
         on_init: Optional[Callable],
     ) -> Optional[DataFrame]:
         """A compiled transformer's device plan; None for a keyless map
-        over encoded or nullable columns, which takes the host path."""
+        over encoded, nullable or unsigned columns (above uint8: the UDF
+        would see their widened device form), which takes the host path."""
         params = map_func.__self__.transformer.params
         if len(params) > 0:
             raise FugueInvalidOperation(
@@ -229,8 +243,9 @@ class TorchMapEngine(MapEngine):
                 return streaming_compiled_map(engine, df, fn, output_schema)
             return streaming_keyed_compiled_map(engine, df, fn, output_schema, partition_spec)
         tdf = engine.to_df(df)
+        unsigned = any(is_wide_unsigned(f.type) for f in tdf.schema.fields)
         if len(keys) == 0:
-            if tdf.has_encoded:
+            if tdf.has_encoded or unsigned:
                 # the JAX package renders encoded/masked columns as real
                 # values on its host engine
                 return None
@@ -261,6 +276,7 @@ class TorchMapEngine(MapEngine):
             all(k in tdf.device_cols for k in keys)
             and not nan_key
             and tdf.host_table is None
+            and not unsigned
             and (not tdf.has_encoded or (dict_keys_only and enc_schema_ok))
         ):
             raise FugueInvalidOperation(
@@ -766,7 +782,6 @@ class TorchExecutionEngine(ExecutionEngine):
             if plan is not None:
                 with record_function("fugue::filter"):
                     return _with_mask(tdf, self._predicate_mask(tdf, plan))
-        _refuse_a3_route(tdf, condition, "filter")
         return self._host_call(lambda h, d: h.filter(d, condition), tdf)
 
     def _predicate_mask(self, tdf: TorchDataFrame, plan: Any) -> torch.Tensor:
@@ -777,7 +792,8 @@ class TorchExecutionEngine(ExecutionEngine):
             for u, (name, t) in tables.items()
         }
         code_cols = frozenset(c for c, e in tdf.encodings.items() if e["kind"] == "dict")
-        v, nl = evaluate_torch_3v(tdf.device_cols, tdf.null_masks, dict_tables, cond, code_cols)
+        cols = typed_columns(tdf.device_cols, tdf.schema)
+        v, nl = evaluate_torch_3v(cols, tdf.null_masks, dict_tables, cond, code_cols)
         mask = tdf.device_valid_mask()
         for keep in (v, _not_null(nl)):
             if isinstance(keep, torch.Tensor):
@@ -808,8 +824,6 @@ class TorchExecutionEngine(ExecutionEngine):
             if where_plan is not None:
                 tdf = self.filter(tdf, where, _plan=where_plan)
                 where = None
-        if where is not None:
-            _refuse_a3_route(tdf, where, "select's WHERE")
         if where is None and sc.has_agg and not sc.is_distinct:
             keys = [c for c in sc.all_cols if not is_agg(c)]
             aggs = [c for c in sc.all_cols if is_agg(c)]
@@ -844,7 +858,6 @@ class TorchExecutionEngine(ExecutionEngine):
             ):
                 with record_function("fugue::project"):
                     return self._device_project(tdf, sc)
-            _refuse_a3_project(tdf, sc)
         return self._host_call(lambda h, d: h.select(d, cols, where=where, having=having), tdf)
 
     def _device_project(self, tdf: TorchDataFrame, sc: SelectColumns) -> TorchDataFrame:
@@ -856,26 +869,25 @@ class TorchExecutionEngine(ExecutionEngine):
         out_encodings: Dict[str, Any] = {}
         out_masks: Dict[str, torch.Tensor] = {}
         out_cols: Dict[str, torch.Tensor] = {}
+        types: Dict[str, Optional[pa.DataType]] = {}
         n = next(iter(tdf.device_cols.values())).shape[0]
+        cols = typed_columns(tdf.device_cols, tdf.schema)
         for c in exprs:
+            name = c.output_name
             if _is_passthrough(c, tdf.device_cols):
-                out_cols[c.output_name] = tdf.device_cols[c.name]
+                out_cols[name] = tdf.device_cols[c.name]
+                types[name] = tdf.schema[c.name].type
                 if c.name in tdf.encodings:
-                    out_encodings[c.output_name] = tdf.encodings[c.name]
+                    out_encodings[name] = tdf.encodings[c.name]
                 if c.name in tdf.null_masks:
-                    out_masks[c.output_name] = tdf.null_masks[c.name]
+                    out_masks[name] = tdf.null_masks[c.name]
                 continue
-            v = evaluate_torch(tdf.device_cols, c)
-            if not isinstance(v, torch.Tensor):
-                # a Python literal fills as JAX fills it: bool, int64, float64
-                dt = torch.bool if isinstance(v, bool) else (torch.int64 if isinstance(v, int) else torch.float64)
-                v = torch.full((n,), v, dtype=dt, device=self._device)
-            elif v.dim() == 0:
-                v = v.to(self._device).expand(n).clone()
-            out_cols[c.output_name] = v
+            tp = schema[name].type if schema is not None else c.infer_type(tdf.schema)
+            v, types[name] = to_column(evaluate_torch(cols, c), tp)
+            out_cols[name] = _full_column(v, n, self._device)
         if schema is None:
             schema = Schema([
-                pa.field(c.output_name, c.infer_type(tdf.schema)
+                pa.field(c.output_name, types[c.output_name]
                          or pa.from_numpy_dtype(_np_dtype(out_cols[c.output_name].dtype)))
                 for c in exprs
             ])
@@ -936,7 +948,6 @@ class TorchExecutionEngine(ExecutionEngine):
                 else:
                     keep = stacked.all(dim=0)
                 return _with_mask(tdf, tdf.device_valid_mask() & keep)
-        _refuse_a3_frame(tdf, "dropna")
         return self._host_call(
             lambda h, d: h.dropna(d, how=how, thresh=thresh, subset=subset), tdf
         )
@@ -987,7 +998,6 @@ class TorchExecutionEngine(ExecutionEngine):
                     schema=tdf.schema,
                 )
             )
-        _refuse_a3_frame(tdf, "fillna")
         return self._host_call(lambda h, d: h.fillna(d, value, subset=subset), tdf)
 
     def aggregate(
@@ -1127,25 +1137,15 @@ class TorchExecutionEngine(ExecutionEngine):
             return None
         buckets = dense_buckets(rng)
         outs = self._run_dense_fused(
-            tdf, keys[0], agg_entries, kmin, buckets, spec_rows, key_dt.str
+            tdf.device_cols[keys[0]], tdf.device_valid_mask(), agg_entries, kmin, buckets,
+            spec_rows, key_dt.str,
         )
-        device_cols = {keys[0]: outs[0]}
-        for (_, name, _, _), arr in zip(spec_rows, outs[2:]):
-            device_cols[name] = arr
-        return TorchDataFrame(
-            _internal=dict(
-                device=tdf.device,
-                device_cols=device_cols,
-                row_count=-1,
-                valid_mask=outs[1],
-                schema=plan["schema"],
-            )
-        )
+        return _dense_frame(tdf.device, keys[0], outs, spec_rows, plan["schema"])
 
     def _run_dense_fused(
         self,
-        tdf: TorchDataFrame,
-        key: str,
+        key_arr: torch.Tensor,
+        valid: torch.Tensor,
         agg_entries: List[Any],
         kmin: int,
         buckets: int,
@@ -1158,7 +1158,7 @@ class TorchExecutionEngine(ExecutionEngine):
         fin = self._make_dense_finish(
             buckets, tuple(s[0] for s in agg_sig), spec_rows, key_dtype
         )
-        outs = kernel(tdf.device_cols[key], kmin, arrays, tdf.device_valid_mask())
+        outs = kernel(key_arr, kmin, arrays, valid)
         return fin(kmin, outs[0], *outs[1:])
 
     @staticmethod
@@ -1191,6 +1191,258 @@ class TorchExecutionEngine(ExecutionEngine):
 
         return fin
 
+    # ---- plan verbs (``fugue_tpu_torch/plan``) ---------------------------------
+
+    def fused_apply(self, df: Any, steps: Any) -> DataFrame:
+        """A fused chain of row-local verbs (``plan/fused.py``):
+
+        - a one-pass stream applies the steps per chunk inside the chunk
+          producer (``streaming_fused_steps``), and stays one-pass;
+        - a frame whose every column is on the device runs the composed
+          chain at once (``_try_fused_device``): the Kleene-AND of every
+          filter as one validity mask, every projection under it, no frame
+          between the verbs;
+        - anything else applies the steps one verb at a time, which is
+          what the unfused chain runs."""
+        from .streaming import streaming_fused_steps
+
+        if is_stream_frame(df):
+            return streaming_fused_steps(self, df, steps)
+        tdf = self.to_df(df)
+        with record_function("fugue::fused"):
+            res = self._try_fused_device(tdf, steps)
+        if res is not None:
+            return res
+        return super().fused_apply(tdf, steps)
+
+    def _try_fused_device(self, tdf: TorchDataFrame, steps: Any) -> Optional[TorchDataFrame]:
+        """The composed chain on the device (reference ``_try_fused_device``
+        :1042): the predicate as one validity mask, then the projection
+        (``_device_project``); None where a step resists composition or the
+        device evaluator (the caller then runs the steps one by one)."""
+        from ..plan.fused import compose_steps
+
+        if len(tdf.device_cols) == 0 or tdf.host_table is not None:
+            return None
+        composed = compose_steps(list(tdf.schema.names), steps)
+        if composed is None:
+            return None
+        pred, outputs = composed
+        plain_cols = {
+            k: v for k, v in tdf.device_cols.items()
+            if k not in tdf.encodings and k not in tdf.null_masks
+        }
+        if not all(_is_passthrough(c, tdf.device_cols) or can_evaluate_on_device(c, plain_cols) for c in outputs):
+            return None
+        if pred is not None:
+            plan = device_predicate_plan(pred, tdf.device_cols, tdf.encodings)
+            if plan is None:
+                return None
+            tdf = _with_mask(tdf, self._predicate_mask(tdf, plan))
+        return self._device_project(tdf, SelectColumns(*outputs))
+
+    def lowered_segment(
+        self,
+        dfs: List[Any],
+        steps: Any,
+        terminal: Any,
+        partition_spec: Optional[PartitionSpec],
+        fingerprint: str = "",
+    ) -> DataFrame:
+        """A lowered plan segment (``plan/lowering.py``), run over the raw
+        columns where the gates of the reference's ``lowered_segment``
+        (:1179) pass:
+
+        - device frame → chain → dense aggregate: predicate, projections,
+          the dense kernel (B1 ``bin_sum`` for a float32 SUM) and the
+          finish on the device, with no frame between them;
+        - stream → chain → dense aggregate: each chunk's raw needed
+          columns go to the device once, and the same work folds into
+          device accumulators;
+        - stream → chain → take / distinct / broadcast-join probe: the
+          chain runs on the device a chunk at a time, and the survivors
+          feed the terminal.
+
+        A segment the gates refuse runs per verb (``fused_apply``, then the
+        terminal verb), counted in ``plan_stats.segments_fallback``; that
+        path is the device verbs too. An error in planning is raised."""
+        terminal = tuple(terminal)
+        runner = self._plan_lowered_segment(dfs, list(steps), terminal, partition_spec, fingerprint)
+        if runner is None:
+            self.plan_stats.inc("segments_fallback")
+            return super().lowered_segment(dfs, steps, terminal, partition_spec, fingerprint)
+        with record_function("fugue::plan_segment"):
+            res = runner()
+        self.plan_stats.inc("segments_executed")
+        return res
+
+    def _plan_lowered_segment(
+        self,
+        dfs: List[Any],
+        steps: List[Any],
+        terminal: Tuple,
+        partition_spec: Optional[PartitionSpec],
+        fingerprint: str,
+    ) -> Optional[Callable[[], DataFrame]]:
+        """A zero-argument runner where the segment lowers, else None.
+        Planning reads no stream data (reference :1242)."""
+        from .streaming import (
+            plan_lowered_steps_stream,
+            plan_streaming_lowered_aggregate,
+        )
+
+        if len(steps) == 0:
+            return None
+        kind = terminal[0]
+        if kind == "aggregate":
+            keys = list(partition_spec.partition_by) if partition_spec is not None else []
+            if is_stream_frame(dfs[0]):
+                return plan_streaming_lowered_aggregate(
+                    self, dfs[0], steps, keys, list(terminal[1]), fingerprint
+                )
+            return self._plan_lowered_bounded_aggregate(dfs[0], steps, keys, list(terminal[1]))
+        probe = terminal[3] if kind == "join" else 0
+        df = dfs[probe]
+        if not is_stream_frame(df) or (kind == "join" and is_stream_frame(dfs[1 - probe])):
+            return None
+        mk = plan_lowered_steps_stream(self, df, steps, fingerprint)
+        if mk is None:
+            return None
+        if kind == "take":
+            return lambda: streaming_take(
+                self, mk(), terminal[1], terminal[2], terminal[3], partition_spec
+            )
+        if kind == "distinct":
+            return lambda: streaming_distinct(self, mk())
+        if kind == "join":
+
+            def run_join() -> DataFrame:
+                ldf = mk()
+                d1, d2 = (ldf, dfs[1 - probe]) if probe == 0 else (dfs[1 - probe], ldf)
+                return self.join(d1, d2, how=terminal[1], on=list(terminal[2]))
+
+            return run_join
+        return None
+
+    def _plan_lowered_bounded_aggregate(
+        self, df: Any, steps: List[Any], keys: List[str], agg_cols: List[ColumnExpr]
+    ) -> Optional[Callable[[], DataFrame]]:
+        """Chain → dense aggregate over a frame on the device (reference
+        :1314): the gates of ``_try_dense_device_aggregate``, with the key
+        a raw plain integer column passed through the chain and every value
+        a plain column or a device expression over plain columns. The
+        runner evaluates the predicate and the value expressions over the
+        raw columns and hands them to the dense kernel and its finish."""
+        from ..plan.fused import compose_steps
+
+        if len(keys) != 1:
+            return None
+        tdf = self.to_df(df)
+        if len(tdf.device_cols) == 0 or tdf.host_table is not None:
+            return None
+        composed = compose_steps(list(tdf.schema.names), steps)
+        if composed is None:
+            return None
+        pred, outputs = composed
+        outs_by_name = {e.output_name: e for e in outputs}
+        if len(outs_by_name) != len(outputs):
+            return None
+        plain_cols = {
+            k: v for k, v in tdf.device_cols.items()
+            if k not in tdf.encodings and k not in tdf.null_masks
+        }
+        zcols = typed_columns({k: v[:0] for k, v in plain_cols.items()}, tdf.schema)
+        passthrough_ids = {id(e) for e in outputs if _is_passthrough(e, tdf.device_cols)}
+        fields: List[pa.Field] = []
+        out_dt: Dict[str, torch.dtype] = {}
+        for e in outputs:
+            name = e.output_name
+            if id(e) in passthrough_ids:
+                fields.append(pa.field(name, tdf.schema[e.name].type))
+                continue
+            if not can_evaluate_on_device(e, plain_cols):
+                return None
+            try:
+                v, t = to_column(evaluate_torch(zcols, e), e.infer_type(tdf.schema))
+            except Exception:  # noqa: BLE001 - the reference's probe refuses alike
+                return None
+            out_dt[name] = _full_column(v, 0, self._device).dtype
+            fields.append(pa.field(name, t if t is not None else pa.from_numpy_dtype(_np_dtype(out_dt[name]))))
+        tdf0 = TorchDataFrame(Schema(fields).create_empty_arrow_table(), device=self._device)
+        plan = _plan_device_agg(tdf0, keys, agg_cols)
+        if (
+            plan is None
+            or plan["virtual"]
+            or plan["dict_srcs"]
+            or plan["masked_srcs"]
+            or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])
+        ):
+            return None
+        key_expr = outs_by_name.get(keys[0])
+        if key_expr is None or id(key_expr) not in passthrough_ids or key_expr.name not in plain_cols:
+            return None
+        raw_key = key_expr.name
+        key_arr = tdf.device_cols[raw_key]
+        if not _is_int(key_arr):
+            return None
+        key_dt = _np_numeric_dtype(tdf.schema[raw_key].type)
+        srcs = sorted({s for _, _, s in plan["aggs"]})
+        actual: Dict[str, torch.dtype] = {}
+        for s in srcs:
+            e = outs_by_name.get(s)
+            if e is None:
+                return None
+            if id(e) in passthrough_ids:
+                if e.name not in plain_cols:
+                    return None  # a masked or encoded source would lose its NULLs
+                actual[s] = tdf.device_cols[e.name].dtype
+            else:
+                actual[s] = out_dt[s]
+            if actual[s] == torch.bool:
+                return None
+        # the range of the RAW key (a superset of the filtered one: more
+        # buckets at most, and the frame's probe is cached)
+        kmin, kmax = tdf.key_range(raw_key)
+        rng = kmax - kmin + 1
+        if key_dt is None or not (0 < rng <= _DENSE_MAX_RANGE):
+            return None
+        predicted = {
+            name: np.dtype(np.int64) if agg == "count" else _np_dtype(actual[src])
+            for name, agg, src in plan["aggs"]
+        }
+        spec_rows = _dense_finish_spec(plan, predicted)
+        if spec_rows is None:
+            return None
+        pplan = None
+        if pred is not None:
+            pplan = device_predicate_plan(pred, tdf.device_cols, tdf.encodings)
+            if pplan is None:
+                return None
+        buckets = dense_buckets(rng)
+        n = key_arr.shape[0]
+        probe_schema = Schema(fields)
+
+        def run() -> DataFrame:
+            valid = self._predicate_mask(tdf, pplan) if pplan is not None else tdf.device_valid_mask()
+            cols = typed_columns(tdf.device_cols, tdf.schema)
+            vals: Dict[str, torch.Tensor] = {}
+            for s in srcs:
+                e = outs_by_name[s]
+                if id(e) in passthrough_ids:
+                    vals[s] = tdf.device_cols[e.name]
+                else:
+                    v, _ = to_column(evaluate_torch(cols, e), probe_schema[s].type)
+                    vals[s] = _full_column(v, n, self._device).to(actual[s])
+            # floats are NaN-aware: a computed column may make NaN
+            entries = [
+                (name, agg, vals[src], vals[src].is_floating_point())
+                for name, agg, src in plan["aggs"]
+            ]
+            outs = self._run_dense_fused(key_arr, valid, entries, kmin, buckets, spec_rows, key_dt.str)
+            return _dense_frame(self._device, keys[0], outs, spec_rows, plan["schema"])
+
+        return run
+
     # ---- joins -------------------------------------------------------------
 
     def join(self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None) -> DataFrame:
@@ -1206,9 +1458,7 @@ class TorchExecutionEngine(ExecutionEngine):
         host columns whose rows would move, expansions past
         ``MAX_EXPAND_ROWS``, a cross join past ``MAX_BROADCAST_ROWS``) the
         host engine joins the two frames' host copies, and the result comes
-        back to the device (``fugue::host_join``). Unsigned columns above
-        uint8, on the JAX package's device but on the port's host, raise
-        ``NotImplementedError`` (ROADMAP.md A.3).
+        back to the device (``fugue::host_join``).
 
         When either side is a one-pass stream, the streaming join runs
         first (``streaming_hash_join``: a stream of the result); a plan it
@@ -1273,7 +1523,7 @@ class TorchExecutionEngine(ExecutionEngine):
         side) columns become NULL in each dtype's device representation.
         None where a side has host columns (the JAX engine's host join)."""
         if jr.host_table is not None:
-            return _host_columns(jr.host_table, "full_outer join: the right side")
+            return None
         n = next(iter(jr.device_cols.values())).shape[0]
         dev = jr.device
         cols: Dict[str, torch.Tensor] = {}
@@ -1285,7 +1535,7 @@ class TorchExecutionEngine(ExecutionEngine):
                 cols[name] = jr.device_cols[name]
                 continue
             if name not in j1.device_cols:
-                return _host_columns(j1.host_table, "full_outer join: the left side")
+                return None
             enc = j1.encodings.get(name)
             dt = j1.device_cols[name].dtype
             if enc is not None and enc["kind"] == "dict":
@@ -1324,7 +1574,7 @@ class TorchExecutionEngine(ExecutionEngine):
             get_join_schemas(j1, j2, how="cross", on=on)  # raises the join's own error
         for side, j in (("left", j1), ("right", j2)):
             if j.host_table is not None:
-                return _host_columns(j.host_table, f"cross join: the {side} side")
+                return None
         n_right = next(iter(j2.device_cols.values())).shape[0]
         if n_right > MAX_BROADCAST_ROWS:
             return None
@@ -1448,13 +1698,8 @@ class TorchExecutionEngine(ExecutionEngine):
             t1, t2 = j1.schema[k].type, j2.schema[k].type
             if t1 != t2 and pa.uint64() in (t1, t2):
                 return None
-            if k not in j1.device_cols or k not in j2.device_cols:
-                raise NotImplementedError(
-                    f"join key {k!r} of types {t1} and {t2}: the port keeps unsigned "
-                    f"types above uint8 on the host ({_ENCODED})"
-                )
         if j2.host_table is not None:
-            return _host_columns(j2.host_table, "the right side")
+            return None
         with record_function("fugue::join_prep"):
             prepared = self._prepare_join_keys(j1, j2, keys)
             if prepared is None:
@@ -1507,9 +1752,7 @@ class TorchExecutionEngine(ExecutionEngine):
             # match) pairs — rows move, host columns can't follow
             if kernel_how in ("inner", "left_outer"):
                 if j1.host_table is not None:
-                    return _host_columns(
-                        j1.host_table, "duplicate right keys move the left rows: the left side"
-                    )
+                    return None
                 # the left masks ride along with the gathered rows
                 for c, m in j1.null_masks.items():
                     left_cols[f"{lmp}{c}"] = m
@@ -1580,8 +1823,6 @@ class TorchExecutionEngine(ExecutionEngine):
         res = self._union_device(j1, j2)
         if res is not None:
             return self.distinct(res) if distinct else res
-        if _a3_only_host_cols(j1) and _union_compatible(j1, j2, a3_on_device=True):
-            raise _a3_error(j1, _a3_only_host_cols(j1), "a union")
         return self._host_call(
             lambda h, a, b: h.union(a, b, distinct=distinct), j1, j2, span="fugue::host_union"
         )
@@ -1629,8 +1870,6 @@ class TorchExecutionEngine(ExecutionEngine):
             res = self._distinct_device(tdf)
             if res is not None:
                 return res
-        else:
-            _refuse_a3_frame(tdf, "distinct")
         return self._host_call(lambda h, d: h.distinct(d), tdf, span="fugue::host_distinct")
 
     def _distinct_device(self, tdf: TorchDataFrame) -> Optional[TorchDataFrame]:
@@ -1673,7 +1912,6 @@ class TorchExecutionEngine(ExecutionEngine):
                     valid = tdf.device_valid_mask()
                     draw = uniform(seed, 0, valid.shape[0], valid.device)
                     return _with_mask(tdf, valid & (draw < float(frac)))
-            _refuse_a3_frame(tdf, "sample")
         return self._host_call(
             lambda h, d: h.sample(d, n=n, frac=frac, replace=replace, seed=seed), tdf,
             span="fugue::host_sample",
@@ -1708,9 +1946,6 @@ class TorchExecutionEngine(ExecutionEngine):
         ):
             if tdf.host_table is None and all(_sortable(tdf, c) for c in sorts):
                 return self._take_device(tdf, n, list(sorts.items()))
-            a3 = _a3_only_host_cols(tdf)
-            if a3 and all(c in a3 or _sortable(tdf, c) for c in sorts):
-                raise _a3_error(tdf, a3, "take")
         return self._host_call(
             lambda h, d: h.take(d, n, presort, na_position=na_position, partition_spec=partition_spec),
             tdf, span="fugue::host_take",
@@ -1830,12 +2065,9 @@ def _zip_keeps(how: str, subs: List[Any]) -> bool:
 def _setop_device_ok(tdf: TorchDataFrame) -> bool:
     """Whether the JAX engine's EXCEPT/INTERSECT takes its device: a plain
     frame (no encoding, no null mask) proved NaN-free, every column on the
-    device. A.3's host columns count as the device columns they are in the
-    JAX package, masked where they hold a NULL (the device ``distinct``
-    then raises naming A.3)."""
-    a3 = _a3_only_host_cols(tdf)
+    device."""
     return (
-        (tdf.host_table is None or (len(a3) > 0 and all(tdf.host_table.column(c).null_count == 0 for c in a3)))
+        tdf.host_table is None
         and not tdf.has_encoded
         and tdf._nan_cols is not None
         and len(tdf._nan_cols) == 0
@@ -1872,21 +2104,16 @@ def _take_isnull(tdf: TorchDataFrame, name: str) -> Optional[torch.Tensor]:
     return out
 
 
-def _union_compatible(j1: TorchDataFrame, j2: TorchDataFrame, a3_on_device: bool = False) -> bool:
+def _union_compatible(j1: TorchDataFrame, j2: TorchDataFrame) -> bool:
     """Whether the JAX engine unions the two frames on its device: one
     schema, every column on the device, the same dtypes and encoding kinds
     (schema equality already forces matching arrow types, timestamp units
-    included). With ``a3_on_device``, A.3's host columns count as the
-    device columns they are in the JAX package."""
-
-    def on_device(j: TorchDataFrame) -> bool:
-        return j.host_table is None or (a3_on_device and len(_a3_only_host_cols(j)) > 0)
-
+    included)."""
     return (
         j1.schema == j2.schema
         and len(j1.schema) > 0
-        and on_device(j1)
-        and on_device(j2)
+        and j1.host_table is None
+        and j2.host_table is None
         and all(j1.device_cols[c].dtype == j2.device_cols[c].dtype for c in j1.device_cols)
         and all(
             j1.encodings.get(c, {}).get("kind") == j2.encodings.get(c, {}).get("kind")
@@ -1921,20 +2148,6 @@ def _is_join_key_type(t: pa.DataType) -> bool:
         or pa.types.is_timestamp(t)
         or pa.types.is_date(t)
     )
-
-
-def _host_columns(host_tbl: Optional[pa.Table], what: str) -> None:
-    """A device join cannot carry host columns: None (the host join), as
-    in the JAX engine, where one of them is on the JAX package's host too.
-    Where all of them are unsigned above uint8, they live on the JAX
-    package's device but on the port's host, and this raises (A.3)."""
-    types = [] if host_tbl is None else list(host_tbl.schema.types)
-    if len(types) > 0 and all(pa.types.is_unsigned_integer(t) and t.bit_width > 8 for t in types):
-        raise NotImplementedError(
-            f"{what} has host columns {host_tbl.column_names}; a device join cannot carry "
-            f"them ({_ENCODED})"
-        )
-    return None
 
 
 def _nullview(arr: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -2000,6 +2213,10 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
 
 
 def _np_numeric_dtype(tp: pa.DataType) -> Optional[np.dtype]:
+    """The numpy dtype of a numeric arrow type's device tensor (an
+    unsigned type's storage), else None."""
+    if is_wide_unsigned(tp):
+        return np.dtype(np.int32 if str(tp) == "uint16" else np.int64)
     if pa.types.is_integer(tp) or pa.types.is_floating(tp):
         return np.dtype(tp.to_pandas_dtype())
     return None
@@ -2065,12 +2282,52 @@ def _group_key_cols(
     return key_cols, mask_names
 
 
+def _from_storage_series(s: pd.Series, tp: pa.DataType, na: Optional[np.ndarray] = None) -> pd.Series:
+    """Device values of arrow type ``tp`` as the host's: an unsigned type's
+    storage (``torch/dataframe.py``) back to a nullable unsigned series, NA
+    where ``na`` (or ``s``) says; other integers as nullable ``Int64`` where
+    ``na`` is given; anything else (a float view of a masked value) as it
+    is."""
+    if s.dtype.kind == "f" or (na is None and not is_wide_unsigned(tp)):
+        return s
+    if not is_wide_unsigned(tp):
+        return s.astype("Int64").mask(na)
+    isna = s.isna().to_numpy() if na is None else (na | s.isna().to_numpy())
+    vals = from_storage(s.fillna(0).to_numpy().astype(np.int64), tp)
+    return pd.Series(pd.arrays.IntegerArray(vals, isna), index=s.index)
+
+
+def _unsigned_sum_post(name: str, tp: pa.DataType, avg: bool) -> Callable[[pd.DataFrame], pd.Series]:
+    """The finish of SUM/AVG of an unsigned column: the int64 sum wrapped to
+    ``tp``'s width (uint64: its bits), NULL for a group with no value; AVG
+    the wrapped sum read as unsigned over the count."""
+    bits = tp.bit_width
+
+    def fn(m: pd.DataFrame) -> pd.Series:
+        total = m[f"{name}__sum"].to_numpy().astype(np.int64)
+        if bits < 64:
+            total = total & ((1 << bits) - 1)
+        nn = m[f"{name}__nn"].to_numpy()
+        if avg:
+            with np.errstate(invalid="ignore", divide="ignore"):
+                return pd.Series(total.view(np.uint64).astype(np.float64) / np.where(nn > 0, nn, np.nan),
+                                 index=m.index)
+        return pd.Series(pd.arrays.IntegerArray(total, nn <= 0), index=m.index)
+
+    return fn
+
+
 def _decode_partial_keys(
     tdf: TorchDataFrame, partials: pd.DataFrame, mask_names: Dict[str, str]
 ) -> pd.DataFrame:
     """Restore the keys' meaning on the host partials: dictionary codes →
-    values, epoch ints → dates and timestamps, masked cells → NA."""
+    values, epoch ints → dates and timestamps, unsigned storage → values,
+    masked cells → NA."""
     res = partials
+    for c in res.columns:
+        if c in tdf.schema and is_wide_unsigned(tdf.schema[c].type):
+            na = res[mask_names[c]].astype(bool).to_numpy() if c in mask_names else None
+            res[c] = _from_storage_series(res[c], tdf.schema[c].type, na)
     for c, mn in mask_names.items():
         res[c] = res[c].mask(res[mn].astype(bool))
         res = res.drop(columns=[mn])
@@ -2107,15 +2364,25 @@ def _virtual_agg_array(tdf: TorchDataFrame, tag: str, src: Optional[str]) -> tor
       cannot give exactly: ``hi``/``lo``, the NULL → 0 value split into
       32-bit halves, so SUM = Σhi·2³² + Σlo stays exact at any magnitude;
       ``minfill``/``maxfill``, NULLs as the dtype's extreme (the identity
-      of min/max); ``notnull``, 1 where the value is not NULL.
+      of min/max); ``notnull``, 1 where the value is not NULL (every row
+      of a plain column); a uint64's halves are those of its value;
+    - ``uval``: a plain unsigned column's values as int64, uint64's bits.
     """
     if tag == "ones":
         probe = next(iter(tdf.device_cols.values()))
         return torch.ones(probe.shape[0], dtype=torch.int64, device=probe.device)
     assert src is not None
-    a, m = tdf.device_cols[src], tdf.null_masks[src]
+    a, m = tdf.device_cols[src], tdf.null_masks.get(src)
+    u64 = str(tdf.schema[src].type) == "uint64"
+    if tag == "uval":
+        # a plain unsigned column's values as int64 (uint64: its bits)
+        return a ^ (-(1 << 63)) if u64 else a.to(torch.int64)
     if tag == "notnull":
-        return torch.logical_not(m).to(torch.int64)
+        return torch.ones_like(a, dtype=torch.int64) if m is None else torch.logical_not(m).to(torch.int64)
+    if tag in ("hi", "lo") and u64:
+        # uint64: the halves of its value, from its bits
+        bits = torch.where(m, 0, a ^ (-(1 << 63)))
+        return (bits >> 32) & 0xFFFFFFFF if tag == "hi" else bits & 0xFFFFFFFF
     filled = torch.where(m, 0, a)
     if tag == "hi":
         return filled >> 32  # arithmetic shift: negative values keep their sign
@@ -2123,59 +2390,6 @@ def _virtual_agg_array(tdf: TorchDataFrame, tag: str, src: Optional[str]) -> tor
         return filled & 0xFFFFFFFF
     ii = torch.iinfo(a.dtype)
     return torch.where(m, ii.max if tag == "minfill" else ii.min, a)
-
-
-def _a3_host_cols(tdf: TorchDataFrame) -> List[str]:
-    """The host columns the JAX package keeps on its device: the unsigned
-    types above uint8 (ROADMAP.md A.3)."""
-    if tdf.host_table is None:
-        return []
-    return [
-        f.name for f in tdf.host_table.schema
-        if pa.types.is_unsigned_integer(f.type) and f.type.bit_width > 8
-    ]
-
-
-def _a3_error(tdf: TorchDataFrame, names: List[str], what: str) -> NotImplementedError:
-    cols = ", ".join(f"{n} ({tdf.schema[n].type})" for n in names)
-    return NotImplementedError(
-        f"{what} over {cols}: unsigned columns above uint8 live on the JAX package's "
-        f"device, which runs this there, but on the port's host ({_ENCODED})"
-    )
-
-
-def _a3_only_host_cols(tdf: TorchDataFrame) -> List[str]:
-    """The host columns when all of them are A.3's: the JAX package then
-    holds the whole frame on its device (its all-device routes)."""
-    a3 = _a3_host_cols(tdf)
-    return a3 if a3 and len(a3) == tdf.host_table.num_columns else []  # type: ignore[union-attr]
-
-
-def _refuse_a3_frame(tdf: TorchDataFrame, what: str) -> None:
-    """Raise where the JAX engine would run ``what`` over the whole frame
-    on its device."""
-    a3 = _a3_only_host_cols(tdf)
-    if a3:
-        raise _a3_error(tdf, a3, what)
-
-
-def _refuse_a3_route(tdf: TorchDataFrame, condition: ColumnExpr, what: str) -> None:
-    """Raise where the JAX engine's filter would run ``condition`` on its device."""
-    a3 = _a3_only_host_cols(tdf)
-    if a3 and device_predicate_plan(condition, set(tdf.device_cols) | set(a3), tdf.encodings) is not None:
-        raise _a3_error(tdf, a3, what)
-
-
-def _refuse_a3_project(tdf: TorchDataFrame, sc: SelectColumns) -> None:
-    """Raise where the JAX engine would project ``sc`` on its device."""
-    a3 = _a3_host_cols(tdf)
-    if not a3:
-        return
-    dev = set(tdf.device_cols) | set(a3)
-    plain = {k for k in tdf.device_cols if k not in tdf.encodings and k not in tdf.null_masks}
-    plain |= {c for c in a3 if tdf.host_table.column(c).null_count == 0}  # type: ignore[union-attr]
-    if all(_is_passthrough(c, dev) or can_evaluate_on_device(c, plain) for c in sc.all_cols):
-        raise _a3_error(tdf, a3, "a projection")
 
 
 def _is_passthrough(c: ColumnExpr, device_cols: Any) -> bool:
@@ -2187,6 +2401,33 @@ def _is_passthrough(c: ColumnExpr, device_cols: Any) -> bool:
         and c.as_type is None
         and c.name in device_cols
     )
+
+
+def _dense_frame(
+    device: torch.device, key: str, outs: Tuple[torch.Tensor, ...], spec_rows: Tuple[Any, ...],
+    schema: Schema,
+) -> TorchDataFrame:
+    """The dense finish's ``(key, valid, *outs)`` as the result frame: one
+    row a bucket, the present ones valid, the row count lazy."""
+    device_cols = {key: outs[0]}
+    for (_, name, _, _), arr in zip(spec_rows, outs[2:]):
+        device_cols[name] = arr
+    return TorchDataFrame(
+        _internal=dict(
+            device=device, device_cols=device_cols, row_count=-1, valid_mask=outs[1], schema=schema
+        )
+    )
+
+
+def _full_column(v: Any, n: int, device: torch.device) -> torch.Tensor:
+    """An evaluated projection as a column of ``n`` rows: a Python literal
+    fills as JAX fills it (bool, int64, float64), a 0-d tensor expands."""
+    if not isinstance(v, torch.Tensor):
+        dt = torch.bool if isinstance(v, bool) else (torch.int64 if isinstance(v, int) else torch.float64)
+        return torch.full((n,), v, dtype=dt, device=device)
+    if v.dim() == 0:
+        return v.to(device).expand(n).clone()
+    return v
 
 
 def _not_null(nl: Any) -> Any:
@@ -2226,14 +2467,10 @@ def _plan_device_agg(
     ``dict_srcs`` (dictionary codes), ``masked_srcs`` (nullable int/bool)
     and ``virtual`` (``{name: (tag, real source)}``).
 
-    A key or source that the JAX package keeps on its device but the port
-    on its host (unsigned above uint8) raises ``NotImplementedError``
-    naming ROADMAP.md A.3."""
-    a3 = set(_a3_host_cols(tdf))
-    if len(keys) == 0 or not all(k in tdf.device_cols or k in a3 for k in keys):
+    A plain uint16/32/64 source's SUM and AVG wrap in its type, as the JAX
+    package's do (the ``uval`` view, ``_unsigned_sum_post``)."""
+    if len(keys) == 0 or not all(k in tdf.device_cols for k in keys):
         return None
-    if any(k in a3 for k in keys):
-        raise _a3_error(tdf, [k for k in keys if k in a3], "a groupby")
     aggs: List[Any] = []
     post: List[dict] = []
     virtual: Dict[str, Any] = {}  # vname -> (tag, real src)
@@ -2263,8 +2500,6 @@ def _plan_device_agg(
         if not isinstance(arg, _NamedColumnExpr):
             return None
         src = arg.name
-        if src in a3:
-            raise _a3_error(tdf, [src], func)
         if src not in tdf.device_cols:
             return None
         enc = tdf.encodings.get(src)
@@ -2275,6 +2510,22 @@ def _plan_device_agg(
             if not (enc["kind"] == "dict" and enc.get("sorted") and func in ("MIN", "MAX", "COUNT")):
                 return None
             dict_srcs.add(src)
+        src_type = tdf.schema[src].type
+        if is_wide_unsigned(src_type) and func in ("SUM", "AVG") and name != "" and src not in tdf.null_masks:
+            # the JAX package sums a plain unsigned column in its type,
+            # wrapping at its width: the values (uint64's bits) summed as
+            # int64 keep the low bits, and the post wraps them; AVG divides
+            # the wrapped sum read as unsigned. A nullable one takes the
+            # masked views below, as there
+            uv, nn = f"{src}__uval__", f"{name}__nn"
+            virtual[uv] = ("uval", src)
+            virtual[f"{src}__nn__"] = ("notnull", src)
+            aggs.append((f"{name}__sum", "sum", uv))
+            aggs.append((nn, "sum", f"{src}__nn__"))
+            post.append({"name": name, "fn": _unsigned_sum_post(name, src_type, func == "AVG")})
+            tp = c.infer_type(tdf.schema)
+            fields.append(pa.field(name, tp if tp is not None else pa.float64()))
+            continue
         big_int_masked = False
         if src in tdf.null_masks:
             if tdf.device_cols[src].dtype == torch.int64:
@@ -2319,7 +2570,8 @@ def _plan_device_agg(
                 # corrupt values past 2^53)
                 post.append({
                     "name": name,
-                    "fn": (lambda m, _n=name: m[_n].astype("Int64").where(m[f"{_n}__nn"] > 0)),
+                    "fn": (lambda m, _n=name, _t=src_type: _from_storage_series(
+                        m[_n], _t, (m[f"{_n}__nn"] <= 0).to_numpy())),
                 })
             else:  # COUNT
                 aggs.append((name, "sum", f"{src}__nn__"))
@@ -2342,7 +2594,8 @@ def _plan_device_agg(
             post.append({"name": name, "fn": _decode})
         elif func in ("SUM", "MIN", "MAX"):
             aggs.append((name, func.lower(), src))
-            post.append({"name": name, "kind": "pass", "fn": (lambda m, _n=name: m[_n])})
+            post.append({"name": name, "kind": "pass",
+                         "fn": (lambda m, _n=name, _t=src_type: _from_storage_series(m[_n], _t))})
         elif func == "COUNT":
             aggs.append((name, "count", src))
             post.append({"name": name, "kind": "pass", "fn": (lambda m, _n=name: m[_n])})

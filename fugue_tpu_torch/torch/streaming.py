@@ -35,9 +35,16 @@ CPU the bytes of the tensors the stream held at its fullest.
   batches at the least last key the open inputs have read, each batch
   through the engine's ``zip`` and ``comap``.
 
+- **plan segments** (``plan/lowering.py``): :func:`streaming_fused_steps`
+  runs a fused chain inside the chunk producer;
+  :func:`plan_streaming_lowered_aggregate` stages each chunk's raw needed
+  columns to the device once and runs the chain's predicate and
+  projections, the dense kernel and the fold on them;
+  :func:`plan_lowered_steps_stream` runs the chain on the device a chunk
+  at a time for a take, a distinct or a join probe.
+
 A row stream (``IterableDataFrame``) streams as batches of
-``chunk_rows`` rows. Not ported yet (ROADMAP.md A.6b):
-``streaming_fused_steps`` and the lowered-segment streams.
+``chunk_rows`` rows.
 """
 
 from itertools import islice
@@ -65,7 +72,8 @@ from ..dataframe import (
 from ..exceptions import FugueInvalidOperation
 from ..execution.native_execution_engine import _drop_duplicates
 from ..schema import Schema
-from .pipeline import HostToDevice, engine_prefetcher, prefetch_depth
+from .dataframe import from_storage, is_wide_unsigned, to_storage
+from .pipeline import HostToDevice, _torch_dtype, engine_prefetcher, prefetch_depth
 
 DEFAULT_CHUNK_ROWS = 1 << 20
 
@@ -266,7 +274,7 @@ def _finish_dense_host(
     for (name, _, _, _), table in zip(agg_sig, host[1:]):
         merged[name] = table[idx]
     mdf = pd.DataFrame(merged)
-    out = pd.DataFrame({key: mdf[key].astype(key_np)})
+    out = pd.DataFrame({key: from_storage(mdf[key].to_numpy().astype(key_np), plan["schema"][key].type)})
     for spec in plan["post"]:
         out[spec["name"]] = spec["fn"](mdf)
     tbl = pa.Table.from_pandas(out, schema=plan["schema"].pa_schema, preserve_index=False, safe=False)
@@ -293,10 +301,10 @@ def streaming_dense_aggregate(
     """A keyed aggregate over a one-pass stream with device accumulators.
 
     Eligibility is decided from the schema alone, before any chunk is
-    read: one plain integer key, numeric values, SUM/COUNT/AVG/MIN/MAX.
-    Otherwise this returns None, and the caller materializes the stream.
-    A key or value the in-memory aggregate refuses (ROADMAP.md A.3) raises
-    its ``NotImplementedError`` here too. The key range comes from
+    read: one plain integer key (an unsigned one in its device form),
+    numeric values other than the unsigned types above uint8,
+    SUM/COUNT/AVG/MIN/MAX. Otherwise this returns None, and the caller
+    materializes the stream. The key range comes from
     ``fugue.tpu.stream.key_range`` or the first chunk; a key outside it,
     and a NULL key or int value, raise ``FugueInvalidOperation``."""
     from ..ops.segment import _DENSE_MAX_RANGE, _dense_kernel, dense_buckets
@@ -321,16 +329,23 @@ def streaming_dense_aggregate(
         return None
     key = keys[0]
     key_np = _np_dtype(tdf0.device_cols[key].dtype)
+    key_type = tdf0.schema[key].type
     if key_np.kind not in ("i", "u"):
         return None
     srcs = sorted({s for _, _, s in plan["aggs"]})
     src_np = {s: _np_dtype(tdf0.device_cols[s].dtype) for s in srcs}
-    if any(dt.kind not in ("i", "u", "f") for dt in src_np.values()):
-        return None
+    if any(dt.kind not in ("i", "u", "f") for dt in src_np.values()) or any(
+        is_wide_unsigned(tdf0.schema[s].type) for s in srcs
+    ):
+        return None  # an unsigned value's finish is the in-memory aggregate's
     del tdf0
     key_range = _parse_key_range(engine.conf)
     if key_range is not None and not (0 < key_range[1] - key_range[0] + 1 <= _DENSE_MAX_RANGE):
         return None  # a declared range too wide for the dense plan
+    if key_range is not None and is_wide_unsigned(key_type):
+        # the declared values in the key's device form (order kept)
+        lo, hi = to_storage(np.array(key_range, dtype=np.uint64), key_type).tolist()
+        key_range = (int(lo), int(hi))
 
     # ---- the stream is read from here on: failures raise ----------------
     frames = _rechunk(_iter_local_frames(df, capacity), capacity)
@@ -342,6 +357,9 @@ def streaming_dense_aggregate(
         nulls0[key] == 0,
         FugueInvalidOperation(f"streaming aggregate: NULL in key column {key!r}"),
     )
+    # an unsigned key in its device form: its range, buckets and tables
+    # are in the storage's order (``torch/dataframe.py`` ``to_storage``)
+    cols0[key] = to_storage(cols0[key], key_type)
     probed = key_range is None
     if probed:
         key_range = (int(cols0[key].min()), int(cols0[key].max()))
@@ -398,15 +416,40 @@ def streaming_dense_aggregate(
         cols0 = nulls0 = first = None  # drop the head chunk's host copy
         for f in frames:
             n, cols, nulls = _chunk_columns(f, [key] + srcs)
+            cols[key] = to_storage(cols[key], key_type)
             yield n, put_chunk(n, cols, nulls)
 
+    def step(t: Dict[str, torch.Tensor], n: int) -> Tuple[torch.Tensor, ...]:
+        return _dense_kernel(buckets, agg_sig, t[key], kmin, [t[s] for s in srcs], valid_for(n))
+
+    return _fold_dense_stream(
+        engine, produce(), step, agg_sig, key, key_np, kmin, plan, "aggregate"
+    )
+
+
+def _fold_dense_stream(
+    engine: Any,
+    chunks: Iterator[Tuple[int, Any]],
+    step: Callable[[Dict[str, torch.Tensor], int], Tuple[torch.Tensor, ...]],
+    agg_sig: Tuple,
+    key: str,
+    key_np: np.dtype,
+    kmin: int,
+    plan: dict,
+    verb: str,
+) -> DataFrame:
+    """The consumer of a streaming dense aggregate: each staged chunk's
+    dense tables (``step``) fold into the device accumulators, then one
+    O(buckets) transfer finishes on the host. ``last_run_stats`` gets the
+    chunks, rows and peak device bytes."""
+    device = engine.device
     stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
     _reset_peak(device)
     acc: Any = None
     pending: List[Any] = []  # events of chunks whose kernels may still run
-    for n, chunk in _closing(engine_prefetcher(engine, produce(), "aggregate")):
+    for n, chunk in _closing(engine_prefetcher(engine, chunks, verb)):
         t = chunk.tensors()
-        outs = _dense_kernel(buckets, agg_sig, t[key], kmin, [t[s] for s in srcs], valid_for(n))
+        outs = step(t, n)
         acc = _widen(outs) if acc is None else _fold_dense_acc(agg_sig, acc, outs)
         stats["chunks"] += 1
         stats["rows"] += n
@@ -426,7 +469,7 @@ def streaming_dense_aggregate(
         stats["peak_device_bytes"], _device_peak_bytes(device, acc)
     )
     global last_run_stats
-    last_run_stats = dict(stats, verb="aggregate")
+    last_run_stats = dict(stats, verb=verb)
     return res
 
 
@@ -1170,3 +1213,324 @@ def streaming_comap(
         last_run_stats = dict(stats, verb="comap")
 
     return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+
+# --------------------------------------------------------------------------
+# plan segments over one-pass streams (``plan/fused.py``, ``plan/lowering.py``)
+# --------------------------------------------------------------------------
+
+
+def streaming_fused_steps(engine: Any, df: Any, steps: Any) -> DataFrame:
+    """A fused select/filter/assign chain applied inside the chunk producer
+    of a one-pass stream (reference :1574): each chunk runs the chain with
+    the engine's own verbs, and only the surviving rows flow on. The
+    stream stays one-pass: the device holds O(chunk) rows."""
+    from ..plan.fused import apply_steps_engine
+
+    # the schema of an empty frame through the chain: what the chunks get
+    out_schema = apply_steps_engine(engine, ArrayDataFrame([], df.schema), steps).schema
+
+    def gen() -> Iterator[LocalDataFrame]:
+        for f in _iter_local_frames(df, _chunk_rows(engine)):
+            out = apply_steps_engine(engine, f, steps)
+            if out.count() > 0:
+                yield out.as_local_bounded()
+
+    return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+
+def _np_dtype_of(tp: pa.DataType) -> Optional[np.dtype]:
+    """The numpy dtype of an arrow type a raw chunk column feeds the device
+    program in, else None. The unsigned types above uint8 have none: their
+    device form needs the frame's storage (``torch/dataframe.py``), so a
+    chain over one runs per verb."""
+    if pa.types.is_unsigned_integer(tp) and tp.bit_width > 8:
+        return None
+    if pa.types.is_boolean(tp):
+        return np.dtype(bool)
+    if pa.types.is_integer(tp) or pa.types.is_floating(tp):
+        return np.dtype(tp.to_pandas_dtype())
+    return None
+
+
+def _plan_lowered_chain(schema: Schema, steps: Any, device: torch.device) -> Optional[dict]:
+    """The chain composed over a stream's RAW columns, from the schema
+    alone (reference ``_plan_lowered_chain`` :660): ``dict(pred, outputs,
+    outs_by_name, need, in_np, out_dt, schema)`` — the planned Kleene-AND
+    predicate, the output expressions, the input columns read with their
+    numpy dtypes, each output's torch dtype (from a zero-row probe) and
+    the chain's output schema; None when a step resists composition or
+    the device evaluator. Nothing reads the stream here."""
+    from ..column.torch_eval import can_evaluate_on_device, device_predicate_plan, evaluate_torch
+    from ..plan.fused import compose_steps
+    from ..plan.ir import ALL, expr_columns
+    from .execution_engine import _full_column, _np_dtype
+
+    composed = compose_steps(list(schema.names), steps)
+    if composed is None:
+        return None
+    pred, outputs = composed
+    need: set = set()
+    for e in outputs + ([pred] if pred is not None else []):
+        cols = expr_columns(e)
+        if cols is ALL:
+            return None
+        need |= cols
+    in_np: Dict[str, np.dtype] = {}
+    for name in sorted(need):
+        dt = _np_dtype_of(schema[name].type) if name in schema else None
+        if dt is None:
+            return None
+        in_np[name] = dt
+    cond = None
+    if pred is not None:
+        p = device_predicate_plan(pred, in_np, {})
+        if p is None or p[0]:
+            return None  # a raw stream has no dictionary columns
+        cond = p[1]
+    if not all(can_evaluate_on_device(e, in_np) for e in outputs):
+        return None
+    zcols = {n: torch.zeros(0, dtype=_torch_dtype(dt), device=device) for n, dt in in_np.items()}
+    out_dt: Dict[str, torch.dtype] = {}
+    outs_by_name: Dict[str, Any] = {}
+    fields: List[pa.Field] = []
+    for e in outputs:
+        name = e.output_name
+        if name == "" or name in outs_by_name:
+            return None
+        try:
+            out_dt[name] = _full_column(evaluate_torch(zcols, e), 0, device).dtype
+        except Exception:  # noqa: BLE001 - the reference's probe refuses alike
+            return None
+        try:
+            tp = e.infer_type(schema)
+        except Exception:  # noqa: BLE001
+            tp = None
+        fields.append(pa.field(name, tp if tp is not None else pa.from_numpy_dtype(_np_dtype(out_dt[name]))))
+        outs_by_name[name] = e
+    return dict(
+        pred=cond,
+        outputs=list(outputs),
+        outs_by_name=outs_by_name,
+        need=sorted(need),
+        in_np=in_np,
+        out_dt=out_dt,
+        schema=Schema(fields),
+    )
+
+
+def _chain_valid(
+    cols: Dict[str, torch.Tensor], cond: Any, valid: torch.Tensor
+) -> torch.Tensor:
+    """``valid`` AND the chain's predicate is TRUE (not FALSE, not NULL)."""
+    from ..column.torch_eval import evaluate_torch_3v
+
+    if cond is None:
+        return valid
+    v, nl = evaluate_torch_3v(cols, {}, {}, cond, frozenset())
+    for keep in (v, (not nl) if isinstance(nl, bool) else torch.logical_not(nl)):
+        if isinstance(keep, torch.Tensor):
+            valid = valid & keep.to(torch.bool)
+        elif not keep:
+            valid = torch.zeros_like(valid)
+    return valid
+
+
+def plan_streaming_lowered_aggregate(
+    engine: Any, df: Any, steps: Any, keys: List[str], agg_cols: List[Any], fingerprint: str
+) -> Optional[Callable[[], DataFrame]]:
+    """Stream → chain → dense aggregate (reference :746), planned from the
+    schema alone: a runner, or None (the caller runs the segment per
+    verb). The runner reads the stream once: the producer stages each
+    chunk's RAW needed columns to the device (``HostToDevice``), and the
+    consumer evaluates the predicate and the value expressions on them,
+    runs the dense kernel (B1 ``bin_sum`` for a float32 SUM) and folds the
+    tables into device accumulators; only the O(buckets) tables come back.
+    Eligible as the streaming dense aggregate is, and the key must pass
+    through a raw integer column. The key range and the NULL contract
+    apply to the RAW chunks, as in the reference: rows the chain's filter
+    would drop still count (set ``fugue.tpu.stream.key_range`` where that
+    matters)."""
+    from ..column.torch_eval import evaluate_torch
+    from ..column.expressions import _NamedColumnExpr
+    from ..ops.segment import _DENSE_MAX_RANGE, _dense_kernel, dense_buckets
+    from .dataframe import TorchDataFrame
+    from .execution_engine import _full_column, _np_dtype, _plan_device_agg
+
+    if len(keys) != 1 or len(steps) == 0:
+        return None
+    device = engine.device
+    chain = _plan_lowered_chain(Schema(df.schema), steps, device)
+    if chain is None:
+        return None
+    tdf0 = TorchDataFrame(chain["schema"].create_empty_arrow_table(), device=device)
+    plan = _plan_device_agg(tdf0, keys, agg_cols)
+    if (
+        plan is None
+        or plan["virtual"]
+        or plan["dict_srcs"]
+        or plan["masked_srcs"]
+        or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])
+    ):
+        return None
+    key = keys[0]
+    key_expr = chain["outs_by_name"].get(key)
+    if not isinstance(key_expr, _NamedColumnExpr) or key_expr.wildcard or key_expr.as_type is not None:
+        return None  # the group key must pass through a raw input column
+    raw_key = key_expr.name
+    key_np = _np_dtype(tdf0.device_cols[key].dtype)
+    if key_np.kind not in ("i", "u") or chain["in_np"][raw_key].kind not in ("i", "u"):
+        return None
+    srcs = sorted({s for _, _, s in plan["aggs"]})
+    src_dt = {s: tdf0.device_cols[s].dtype for s in srcs}
+    if any(dt == torch.bool for dt in src_dt.values()):
+        return None
+    del tdf0
+    key_range = _parse_key_range(engine.conf)
+    if key_range is not None and not (0 < key_range[1] - key_range[0] + 1 <= _DENSE_MAX_RANGE):
+        return None  # a declared range too wide for the dense plan
+    cond = chain["pred"]
+    needed: List[str] = chain["need"]
+    in_np: Dict[str, np.dtype] = chain["in_np"]
+    src_expr = {s: chain["outs_by_name"][s] for s in srcs}
+    vidx = {s: i for i, s in enumerate(srcs)}
+    # floats are always NaN-aware: a later chunk may hold NaN
+    agg_sig = tuple(
+        (name, agg, vidx[src], src_dt[src].is_floating_point) for name, agg, src in plan["aggs"]
+    )
+    label = f"segment:{fingerprint or 'anon'}"
+
+    def run() -> DataFrame:
+        # ---- the stream is read from here on: failures raise ------------
+        capacity = _chunk_rows(engine)
+        frames = _rechunk(_iter_local_frames(df, capacity), capacity)
+        first = next(frames, None)
+        if first is None:
+            return engine.to_df(plan["schema"].create_empty_arrow_table())
+        n0, cols0, nulls0 = _chunk_columns(first, needed)
+        assert_or_throw(
+            nulls0[raw_key] == 0,
+            FugueInvalidOperation(f"lowered segment: NULL in key column {raw_key!r}"),
+        )
+        probed = key_range is None
+        kmin, kmax = (int(cols0[raw_key].min()), int(cols0[raw_key].max())) if probed else key_range
+        if not (0 < kmax - kmin + 1 <= _DENSE_MAX_RANGE):
+            raise FugueInvalidOperation(
+                f"lowered segment: first-chunk RAW key range [{kmin},{kmax}] exceeds the dense "
+                f"plan bound ({_DENSE_MAX_RANGE}); set {FUGUE_TPU_CONF_STREAM_KEY_RANGE}, "
+                "pre-bucket the key, or disable fugue.tpu.plan.lower_segments"
+            )
+        buckets = dense_buckets(kmax - kmin + 1)
+        stager = _stager(engine, capacity)
+        valid_for = _valid_masks(device, capacity)
+
+        def put_chunk(n: int, cols: Dict[str, np.ndarray], nulls: Dict[str, int]) -> Any:
+            assert_or_throw(
+                nulls[raw_key] == 0,
+                FugueInvalidOperation(f"lowered segment: NULL in key column {raw_key!r}"),
+            )
+            ck = cols[raw_key]
+            lo, hi = int(ck.min()), int(ck.max())
+            if lo < kmin or hi > kmax:
+                hint = (
+                    f"probed from the first RAW chunk as [{kmin},{kmax}]; set "
+                    f"{FUGUE_TPU_CONF_STREAM_KEY_RANGE}='lo,hi' to cover the full stream"
+                    if probed
+                    else f"conf {FUGUE_TPU_CONF_STREAM_KEY_RANGE} was [{kmin},{kmax}]"
+                )
+                raise FugueInvalidOperation(
+                    f"lowered segment: key {raw_key!r} value outside range ([{lo},{hi}] seen): {hint}"
+                )
+            staged = {}
+            for name in needed:
+                if in_np[name].kind != "f":
+                    assert_or_throw(
+                        nulls[name] == 0,
+                        FugueInvalidOperation(
+                            f"lowered segment: NULL in non-float column {name!r} (RAW chunks "
+                            "feed the device; rows the fused filter would drop still count)"
+                        ),
+                    )
+                staged[name] = cols[name].astype(in_np[name], copy=False)
+            return stager.put(staged, n)
+
+        def produce() -> Iterator[Tuple[int, Any]]:
+            nonlocal cols0, nulls0, first
+            yield n0, put_chunk(n0, cols0, nulls0)
+            cols0 = nulls0 = first = None  # drop the head chunk's host copy
+            for f in frames:
+                n, cols, nulls = _chunk_columns(f, needed)
+                yield n, put_chunk(n, cols, nulls)
+
+        def step(t: Dict[str, torch.Tensor], n: int) -> Tuple[torch.Tensor, ...]:
+            valid = _chain_valid(t, cond, valid_for(n))
+            vals = [
+                _full_column(evaluate_torch(t, src_expr[s]), capacity, device).to(src_dt[s])
+                for s in srcs
+            ]
+            return _dense_kernel(buckets, agg_sig, t[raw_key].to(_torch_dtype(key_np)), kmin, vals, valid)
+
+        return _fold_dense_stream(engine, produce(), step, agg_sig, key, key_np, kmin, plan, label)
+
+    return run
+
+
+def plan_lowered_steps_stream(
+    engine: Any, df: Any, steps: Any, fingerprint: str
+) -> Optional[Callable[[], DataFrame]]:
+    """A lowered chain feeding a host-buffered terminal (take, distinct,
+    broadcast-join probe), planned from the schema (reference :1018): a
+    factory of the one-pass stream whose chunks each run the chain on the
+    device over their raw columns, the survivors coming back to the host,
+    or None. A chunk with a NULL in a non-float column runs the chain per
+    verb instead (the same rows), counted in
+    ``engine.plan_stats.chunks_per_verb``."""
+    from ..column.torch_eval import evaluate_torch
+    from ..plan.fused import apply_steps_engine
+    from .execution_engine import _full_column
+
+    if len(steps) == 0:
+        return None
+    device = engine.device
+    chain = _plan_lowered_chain(Schema(df.schema), steps, device)
+    if chain is None:
+        return None
+    out_schema: Schema = chain["schema"]
+    if any(_np_dtype_of(f.type) is None for f in out_schema.fields):
+        return None  # outputs must round-trip through numpy numerics
+    cond = chain["pred"]
+    needed: List[str] = chain["need"]
+    in_np: Dict[str, np.dtype] = chain["in_np"]
+    outputs = chain["outputs"]
+    out_dt = chain["out_dt"]
+    label = f"segment:{fingerprint or 'anon'}"
+
+    def make_stream() -> DataFrame:
+        capacity = _chunk_rows(engine)
+
+        def gen() -> Iterator[LocalDataFrame]:
+            stager = _stager(engine, capacity)
+            valid_for = _valid_masks(device, capacity)
+            for f in _rechunk(_iter_local_frames(df, capacity), capacity):
+                n, cols, nulls = _chunk_columns(f, needed)
+                if any(nulls[c] > 0 and in_np[c].kind != "f" for c in needed):
+                    engine.plan_stats.inc("chunks_per_verb")
+                    out = apply_steps_engine(engine, f, steps)
+                    if out.count() > 0:
+                        yield out.as_local_bounded()
+                    continue
+                with record_function("fugue::plan_segment_chunk"):
+                    t = stager.put({c: cols[c].astype(in_np[c], copy=False) for c in needed}, n).tensors()
+                    valid = _chain_valid(t, cond, valid_for(n))
+                    idx = torch.nonzero(valid).squeeze(1)
+                    data = {
+                        e.output_name: _full_column(evaluate_torch(t, e), capacity, device)
+                        .to(out_dt[e.output_name]).index_select(0, idx).cpu().numpy()
+                        for e in outputs
+                    }
+                if len(idx) > 0:
+                    yield PandasDataFrame(pd.DataFrame(data), out_schema)
+
+        return LocalDataFrameIterableDataFrame(gen(), schema=out_schema)
+
+    return make_stream

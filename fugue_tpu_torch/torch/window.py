@@ -46,7 +46,7 @@ from ..collections.partition import PartitionSpec
 from ..column.expressions import _LitColumnExpr, _NamedColumnExpr, _UnaryOpExpr, _WindowExpr
 from ..ops.segment import _order_by, _sort_image
 from ..schema import Schema
-from .dataframe import TorchDataFrame
+from .dataframe import TorchDataFrame, is_wide_unsigned
 from .group_ops import SEGMENTS, VALID, _segmented_scan
 
 _AGGS = {"SUM", "AVG", "MIN", "MAX", "COUNT", "FIRST", "LAST"}
@@ -120,9 +120,12 @@ def _plan_items(
         elif oi != order_items[: len(oi)]:
             return None
     cols = tdf.device_cols
+    # the unsigned types above uint8 live widened (``torch/dataframe.py``):
+    # their windows run on the pandas evaluator
+    unsigned = {f.name for f in tdf.schema.fields if is_wide_unsigned(f.type)}
 
     def plain(c: str) -> bool:
-        return c in cols and c not in tdf.encodings and c not in tdf.null_masks
+        return c in cols and c not in tdf.encodings and c not in tdf.null_masks and c not in unsigned
 
     def groupable(c: str) -> bool:
         """A partition or order key: plain, or a SORTED dictionary (codes
@@ -135,7 +138,7 @@ def _plan_items(
 
     def masked(c: str) -> bool:
         """A plain column with a null mask (nullable int or bool)."""
-        return c in cols and c in tdf.null_masks and c not in tdf.encodings
+        return c in cols and c in tdf.null_masks and c not in tdf.encodings and c not in unsigned
 
     if not all(groupable(k) and not tdf.maybe_nan(k) for k in pkeys):
         return None

@@ -95,6 +95,28 @@ class FugueTask:
                     safe[k] = repr(v)
         return to_uuid(safe)
 
+    def clone_with(
+        self,
+        extension: Any = None,
+        params: Any = None,
+        input_tasks: Optional[List["FugueTask"]] = None,
+    ) -> "FugueTask":
+        """Shallow clone for the plan optimizer (reference ``:111``): same
+        checkpoint, yield, broadcast and name, optionally another
+        extension, params or inputs, and a fresh uuid. The original task
+        is never changed."""
+        import copy
+
+        c = copy.copy(self)
+        if extension is not None:
+            c.extension = extension
+        if params is not None:
+            c.params = ParamDict(params)
+        if input_tasks is not None:
+            c.inputs = list(input_tasks)
+        c._uuid = None
+        return c
+
     def set_checkpoint(self, checkpoint: Checkpoint) -> None:
         assert_or_throw(
             checkpoint.is_null or self.has_output,

@@ -7,7 +7,10 @@ are done run in a thread pool; each pool thread enters the engine's
 context (the run's conf scope).
 
 A task whose deterministic checkpoint exists loads it instead of running
-(resume). Not ported (ROADMAP.md A.10): the result cache, the distributed
+(resume). The plan optimizer may run clones of the compiled tasks:
+``result_aliases`` maps a compiled task to the task that computes its
+result, and the handle of a result the rewrites removed raises
+(``fugue_tpu/workflow/_workflow_context.py`` :67, :111-120). Not ported (ROADMAP.md A.10): the result cache, the distributed
 pass, task retries and fault injection (:45-57, :120-160), the tracer's
 spans and the RPC server; ``FugueWorkflow.run`` refuses the conf keys that
 turn them on."""
@@ -15,11 +18,11 @@ turn them on."""
 import contextvars
 import uuid as _uuid
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
-from typing import Any, Dict, List, Set
+from typing import Any, Dict, List, Optional, Set
 
 from ..constants import FUGUE_CONF_WORKFLOW_CONCURRENCY
 from ..dataframe import DataFrame
-from ..exceptions import FugueWorkflowRuntimeError
+from ..exceptions import FugueWorkflowError, FugueWorkflowRuntimeError
 from ..execution.execution_engine import ExecutionEngine
 from ._checkpoint import CheckpointPath, StrongCheckpoint
 from ._tasks import FugueTask
@@ -33,6 +36,8 @@ class FugueWorkflowContext:
         self._conf = conf
         self._checkpoint_path = CheckpointPath(execution_engine, conf=conf)
         self._results: Dict[int, DataFrame] = {}
+        self._aliases: Dict[int, FugueTask] = {}
+        self._removed: Set[int] = set()
 
     @property
     def execution_engine(self) -> ExecutionEngine:
@@ -43,12 +48,28 @@ class FugueWorkflowContext:
         return self._checkpoint_path
 
     def get_result(self, task: FugueTask) -> DataFrame:
-        return self._results[id(task)]
+        t = self._aliases.get(id(task), task)
+        if id(t) not in self._results and id(task) in self._removed:
+            raise FugueWorkflowError(
+                "this task's intermediate result was optimized away by the "
+                "plan optimizer (fused into a neighbor or repositioned by "
+                "filter pushdown); pin it with persist()/checkpoint()/"
+                "yield_dataframe_as(), or disable the optimizer with "
+                "fugue.tpu.plan.optimize=false"
+            )
+        return self._results[id(t)]
 
     def has_result(self, task: FugueTask) -> bool:
-        return id(task) in self._results
+        return id(self._aliases.get(id(task), task)) in self._results
 
-    def run(self, tasks: List[FugueTask]) -> None:
+    def run(
+        self,
+        tasks: List[FugueTask],
+        result_aliases: Optional[Dict[int, FugueTask]] = None,
+        removed_results: Optional[Set[int]] = None,
+    ) -> None:
+        self._aliases = result_aliases or {}
+        self._removed = removed_results or set()
         self._checkpoint_path.init_temp_path(str(_uuid.uuid4()))
         # a one-pass stream consumed by more than one task is read whole
         # once, or the second consumer would find it exhausted

@@ -5,11 +5,16 @@ lazily and adds partitioning hints, checkpoints, yields, persist,
 broadcast, joins, set operations, zips and SQL.
 
 ``run`` keeps the workflow's conf to the run (``run_conf_scope``): it
-never leaks into the engine's conf. It runs the DAG as compiled: the plan
-optimizer and its lowering (ROADMAP.md A.11) rewrite only for speed, and
-the tracer, the tuner and the result cache are not ported (A.10)."""
+never leaks into the engine's conf. Before anything runs, the plan
+optimizer (``fugue_tpu_torch/plan``) rewrites the DAG: filter pushdown,
+column pruning, verb fusion and segment lowering, each giving the result
+of the DAG as compiled; ``fugue.tpu.plan.optimize=false`` turns it off,
+``explain()`` shows what it would do and ``last_plan_report`` what it
+did. The tracer, the tuner and the result cache are not ported (A.10)."""
 
 from typing import Any, Dict, List, Optional
+
+from torch.profiler import record_function
 
 from .._utils.assertion import assert_or_throw
 from .._utils.convert import get_caller_global_local_vars
@@ -843,9 +848,46 @@ class FugueWorkflow:
         ctx = FugueWorkflowContext(e, conf=plan_conf)
         self._last_context = ctx
         self._apply_auto_persist(e, plan_conf)
+        from ..plan import optimize_tasks
+
+        with record_function("fugue::plan_optimize"):
+            run_tasks, aliases, removed, report = optimize_tasks(
+                self._tasks, plan_conf, stats=e.plan_stats
+            )
+        self._last_plan_report = report
         with e.run_conf_scope(self._conf), e._as_context(borrowed=True):
-            ctx.run(self._tasks)
+            ctx.run(run_tasks, result_aliases=aliases, removed_results=removed)
         return FugueWorkflowResult(self._yields)
+
+    def plan_report(self, conf: Any = None, engine: Any = None) -> Any:
+        """The ``PlanReport`` of what the plan optimizer would do to this
+        DAG, nothing run: the conf is ``engine``'s (if given), then this
+        workflow's, then ``conf``, as ``run`` merges them."""
+        from ..plan import optimize_tasks
+        from ..plan.ir import build_graph
+        from ..plan.optimizer import _render_nodes
+
+        merged = ParamDict(engine.conf if isinstance(engine, ExecutionEngine) else None)
+        merged.update(self._conf)
+        merged.update(ParamDict(conf))
+        _, _, _, report = optimize_tasks(self._tasks, merged)
+        if not report.before:
+            report.before = _render_nodes(build_graph(self._tasks))
+        return report
+
+    def explain(self, conf: Any = None, engine: Any = None) -> str:
+        """``plan_report`` rendered: the logical plan, the optimized plan
+        with each pass's counters (cols_pruned, filters_pushed,
+        verbs_fused, segments_lowered, verbs_absorbed, bytes_skipped
+        estimate), a line for each lowered segment (``lowered segment
+        <fingerprint>: steps -> terminal``) and the notes of refusals and
+        of the passes that are not ported."""
+        return self.plan_report(conf, engine).render()
+
+    @property
+    def last_plan_report(self) -> Any:
+        """The ``PlanReport`` of the last ``run()`` (None before the first)."""
+        return getattr(self, "_last_plan_report", None)
 
     def _collect_raw_inputs(self) -> List[Any]:
         """The data the DAG's ``df``/``create_data`` tasks hold."""

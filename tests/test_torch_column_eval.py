@@ -448,3 +448,53 @@ def test_select_columns_rules():
     assert [repr(k) for k in sc.group_keys] == ["k"] and sc.has_agg and sc.has_literals
     assert texpr.derived_name(col("a").cast("int")) == jexpr.derived_name(jcol("a").cast("int"))
     assert texpr.structural_key(col("a").alias("x")) == texpr.structural_key(col("a"))
+
+
+def test_three_valued_evaluation_keeps_no_column_alive():
+    """ROADMAP.md C17: ``evaluate_torch_3v``'s two nested evaluators once
+    referenced each other and the columns, so a filtered chunk's tensors
+    lived until the cyclic GC ran (a lowered stream held one staged chunk
+    more a chunk on the card). With the GC off, the columns free when the
+    caller drops them."""
+    import gc
+    import weakref
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.arange(10.0)
+        alive = weakref.ref(t)
+        cols = {"v": t}
+        v, nl = torch_eval.evaluate_torch_3v(cols, {}, {}, (col("v") > 3) & col("v").not_null(), frozenset())
+        assert v.tolist() == [False] * 4 + [True] * 6
+        del cols, t
+        assert alive() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def test_device_predicate_plan_keeps_no_column_alive():
+    """ROADMAP.md C18: ``device_predicate_plan``'s nested gate ``ok``
+    referenced itself and the frame's columns, so every fused or lowered
+    filter left a reference cycle holding the whole frame until the cyclic
+    GC ran (1.6 GB of a dropped frame was still on the card when the next
+    cell's peak was read). With the GC off, the columns free when the
+    caller drops them."""
+    import gc
+    import weakref
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.arange(10.0)
+        alive = weakref.ref(t)
+        cols = {"v": t}
+        planned = torch_eval.device_predicate_plan((col("v") > 3) & col("v").not_null(), cols, {})
+        assert planned is not None and planned[0] == {}
+        assert torch_eval.device_predicate_plan(col("u") > 3, cols, {}) is None
+        del cols, t
+        assert alive() is None
+    finally:
+        if enabled:
+            gc.enable()

@@ -99,11 +99,11 @@ def test_round_trip_and_codes_equal_jax_frame(case):
     out = tdf.as_arrow()
     assert out.equals(jdf.as_arrow())
     assert out.equals(tbl.cast(tdf.schema.pa_schema))
-    # device and host columns: the JAX package keeps uint16 on its device,
-    # the port keeps it on the host (ROADMAP.md A.3)
+    # device and host columns: both packages keep uint16 on their device
+    # (the port as int32 values, compared by value below)
     port_host = [] if tdf.host_table is None else tdf.host_table.column_names
     jax_host = [] if jdf.host_table is None else jdf.host_table.column_names
-    assert sorted(port_host) == sorted(jax_host + [c for c in jdf.device_cols if c == "u16"])
+    assert sorted(port_host) == sorted(jax_host)
     for c, arr in tdf.device_cols.items():
         assert np.array_equal(arr.numpy(), np.asarray(jdf.device_cols[c])[:n]), c
     assert sorted(tdf.null_masks) == sorted(jdf.null_masks)
@@ -165,9 +165,20 @@ def test_carried_jax_state(case):
 
 
 def test_carried_unsigned_above_uint8_is_not_ported():
-    jdf = _jax_frame(pa.table({"u": pa.array(np.arange(9, dtype=np.uint32))}))
-    with pytest.raises(NotImplementedError, match="A.3"):
-        frame_from_numpy({"u": np.asarray(jdf.device_cols["u"])}, str(jdf.schema), device="cpu")
+    """Named for the refusal it pinned before the unsigned types above
+    uint8 lived on the port's device: the JAX frame's uint16, uint32 and
+    uint64 device columns, values 0 and the type's top ones (2**63 - 1 and
+    2**63 for uint64), carry across and come back as the same arrow
+    columns."""
+    for tp in (pa.uint16(), pa.uint32(), pa.uint64()):
+        top = int(np.iinfo(tp.to_pandas_dtype()).max)
+        vals = [0, 1, top // 2, top // 2 + 1, top - 1, top]
+        jdf = _jax_frame(pa.table({"u": pa.array(vals, tp)}))
+        tdf = frame_from_numpy({"u": np.asarray(jdf.device_cols["u"])}, str(jdf.schema),
+                               valid=np.asarray(jdf.device_valid_mask()), device="cpu")
+        assert str(tdf.schema) == str(jdf.schema)
+        assert tdf.as_arrow().equals(jdf.as_arrow())
+        assert tdf.as_arrow().column("u").to_pylist() == vals
 
 
 def test_filtered_frame_drops_host_rows_by_the_valid_mask():

@@ -245,6 +245,8 @@ _DATES = pd.DataFrame({"k": [1, 2], "d": pd.to_datetime(["2020-01-01", "2021-01-
 
 # the JAX package's form of each case's aggregates, by the case's ``why``
 _JAX_AGGS = {
+    "uint16": [jff.sum(jcol("v"))],
+    "uint64": [jff.max(jcol("v"))],
     "0 keys": [jff.sum(jcol("v"))],
     "DISTINCT": [jff.count_distinct(jcol("v"))],
     "MIN over a date32": [jff.min(jcol("d"))],
@@ -269,17 +271,12 @@ _JAX_AGGS = {
 )
 def test_unported_plans_raise(jax_engine, engine, pdf, by, aggs, why):
     """Named for the refusals it pinned before the host engine's aggregate
-    was ported. The unsigned columns above uint8, on the JAX package's
-    device but on the port's host, still raise naming ROADMAP.md A.3;
-    every other case now gives the JAX engine's answer (a global
-    aggregate, COUNT DISTINCT, MIN over a date and SUM of an expression
-    run on both host engines), or raises as it does."""
+    and the unsigned device columns were ported: every case now gives the
+    JAX engine's answer (a global aggregate, COUNT DISTINCT, MIN over a
+    date and SUM of an expression on both host engines; a uint16 value or
+    key and a nullable uint64 past 2**63 on both devices), or raises as
+    it does. Schemas and values exact."""
     tin = engine.to_df(pdf)
-    if why in ("uint16", "uint64"):
-        with pytest.raises(NotImplementedError, match=why) as err:
-            engine.aggregate(tin, PartitionSpec(by=by), [a.alias("s") for a in aggs])
-        assert "ROADMAP.md A.3" in str(err.value)
-        return
     jaggs = [a.alias("s") for a in _JAX_AGGS[why]]
     try:
         exp = jax_engine.aggregate(jax_engine.to_df(pdf), JPartitionSpec(by=by), jaggs)
@@ -290,7 +287,9 @@ def test_unported_plans_raise(jax_engine, engine, pdf, by, aggs, why):
         return
     got = engine.aggregate(tin, PartitionSpec(by=by), [a.alias("s") for a in aggs])
     assert isinstance(got, TorchDataFrame) and str(got.schema) == str(exp.schema)
-    pd.testing.assert_frame_equal(got.as_pandas(), exp.as_pandas())
+    # rows as arrow values: the JAX frame hands nullable columns to pandas
+    # in its extension dtypes, the port in numpy's where no NULL is left
+    assert got.as_arrow().to_pylist() == exp.as_arrow().to_pylist()
 
 
 def test_nullable_int_column_is_not_ported(jax_engine, engine):

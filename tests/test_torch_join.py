@@ -543,15 +543,25 @@ def test_joins_the_reference_sends_to_its_host_raise(jax_engine, engine, monkeyp
 
 
 def test_unsigned_keys_stay_on_the_ports_host(jax_engine, engine):
-    """uint16 keys live on the JAX package's device, on the port's host
-    (ROADMAP.md A.3): the JAX engine joins them on its device, the port
-    refuses."""
-    left = pd.DataFrame({"k": np.array([1, 2], np.uint16), "v": [1.0, 2.0]})
-    right = pd.DataFrame({"k": np.array([2, 3], np.uint16), "w": [5.0, 6.0]})
-    exp = jax_engine.join(jax_engine.to_df(left), jax_engine.to_df(right), how="inner")
-    assert isinstance(exp, JaxDataFrame) and exp.count() == 1
-    with pytest.raises(NotImplementedError, match="A.3"):
-        engine.join(engine.to_df(left), engine.to_df(right), how="inner")
+    """Named for the refusal it pinned before the unsigned types above
+    uint8 lived on the port's device: both engines join uint16, uint32 and
+    uint64 keys on their device (no host join on either), inner, left
+    outer, semi and anti, keys at 0 and at the type's top (for uint64
+    2**63 - 1, 2**63 and 2**64 - 1), with the same rows."""
+    jhost, thost = jax_engine._host_engine, engine._host_engine
+    for dt in (np.uint16, np.uint32, np.uint64):
+        top = int(np.iinfo(dt).max)
+        keys = [0, 1, top // 2, top // 2 + 1, top - 1, top]
+        left = pd.DataFrame({"k": np.array(keys + [2, top], dt), "v": np.arange(8, dtype=np.float64)})
+        right = pd.DataFrame({"k": np.array([top, top // 2 + 1, 1, 3], dt), "w": [5.0, 6.0, 7.0, 8.0]})
+        for how in ("inner", "left_outer", "left_semi", "left_anti"):
+            with mock.patch.object(jhost, "join", wraps=jhost.join) as jspy:
+                exp = jax_engine.join(jax_engine.to_df(left), jax_engine.to_df(right), how=how)
+                assert isinstance(exp, JaxDataFrame) and not jspy.called
+            with mock.patch.object(thost, "join", wraps=thost.join) as tspy:
+                got = engine.join(engine.to_df(left), engine.to_df(right), how=how)
+                assert isinstance(got, TorchDataFrame) and not tspy.called
+            _same(got, exp)
 
 
 # ---- chip_smoke.py's join_path cells, at small size -------------------------

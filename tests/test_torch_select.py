@@ -590,17 +590,34 @@ UINT_CASES = {
 }
 
 
+JUINT_CASES = {
+    "filter": lambda e, d: e.filter(d, jcol("u") > 1),
+    "select_where": lambda e, d: e.select(d, JSelectColumns(jcol("k")), where=jcol("u") > 1),
+    "project": lambda e, d: e.select(d, JSelectColumns(jcol("k"), (jcol("u") * 2).alias("x"))),
+    "passthrough": lambda e, d: e.select(d, JSelectColumns(jcol("u"))),
+    "grouped": lambda e, d: e.select(d, JSelectColumns(jcol("u"), jff.sum(jcol("v")).alias("s"))),
+    "aggregate_value": lambda e, d: e.aggregate(d, JPartitionSpec(by=["k"]), [jff.sum(jcol("u")).alias("s")]),
+    "dropna": lambda e, d: e.dropna(d),
+    "fillna": lambda e, d: e.fillna(d, 0),
+}
+
+
 @pytest.mark.parametrize("case", list(UINT_CASES))
 @pytest.mark.parametrize("dt", [np.uint16, np.uint32, np.uint64])
 def test_unsigned_columns_raise_where_the_reference_runs_on_its_device(jax_engine, engine, case, dt):
-    """uint16/32/64 live on the JAX package's device but on the port's host
-    (ROADMAP.md A.3): where the JAX engine runs the verb on its device, the
-    port raises naming A.3 rather than answering on its host."""
-    pdf = pd.DataFrame({"k": [1, 2, 1], "u": np.array([1, 2, 3], dt), "v": [1.0, 2.0, 3.0]})
-    jdf = jax_engine.to_df(pdf)
+    """Named for the refusal it pinned before the unsigned types above
+    uint8 lived on the port's device: both engines run the verb on their
+    device (the same host-engine calls: none but fillna's check), with the same answer, values
+    at the type's top included (a doubled value and a SUM wrap in the
+    type, as JAX computes them). Exact."""
+    top = int(np.iinfo(dt).max)
+    data = pa.table({"k": [1, 2, 1, 2], "u": pa.array(np.array([1, 2, top, top - 1], dt)),
+                     "v": [1.0, 2.0, 3.0, 4.0]})
+    jdf = jax_engine.to_df(JArrowDataFrame(data))
     assert jdf.host_table is None and "u" in jdf.device_cols
-    with pytest.raises(NotImplementedError, match="A.3"):
-        UINT_CASES[case](engine, engine.to_df(pdf))
+    got, calls = _both(jax_engine, engine, data, JUINT_CASES[case], UINT_CASES[case])
+    # fillna checks its value on both engines by a host call over no rows
+    assert sum(calls.values()) == (1 if case == "fillna" else 0)
 
 
 def test_unsigned_columns_on_the_host_route_answer(jax_engine, engine):

@@ -531,17 +531,27 @@ def test_connect(pair):
                 lambda: jfugue_sql("CONNECT jax PRINT FROM t", engine=ref_engine))
 
 
-def test_compile_dialect_is_refused():
-    """A FugueSQL compile dialect other than spark needs the dialect
-    transpiler (A.11)."""
-    t = pd.DataFrame({"a": np.array([1])})
-    flow = api.fugue_sql_flow
+def test_compile_dialect_is_refused(jax_engine):
+    """Named for the refusal it pinned before the dialect transpiler was
+    ported: a FugueSQL compile dialect other than spark now transpiles to
+    the in-tree dialect before parsing, and the query answers as on the
+    reference (rows exact)."""
+    from fugue_tpu.sql import FugueSQLWorkflow as JFugueSQLWorkflow
     from fugue_tpu_torch.sql.fsql import FugueSQLWorkflow
 
-    dag = FugueSQLWorkflow({"fugue.sql.compile.dialect": "postgres"})
-    with pytest.raises(NotImplementedError, match="A.11"):
-        dag("SELECT a FROM t")
-    assert flow("SELECT a FROM t") is not None
+    t = pd.DataFrame({"a": np.array([1, 2, 3]), "b c": np.array([0.5, 1.5, 2.5])})
+    q = 'SELECT a, CAST("b c" AS DOUBLE PRECISION) AS x FROM t WHERE a > 1 YIELD DATAFRAME AS out'
+    for ref_engine, engine in [(jax_engine, TorchExecutionEngine(device="cpu")),
+                               (JNativeExecutionEngine(REF_CONF), NativeExecutionEngine())]:
+        dag = FugueSQLWorkflow({"fugue.sql.compile.dialect": "postgres"})
+        dag(q, t=t)
+        dag.run(engine)
+        jdag = JFugueSQLWorkflow({"fugue.sql.compile.dialect": "postgres", **REF_CONF})
+        jdag(q, t=t)
+        jdag.run(ref_engine)
+        _same(dag.yields["out"].result, jdag.yields["out"].result)
+        assert _rows(dag.yields["out"].result) == [(2, 1.5), (3, 2.5)]
+    assert api.fugue_sql_flow("SELECT a FROM t") is not None
 
 
 # ---- the remaining classes: scalar functions, GROUP BY, joins, subqueries -----

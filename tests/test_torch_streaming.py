@@ -193,19 +193,34 @@ def test_ineligible_aggregate_materializes_the_stream(engines):
 
 
 def test_aggregate_of_an_unported_plan_raises_before_reading(engines):
-    """A uint32 key stays on the host in the port (ROADMAP.md A.3): the
-    stream's plan raises as the in-memory one does, with nothing read."""
-    _, te = engines
-    pulled = []
-
-    def gen():
-        pulled.append(1)
-        yield pd.DataFrame({"k": np.array([1, 2], np.uint32), "v": [1.0, 2.0]})
-
-    with pytest.raises(NotImplementedError, match="A.3"):
-        te.aggregate(LocalDataFrameIterableDataFrame(gen(), schema="k:uint,v:double"),
-                     PartitionSpec(by=["k"]), [ff.sum(col("v")).alias("s")])
-    assert pulled == []
+    """Named for the refusal it pinned before the unsigned types above
+    uint8 lived on the port's device: a stream keyed by uint16, uint32 or
+    uint64 aggregates chunk by chunk through the dense plan, as on the
+    reference, with the same rows (exact keys and counts, sums within the
+    file's tolerance), keys at the top of uint16 and uint32; an unsigned
+    value streams too, through the in-memory aggregate. The reference's
+    streamed plan reads uint64 keys as float64 (ROADMAP.md C16): past 2**53
+    its groups merge, so keys there and across 2**63 are held against
+    pandas."""
+    je, te = engines
+    for dt in (np.uint16, np.uint32, np.uint64):
+        top = int(np.iinfo(dt).max)
+        base = (1 << 53) - 64 if dt is np.uint64 else top - 49
+        pdf = _frame(6_000, 50, seed=7)
+        pdf["k"] = (np.uint64(base) + pdf["k"].to_numpy().astype(np.uint64)).astype(dt)
+        pdf["u"] = (np.uint64(top - 6) + (pdf["w"].to_numpy() % 7).astype(np.uint64)).astype(dt)
+        for which in ([("s", "sum", "v"), ("n", "count", "v")], [("hi", "max", "u"), ("lo", "min", "u")]):
+            got, exp = _aggregate(je, te, pdf, 5, which)
+            assert isinstance(got, TorchDataFrame)
+            _same(got, exp, by=["k"])
+            if which[0][1] == "sum":
+                assert streaming.last_run_stats["chunks"] == 5
+    pdf["k"] = np.uint64((1 << 63) - 25) + pdf["k"].to_numpy() - np.uint64(base)
+    got, _ = _aggregate(je, te, pdf, 5, [("s", "sum", "v"), ("n", "count", "v")])
+    exp = pdf.groupby("k", as_index=False).agg(s=("v", "sum"), n=("v", "size"))
+    g = got.as_pandas().sort_values("k").reset_index(drop=True)
+    assert g["k"].tolist() == exp["k"].tolist() and g["n"].tolist() == exp["n"].tolist()
+    assert np.allclose(g["s"], exp["s"]) and streaming.last_run_stats["chunks"] == 5
 
 
 def test_float32_sums_fold_in_float64(engines):

@@ -22,6 +22,7 @@ and the sorted streams of ``tests/jax_engine/test_streaming.py``
 :850-933 with their errors.
 """
 
+import decimal
 from types import SimpleNamespace
 from typing import Any, Dict, Iterable, List
 
@@ -237,7 +238,8 @@ def test_key_routes_are_decided_from_the_schema():
     the JAX engine's ``_key_ok`` decides."""
     e = TorchExecutionEngine(device="cpu")
     a = pa.table({"k": [1, 2], "s": ["x", None], "f": [1.0, float("nan")], "n": pa.array([1, None]),
-                  "u": pa.array([1, 2], pa.uint32()), "v": [1.0, 2.0]})
+                  "u": pa.array([1, 2], pa.uint32()), "d": pa.array([decimal.Decimal(1), None]),
+                  "v": [1.0, 2.0]})
 
     def zipped(by, cols=("k", "s", "f", "n", "v"), how="inner"):
         t = e.to_df(a.select(list(cols)))
@@ -246,7 +248,9 @@ def test_key_routes_are_decided_from_the_schema():
     assert isinstance(zipped(["k"]), ZippedTorchDataFrame)
     assert isinstance(zipped(["s"]), ZippedTorchDataFrame)
     assert isinstance(zipped(["k", "s"]), ZippedTorchDataFrame)
-    for z in (zipped(["f"]), zipped(["n"]), zipped(None, how="cross"), zipped(["k"], cols=("k", "u"))):
+    # a uint32 key and column live on the device, as on the JAX engine's
+    assert isinstance(zipped(["u"], cols=("k", "u")), ZippedTorchDataFrame)
+    for z in (zipped(["f"]), zipped(["n"]), zipped(None, how="cross"), zipped(["k"], cols=("k", "d"))):
         assert not isinstance(z, ZippedTorchDataFrame) and z.metadata["serialized"] is True
 
 
