@@ -168,7 +168,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    under the postgres compile dialect against its spark twin); each
    checked against a float64 numpy oracle and its twin, timed (median of
    ``PLAN_REPS`` calls) and traced once. sql_path's lines carry the same
-   PlanReport summary.
+   PlanReport summary;
+17. analysis_path: the UDF analyzer on plan_path's frame, one line a cell:
+   ``translated-uniform-1k`` (the module-level pandas UDF ``scale``
+   through ``transform(scale, schema="*,z:float") → aggregate``: the
+   analyzer translates it and the chain lowers into one segment, B1 once
+   a call; its twin with ``fugue.tpu.plan.analyze_udfs=false`` runs the
+   UDF in pandas on the host once, with its to-host / pandas / to-device
+   split), ``stream-translated-f32`` (the same over the stream: B1 once a
+   chunk, peak under 1 GiB), ``lowered-uint32`` (plan_path's chain keyed
+   by a uint32 column with a plain uint32 SUM, bounded and streamed: one
+   segment, none fallen back) and ``callback-1k`` (a pandas transform by
+   1,000 keys over 10^6 rows whose callback counts 1,000 calls, and the
+   workflow's ``lint()``); then a line of B1's time at each cell's shape
+   beside one ``index_add_`` of the same values into the same ids.
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
@@ -190,7 +203,9 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Dict
+from typing import Callable, Dict
+
+import pandas as pd  # the analysis_path UDFs' annotations: the analyzer reads their source
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -3235,6 +3250,328 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
         del tdf
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - start
+    out["handover"] = pdf  # analysis_path runs on the same frame
+    return out
+
+
+# analysis_path: the UDF analyzer translates a pandas UDF into the chain
+ANALYZE_KEY = "fugue.tpu.plan.analyze_udfs"
+CALLBACK_ROWS = 1_000_000
+CALLBACK_KEYS = 1_000
+
+
+def scale(df: pd.DataFrame) -> pd.DataFrame:
+    df["z"] = df["v"].fillna(0.0) * df["w"]
+    df = df[df["z"] > 0.1]
+    return df
+
+
+def report_rows(df: pd.DataFrame, cb: Callable) -> pd.DataFrame:
+    cb(len(df))
+    return df
+
+
+def scale_oracle(np, k, v, w, lo: int = 0, hi=None):
+    """Per key of ``k[lo:hi]``, ``scale``'s rows (``z = fillna(v, 0) * w``
+    in float32, as pandas and the card compute it, kept where ``z > 0.1``):
+    ``(keys, count, float64 sum)``."""
+    k, v, w = k[lo:hi], v[lo:hi], w[lo:hi]
+    z = np.where(np.isnan(v), np.float32(0), v) * w
+    keep = z > np.float32(0.1)
+    n = np.bincount(k[keep], minlength=1000)
+    s = np.bincount(k[keep], weights=z[keep].astype(np.float64), minlength=1000)
+    keys = np.nonzero(n)[0]
+    return keys, n[keys], s[keys]
+
+
+def _check_scaled(np, got, exp, what: str, extra=None) -> None:
+    keys, n, s = exp
+    cols = ["k", "s", "n"] + list(extra or {})
+    require(list(got.columns) == cols, f"{what}: columns {list(got.columns)}")
+    require(np.array_equal(got["k"].to_numpy().astype(np.int64), keys), f"{what}: keys")
+    require(np.array_equal(got["n"].to_numpy(), n), f"{what}: counts")
+    require(np.allclose(got["s"].to_numpy(), s, rtol=ORACLE_RTOL, atol=0), f"{what}: sums vs oracle")
+    for c, e in (extra or {}).items():
+        require(np.array_equal(got[c].to_numpy().astype(np.int64), e), f"{what}: {c}")
+
+
+def b1_at_shape(torch, bg, k, vals, valid, kmin: int, kmax: int, plain_reps: int = 0) -> dict:
+    """B1 on the ids and values a lowered segment hands it (the dense
+    kernel's: invalid rows to the top bucket, their values and NaN as 0),
+    beside its bound, its plain version (``plain_reps`` > 0) and one
+    ``index_add_`` of the same values into the same ids."""
+    buckets = 1 << (kmax - kmin + 1).bit_length()
+    ev = valid & ~torch.isnan(vals)
+    idx = torch.where(valid, k - kmin, buckets - 1).to(torch.int32)
+    masked = torch.where(ev, vals, 0.0)
+    n = idx.shape[0]
+    bound_ms, bound_by = _bound(n, 8, buckets * 4)
+    return {
+        "rows": n, "valid_rows": int(valid.sum()), "buckets": buckets,
+        "route": bg.route_of(buckets, False, idx.device)._asdict(),
+        "ms": _median_ms(torch, lambda: bg.bin_sum_idx(idx, masked, buckets), TIMING_REPS),
+        "plain_ms": (_median_ms(torch, lambda: bg.bin_sum_ref(idx, masked, None, buckets), plain_reps)
+                     if plain_reps else None),
+        "library_ms": _median_ms(
+            torch, lambda: torch.zeros(buckets, device=idx.device).index_add_(0, idx, masked), TIMING_REPS),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream_rows: int,
+                        stream_chunk: int = PLAN_STREAM_CHUNK) -> dict:
+    """The UDF analyzer on the card, through ``FugueWorkflow``, on
+    plan_path's frame ``pdf`` (config #3's, plus ``w``), one line a cell:
+
+    - ``translated-uniform-1k``: ``transform(scale, schema="*,z:float") →
+      partition_by(k) → aggregate(SUM(z), COUNT(z))`` over the frame on the
+      card: the analyzer translates ``scale`` into the chain, which lowers
+      with the aggregate into one segment (B1 once a call); beside its twin
+      with ``fugue.tpu.plan.analyze_udfs=false`` (``scale`` in pandas on
+      the host), run once and traced for its to-host / pandas / to-device
+      split;
+    - ``stream-translated-f32``: the same workflow over ``stream_rows`` of
+      the rows in chunks of ``stream_chunk``: one segment, B1 once a chunk,
+      the peak device bytes under ``STREAM_PEAK_LIMIT``; its twin once;
+    - ``lowered-uint32``: plan_path's chain with ``k`` as uint32 and a
+      plain SUM of a uint32 column (``k`` again), bounded and streamed: one
+      segment executed, none fallen back, B1 once a call or a chunk;
+    - ``callback-1k``: a pandas transform partitioned by ``k`` over
+      ``CALLBACK_ROWS`` rows with a callback that counts its calls and the
+      rows they report, and the workflow's ``lint()``.
+
+    Then the B1 kernel at the shapes of plan_path's and this phase's
+    cells, beside one ``index_add_`` of the same values into the same ids.
+    Launch counts are set to 0 just before each checked call and read just
+    after; every result is held to a float64 numpy oracle."""
+    from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
+    from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    out = {"phase": "analysis_path", "cells": {}}
+    on_card = engine.device.type == "cuda"
+    rows = len(pdf)
+    k, v, w = (pdf[c].to_numpy() for c in ("k", "v", "w"))
+    t0 = time.perf_counter()
+    exp = scale_oracle(np, k, v, w)
+    oracle_s = time.perf_counter() - t0
+
+    def scaled(src, conf=None):
+        dag = FugueWorkflow(conf)
+        (dag.df(src).transform(scale, schema="*,z:float").partition_by("k")
+         .aggregate(s=ff.sum(col("z")), n=ff.count(col("z"))).yield_dataframe_as("r"))
+        return dag
+
+    def run_dag(eng, dag):
+        before = eng.plan_stats.as_dict()
+        dag.run(eng)
+        res = dag.yields["r"].result
+        summary = _plan_summary(dag.last_plan_report, before, eng.plan_stats.as_dict())
+        summary["udfs_translated"] = dag.last_plan_report.udfs_translated
+        return res, summary
+
+    def checked(eng, make, what: str, check) -> tuple:
+        """The first call: launches counted from 0, the result held by
+        ``check``; ``(launches, plan summary, seconds)``."""
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, plan = run_dag(eng, make())
+        got = res.as_pandas().sort_values("k").reset_index(drop=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        check(got, what)
+        return launches, plan, first_s
+
+    def twin_once(eng, make, what: str, check, warm_up) -> dict:
+        """The twin (analysis off) run once, traced: its wall ms, result
+        check and host split."""
+        held = []
+        prof = _trace(torch, lambda: held.append(run_dag(eng, make())[0].as_pandas()), warm_up=warm_up)
+        check(held[-1].sort_values("k").reset_index(drop=True), what)
+        return {"ms": prof["wall_ms"], "split": _copy_split(prof, "fugue::host_map"), "profile": prof}
+
+    def translated_ok(plan, launches, want_b1: int, what: str) -> None:
+        require(plan["udfs_translated"] == 1 and plan["segments_executed"] == 1
+                and plan["segments_fallback"] == 0, f"{what}: plan {plan}")
+        require(launches["bin_sum"] == (want_b1 if on_card else 0),
+                f"{what}: bin_sum launched {launches['bin_sum']} times")
+
+    check = lambda got, what: _check_scaled(np, got, exp, what)  # noqa: E731
+    t0 = time.perf_counter()
+    tdf = engine.persist(engine.to_df(pdf))
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    launches, plan, first_s = checked(engine, lambda: scaled(tdf), "translated-uniform-1k", check)
+    translated_ok(plan, launches, 1, "translated-uniform-1k")
+    call = lambda: run_dag(engine, scaled(tdf))[0].count()  # noqa: E731
+    call()
+    ms_all = _wall_ms(torch, call, PLAN_REPS)
+    twin = twin_once(engine, lambda: scaled(tdf, {ANALYZE_KEY: False}), "translated-uniform-1k twin", check, call)
+    # reads k (8 B), v, w (4 B each) a row; writes two columns a bucket
+    bound_ms, bound_by = _bound(rows, 16, 1024 * (8 + 4 + 8 + 1))
+    line = {"phase": "analysis_path", "cell": "translated-uniform-1k", "rows": rows, "groups": len(exp[0]),
+            "oracle_s": oracle_s, "ingest_s": ingest_s, "plan": plan, "launches": launches,
+            "first_call_s": first_s, "ms": statistics.median(ms_all), "ms_all": ms_all,
+            "twin_ms": twin["ms"], "twin_split": twin["split"], "twin_profile": twin["profile"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "checks": f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle, the twin too",
+            "profile": _trace(torch, call), "phase_s_so_far": time.perf_counter() - start}
+    emit(line)
+    out["cells"]["translated-uniform-1k"] = line
+
+    # B1 at the shapes of the lowered and translated cells, on this frame
+    kt, vt, wt = (tdf.device_cols[c] for c in ("k", "v", "w"))
+    z_chain = vt * wt  # plan_path's chain: z = v * w where v > 0.25
+    z_scale = torch.where(torch.isnan(vt), 0.0, vt) * wt
+    every = torch.ones_like(vt, dtype=torch.bool)
+    chunk = slice(0, min(stream_chunk, rows))
+    shapes = {
+        "lowered-uniform-1k": (kt, z_chain, vt > 0.25, 1),
+        "stream-lowered-f32 chunk": (kt[chunk], z_chain[chunk], vt[chunk] > 0.25, 3),
+        "unsigned-keys": (kt, vt, every, 0),
+        "sql-dialect": (kt, vt, wt > 0.5, 0),
+        "translated-uniform-1k": (kt, z_scale, z_scale > 0.1, 0),
+        "stream-translated-f32 chunk": (kt[chunk], z_scale[chunk], z_scale[chunk] > 0.1, 3),
+    }
+    # (CUDA events time them: on the card only)
+    out["b1"] = {name: b1_at_shape(torch, bg, kk, vals, valid, 0, 999, plain_reps)
+                 for name, (kk, vals, valid, plain_reps) in shapes.items()} if on_card else {}
+    emit({"phase": "analysis_path", "cell": "b1-at-shapes", "shapes": out["b1"],
+          "phase_s_so_far": time.perf_counter() - start})
+    del tdf, kt, vt, wt, z_chain, z_scale, every, shapes
+    torch.cuda.empty_cache()
+
+    # the same workflow over the rows streamed
+    n_stream = min(stream_rows, rows)
+    tbl = pa.table({"k": k[:n_stream], "v": v[:n_stream], "w": w[:n_stream]})
+    chunks = (n_stream + stream_chunk - 1) // stream_chunk
+    stream_exp = exp if n_stream == rows else scale_oracle(np, k, v, w, 0, n_stream)
+    stream_check = lambda got, what: _check_scaled(np, got, stream_exp, what)  # noqa: E731
+    seng = TorchExecutionEngine(device=engine.device, conf={
+        "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+
+    def stream(t=tbl):
+        return LocalDataFrameIterableDataFrame(
+            (ArrowDataFrame(t.slice(s, stream_chunk)) for s in range(0, n_stream, stream_chunk)),
+            schema=ArrowDataFrame(t.slice(0, 0)).schema)
+
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    torch.cuda.reset_peak_memory_stats()
+    launches, plan, first_s = checked(seng, lambda: scaled(stream()), "stream-translated-f32", stream_check)
+    peak = torch.cuda.max_memory_allocated() if on_card else streaming.last_run_stats["peak_device_bytes"]
+    run_stats = dict(streaming.last_run_stats)
+    translated_ok(plan, launches, chunks, "stream-translated-f32")
+    require(peak < STREAM_PEAK_LIMIT, f"stream-translated-f32: peak device bytes {peak}")
+    call = lambda: run_dag(seng, scaled(stream()))[0].count()  # noqa: E731
+    ms_all = _wall_ms(torch, call, PLAN_REPS)
+    twin = twin_once(seng, lambda: scaled(stream(), {ANALYZE_KEY: False}), "stream-translated-f32 twin",
+                     stream_check, call)
+    line = {"phase": "analysis_path", "cell": "stream-translated-f32", "rows": n_stream, "chunk": stream_chunk,
+            "chunks": chunks, "plan": plan, "launches": launches, "first_call_s": first_s,
+            "ms": statistics.median(ms_all), "ms_all": ms_all, "rows_per_s": n_stream / statistics.median(ms_all) * 1e3,
+            "twin_ms": twin["ms"], "twin_split": twin["split"], "peak_device_bytes": peak,
+            "resident_before_bytes": resident, "run": run_stats, "bound_ms": _bound(n_stream, 16, 1024 * 21)[0],
+            "checks": f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle, the twin too",
+            "profile": _trace(torch, call, all_threads=True), "phase_s_so_far": time.perf_counter() - start}
+    emit(line)
+    out["cells"]["stream-translated-f32"] = line
+    del tbl, seng
+    torch.cuda.empty_cache()
+
+    # plan_path's chain keyed by a uint32 column, with a plain uint32 SUM
+    keep = v > 0.25
+    n_u = np.bincount(k[keep], minlength=1000)
+    s_u = np.bincount(k[keep], weights=(v[keep] * w[keep]).astype(np.float64), minlength=1000)
+    ukeys = np.nonzero(n_u)[0]
+    uexp = (ukeys, n_u[ukeys], s_u[ukeys])
+    usum = {"su": (ukeys * n_u[ukeys]) % (1 << 32)}  # SUM of uint32 wraps at its width
+    k32 = k.astype(np.uint32)
+
+    def chain_u(src):
+        dag = FugueWorkflow()
+        (dag.df(src).filter(col("v") > 0.25)
+         .select(col("k"), (col("v") * col("w")).alias("z"), col("k").alias("u"))
+         .partition_by("k").aggregate(s=ff.sum(col("z")), n=ff.count(col("z")), su=ff.sum(col("u")))
+         .yield_dataframe_as("r"))
+        return dag
+
+    ucheck = lambda got, what: _check_scaled(np, got, uexp, what, usum)  # noqa: E731
+    tdf = engine.persist(engine.to_df(pd.DataFrame({"k": k32, "v": v, "w": w})))
+    require(str(tdf.schema) == "k:uint32,v:float,w:float", f"lowered-uint32: schema {tdf.schema}")
+    b_launches, b_plan, b_first = checked(engine, lambda: chain_u(tdf), "lowered-uint32", ucheck)
+    ucall = lambda: run_dag(engine, chain_u(tdf))[0].count()  # noqa: E731
+    b_ms = _wall_ms(torch, ucall, PLAN_REPS)
+    del tdf
+    torch.cuda.empty_cache()
+    utbl = pa.table({"k": k32[:n_stream], "v": v[:n_stream], "w": w[:n_stream]})
+    if n_stream != rows:
+        keep = keep[:n_stream]
+        kk = k[:n_stream][keep]
+        n_s = np.bincount(kk, minlength=1000)
+        s_s = np.bincount(kk, weights=(v[:n_stream][keep] * w[:n_stream][keep]).astype(np.float64), minlength=1000)
+        sk = np.nonzero(n_s)[0]
+        uexp, usum = (sk, n_s[sk], s_s[sk]), {"su": (sk * n_s[sk]) % (1 << 32)}
+    seng = TorchExecutionEngine(device=engine.device, conf={
+        "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+    s_launches, s_plan, s_first = checked(seng, lambda: chain_u(stream(utbl)), "lowered-uint32 stream", ucheck)
+    s_ms = _wall_ms(torch, lambda: run_dag(seng, chain_u(stream(utbl)))[0].count(), PLAN_REPS)
+    for plan, launches, want, what in ((b_plan, b_launches, 1, "lowered-uint32"),
+                                       (s_plan, s_launches, chunks, "lowered-uint32 stream")):
+        require(plan["segments_executed"] == 1 and plan["segments_fallback"] == 0, f"{what}: plan {plan}")
+        require(launches["bin_sum"] == (want if on_card else 0), f"{what}: bin_sum launched {launches}")
+    line = {"phase": "analysis_path", "cell": "lowered-uint32", "rows": rows, "stream_rows": n_stream,
+            "plan": b_plan, "stream_plan": s_plan, "launches": b_launches, "stream_launches": s_launches,
+            "first_call_s": b_first, "stream_first_call_s": s_first, "ms": statistics.median(b_ms), "ms_all": b_ms,
+            "stream_ms": statistics.median(s_ms), "stream_ms_all": s_ms,
+            "checks": f"keys, counts, SUM(u) exact; sums rtol={ORACLE_RTOL} vs float64 oracle",
+            "phase_s_so_far": time.perf_counter() - start}
+    emit(line)
+    out["cells"]["lowered-uint32"] = line
+    del utbl, seng
+    torch.cuda.empty_cache()
+
+    # a pandas transform by key with a callback, and the workflow's lint
+    small = pdf.iloc[:CALLBACK_ROWS]
+    calls = {"calls": 0, "rows": 0}
+
+    def counter(n: int) -> None:
+        calls["calls"] += 1
+        calls["rows"] += n
+
+    def by_key(udf):
+        dag = FugueWorkflow()
+        dag.df(small).partition_by("k").transform(udf, schema="*", callback=counter).yield_dataframe_as("r")
+        return dag
+
+    for name in bg.LAUNCHES:
+        bg.LAUNCHES[name] = 0
+    dag = by_key(report_rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dag.run(engine)
+    n_out = dag.yields["r"].result.count()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(bg.LAUNCHES)
+    keys = small["k"].nunique()
+    require(keys == CALLBACK_KEYS and calls == {"calls": CALLBACK_KEYS, "rows": CALLBACK_ROWS} and n_out == len(small),
+            f"callback-1k: {calls}, {n_out} rows out over {keys} keys")
+    # the analyzer reads the signature first: a UDF that takes the callback
+    # refuses as "signature"; a plain one with a callback wired in as "callback"
+    lint = {"report_rows": by_key(report_rows).lint().udfs[0].status,
+            "scale": by_key(scale).lint().udfs[0].status}
+    require(lint == {"report_rows": "signature", "scale": "callback"}, f"callback-1k: lint {lint}")
+    line = {"phase": "analysis_path", "cell": "callback-1k", "rows": len(small), "keys": keys, "callback": calls,
+            "launches": launches, "ms": ms, "lint": lint,
+            "checks": "1,000 calls reporting 10^6 rows; rows out as in; the lint verdicts",
+            "phase_s_so_far": time.perf_counter() - start}
+    emit(line)
+    out["cells"]["callback-1k"] = line
+    out["seconds"] = time.perf_counter() - start
     return out
 
 
@@ -3321,6 +3658,9 @@ def main() -> int:
     _release(torch)
     plan_path = phase_plan_path(torch, np, pd, pa, bg, api, ff, col, TorchExecutionEngine(), args.seed,
                                 rows=args.rows, stream_rows=args.plan_stream_rows or args.rows)
+    _release(torch)
+    analysis_path = phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, TorchExecutionEngine(),
+                                        plan_path.pop("handover"), stream_rows=args.plan_stream_rows or args.rows)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -3338,7 +3678,9 @@ def main() -> int:
                    "join_path": {c: r["launches"][name] for c, r in join_path["cells"].items()},
                    "host_path": {c: r["launches"][name] for c, r in host_path["cells"].items()},
                    "stream_path": {c: r["launches"][name] for c, r in stream_path["cells"].items()},
-                   "plan_path": {c: r["launches"][name] for c, r in plan_path["cells"].items()}}
+                   "plan_path": {c: r["launches"][name] for c, r in plan_path["cells"].items()},
+                   "analysis_path": {c: r["launches"][name] + r.get("stream_launches", {}).get(name, 0)
+                                     for c, r in analysis_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -3347,6 +3689,7 @@ def main() -> int:
             by_frame["shipmode"] = {k: sorted_path["bin_sum"][k]
                                     for k in ("route", "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
             by_frame["stream-chunk"] = stream_path["cells"]["f32-aggregate"]["bin_sum"]
+            by_frame.update(analysis_path["b1"])  # plan_path's and analysis_path's shapes
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3358,7 +3701,7 @@ def main() -> int:
             + sum(by_path["cogroup_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
-            + sum(by_path["plan_path"].values()),
+            + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

@@ -247,7 +247,9 @@ def transform(
     the result back onto the device. ``params`` go to the function's other
     parameters (a compiled function refuses them, ROADMAP.md C4); an
     exception of a type in ``ignore_errors`` empties its partition's
-    output. ``callback`` is not ported (ROADMAP.md A.10). The result is a
+    output. ``callback`` (a callable) reaches a function that has a
+    ``Callable`` parameter after its frame, through the engine's RPC
+    server, which serves it while the transform runs. The result is a
     frame of the engine (local with ``as_local``) when ``as_fugue`` or when
     ``df`` is one; otherwise it has the input's type (pandas or arrow)."""
     res = _run(df, lambda: _to_transformer(using, schema), params, partition, callback,
@@ -267,10 +269,8 @@ def out_transform(
 ) -> None:
     """Run the output transformer ``using`` over ``df`` for its side
     effects (``transform``'s arguments; a function may return nothing)."""
-    res = _run(df, lambda: _to_output_transformer(using), params, partition, callback,
-               ignore_errors, engine, device)
-    # touch the result, so a lazy one runs
-    res.count() if res.is_bounded else res.as_local_bounded()
+    _run(df, lambda: _to_output_transformer(using), params, partition, callback,
+         ignore_errors, engine, device, consume=True)
 
 
 def load(
@@ -299,20 +299,26 @@ def save(
 
 def _run(
     df: Any, make_transformer: Callable[[], Any], params: Any, partition: Any, callback: Any,
-    ignore_errors: Optional[List[Any]], engine: Any, device: Any,
+    ignore_errors: Optional[List[Any]], engine: Any, device: Any, consume: bool = False,
 ) -> DataFrame:
     """The transformer's run over ``df`` as the engine holds it (the JAX
     package's workflow puts it on the device; a one-pass stream stays as
-    it is)."""
-    if callback is not None:
-        raise NotImplementedError(
-            "transformer callbacks need the RPC server, which is not ported (ROADMAP.md A.10)"
-        )
+    it is), inside a start and stop of the engine's RPC server, as the JAX
+    package's one-task workflow runs it. ``consume`` touches the result
+    before the stop, so a lazy one runs."""
     e = make_execution_engine(engine, device, infer_by=[df])
-    return run_transformer(
-        e, df if is_stream_frame(df) else e.to_df(df), make_transformer(), params=params,
-        partition_spec=_partition_spec(partition), ignore_errors=ignore_errors,
-    )
+    server = e.rpc_server
+    server.start()
+    try:
+        res = run_transformer(
+            e, df if is_stream_frame(df) else e.to_df(df), make_transformer(), params=params,
+            partition_spec=_partition_spec(partition), ignore_errors=ignore_errors, callback=callback,
+        )
+        if consume:
+            res.count() if res.is_bounded else res.as_local_bounded()
+        return res
+    finally:
+        server.stop()
 
 
 def _partition_spec(partition: Any) -> PartitionSpec:

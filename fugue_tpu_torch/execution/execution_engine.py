@@ -175,6 +175,8 @@ class ExecutionEngine(ABC):
         self._is_global = False
         self._stopped = False
         self._plan_stats: Any = None
+        self._analysis_stats: Any = None
+        self._rpc_server: Any = None
 
     @property
     def conf(self) -> ParamDict:
@@ -219,6 +221,36 @@ class ExecutionEngine(ABC):
 
                     self._plan_stats = PlanStats()
         return self._plan_stats
+
+    @property
+    def analysis_stats(self) -> Any:
+        """Cumulative UDF static-analyzer counters of the workflows run on
+        this engine (``fugue_tpu_torch/analysis`` ``AnalysisStats``):
+        udfs_analyzed / udfs_translated / udfs_refused by reason code."""
+        if self._analysis_stats is None:
+            with self._rlock:
+                if self._analysis_stats is None:
+                    from ..analysis import AnalysisStats
+
+                    self._analysis_stats = AnalysisStats()
+        return self._analysis_stats
+
+    @property
+    def rpc_server(self) -> Any:
+        """The server that hands transformer callbacks their clients, built
+        from conf on first use (``fugue.rpc.server``; the in-process
+        ``NativeRPCServer`` by default, ``fugue_tpu_torch/rpc``)."""
+        if self._rpc_server is None:
+            with self._rlock:
+                if self._rpc_server is None:
+                    from ..rpc import make_rpc_server
+
+                    self._rpc_server = make_rpc_server(self.conf)
+        return self._rpc_server
+
+    def set_rpc_server(self, server: Any) -> None:
+        with self._rlock:
+            self._rpc_server = server
 
     def thread_scope(self) -> Callable[[], ContextManager]:
         """Called on the thread that starts a workflow run: a factory of

@@ -6,9 +6,8 @@ a transformer through :func:`run_transformer` (``_run_transform`` :54,
 ``comap`` of a zipped frame (``_run_cotransform`` :82,
 ``_CoTransformerRunner`` :143), which ``Zip`` (:258) makes;
 ``RunSQLSelect`` (:223-255) runs a statement on the engine's SQL facet.
-
-Not ported: transformer callbacks (ROADMAP.md A.10), which raise naming
-it."""
+A transformer's ``callback`` becomes a client of the engine's RPC server
+(:43-49), which the transformer hands its function."""
 
 from typing import Any, List, Optional, Type
 
@@ -20,17 +19,11 @@ from ...collections.sql import StructuredRawSQL
 from ...column import SelectColumns as ColSelectColumns
 from ...dataframe import ArrayDataFrame, DataFrame, DataFrames, LocalDataFrame
 from ...exceptions import FugueWorkflowError
+from ...rpc import EmptyRPCHandler, to_rpc_handler
 from ...schema import Schema
 from .._utils import validate_input_schema, validate_partition_spec
 from ..processor.processor import Processor
 from ..transformer.transformer import CoTransformer, Transformer
-
-
-def refuse_callback(callback: Any) -> None:
-    if callback is not None:
-        raise NotImplementedError(
-            "transformer callbacks need the RPC server, which is not ported (ROADMAP.md A.10)"
-        )
 
 
 def run_transformer(
@@ -40,17 +33,24 @@ def run_transformer(
     params: Any = None,
     partition_spec: Optional[PartitionSpec] = None,
     ignore_errors: Optional[List[Any]] = None,
+    callback: Any = None,
 ) -> DataFrame:
     """Run transformer ``tf`` over ``df`` grouped by ``partition_spec``
     through the engine's map (a cotransformer over a zipped ``df``
     through its ``comap``); an exception of a type in ``ignore_errors``
-    turns its partition's output into no rows."""
+    turns its partition's output into no rows. ``callback`` (a callable or
+    an ``RPCHandler``) reaches the transformer's function as a client of
+    the engine's RPC server."""
     spec = partition_spec if partition_spec is not None else PartitionSpec()
     validate_partition_spec(spec, tf.validation_rules)
     tf._workflow_conf = engine.conf  # type: ignore[attr-defined]
     tf._params = ParamDict(params)  # type: ignore[attr-defined]
     tf._partition_spec = spec  # type: ignore[attr-defined]
     tf._execution_engine = engine  # type: ignore[attr-defined]
+    handler = to_rpc_handler(callback)
+    tf._callback = (  # type: ignore[attr-defined]
+        None if isinstance(handler, EmptyRPCHandler) else engine.rpc_server.make_client(handler)
+    )
     errors = [to_type(x, Exception) for x in ignore_errors or []]
     if isinstance(tf, CoTransformer):
         return _run_cotransform(engine, df, tf, spec, errors)
@@ -148,7 +148,6 @@ class RunTransformer(Processor):
     checks the transformer's partition rules when it adds the task."""
 
     def process(self, dfs: DataFrames) -> DataFrame:
-        refuse_callback(self.params.get_or_none("callback", object))
         return run_transformer(
             self.execution_engine,
             dfs[0],
@@ -156,6 +155,7 @@ class RunTransformer(Processor):
             params=self.params.get("params", dict()),
             partition_spec=self.partition_spec,
             ignore_errors=self.params.get("ignore_errors", []),
+            callback=self.params.get_or_none("callback", object),
         )
 
 

@@ -1,12 +1,13 @@
 """ExtensionContext, copied from ``fugue_tpu/extensions/context.py``: what
 a transformer reads while it runs (its params, the engine and its conf,
-the output and key schemas, the partition spec and the cursor). The RPC
-callback is not ported (ROADMAP.md A.10): ``has_callback`` is False."""
+the output and key schemas, the partition spec and the cursor), and the
+RPC callback the engine's server made for it (``fugue_tpu_torch/rpc``)."""
 
 from typing import Any, Dict
 
 from .._utils.params import ParamDict
 from ..collections.partition import PartitionCursor, PartitionSpec
+from ..rpc import EmptyRPCHandler, RPCClient
 from ..schema import Schema
 
 
@@ -49,7 +50,18 @@ class ExtensionContext:
 
     @property
     def has_callback(self) -> bool:
-        return False
+        cb = getattr(self, "_callback", None)
+        return cb is not None and not isinstance(cb, EmptyRPCHandler)
+
+    @property
+    def callback(self) -> RPCClient:
+        cb = getattr(self, "_callback", None)
+        assert cb is not None, "callback is not set"
+        return cb
+
+    @property
+    def rpc_server(self) -> Any:
+        return getattr(self, "_rpc_server", None)
 
     @property
     def validation_rules(self) -> Dict[str, Any]:

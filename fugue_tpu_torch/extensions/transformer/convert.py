@@ -7,11 +7,10 @@ decorators (:52-90), ``_to_transformer`` and ``_to_output_transformer``
 the interfaceless wrappers whose output schema comes from an argument or
 a ``# schema:`` comment, ``*`` expressions included: a function of one
 frame is a ``Transformer``, a function of several frames (or of one
-``DataFrames``) a ``CoTransformer``, which runs on a zipped frame.
-
-Not ported: RPC callbacks (ROADMAP.md A.10): a function that requires
-one raises ``NotImplementedError`` naming A.10; an optional one gets
-None."""
+``DataFrames``) a ``CoTransformer``, which runs on a zipped frame. A
+function with a ``Callable`` parameter after its frames gets the
+transformer's RPC callback there (an ``Optional[Callable]`` one gets None
+when no callback is set)."""
 
 import copy
 import inspect
@@ -139,7 +138,24 @@ def _is_cotransform_func(func: Callable) -> bool:
     return code.startswith("c") or len([c for c in code.split("x")[0] if c in "lspq"]) > 1
 
 
-class _FuncAsTransformer(Transformer):
+class _CallbackArg:
+    """A wrapped function's callback parameter (codes ``f``, required, and
+    ``F``, optional, after its frames)."""
+
+    @property
+    def using_callback(self) -> bool:
+        return any(c in self._wrapper.input_code for c in "fF")  # type: ignore
+
+    def _callback_arg(self) -> List[Any]:
+        """``[the RPC client]`` for the function's callback parameter (None
+        for an optional one with no callback set); ``[]`` without one."""
+        if not self.using_callback:
+            return []
+        required = "f" in self._wrapper.input_code  # type: ignore
+        return [self.callback if self.has_callback or required else None]  # type: ignore
+
+
+class _FuncAsTransformer(_CallbackArg, Transformer):
     """A plain function as a Transformer (reference ``:328``)."""
 
     @property
@@ -153,8 +169,7 @@ class _FuncAsTransformer(Transformer):
         return self._wrapper.get_format_hint()  # type: ignore
 
     def _args(self, df: LocalDataFrame) -> List[Any]:
-        # an Optional[Callable] parameter gets None: no callback is ported
-        return [df, None] if "F" in self._wrapper.input_code else [df]  # type: ignore
+        return [df] + self._callback_arg()
 
     def transform(self, df: LocalDataFrame) -> LocalDataFrame:
         return self._wrapper.run(  # type: ignore
@@ -168,10 +183,6 @@ class _FuncAsTransformer(Transformer):
     def _wrap(cls, func: Callable, return_re: str, validation_rules: Dict[str, Any]) -> Any:
         tr = cls()
         tr._wrapper = DataFrameFunctionWrapper(func, _INPUT_RE, return_re)  # type: ignore
-        if "f" in tr._wrapper.input_code:  # type: ignore
-            raise NotImplementedError(
-                f"{func!r} requires a callback: RPC callbacks are not ported (ROADMAP.md A.10)"
-            )
         rules = dict(validation_rules)
         rules.update(parse_validation_rules_from_comment(func))
         tr._validation_rules = rules  # type: ignore
@@ -213,7 +224,7 @@ class _FuncAsOutputTransformer(_FuncAsTransformer, OutputTransformer):
         return tr
 
 
-class _FuncAsCoTransformer(CoTransformer):
+class _FuncAsCoTransformer(_CallbackArg, CoTransformer):
     """A plain function of several frames as a CoTransformer (reference
     ``:263``): the frames go to its parameters in the zip's order, or all
     at once to one ``DataFrames`` parameter."""
@@ -231,8 +242,7 @@ class _FuncAsCoTransformer(CoTransformer):
 
     def _args(self, dfs: DataFrames) -> List[Any]:
         args: List[Any] = [dfs] if self._dfs_input else list(dfs.values())  # type: ignore
-        # an Optional[Callable] parameter gets None: no callback is ported
-        return args + [None] if "F" in self._wrapper.input_code else args  # type: ignore
+        return args + self._callback_arg()
 
     def transform(self, dfs: DataFrames) -> LocalDataFrame:
         return self._wrapper.run(  # type: ignore
@@ -248,10 +258,6 @@ class _FuncAsCoTransformer(CoTransformer):
             raise FugueInterfacelessError("cotransformers take no validation rules")
         tr = cls()
         tr._wrapper = DataFrameFunctionWrapper(func, _CO_INPUT_RE, return_re)  # type: ignore
-        if "f" in tr._wrapper.input_code:  # type: ignore
-            raise NotImplementedError(
-                f"{func!r} requires a callback: RPC callbacks are not ported (ROADMAP.md A.10)"
-            )
         tr._dfs_input = tr._wrapper.input_code.startswith("c")  # type: ignore
         tr._validation_rules = {}  # type: ignore
         return tr

@@ -20,11 +20,13 @@ graph (rewire inputs, override params, collapse chains) and the emitter
 in ``passes.py`` turns the result back into tasks, cloning only what
 changed.
 
-Trimmed to what the port has: the UDF analyzer (``fugue_tpu/analysis``)
-is not ported, so a transformer's column usage is unknown (it demands every
-column, no filter commutes below it, its output names are unknown), the
-reference's own answer when the analyzer refuses; and the delta-cache
-classification (``node_delta_row_local``) waits for ROADMAP.md A.10.
+A transformer's column usage comes from the UDF analyzer
+(``fugue_tpu_torch/analysis``), attached to its node as
+``info["analysis"]``: exact read/write sets, the declared output names and
+the row-local verdict. Where the analyzer refuses, a transformer demands
+every column and its output names are unknown. The delta-cache
+classification of the other kinds (``node_delta_row_local``) waits for
+ROADMAP.md A.10.
 """
 
 from typing import Any, Dict, List, Optional, Set, Tuple
@@ -61,11 +63,12 @@ K_SAMPLE = "sample"
 K_TAKE = "take"
 K_JOIN = "join"
 K_SETOP = "setop"
-K_TRANSFORM = "transform"  # UDF transformer: column usage unknowable
+K_TRANSFORM = "transform"  # UDF transformer: column usage from the analyzer, else unknown
 K_OUTPUT = "output"  # sink
 K_OPAQUE = "opaque"  # anything else: zip, SQL, save_and_use, ...
 K_FUSED = "fused"  # synthesized by the fusion pass
 K_SEGMENT = "segment"  # synthesized by the segment-lowering pass
+
 
 # kinds whose row-local semantics allow fusion into one per-chunk step
 FUSABLE_KINDS = {K_PROJECT, K_DROP, K_RENAME, K_FILTER, K_SELECT, K_ASSIGN}
@@ -461,6 +464,17 @@ def _node_schema(
         return list(s1) + [c for c in s2 if c not in s1]
     if n.kind == K_SETOP:
         return first
+    if n.kind == K_TRANSFORM:
+        # the analyzer knows the declared output schema of analyzed
+        # plain-function UDFs
+        a = n.info.get("analysis")
+        if a is not None and a.schema_ok:
+            declared = [x for x, _ in a.declared]
+            if not a.star:
+                return declared
+            if first is not None:
+                return list(first) + [c for c in declared if c not in first]
+        return None
     if n.kind in (K_FUSED, K_SEGMENT):
         return None  # no pass runs after fusion/lowering
     return None  # opaque / output
@@ -611,7 +625,25 @@ def input_requirements(
         return [d for _ in n.inputs]
     if n.kind in (K_FUSED, K_SEGMENT):
         return [ALL for _ in n.inputs]
-    # transform (column usage unknowable), output sinks, opaque
+    if n.kind == K_TRANSFORM and len(n.inputs) == 1:
+        # exact column facts from the static analyzer: the UDF reads R,
+        # writes W, and its declared schema decides what passes through —
+        # so pruning commutes through analyzed UDF transformers
+        a = n.info.get("analysis")
+        if a is not None and a.facts_ok and a.schema_ok and a.pure:
+            req = set(a.reads) | set(a.required_extra)
+            if a.star:
+                if d is ALL:
+                    return [ALL]
+                # demanded passthrough outputs must exist on the input
+                # (declared new names are produced by the UDF itself)
+                return [req | (set(d) - a.new_names)]
+            # explicit schema: enforcement selects every declared column
+            # from the returned frame; unwritten ones come from the input
+            return [req | ({x for x, _ in a.declared} - set(a.writes))]
+        return [ALL]
+    # transform the analyzer refused (column usage unknown), output sinks,
+    # opaque
     return [ALL for _ in n.inputs]
 
 

@@ -6,13 +6,13 @@ before execution. Everything is gated by ``fugue.tpu.plan.optimize``
 (default ON) with per-pass switches; the unoptimized path is always one
 conf key away.
 
-Three passes of the reference wait for the layers they read, and the
-report notes each once: the UDF analyzer's pass (``fugue_tpu/analysis``;
-its two conf keys are read and do nothing yet), the join-strategy
-annotation (``annotate_join_strategies``, over ``shuffle/strategy.py``,
-ROADMAP.md A.7) and the delta-cache annotation
+The UDF analyzer's pass (``fugue_tpu_torch/analysis``) runs first, gated
+by ``fugue.tpu.plan.analyze_udfs`` and ``.translate_udfs``. Two passes of
+the reference wait for the layers they read, and the report notes each
+once: the join-strategy annotation (``annotate_join_strategies``, over
+``shuffle/strategy.py``, ROADMAP.md A.7) and the delta-cache annotation
 (``annotate_delta_eligibility``, over ``cache/delta.py``, A.10). They
-only rewrite for speed or annotate; none changes a result on one card.
+only annotate; neither changes a result on one card.
 """
 
 import threading
@@ -36,8 +36,6 @@ __all__ = ["PlanReport", "PlanStats", "optimize_tasks"]
 
 # what the report says of the passes that wait for their layers
 _WAITING = (
-    "UDF analysis skipped: the analyzer (fugue_tpu/analysis) is not ported;"
-    " every transformer demands all columns and is never translated",
     "join strategies not annotated: the shuffle ladder is ROADMAP.md A.7",
     "delta eligibility not annotated: the delta cache is ROADMAP.md A.10",
 )
@@ -111,6 +109,12 @@ class PlanReport:
         self.bytes_skipped = 0
         self.segments_lowered = 0
         self.verbs_absorbed = 0
+        # UDF static analysis (fugue_tpu_torch/analysis): per-run counters
+        # plus the structured per-UDF diagnostics workflow.lint() folds in
+        self.udfs_analyzed = 0
+        self.udfs_translated = 0
+        self.udfs_refused = 0
+        self.udf_diags: List[Dict[str, Any]] = []
         self.segments: List[str] = []
         self.notes: List[str] = []
         self.before: List[str] = []
@@ -127,6 +131,7 @@ class PlanReport:
             + self.filters_pushed
             + self.verbs_fused
             + self.segments_lowered
+            + self.udfs_translated
         ) > 0
 
     def render(self) -> str:
@@ -138,13 +143,15 @@ class PlanReport:
         lines.append(
             "== optimized plan (cols_pruned=%d filters_pushed=%d "
             "verbs_fused=%d segments_lowered=%d verbs_absorbed=%d "
-            "bytes_skipped~%d) =="
+            "udfs_translated=%d/%d bytes_skipped~%d) =="
             % (
                 self.cols_pruned,
                 self.filters_pushed,
                 self.verbs_fused,
                 self.segments_lowered,
                 self.verbs_absorbed,
+                self.udfs_translated,
+                self.udfs_analyzed,
                 self.bytes_skipped,
             )
         )
@@ -180,6 +187,7 @@ def optimize_tasks(
     tasks: List[FugueTask],
     conf: Any,
     stats: Optional[PlanStats] = None,
+    analysis_stats: Any = None,
 ) -> Tuple[List[FugueTask], Dict[int, FugueTask], Set[int], PlanReport]:
     """Rewrite the task DAG. Returns (tasks to execute, result-alias map
     {id(original task): executed task}, ids of original tasks whose
@@ -192,11 +200,21 @@ def optimize_tasks(
         return tasks, {}, set(), report
     nodes = build_graph(tasks)
     report.before = _render_nodes(nodes)
-    # the reference's first passes wait for their layers (module docstring)
-    _flag(conf, FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS, True)
-    _flag(conf, FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS, True)
     for msg in _WAITING:
         report.note(msg)
+    if _flag(conf, FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS, True):
+        # UDF static analysis FIRST: translated UDFs become plain plan
+        # nodes every later pass (pushdown/prune/fuse/lower) composes
+        # with; analyzed-but-refused ones carry exact column facts
+        from ..analysis import expand_udf_transforms
+
+        diags = expand_udf_transforms(
+            nodes,
+            report,
+            translate=_flag(conf, FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS, True),
+        )
+        if analysis_stats is not None and diags:
+            analysis_stats.absorb(diags)
     if _flag(conf, FUGUE_TPU_CONF_PLAN_PUSHDOWN, True):
         pushdown_filters(nodes, report)
     if _flag(conf, FUGUE_TPU_CONF_PLAN_PRUNE, True):

@@ -201,8 +201,24 @@ def _push_once(
         report.filters_pushed += 1
         return True
     if p.kind == K_TRANSFORM:
-        # the reference commutes a filter below a UDF the analyzer proves
-        # row-local and pure; the analyzer is not ported, so none is
+        # a filter commutes below an analyzed UDF transformer when the
+        # analyzer (fugue_tpu_torch/analysis) proves the UDF row-local,
+        # pure and deterministic (dropping rows first changes nothing
+        # row-wise), under a '*' schema (names/dtypes of the filtered
+        # columns pass through unchanged), and the filter reads no written
+        # column
+        a = p.info.get("analysis")
+        if (
+            a is not None
+            and a.row_local
+            and a.deterministic
+            and a.star
+            and a.schema_ok
+            and a.writes is not None
+            and not (refs & (a.writes | a.new_names))
+        ):
+            swap()
+            return True
         report.note(
             "pushdown refused: UDF transformer not provably row-local/"
             "pure or filter reads UDF-written columns"
@@ -303,7 +319,7 @@ class _PrunedCreator:
         return to_uuid("_PrunedCreator", inner_uuid, self._columns)
 
     def create(self) -> Any:
-        for a in ("_params", "_workflow_conf", "_execution_engine", "_partition_spec"):
+        for a in ("_params", "_workflow_conf", "_execution_engine", "_partition_spec", "_rpc_server"):
             if hasattr(self, a):
                 setattr(self._inner, a, getattr(self, a))
         _prune_create_data(self._inner, self._columns)
@@ -535,6 +551,13 @@ def _emit_node(n: LNode, in_tasks: List[FugueTask]) -> FugueTask:
                 )
             t.defined_at = n.tail_origin.defined_at
         return t
+    if n.task is None:
+        # a synthesized plain verb (translated-UDF expansion,
+        # fugue_tpu_torch/analysis/expand.py): emit a real builtin-processor
+        # task; the chain tail carries the origin transform's identity
+        t = _emit_synth_plain(n, in_tasks)
+        if t is not None:
+            return t
     assert n.task is not None
     unchanged = (
         n.param_override is None
@@ -549,3 +572,43 @@ def _emit_node(n: LNode, in_tasks: List[FugueTask]) -> FugueTask:
         params=n.param_override,
         input_tasks=in_tasks,
     )
+
+
+def _emit_synth_plain(n: LNode, in_tasks: List[FugueTask]) -> Optional[FugueTask]:
+    """Task for a synthesized plain-verb node (no originating task). The
+    same extension/params a workflow-built verb would carry, so the task
+    executes and classifies exactly like a hand-written one."""
+    from ..extensions._builtins import processors as bp
+
+    if n.kind == K_FILTER:
+        ext: Any = bp.Filter()
+        params: Dict[str, Any] = {"condition": n.info["condition"]}
+    elif n.kind == K_ASSIGN:
+        ext = bp.Assign()
+        params = {"columns": list(n.info["columns"])}
+    elif n.kind == K_SELECT:
+        ext = bp.Select()
+        params = {"columns": n.info["columns"]}
+        if n.info.get("where") is not None:
+            params["where"] = n.info["where"]
+        if n.info.get("having") is not None:
+            params["having"] = n.info["having"]
+    elif n.kind == K_PROJECT:
+        ext = bp.SelectColumns()
+        params = {"columns": list(n.info["columns"])}
+    elif n.kind == K_DROP:
+        ext = bp.DropColumns()
+        params = {"columns": list(n.info["columns"]), "if_exists": bool(n.info.get("if_exists", False))}
+    elif n.kind == K_RENAME:
+        ext = bp.Rename()
+        params = {"columns": dict(n.info["columns"])}
+    else:
+        return None
+    t = ProcessTask(ext, in_tasks, params=params, partition_spec=None)
+    if n.tail_origin is not None:
+        t.name = n.tail_origin.name
+        t.broadcast_flag = n.tail_origin.broadcast_flag
+        if n.tail_origin.yield_dataframe_handler is not None:
+            t.set_yield_dataframe_handler(n.tail_origin.yield_dataframe_handler)
+        t.defined_at = n.tail_origin.defined_at
+    return t

@@ -1,0 +1,26 @@
+"""The RPC channel of transformer callbacks (``base.py``), copied from
+``fugue_tpu/rpc``."""
+
+from .base import (
+    EmptyRPCHandler,
+    NativeRPCClient,
+    NativeRPCServer,
+    RPCClient,
+    RPCFunc,
+    RPCHandler,
+    RPCServer,
+    make_rpc_server,
+    to_rpc_handler,
+)
+
+__all__ = [
+    "EmptyRPCHandler",
+    "NativeRPCClient",
+    "NativeRPCServer",
+    "RPCClient",
+    "RPCFunc",
+    "RPCHandler",
+    "RPCServer",
+    "make_rpc_server",
+    "to_rpc_handler",
+]

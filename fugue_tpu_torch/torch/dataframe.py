@@ -83,6 +83,11 @@ def is_wide_unsigned(tp: pa.DataType) -> bool:
     return str(tp) in _UNSIGNED
 
 
+def storage_dtype(tp: pa.DataType) -> np.dtype:
+    """The numpy dtype of a uint16, uint32 or uint64 column's device form."""
+    return np.dtype(_DEVICE_DTYPES[str(tp)])
+
+
 def to_storage(arr: np.ndarray, tp: pa.DataType) -> np.ndarray:
     """The device form of values of arrow type ``tp`` (numpy, any integer
     dtype): uint64 flipped into int64, uint16 and uint32 widened; other

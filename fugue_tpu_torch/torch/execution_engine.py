@@ -134,6 +134,7 @@ from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
 from .pipeline import PipelineStats
 from .streaming import (
     ZippedStreamDataFrame,
+    _finish_dense_host,
     is_stream_frame,
     streaming_compiled_map,
     streaming_dense_aggregate,
@@ -1370,14 +1371,11 @@ class TorchExecutionEngine(ExecutionEngine):
             fields.append(pa.field(name, t if t is not None else pa.from_numpy_dtype(_np_dtype(out_dt[name]))))
         tdf0 = TorchDataFrame(Schema(fields).create_empty_arrow_table(), device=self._device)
         plan = _plan_device_agg(tdf0, keys, agg_cols)
-        if (
-            plan is None
-            or plan["virtual"]
-            or plan["dict_srcs"]
-            or plan["masked_srcs"]
-            or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])
-        ):
+        if plan is None or plan["dict_srcs"] or plan["masked_srcs"] or not _lowerable_posts(plan):
             return None
+        # a plain unsigned SUM/AVG sums its values as int64 and finishes on
+        # the host, as the in-memory aggregate does (``_unsigned_sum_post``)
+        host_finish = bool(plan["virtual"])
         key_expr = outs_by_name.get(keys[0])
         if key_expr is None or id(key_expr) not in passthrough_ids or key_expr.name not in plain_cols:
             return None
@@ -1386,7 +1384,8 @@ class TorchExecutionEngine(ExecutionEngine):
         if not _is_int(key_arr):
             return None
         key_dt = _np_numeric_dtype(tdf.schema[raw_key].type)
-        srcs = sorted({s for _, _, s in plan["aggs"]})
+        virtual = plan["virtual"]
+        srcs = sorted({virtual[s][1] if s in virtual else s for _, _, s in plan["aggs"]})
         actual: Dict[str, torch.dtype] = {}
         for s in srcs:
             e = outs_by_name.get(s)
@@ -1406,13 +1405,15 @@ class TorchExecutionEngine(ExecutionEngine):
         rng = kmax - kmin + 1
         if key_dt is None or not (0 < rng <= _DENSE_MAX_RANGE):
             return None
-        predicted = {
-            name: np.dtype(np.int64) if agg == "count" else _np_dtype(actual[src])
-            for name, agg, src in plan["aggs"]
-        }
-        spec_rows = _dense_finish_spec(plan, predicted)
-        if spec_rows is None:
-            return None
+        spec_rows: Any = None
+        if not host_finish:
+            predicted = {
+                name: np.dtype(np.int64) if agg == "count" else _np_dtype(actual[src])
+                for name, agg, src in plan["aggs"]
+            }
+            spec_rows = _dense_finish_spec(plan, predicted)
+            if spec_rows is None:
+                return None
         pplan = None
         if pred is not None:
             pplan = device_predicate_plan(pred, tdf.device_cols, tdf.encodings)
@@ -1433,11 +1434,17 @@ class TorchExecutionEngine(ExecutionEngine):
                 else:
                     v, _ = to_column(evaluate_torch(cols, e), probe_schema[s].type)
                     vals[s] = _full_column(v, n, self._device).to(actual[s])
+            for vname, (tag, src) in virtual.items():
+                vals[vname] = _plain_virtual_array(tag, vals[src], probe_schema[src].type)
             # floats are NaN-aware: a computed column may make NaN
             entries = [
                 (name, agg, vals[src], vals[src].is_floating_point())
                 for name, agg, src in plan["aggs"]
             ]
+            if host_finish:
+                kernel, arrays, agg_sig = dense_kernel_parts(entries, buckets)
+                outs = kernel(key_arr, kmin, arrays, valid)
+                return _finish_dense_host(self, outs, agg_sig, keys[0], _np_dtype(key_arr.dtype), kmin, plan)
             outs = self._run_dense_fused(key_arr, valid, entries, kmin, buckets, spec_rows, key_dt.str)
             return _dense_frame(self._device, keys[0], outs, spec_rows, plan["schema"])
 
@@ -2392,6 +2399,24 @@ def _virtual_agg_array(tdf: TorchDataFrame, tag: str, src: Optional[str]) -> tor
     return torch.where(m, ii.max if tag == "minfill" else ii.min, a)
 
 
+def _lowerable_posts(plan: dict) -> bool:
+    """Whether a lowered segment's dense plan finishes its outputs: each
+    a pass-through or an average (the finish on the device), or a plain
+    unsigned SUM/AVG, whose only views are ``uval`` and ``notnull`` (the
+    finish on the host)."""
+    if any(tag not in ("uval", "notnull") for tag, _ in plan["virtual"].values()):
+        return False
+    return all(p.get("kind") in ("pass", "avg", "unsigned_sum") for p in plan["post"])
+
+
+def _plain_virtual_array(tag: str, a: torch.Tensor, tp: pa.DataType) -> torch.Tensor:
+    """``_virtual_agg_array``'s ``uval`` and ``notnull`` views of a plain
+    (never NULL) column ``a`` of arrow type ``tp`` in its storage."""
+    if tag == "notnull":
+        return torch.ones_like(a, dtype=torch.int64)
+    return a ^ (-(1 << 63)) if str(tp) == "uint64" else a.to(torch.int64)
+
+
 def _is_passthrough(c: ColumnExpr, device_cols: Any) -> bool:
     """A bare (possibly renamed) named column over a device column — copies
     tensors and metadata without evaluation, so any encoding is fine."""
@@ -2522,7 +2547,8 @@ def _plan_device_agg(
             virtual[f"{src}__nn__"] = ("notnull", src)
             aggs.append((f"{name}__sum", "sum", uv))
             aggs.append((nn, "sum", f"{src}__nn__"))
-            post.append({"name": name, "fn": _unsigned_sum_post(name, src_type, func == "AVG")})
+            post.append({"name": name, "kind": "unsigned_sum",
+                         "fn": _unsigned_sum_post(name, src_type, func == "AVG")})
             tp = c.infer_type(tdf.schema)
             fields.append(pa.field(name, tp if tp is not None else pa.float64()))
             continue

@@ -72,7 +72,7 @@ from ..dataframe import (
 from ..exceptions import FugueInvalidOperation
 from ..execution.native_execution_engine import _drop_duplicates
 from ..schema import Schema
-from .dataframe import from_storage, is_wide_unsigned, to_storage
+from .dataframe import from_storage, is_wide_unsigned, storage_dtype, to_storage
 from .pipeline import HostToDevice, _torch_dtype, engine_prefetcher, prefetch_depth
 
 DEFAULT_CHUNK_ROWS = 1 << 20
@@ -302,14 +302,15 @@ def streaming_dense_aggregate(
 
     Eligibility is decided from the schema alone, before any chunk is
     read: one plain integer key (an unsigned one in its device form),
-    numeric values other than the unsigned types above uint8,
+    numeric values (an unsigned one in its storage; its SUM and AVG
+    finish on the host as the in-memory aggregate's do),
     SUM/COUNT/AVG/MIN/MAX. Otherwise this returns None, and the caller
     materializes the stream. The key range comes from
     ``fugue.tpu.stream.key_range`` or the first chunk; a key outside it,
     and a NULL key or int value, raise ``FugueInvalidOperation``."""
     from ..ops.segment import _DENSE_MAX_RANGE, _dense_kernel, dense_buckets
     from .dataframe import TorchDataFrame
-    from .execution_engine import _np_dtype, _plan_device_agg
+    from .execution_engine import _lowerable_posts, _np_dtype, _plain_virtual_array, _plan_device_agg
 
     keys = list(partition_spec.partition_by) if partition_spec is not None else []
     if len(keys) != 1:
@@ -319,25 +320,21 @@ def streaming_dense_aggregate(
     # the plan of an empty frame of the stream's schema: nothing is read
     tdf0 = TorchDataFrame(Schema(df.schema).create_empty_arrow_table(), device=device)
     plan = _plan_device_agg(tdf0, keys, agg_cols)
-    if (
-        plan is None
-        or plan["virtual"]
-        or plan["dict_srcs"]
-        or plan["masked_srcs"]
-        or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])
-    ):
+    if plan is None or plan["dict_srcs"] or plan["masked_srcs"] or not _lowerable_posts(plan):
         return None
     key = keys[0]
     key_np = _np_dtype(tdf0.device_cols[key].dtype)
     key_type = tdf0.schema[key].type
     if key_np.kind not in ("i", "u"):
         return None
-    srcs = sorted({s for _, _, s in plan["aggs"]})
+    virtual = plan["virtual"]
+    srcs = sorted({virtual[s][1] if s in virtual else s for _, _, s in plan["aggs"]})
     src_np = {s: _np_dtype(tdf0.device_cols[s].dtype) for s in srcs}
-    if any(dt.kind not in ("i", "u", "f") for dt in src_np.values()) or any(
-        is_wide_unsigned(tdf0.schema[s].type) for s in srcs
-    ):
-        return None  # an unsigned value's finish is the in-memory aggregate's
+    src_type = {s: tdf0.schema[s].type for s in srcs}
+    if any(dt.kind not in ("i", "u", "f") for dt in src_np.values()):
+        return None
+    avals = sorted({s for _, _, s in plan["aggs"]})
+    float_val = {s: s not in virtual and src_np[s].kind == "f" for s in avals}
     del tdf0
     key_range = _parse_key_range(engine.conf)
     if key_range is not None and not (0 < key_range[1] - key_range[0] + 1 <= _DENSE_MAX_RANGE):
@@ -373,10 +370,8 @@ def streaming_dense_aggregate(
     buckets = dense_buckets(kmax - kmin + 1)
     # value columns dedupe by source; floats are always NaN-aware here: a
     # later chunk may hold NaN where the first did not
-    vidx = {s: i for i, s in enumerate(srcs)}
-    agg_sig = tuple(
-        (name, agg, vidx[src], src_np[src].kind == "f") for name, agg, src in plan["aggs"]
-    )
+    vidx = {s: i for i, s in enumerate(avals)}
+    agg_sig = tuple((name, agg, vidx[src], float_val[src]) for name, agg, src in plan["aggs"])
     stager = _stager(engine, capacity)
     valid_for = _valid_masks(device, capacity)
 
@@ -407,7 +402,8 @@ def streaming_dense_aggregate(
                         "chunk established a null-free int contract)"
                     ),
                 )
-            staged[s] = cols[s].astype(src_np[s], copy=False)
+            if s != key:  # the key is in its storage already
+                staged[s] = to_storage(cols[s], src_type[s]).astype(src_np[s], copy=False)
         return stager.put(staged, n)
 
     def produce() -> Iterator[Tuple[int, Any]]:
@@ -420,7 +416,10 @@ def streaming_dense_aggregate(
             yield n, put_chunk(n, cols, nulls)
 
     def step(t: Dict[str, torch.Tensor], n: int) -> Tuple[torch.Tensor, ...]:
-        return _dense_kernel(buckets, agg_sig, t[key], kmin, [t[s] for s in srcs], valid_for(n))
+        vals = dict(t)
+        for vname, (tag, src) in virtual.items():
+            vals[vname] = _plain_virtual_array(tag, t[src], src_type[src])
+        return _dense_kernel(buckets, agg_sig, t[key], kmin, [vals[s] for s in avals], valid_for(n))
 
     return _fold_dense_stream(
         engine, produce(), step, agg_sig, key, key_np, kmin, plan, "aggregate"
@@ -1241,11 +1240,11 @@ def streaming_fused_steps(engine: Any, df: Any, steps: Any) -> DataFrame:
 
 def _np_dtype_of(tp: pa.DataType) -> Optional[np.dtype]:
     """The numpy dtype of an arrow type a raw chunk column feeds the device
-    program in, else None. The unsigned types above uint8 have none: their
-    device form needs the frame's storage (``torch/dataframe.py``), so a
-    chain over one runs per verb."""
-    if pa.types.is_unsigned_integer(tp) and tp.bit_width > 8:
-        return None
+    program in, else None. The unsigned types above uint8 feed it in the
+    frame's storage (``torch/dataframe.py`` ``to_storage``: uint16 and
+    uint32 widened, uint64 as its flipped bits)."""
+    if is_wide_unsigned(tp):
+        return storage_dtype(tp)
     if pa.types.is_boolean(tp):
         return np.dtype(bool)
     if pa.types.is_integer(tp) or pa.types.is_floating(tp):
@@ -1256,12 +1255,19 @@ def _np_dtype_of(tp: pa.DataType) -> Optional[np.dtype]:
 def _plan_lowered_chain(schema: Schema, steps: Any, device: torch.device) -> Optional[dict]:
     """The chain composed over a stream's RAW columns, from the schema
     alone (reference ``_plan_lowered_chain`` :660): ``dict(pred, outputs,
-    outs_by_name, need, in_np, out_dt, schema)`` — the planned Kleene-AND
-    predicate, the output expressions, the input columns read with their
-    numpy dtypes, each output's torch dtype (from a zero-row probe) and
-    the chain's output schema; None when a step resists composition or
-    the device evaluator. Nothing reads the stream here."""
-    from ..column.torch_eval import can_evaluate_on_device, device_predicate_plan, evaluate_torch
+    outs_by_name, need, in_np, in_schema, out_dt, schema)`` — the planned
+    Kleene-AND predicate, the output expressions, the input columns read
+    with their numpy dtypes (an unsigned one's storage) and their schema,
+    each output's torch dtype (its storage, from a zero-row probe) and the
+    chain's output schema; None when a step resists composition or the
+    device evaluator. Nothing reads the stream here."""
+    from ..column.torch_eval import (
+        can_evaluate_on_device,
+        device_predicate_plan,
+        evaluate_torch,
+        to_column,
+        typed_columns,
+    )
     from ..plan.fused import compose_steps
     from ..plan.ir import ALL, expr_columns
     from .execution_engine import _full_column, _np_dtype
@@ -1290,7 +1296,10 @@ def _plan_lowered_chain(schema: Schema, steps: Any, device: torch.device) -> Opt
         cond = p[1]
     if not all(can_evaluate_on_device(e, in_np) for e in outputs):
         return None
-    zcols = {n: torch.zeros(0, dtype=_torch_dtype(dt), device=device) for n, dt in in_np.items()}
+    in_schema = schema.extract(sorted(need))
+    zcols = typed_columns(
+        {n: torch.zeros(0, dtype=_torch_dtype(dt), device=device) for n, dt in in_np.items()}, in_schema
+    )
     out_dt: Dict[str, torch.dtype] = {}
     outs_by_name: Dict[str, Any] = {}
     fields: List[pa.Field] = []
@@ -1299,13 +1308,14 @@ def _plan_lowered_chain(schema: Schema, steps: Any, device: torch.device) -> Opt
         if name == "" or name in outs_by_name:
             return None
         try:
-            out_dt[name] = _full_column(evaluate_torch(zcols, e), 0, device).dtype
-        except Exception:  # noqa: BLE001 - the reference's probe refuses alike
-            return None
-        try:
             tp = e.infer_type(schema)
         except Exception:  # noqa: BLE001
             tp = None
+        try:
+            v, tp = to_column(evaluate_torch(zcols, e), tp)
+            out_dt[name] = _full_column(v, 0, device).dtype
+        except Exception:  # noqa: BLE001 - the reference's probe refuses alike
+            return None
         fields.append(pa.field(name, tp if tp is not None else pa.from_numpy_dtype(_np_dtype(out_dt[name]))))
         outs_by_name[name] = e
     return dict(
@@ -1314,6 +1324,7 @@ def _plan_lowered_chain(schema: Schema, steps: Any, device: torch.device) -> Opt
         outs_by_name=outs_by_name,
         need=sorted(need),
         in_np=in_np,
+        in_schema=in_schema,
         out_dt=out_dt,
         schema=Schema(fields),
     )
@@ -1351,11 +1362,17 @@ def plan_streaming_lowered_aggregate(
     apply to the RAW chunks, as in the reference: rows the chain's filter
     would drop still count (set ``fugue.tpu.stream.key_range`` where that
     matters)."""
-    from ..column.torch_eval import evaluate_torch
+    from ..column.torch_eval import evaluate_torch, to_column, typed_columns
     from ..column.expressions import _NamedColumnExpr
     from ..ops.segment import _DENSE_MAX_RANGE, _dense_kernel, dense_buckets
     from .dataframe import TorchDataFrame
-    from .execution_engine import _full_column, _np_dtype, _plan_device_agg
+    from .execution_engine import (
+        _full_column,
+        _lowerable_posts,
+        _np_dtype,
+        _plain_virtual_array,
+        _plan_device_agg,
+    )
 
     if len(keys) != 1 or len(steps) == 0:
         return None
@@ -1365,13 +1382,9 @@ def plan_streaming_lowered_aggregate(
         return None
     tdf0 = TorchDataFrame(chain["schema"].create_empty_arrow_table(), device=device)
     plan = _plan_device_agg(tdf0, keys, agg_cols)
-    if (
-        plan is None
-        or plan["virtual"]
-        or plan["dict_srcs"]
-        or plan["masked_srcs"]
-        or any(p.get("kind") not in ("pass", "avg") for p in plan["post"])
-    ):
+    # a plain unsigned SUM/AVG sums its values as int64 (the ``uval`` view)
+    # and the host finish wraps it, as the in-memory aggregate does
+    if plan is None or plan["dict_srcs"] or plan["masked_srcs"] or not _lowerable_posts(plan):
         return None
     key = keys[0]
     key_expr = chain["outs_by_name"].get(key)
@@ -1381,22 +1394,32 @@ def plan_streaming_lowered_aggregate(
     key_np = _np_dtype(tdf0.device_cols[key].dtype)
     if key_np.kind not in ("i", "u") or chain["in_np"][raw_key].kind not in ("i", "u"):
         return None
-    srcs = sorted({s for _, _, s in plan["aggs"]})
+    virtual = plan["virtual"]
+    out_schema: Schema = chain["schema"]
+    srcs = sorted({virtual[s][1] if s in virtual else s for _, _, s in plan["aggs"]})
     src_dt = {s: tdf0.device_cols[s].dtype for s in srcs}
     if any(dt == torch.bool for dt in src_dt.values()):
         return None
+    agg_dt = {s: torch.int64 if s in virtual else src_dt[s] for _, _, s in plan["aggs"]}
     del tdf0
     key_range = _parse_key_range(engine.conf)
     if key_range is not None and not (0 < key_range[1] - key_range[0] + 1 <= _DENSE_MAX_RANGE):
         return None  # a declared range too wide for the dense plan
+    raw_key_type = chain["in_schema"][raw_key].type
+    if key_range is not None and is_wide_unsigned(raw_key_type):
+        # the declared values in the key's storage (order kept)
+        lo, hi = to_storage(np.array(key_range, dtype=np.uint64), raw_key_type).tolist()
+        key_range = (int(lo), int(hi))
     cond = chain["pred"]
     needed: List[str] = chain["need"]
     in_np: Dict[str, np.dtype] = chain["in_np"]
+    in_schema: Schema = chain["in_schema"]
     src_expr = {s: chain["outs_by_name"][s] for s in srcs}
-    vidx = {s: i for i, s in enumerate(srcs)}
+    avals = sorted({s for _, _, s in plan["aggs"]})
+    vidx = {s: i for i, s in enumerate(avals)}
     # floats are always NaN-aware: a later chunk may hold NaN
     agg_sig = tuple(
-        (name, agg, vidx[src], src_dt[src].is_floating_point) for name, agg, src in plan["aggs"]
+        (name, agg, vidx[src], agg_dt[src].is_floating_point) for name, agg, src in plan["aggs"]
     )
     label = f"segment:{fingerprint or 'anon'}"
 
@@ -1412,6 +1435,9 @@ def plan_streaming_lowered_aggregate(
             nulls0[raw_key] == 0,
             FugueInvalidOperation(f"lowered segment: NULL in key column {raw_key!r}"),
         )
+        # an unsigned key in its storage: its range, buckets and tables are
+        # in the storage's order
+        cols0[raw_key] = to_storage(cols0[raw_key], raw_key_type)
         probed = key_range is None
         kmin, kmax = (int(cols0[raw_key].min()), int(cols0[raw_key].max())) if probed else key_range
         if not (0 < kmax - kmin + 1 <= _DENSE_MAX_RANGE):
@@ -1451,7 +1477,8 @@ def plan_streaming_lowered_aggregate(
                             "feed the device; rows the fused filter would drop still count)"
                         ),
                     )
-                staged[name] = cols[name].astype(in_np[name], copy=False)
+                arr = ck if name == raw_key else to_storage(cols[name], in_schema[name].type)
+                staged[name] = arr.astype(in_np[name], copy=False)
             return stager.put(staged, n)
 
         def produce() -> Iterator[Tuple[int, Any]]:
@@ -1460,15 +1487,22 @@ def plan_streaming_lowered_aggregate(
             cols0 = nulls0 = first = None  # drop the head chunk's host copy
             for f in frames:
                 n, cols, nulls = _chunk_columns(f, needed)
+                if nulls[raw_key] == 0:
+                    cols[raw_key] = to_storage(cols[raw_key], raw_key_type)
                 yield n, put_chunk(n, cols, nulls)
 
         def step(t: Dict[str, torch.Tensor], n: int) -> Tuple[torch.Tensor, ...]:
-            valid = _chain_valid(t, cond, valid_for(n))
-            vals = [
-                _full_column(evaluate_torch(t, src_expr[s]), capacity, device).to(src_dt[s])
-                for s in srcs
-            ]
-            return _dense_kernel(buckets, agg_sig, t[raw_key].to(_torch_dtype(key_np)), kmin, vals, valid)
+            tc = typed_columns(t, in_schema)
+            valid = _chain_valid(tc, cond, valid_for(n))
+            vals: Dict[str, torch.Tensor] = {}
+            for s in srcs:
+                v, _ = to_column(evaluate_torch(tc, src_expr[s]), out_schema[s].type)
+                vals[s] = _full_column(v, capacity, device).to(src_dt[s])
+            for vname, (tag, src) in virtual.items():
+                vals[vname] = _plain_virtual_array(tag, vals[src], out_schema[src].type)
+            return _dense_kernel(
+                buckets, agg_sig, t[raw_key].to(_torch_dtype(key_np)), kmin, [vals[s] for s in avals], valid
+            )
 
         return _fold_dense_stream(engine, produce(), step, agg_sig, key, key_np, kmin, plan, label)
 
@@ -1485,7 +1519,7 @@ def plan_lowered_steps_stream(
     or None. A chunk with a NULL in a non-float column runs the chain per
     verb instead (the same rows), counted in
     ``engine.plan_stats.chunks_per_verb``."""
-    from ..column.torch_eval import evaluate_torch
+    from ..column.torch_eval import evaluate_torch, to_column, typed_columns
     from ..plan.fused import apply_steps_engine
     from .execution_engine import _full_column
 
@@ -1501,6 +1535,7 @@ def plan_lowered_steps_stream(
     cond = chain["pred"]
     needed: List[str] = chain["need"]
     in_np: Dict[str, np.dtype] = chain["in_np"]
+    in_schema: Schema = chain["in_schema"]
     outputs = chain["outputs"]
     out_dt = chain["out_dt"]
     label = f"segment:{fingerprint or 'anon'}"
@@ -1520,14 +1555,19 @@ def plan_lowered_steps_stream(
                         yield out.as_local_bounded()
                     continue
                 with record_function("fugue::plan_segment_chunk"):
-                    t = stager.put({c: cols[c].astype(in_np[c], copy=False) for c in needed}, n).tensors()
-                    valid = _chain_valid(t, cond, valid_for(n))
+                    t = stager.put(
+                        {c: to_storage(cols[c], in_schema[c].type).astype(in_np[c], copy=False) for c in needed}, n
+                    ).tensors()
+                    tc = typed_columns(t, in_schema)
+                    valid = _chain_valid(tc, cond, valid_for(n))
                     idx = torch.nonzero(valid).squeeze(1)
-                    data = {
-                        e.output_name: _full_column(evaluate_torch(t, e), capacity, device)
-                        .to(out_dt[e.output_name]).index_select(0, idx).cpu().numpy()
-                        for e in outputs
-                    }
+                    data = {}
+                    for e in outputs:
+                        name = e.output_name
+                        tp = out_schema[name].type
+                        v, _ = to_column(evaluate_torch(tc, e), tp)
+                        col = _full_column(v, capacity, device).to(out_dt[name]).index_select(0, idx)
+                        data[name] = from_storage(col.cpu().numpy(), tp)
                 if len(idx) > 0:
                     yield PandasDataFrame(pd.DataFrame(data), out_schema)
 

@@ -79,7 +79,10 @@ def sniff_torch_func(map_func: Callable) -> Optional[Callable]:
     that one parameter (codes ``t`` → ``t``); None for any other
     (``_sniff_jax_func``, ``fugue_tpu/jax/execution_engine.py`` :4328)."""
     runner = getattr(map_func, "__self__", None)
-    wrapper = getattr(getattr(runner, "transformer", None), "_wrapper", None)
+    tf = getattr(runner, "transformer", None)
+    wrapper = getattr(tf, "_wrapper", None)
     if wrapper is None or wrapper.input_code != "t" or wrapper.output_code != "t":
         return None
+    if getattr(tf, "using_callback", False):
+        return None  # a callback runs on the host, once a partition
     return wrapper.func

@@ -2,9 +2,8 @@
 ``Create``/``Process``/``Output`` task specs with deterministic uuids
 (:85-98), and the checkpoint → broadcast → yield handling of a result
 (``set_result`` :143-152). The DAG runner is ``_workflow_context.py``.
-
-The RPC server that the JAX package binds to every extension
-(``_setup_extension``) is not ported (ROADMAP.md A.10)."""
+``_setup_extension`` binds the engine's RPC server to every extension,
+as the JAX package's does."""
 
 import sys
 from typing import Any, Callable, Dict, List, Optional
@@ -134,6 +133,7 @@ class FugueTask:
         ext._workflow_conf = ctx.execution_engine.conf
         ext._execution_engine = ctx.execution_engine
         ext._partition_spec = self.partition_spec
+        ext._rpc_server = ctx.execution_engine.rpc_server
 
     def execute(self, ctx: Any, inputs: List[DataFrame]) -> Optional[DataFrame]:
         raise NotImplementedError

@@ -77,9 +77,15 @@ class FugueWorkflowContext:
         for t in tasks:
             for d in t.inputs:
                 self._consumers[id(d)] = self._consumers.get(id(d), 0) + 1
+        # the RPC server's start/stop is counted (RPCHandler._running), so
+        # concurrent runs on one engine share one live server and the last
+        # to finish stops it
+        rpc_server = self._engine.rpc_server
+        rpc_server.start()
         try:
             self._run_graph(tasks)
         finally:
+            rpc_server.stop()
             self._checkpoint_path.remove_temp_path()
 
     def _run_graph(self, tasks: List[FugueTask]) -> None:

@@ -852,7 +852,7 @@ class FugueWorkflow:
 
         with record_function("fugue::plan_optimize"):
             run_tasks, aliases, removed, report = optimize_tasks(
-                self._tasks, plan_conf, stats=e.plan_stats
+                self._tasks, plan_conf, stats=e.plan_stats, analysis_stats=e.analysis_stats
             )
         self._last_plan_report = report
         with e.run_conf_scope(self._conf), e._as_context(borrowed=True):
@@ -867,22 +867,44 @@ class FugueWorkflow:
         from ..plan.ir import build_graph
         from ..plan.optimizer import _render_nodes
 
-        merged = ParamDict(engine.conf if isinstance(engine, ExecutionEngine) else None)
-        merged.update(self._conf)
-        merged.update(ParamDict(conf))
-        _, _, _, report = optimize_tasks(self._tasks, merged)
+        _, _, _, report = optimize_tasks(self._tasks, self._merged_plan_conf(conf, engine))
         if not report.before:
             report.before = _render_nodes(build_graph(self._tasks))
         return report
 
-    def explain(self, conf: Any = None, engine: Any = None) -> str:
+    def explain(self, conf: Any = None, engine: Any = None, lint: bool = False) -> str:
         """``plan_report`` rendered: the logical plan, the optimized plan
         with each pass's counters (cols_pruned, filters_pushed,
-        verbs_fused, segments_lowered, verbs_absorbed, bytes_skipped
-        estimate), a line for each lowered segment (``lowered segment
-        <fingerprint>: steps -> terminal``) and the notes of refusals and
-        of the passes that are not ported."""
-        return self.plan_report(conf, engine).render()
+        verbs_fused, segments_lowered, verbs_absorbed, udfs_translated,
+        bytes_skipped estimate), a line for each lowered segment
+        (``lowered segment <fingerprint>: steps -> terminal``) and the
+        notes: every UDF's analyzer verdict (``udf <name>[<fp>]:
+        translated ...`` or ``interpreted -- <reason>``), refusals, and
+        the passes that are not ported. ``lint=True`` appends the
+        structured static-check section (:meth:`lint`)."""
+        lines = [self.plan_report(conf, engine).render()]
+        if lint:
+            lines.append(self.lint(conf=conf, engine=engine).render())
+        return "\n".join(lines)
+
+    def lint(self, conf: Any = None, engine: Any = None) -> Any:
+        """No-execution static check pass: runs the UDF analyzer plus the
+        plan machinery over this workflow and returns a ``LintReport``
+        (``fugue_tpu_torch/analysis/lint.py``) of structured diagnostics:
+        per-UDF verdict and refusal reason, predicted lowered segments,
+        and every optimizer note. Nothing executes and the compiled tasks
+        are never mutated."""
+        from ..analysis import lint_tasks
+
+        return lint_tasks(self._tasks, self._merged_plan_conf(conf, engine))
+
+    def _merged_plan_conf(self, conf: Any, engine: Any) -> ParamDict:
+        """The conf ``run`` would optimize with: ``engine``'s (if given),
+        then this workflow's, then ``conf``."""
+        merged = ParamDict(engine.conf if isinstance(engine, ExecutionEngine) else None)
+        merged.update(self._conf)
+        merged.update(ParamDict(conf))
+        return merged
 
     @property
     def last_plan_report(self) -> Any:

@@ -512,12 +512,15 @@ def test_refused_keyed_shapes(jax_engine, engine, case):
         api.transform(pdf, tf, schema="k:double", partition={"by": ["k"]}, engine=engine)
 
 
-def test_host_transformers_are_not_ported(engine):
+def test_host_transformers_are_not_ported(engine, jax_engine):
     """What of the host transformers is still not ported: a function
-    annotated with ``jax.Array`` (the port never imports JAX to run it),
-    the host map's forked pool and callbacks (ROADMAP.md A.10). The
-    transformers both packages run on their host engines are held against
-    each other in ``test_host_transformers_run_on_the_host_engine``."""
+    annotated with ``jax.Array`` (the port never imports JAX to run it)
+    and the host map's forked pool (ROADMAP.md A.10). The transformers
+    both packages run on their host engines are held against each other
+    in ``test_host_transformers_run_on_the_host_engine``. A callback (not
+    ported before the RPC server was) runs: a device function that takes
+    one never takes the compiled map, so the host calls it once a
+    partition, as the JAX engine does."""
     def jax_annotated(cols: Dict[str, jax.Array]) -> Dict[str, jax.Array]:
         return cols
 
@@ -526,11 +529,31 @@ def test_host_transformers_are_not_ported(engine):
     pool = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.map.parallelism": 4})
     with pytest.raises(NotImplementedError, match="A.10"):
         api.transform(_frame(16), _pandas_identity, schema="*", partition={"by": ["k"]}, engine=pool)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        api.transform(_frame(16), _pandas_identity, schema="*", callback=print, engine=engine)
+    seen = {"jax": [], "torch": []}
+    fa.transform(jax_engine.to_df(_frame(16)), _pandas_counting, schema="*", partition={"by": ["k"]},
+                 callback=seen["jax"].append, engine=jax_engine)
+    api.transform(_frame(16), _pandas_counting, schema="*", partition={"by": ["k"]},
+                  callback=seen["torch"].append, engine=engine)
+    assert sorted(seen["torch"]) == sorted(seen["jax"]) and sum(seen["torch"]) == 16
+
+    def device_counting(cols: Dict[str, torch.Tensor], cb: Callable) -> Dict[str, torch.Tensor]:
+        cb(int(cols["k"].shape[0]))
+        return {"k": cols["k"], "v": cols["v"] * 2}
+
+    rows = []
+    got = api.transform(_frame(16), device_counting, schema="k:long,v:double", partition={"by": ["k"]},
+                        callback=rows.append, engine=engine)
+    assert sorted(rows) == sorted(seen["torch"])
+    assert np.allclose(got.sort_values(["k", "v"])["v"].to_numpy(),
+                       _frame(16).sort_values(["k", "v"])["v"].to_numpy() * 2)
 
 
 def _pandas_identity(df: pd.DataFrame) -> pd.DataFrame:
+    return df
+
+
+def _pandas_counting(df: pd.DataFrame, cb: Callable) -> pd.DataFrame:
+    cb(len(df))
     return df
 
 

@@ -312,20 +312,38 @@ def test_out_transform(jax_engine, engine):
     assert sorted(seen["torch"]) == sorted(seen["jax"]) and sum(seen["torch"]) == 200
 
 
-# ---- what is not ported (ROADMAP.md A.10) --------------------------------------------
+# ---- the forked pool (ROADMAP.md A.10) and callbacks ----------------------------------
+
+
+def reporting_form(df: pd.DataFrame, cb: callable) -> pd.DataFrame:
+    cb(len(df))
+    return df.assign(n=len(df))
 
 
 @pytest.mark.parametrize("case", ["pool", "callback"])
-def test_pool_and_callbacks_are_refused(engine, case):
+def test_pool_and_callbacks_are_refused(jax_engine, engine, case):
+    """The host map's forked pool is refused, naming A.10. A callback
+    (refused, under this name, until the RPC server was ported) reaches
+    the function once a partition through ``api.transform`` and
+    ``api.out_transform``, with the rows the JAX engine sends it."""
     if case == "pool":
         eng = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.map.parallelism": 2})
         with pytest.raises(NotImplementedError, match="A.10"):
             api.transform(_frame(), pandas_form, schema="*,n:long", partition={"by": ["k"]}, engine=eng)
-    else:
-        with pytest.raises(NotImplementedError, match="A.10"):
-            api.transform(_frame(), pandas_form, schema="*,n:long", callback=lambda x: x, engine=engine)
-        with pytest.raises(NotImplementedError, match="A.10"):
-            api.out_transform(_frame(), pandas_form, callback=lambda x: x, engine=engine)
+        return
+    seen: Dict[str, List[int]] = {"jax": [], "torch": [], "jax_out": [], "torch_out": []}
+    exp = fa.transform(_frame(), reporting_form, schema="*,n:long", partition={"by": ["k"]},
+                       callback=seen["jax"].append, engine=jax_engine)
+    got = api.transform(_frame(), reporting_form, schema="*,n:long", partition={"by": ["k"]},
+                        callback=seen["torch"].append, engine=engine)
+    fa.out_transform(_frame(), reporting_form, partition={"by": ["k"]}, callback=seen["jax_out"].append,
+                     engine=jax_engine)
+    api.out_transform(_frame(), reporting_form, partition={"by": ["k"]}, callback=seen["torch_out"].append,
+                      engine=engine)
+    assert sorted(seen["torch"]) == sorted(seen["jax"]) and sum(seen["torch"]) == 200
+    assert sorted(seen["torch_out"]) == sorted(seen["jax_out"]) == sorted(seen["jax"])
+    cols = ["k", "v", "n"]
+    assert got.sort_values(cols)[cols].values.tolist() == exp.sort_values(cols)[cols].values.tolist()
 
 
 def test_strings_and_cotransformers_are_refused(engine, jax_engine):

@@ -16,7 +16,9 @@ against ``TorchExecutionEngine(device="cpu")``), and on the port also with
 - the host engine runs a segment per verb;
 - the lowered stream's key range and NULL contract apply to the raw
   chunks, as the reference's; a lowered take's chunk with a NULL in an
-  int column runs the chain per verb, counted.
+  int column runs the chain per verb, counted;
+- chains over uint16/32/64 columns, streamed, and a plain unsigned
+  SUM/AVG, bounded and streamed, lower where the reference's do.
 """
 
 from typing import Any
@@ -396,6 +398,83 @@ def test_workflow_run_keeps_no_input_column_alive(lower):
     finally:
         if enabled:
             gc.enable()
+
+
+def _unsigned_frame(dt: Any, n: int = 20_000, seed: int = 0) -> pd.DataFrame:
+    """``k`` over 32 keys and ``u`` at the top of the type, both of ``dt``."""
+    pdf = _frame(n, seed=seed)
+    pdf["k"] = pdf["k"].astype(dt)
+    top = int(np.iinfo(dt).max)
+    pdf["u"] = (np.uint64(top - 6) + (np.arange(n) % 7).astype(np.uint64)).astype(dt)
+    return pdf
+
+
+@pytest.mark.parametrize("stream", [True, False])
+@pytest.mark.parametrize("dt", [np.uint16, np.uint32, np.uint64])
+def test_unsigned_chains_lower(dt, stream):
+    """A chain over unsigned columns lowers where the reference's does:
+    a streamed chain keyed by a uint16/32/64 column (its raw chunks staged
+    in the frame's storage), and a plain unsigned SUM/AVG, which wraps in
+    its type and finishes on the host as the in-memory aggregate does;
+    MIN/MAX of the unsigned value at the top of its type. One segment
+    executed, none fallen back, the reference's counts and results."""
+    pdf = _unsigned_frame(dt)
+    aggs = {
+        "sum": lambda m, c: [m.ff.sum(c("u")).alias("s"), m.ff.avg(c("u")).alias("m"),
+                             m.ff.sum(c("z")).alias("sz"), m.ff.count(c("z")).alias("n")],
+        "minmax": lambda m, c: [m.ff.min(c("u")).alias("lo"), m.ff.max(c("u")).alias("hi")],
+    }
+    for name, make in aggs.items():
+
+        def build(dag, m):
+            src = _stream(m, pdf, CHUNK) if stream else pdf
+            c = m.col
+            (dag.df(src).filter(c("v") > 0.25).select(c("k"), (c("v") * c("w")).alias("z"), c("u"))
+             .partition_by("k").aggregate(*make(m, c)).yield_dataframe_as("r", as_local=True))
+
+        st, jst = _three(build, ["k"])
+        assert {c: st[c] for c in _STATS} == {c: jst[c] for c in _STATS}, name
+        assert st["segments_executed"] == 1 and st["segments_fallback"] == 0, name
+
+
+def test_streamed_uint64_keys_across_two_to_the_63():
+    """uint64 keys on both sides of 2**63 key a lowered stream in their
+    storage (the reference's streamed plan reads them as float64,
+    ROADMAP.md C16, so pandas is the oracle here): the same groups, counts
+    and sums as pandas, one segment."""
+    pdf = _unsigned_frame(np.uint64)
+    pdf["k"] = np.uint64((1 << 63) - 16) + pdf["k"].to_numpy()
+    conf = {"fugue.tpu.stream.chunk_rows": CHUNK}
+
+    def build(dag, m):
+        c = m.col
+        (dag.df(_stream(m, pdf, CHUNK)).filter(c("v") > 0.25).select(c("k"), (c("v") * c("w")).alias("z"), c("u"))
+         .partition_by("k").aggregate(m.ff.sum(c("z")).alias("s"), m.ff.count(c("z")).alias("n"),
+                                      m.ff.max(c("u")).alias("hi"))
+         .yield_dataframe_as("r", as_local=True))
+
+    got, _, st, _ = run_case(build, PORT, "device", conf)
+    keep = pdf[pdf["v"] > 0.25].assign(z=lambda d: d["v"] * d["w"])
+    exp = keep.groupby("k", as_index=False).agg(s=("z", "sum"), n=("z", "size"), hi=("u", "max"))
+    got = got.sort_values("k").reset_index(drop=True)
+    assert got["k"].tolist() == exp["k"].tolist() and got["n"].tolist() == exp["n"].tolist()
+    assert got["hi"].tolist() == exp["hi"].tolist() and np.allclose(got["s"], exp["s"])
+    assert int(got["k"].min()) < (1 << 63) <= int(got["k"].max())
+    assert st["segments_executed"] == 1 and st["segments_fallback"] == 0
+
+
+def test_streamed_unsigned_take_lowers():
+    """A lowered chain feeding a take over a uint64 stream: the survivors
+    come back from the storage to their values."""
+    pdf = _unsigned_frame(np.uint64)
+
+    def build(dag, m):
+        c = m.col
+        (dag.df(_stream(m, pdf, CHUNK)).filter(c("v") > 0.5).select(c("k"), c("u"), c("v"))
+         .take(7, presort="v desc").yield_dataframe_as("r", as_local=True))
+
+    st, jst = _three(build, ["v"])
+    assert st["segments_executed"] == jst["segments_executed"] == 1
 
 
 def test_chip_smoke_plan_path_on_the_cpu():

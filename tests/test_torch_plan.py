@@ -11,8 +11,8 @@ engines for the host cases. Then:
   ``rtol=1e-5``/``atol=1e-9`` (``np.allclose``; float32 sums in other
   orders);
 - the reports count the same pushdowns, pruned columns, fused verbs and
-  lowered segments, wherever no UDF transformer sits in the chain (the
-  reference analyzes UDFs, the port does not yet);
+  lowered segments, a UDF transformer in the chain too (both packages
+  analyze it, ``tests/test_torch_analysis.py``);
 - on the port, each pass's gate toggled off gives the same result;
 - the removed-intermediate error, the result aliases, the pinned-task
   rule, pruning into the parquet reader and the chunk producer, and
@@ -248,8 +248,10 @@ def test_each_gate_off_gives_the_same_result(case, gate):
 
 
 def test_transform_udf_results_match():
-    """A pandas transformer in the chain: the reference's analyzer may
-    rewrite around it, the port keeps it whole; the results agree."""
+    """A pandas transformer in the chain: both packages' analyzers
+    translate it into plain verbs, which fuse with the filter after it;
+    the results and the reports' counts agree. (Named for when the port
+    kept the transformer whole.)"""
     pdf = _frame(cols=4)
 
     def add_one(df: pd.DataFrame) -> pd.DataFrame:
@@ -262,13 +264,17 @@ def test_transform_udf_results_match():
          .yield_dataframe_as("r", as_local=True))
 
     got, rep, _, _ = run_case(b, PORT)
-    exp, _, _, _ = run_case(b, REF)
+    exp, jrep, _, _ = run_case(b, REF)
     same_frames(got, exp, ["k", "v"])
-    assert rep.filters_pushed == 0 and any("analyzer" in n for n in rep.notes)
+    counts = COUNTS + ["udfs_analyzed", "udfs_translated"]
+    assert {c: getattr(rep, c) for c in counts} == {c: getattr(jrep, c) for c in counts}
+    assert rep.udfs_translated == 1 and rep.verbs_fused > 0
 
 
 def test_noop_guard_udf_keeps_all_columns():
-    """A transformer's column usage is unknown: nothing is pruned."""
+    """An identity transformer that declares every column: the analyzer
+    translates it into a cast of each, so every column is read and
+    nothing is pruned."""
     pdf = _frame(cols=6)
 
     def ident(df: pd.DataFrame) -> pd.DataFrame:

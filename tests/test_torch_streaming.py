@@ -198,7 +198,7 @@ def test_aggregate_of_an_unported_plan_raises_before_reading(engines):
     uint64 aggregates chunk by chunk through the dense plan, as on the
     reference, with the same rows (exact keys and counts, sums within the
     file's tolerance), keys at the top of uint16 and uint32; an unsigned
-    value streams too, through the in-memory aggregate. The reference's
+    value streams too, in its storage. The reference's
     streamed plan reads uint64 keys as float64 (ROADMAP.md C16): past 2**53
     its groups merge, so keys there and across 2**63 are held against
     pandas."""

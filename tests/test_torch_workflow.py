@@ -20,7 +20,7 @@ the run-scoped conf, ``@module`` and the extension registry.
 
 import os
 from types import SimpleNamespace
-from typing import Any, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import pandas as pd
@@ -539,8 +539,9 @@ def case_zip_cotransform(ns, dag, tmpdir):
 def test_cotransform_zip_and_callbacks_are_refused(jax_engine, port_engine, tmp_path):
     """``dag.zip`` and ``WorkflowDataFrame.zip`` answer as the JAX
     package's, and a cotransformer of a frame that is not zipped raises
-    what the reference raises (the test keeps its name from when the port
-    refused them); callbacks are still refused, naming A.10."""
+    what the reference raises; a transformer's callback reaches its
+    function once a partition, with what the JAX package sends it (the
+    test keeps its name from when the port refused them all)."""
     _check(case_zip_cotransform, jax_engine, port_engine, tmp_path)
 
     def merge(d1: pd.DataFrame, d2: pd.DataFrame) -> pd.DataFrame:
@@ -554,22 +555,31 @@ def test_cotransform_zip_and_callbacks_are_refused(jax_engine, port_engine, tmp_
             dag.run(eng)
         errs.append(type(err.value).__name__)
     assert errs[0] == errs[1]
-    dag = twf.FugueWorkflow()
-    a = dag.df([[1, "a"]], "k:long,v:str")
-
     def report(df: pd.DataFrame, cb: callable) -> pd.DataFrame:
         cb(len(df))
         return df
 
-    with pytest.raises(NotImplementedError, match="A.10"):
-        a.transform(report, schema="*")
+    def optional(df: pd.DataFrame, cb: Optional[Callable] = None) -> pd.DataFrame:
+        return df.assign(has=cb is not None)
+
+    seen: Dict[str, List[int]] = {}
+    results = {}
+    for ns, eng in ((REF, jax_engine), (PORT, port_engine)):
+        calls: List[int] = []
+        dag = ns.FugueWorkflow()
+        a = dag.df([[1, "a"], [1, "b"], [2, "c"]], "k:long,v:str")
+        a.partition_by("k").transform(report, schema="*", callback=calls.append).yield_dataframe_as(
+            "r", as_local=True)
+        a.transform(optional, schema="*,has:bool").yield_dataframe_as("o", as_local=True)
+        dag.run(eng)
+        seen[ns is PORT] = sorted(calls)
+        results[ns is PORT] = {n: dag.yields[n].result for n in ("r", "o")}
+    assert seen[True] == seen[False] == [1, 2]
+    for n in ("r", "o"):
+        _same(results[True][n], results[False][n])
     # per_row answers now: one row a partition, an even repartition
-    spec = a.per_row().partition_spec
+    spec = twf.FugueWorkflow().df([[1, "a"]], "k:long,v:str").per_row().partition_spec
     assert (spec.algo, spec.num_partitions) == ("even", "ROWCOUNT")
-    dag = twf.FugueWorkflow()
-    dag.df([[1]], "a:long").transform(_string_ref_transformer, schema="*", callback=lambda x: x).show()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dag.run(port_engine)
 
 
 @pytest.mark.parametrize("key", sorted(A10_WORKFLOW_KEYS))
