@@ -181,7 +181,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    segment, none fallen back) and ``callback-1k`` (a pandas transform by
    1,000 keys over 10^6 rows whose callback counts 1,000 calls, and the
    workflow's ``lint()``); then a line of B1's time at each cell's shape
-   beside one ``index_add_`` of the same values into the same ids.
+   beside one ``index_add_`` of the same values into the same ids;
+18. obs_path: the span tracer, the trace export, the Prometheus text, the
+   resource sampler, task retries and fault injection on plan_path's
+   frame, one line a cell: ``traced-lowered`` (plan_path's lowered
+   workflow on an engine whose conf turns on tracing, its profiler
+   ranges, the trace directory and the sampler: the oracle; the span tree
+   ``workflow.run`` → ``workflow.task`` → ``plan.segment`` / ``engine.*``;
+   the exported file and the Prometheus page through their validators;
+   the sampled device bytes between the frame's and the peak; one
+   ``torch.profiler`` capture whose ``plan.segment`` range holds B1; the
+   medians of 5 calls with tracing off and on, alternated),
+   ``traced-stream`` (the chain over 2·10^7 streamed rows, cut in scale:
+   a ``stream.chunk`` span a chunk under the segment, their rows summed,
+   B1 once a chunk; off and on) and ``fault-retry`` (``task.execute``
+   failing once, two attempts a task: the untraced run's result and one
+   retry counted; then ``stream.chunk`` failing with no retry: the
+   injected error, no producer thread left, the device bytes back).
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
@@ -3250,7 +3266,8 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
         del tdf
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - start
-    out["handover"] = pdf  # analysis_path runs on the same frame
+    out["handover"] = pdf  # analysis_path and obs_path run on the same frame
+    out["handover_oracle"] = exp  # obs_path holds its lowered cells to it
     return out
 
 
@@ -3575,6 +3592,336 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
     return out
 
 
+# obs_path: the observability and resilience layers on plan_path's frame
+OBS_REPS = 5  # traced and untraced calls, alternated: medians of 5 each
+OBS_STREAM_ROWS = 20_000_000  # traced-stream: 5 chunks of 4·10^6 (cut in scale from 10^8)
+OBS_TELEMETRY_INTERVAL = 0.05  # the sampler's interval, seconds
+OBS_FAULT_RETRY = {"fugue.tpu.fault.plan": "task.execute=error", "fugue.tpu.retry.task.attempts": 2,
+                   "fugue.tpu.retry.task.base": 0.01}
+OBS_FAULT_STREAM = {"fugue.tpu.fault.plan": "stream.chunk=error"}
+
+
+def _span_chain(rec, by_id) -> tuple:
+    names = []
+    while rec is not None:
+        names.append(rec["name"])
+        rec = by_id.get(rec["parent"])
+    return tuple(names)
+
+
+def check_span_tree(recs, what: str) -> dict:
+    """One ``workflow.run``; every ``workflow.task`` directly under it;
+    every ``plan.segment`` under a task; every ``engine.*`` span with a
+    task among its ancestors and the run at the root. The span names,
+    counted."""
+    by_id = {r["id"]: r for r in recs}
+    runs = [r for r in recs if r["name"] == "workflow.run"]
+    require(len(runs) == 1 and runs[0]["parent"] is None, f"{what}: {len(runs)} workflow.run spans")
+    for r in recs:
+        chain = _span_chain(r, by_id)
+        if r["name"] == "workflow.task":
+            require(chain == ("workflow.task", "workflow.run"), f"{what}: task span chain {chain}")
+        elif r["name"] == "plan.segment":
+            require(chain == ("plan.segment", "workflow.task", "workflow.run"), f"{what}: segment chain {chain}")
+        elif r["name"].startswith("engine."):
+            require("workflow.task" in chain and chain[-1] == "workflow.run", f"{what}: engine chain {chain}")
+    names: Dict[str, int] = {}
+    for r in recs:
+        names[r["name"]] = names.get(r["name"], 0) + 1
+    return names
+
+
+def profiled_ranges(path: str, outer: str, kernel: str) -> dict:
+    """In a ``torch.profiler`` Chrome trace: the ``outer`` ranges, the
+    kernels whose name holds ``kernel`` (the profiler names a kernel by
+    its signature, ``void binned_shared<false>(...)``), and how many of them
+    were launched inside an ``outer`` range of the launching thread (the
+    launch's runtime or driver call, matched by its correlation id, within
+    the range) or ran inside its device-side twin."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    host = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e["name"] == outer and e.get("cat") in ("user_annotation", "cpu_op")]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e["name"] == outer and e.get("cat") == "gpu_user_annotation"]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel" and kernel in e["name"]]
+    inside = 0
+    for k in kernels:
+        call = calls.get(k.get("args", {}).get("correlation"))
+        by_launch = call is not None and any(
+            tid == call["tid"] and lo <= call["ts"] <= hi for tid, lo, hi in host)
+        by_device = any(lo <= k["ts"] and k["ts"] + k["dur"] <= hi for lo, hi in device)
+        inside += by_launch or by_device
+    return {"ranges": len(host), "device_ranges": len(device), "kernels": len(kernels), "inside": inside,
+            "kernel_names": sorted({e["name"][:60] for e in kernels})}
+
+
+def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows: int = OBS_STREAM_ROWS,
+                   stream_chunk: int = PLAN_STREAM_CHUNK) -> dict:
+    """The observability and resilience layers on the card, on plan_path's
+    frame ``pdf`` (its oracle ``exp``), one line a cell:
+
+    - ``traced-lowered``: plan_path's lowered workflow on an engine whose
+      conf turns on the tracer (``fugue.tpu.trace.enabled``, ``.xla``),
+      the trace export (``fugue.tpu.trace.dir``, a temporary directory of
+      the checkout) and the sampler (``fugue.tpu.telemetry.*`` at
+      ``OBS_TELEMETRY_INTERVAL`` s): the result against the oracle, the
+      span tree (``check_span_tree``), the exported file through
+      ``validate_chrome_trace``, ``to_prometheus_text(engine)`` through
+      ``validate_prometheus_text``, the sampler's largest device bytes
+      between the frame's bytes and the peak, and one ``torch.profiler``
+      capture of a traced call whose ``plan.segment`` range holds the B1
+      kernel; the medians of ``OBS_REPS`` calls with the tracer and
+      sampler off and on, alternated;
+    - ``traced-stream``: the same chain over ``stream_rows`` rows streamed
+      in chunks of ``stream_chunk``: one ``stream.chunk`` span a chunk
+      under the segment's span, their rows summing to the stream's, B1
+      once a chunk; the medians off and on;
+    - ``fault-retry``: the workflow with ``task.execute`` failing once
+      and two attempts a task: the untraced run's result (keys, counts,
+      min/max exact; sums ``rtol=ORACLE_RTOL``) and one retry in
+      ``engine.stats()["resilience"]``; then the stream with
+      ``stream.chunk`` failing and no retry: the injected error, no
+      producer thread left, and ``torch.cuda.memory_allocated()`` back at
+      its value before the call.
+
+    Launch counts are set to 0 just before each checked call and read just
+    after. The tracer and the sampler are process-wide: the phase turns
+    them off and empties them at its end."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
+    from fugue_tpu_torch.obs import (get_sampler, get_span_metrics, get_tracer, to_prometheus_text,
+                                     validate_chrome_trace, validate_prometheus_text)
+    from fugue_tpu_torch.resilience import InjectedFaultError
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    out = {"phase": "obs_path", "cells": {}}
+    on_card = engine.device.type == "cuda"
+    tracer, sampler, metrics = get_tracer(), get_sampler(), get_span_metrics()
+    rows = len(pdf)
+    k, v, w = (pdf[c].to_numpy() for c in ("k", "v", "w"))
+    aggs = dict(s=ff.sum(col("z")), n=ff.count(col("z")), m=ff.avg(col("z")),
+                lo=ff.min(col("z")), hi=ff.max(col("z")))
+
+    def chain(src, conf=None):
+        dag = FugueWorkflow(conf)
+        (dag.df(src).filter(col("v") > 0.25).select(col("k"), (col("v") * col("w")).alias("z"))
+         .partition_by("k").aggregate(**aggs).yield_dataframe_as("r"))
+        return dag
+
+    def run(eng, dag):
+        dag.run(eng)
+        return dag.yields["r"].result
+
+    def checked(eng, dag, what: str, oracle):
+        """The first call: launches counted from 0, the result held to
+        ``oracle``; ``(result pandas, launches, seconds)``."""
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(eng, dag).as_pandas().sort_values("k").reset_index(drop=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(bg.LAUNCHES)
+        _check_agg(np, got, oracle, what)
+        return got, launches, first_s
+
+    def off_and_on(call) -> tuple:
+        """``OBS_REPS`` calls with the tracer and the sampler off, and as
+        many with them on, alternated: (off ms, on ms)."""
+        off, on = [], []
+        for _ in range(OBS_REPS):
+            tracer.disable()
+            sampler.stop()
+            off += _wall_ms(torch, call, 1)
+            tracer.enable()
+            sampler.start()
+            on += _wall_ms(torch, call, 1)
+        return off, on
+
+    def timing(off, on) -> dict:
+        m_off, m_on = statistics.median(off), statistics.median(on)
+        return {"untraced_ms": m_off, "untraced_ms_all": off, "traced_ms": m_on, "traced_ms_all": on,
+                "traced_share": m_on / m_off - 1}
+
+    tmp = Path(tempfile.mkdtemp(prefix=".obs_path_", dir=Path(__file__).resolve().parent))
+    try:
+        # traced-lowered: the engine's conf turns the tracer and the sampler on
+        teng = TorchExecutionEngine(device=engine.device, conf={
+            "fugue.tpu.trace.enabled": True, "fugue.tpu.trace.xla": True, "fugue.tpu.trace.dir": str(tmp),
+            "fugue.tpu.telemetry.enabled": True, "fugue.tpu.telemetry.interval": OBS_TELEMETRY_INTERVAL})
+        require(tracer.enabled and sampler.running, "traced-lowered: the conf did not start the tracer and sampler")
+        t0 = time.perf_counter()
+        tdf = teng.persist(teng.to_df(pdf))
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        frame_bytes = _tensor_bytes(_frame_tensors(tdf))
+        tracer.clear()
+        metrics.clear()
+        sampler.clear()
+        got, launches, first_s = checked(teng, chain(tdf), "traced-lowered", exp)
+        require(launches["bin_sum"] == (1 if on_card else 0), f"traced-lowered: bin_sum launched {launches}")
+        recs = tracer.records()
+        names = check_span_tree(recs, "traced-lowered")
+        require(names.get("plan.segment") == 1 and names.get("workflow.task", 0) >= 2,
+                f"traced-lowered: spans {names}")
+        files = sorted(tmp.glob("fugue_trace_*.json"))
+        require(len(files) == 1, f"traced-lowered: {len(files)} trace files")
+        chrome = validate_chrome_trace(str(files[0]))
+        require(chrome["spans"] == len(recs), f"traced-lowered: {chrome['spans']} spans exported of {len(recs)}")
+        trace_bytes = files[0].stat().st_size
+        prom = validate_prometheus_text(to_prometheus_text(teng))
+        require("fugue_tpu_span_latency_seconds_bucket" in prom["names"]
+                and "fugue_tpu_plan_segments_executed" in prom["names"], f"traced-lowered: prometheus {prom}")
+        call = lambda: run(teng, chain(tdf)).count()  # noqa: E731
+        tracer.disable()
+        plain = run(teng, chain(tdf)).as_pandas().sort_values("k").reset_index(drop=True)
+        off, on = off_and_on(call)
+        samples = [vals["device_bytes"] for _, vals in sampler.series() if "device_bytes" in vals]
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        if on_card:
+            require(samples and frame_bytes <= max(samples) <= peak,
+                    f"traced-lowered: sampled device bytes {max(samples, default=None)} outside "
+                    f"[{frame_bytes}, {peak}]")
+        # one profiler capture of a traced call: plan.segment's range holds B1
+        prof_path = tmp / "profile.json"
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+        prof.export_chrome_trace(str(prof_path))
+        ranges = profiled_ranges(str(prof_path), "plan.segment", "binned_")
+        require(ranges["ranges"] >= 1, f"traced-lowered: no plan.segment range in the profile {ranges}")
+        if on_card:
+            require(ranges["kernels"] >= 1 and ranges["inside"] == ranges["kernels"],
+                    f"traced-lowered: B1 outside plan.segment {ranges}")
+        line = {"phase": "obs_path", "cell": "traced-lowered", "rows": rows, "ingest_s": ingest_s,
+                "launches": launches, "first_call_s": first_s, **timing(off, on),
+                "spans_per_call": len(recs), "span_names": names, "trace_file_bytes": trace_bytes,
+                "chrome": {"spans": chrome["spans"], "names": chrome["names"]},
+                "prometheus": {"families": len(prom["names"]), "samples": prom["samples"],
+                               "histogram_series": prom["histogram_series"]},
+                "sampler": {"samples": len(samples), "max_device_bytes": max(samples, default=None),
+                            "frame_bytes": frame_bytes, "peak_bytes": peak, "errors": sampler.sample_errors},
+                "profile_ranges": ranges,
+                "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; span tree; "
+                          "chrome trace; prometheus text; sampled bytes in [frame, peak]; B1 inside plan.segment",
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["traced-lowered"] = line
+
+        # traced-stream: the same chain over the rows streamed
+        n_stream = min(stream_rows, rows)
+        chunks = (n_stream + stream_chunk - 1) // stream_chunk
+        stream_exp = exp if n_stream == rows else plan_oracle(np, pd, k[:n_stream], v[:n_stream], w[:n_stream])
+        tbl = pa.table({"k": k[:n_stream], "v": v[:n_stream], "w": w[:n_stream]})
+        seng = TorchExecutionEngine(device=engine.device, conf={
+            "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+
+        def stream():
+            return LocalDataFrameIterableDataFrame(
+                (ArrowDataFrame(tbl.slice(s, stream_chunk)) for s in range(0, n_stream, stream_chunk)),
+                schema="k:long,v:float,w:float")
+
+        tracer.enable()
+        tracer.clear()
+        _, s_launches, s_first = checked(seng, chain(stream()), "traced-stream", stream_exp)
+        require(s_launches["bin_sum"] == (chunks if on_card else 0),
+                f"traced-stream: bin_sum launched {s_launches} over {chunks} chunks")
+        recs = tracer.records()
+        s_names = check_span_tree(recs, "traced-stream")
+        by_id = {r["id"]: r for r in recs}
+        spans = [r for r in recs if r["name"] == "stream.chunk"]
+        require(len(spans) == chunks, f"traced-stream: {len(spans)} chunk spans over {chunks} chunks")
+        for r in spans:
+            c = _span_chain(r, by_id)
+            require(c[1] in ("engine.aggregate", "plan.segment") and c[-2:] == ("workflow.task", "workflow.run"),
+                    f"traced-stream: chunk span chain {c}")
+        chunk_rows = sum(r["args"]["rows"] for r in spans)
+        require(chunk_rows == n_stream, f"traced-stream: chunk spans hold {chunk_rows} rows of {n_stream}")
+        s_off, s_on = off_and_on(lambda: run(seng, chain(stream())).count())
+        line = {"phase": "obs_path", "cell": "traced-stream", "rows": n_stream, "chunk": stream_chunk,
+                "chunks": chunks, "launches": s_launches, "first_call_s": s_first, **timing(s_off, s_on),
+                "spans_per_call": len(recs), "span_names": s_names, "chunk_span_rows": chunk_rows,
+                "chunk_span_ms": [r["dur"] / 1e6 for r in spans],
+                "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; one chunk "
+                          "span a chunk under the segment, rows summed",
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["traced-stream"] = line
+
+        # fault-retry: task.execute fails once, two attempts a task
+        tracer.clear()
+        retries = teng.stats()["resilience"].get("workflow.task_retries", 0)
+        got, f_launches, f_first = checked(teng, chain(tdf, OBS_FAULT_RETRY), "fault-retry", exp)
+        retries = teng.stats()["resilience"].get("workflow.task_retries", 0) - retries
+        require(retries == 1, f"fault-retry: {retries} task retries counted")
+        require(f_launches["bin_sum"] == (1 if on_card else 0), f"fault-retry: bin_sum launched {f_launches}")
+        for c in ("k", "n", "lo", "hi"):
+            require(np.array_equal(got[c].to_numpy(), plain[c].to_numpy(), equal_nan=True),
+                    f"fault-retry: {c} vs the untraced run")
+        for c in ("s", "m"):
+            require(np.allclose(got[c].to_numpy(), plain[c].to_numpy(), rtol=ORACLE_RTOL, atol=0, equal_nan=True),
+                    f"fault-retry: {c} vs the untraced run")
+        attempts = [r["args"].get("attempts") for r in tracer.records() if r["name"] == "workflow.task"]
+        # the stream fails at its first chunk, with no retry
+        del got, plain
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated() if on_card else 0
+        raised = None
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        try:
+            run(seng, chain(stream(), OBS_FAULT_STREAM))
+        except InjectedFaultError as ex:
+            raised = str(ex)
+        torch.cuda.synchronize()
+        s_launches = dict(bg.LAUNCHES)
+        after_raise = torch.cuda.memory_allocated() if on_card else 0
+        gc.collect()
+        after_gc = torch.cuda.memory_allocated() if on_card else 0
+        require(raised is not None and "stream.chunk" in raised, f"fault-retry: the stream raised {raised!r}")
+        producers = [t.name for t in threading.enumerate() if t.name.startswith("fugue-torch-prefetch")]
+        require(not producers, f"fault-retry: producer threads left {producers}")
+        require(after_gc == before, f"fault-retry: {after_gc - before} device bytes held after the stream fault")
+        line = {"phase": "obs_path", "cell": "fault-retry", "rows": rows, "plan": OBS_FAULT_RETRY["fugue.tpu.fault.plan"],
+                "launches": f_launches, "first_call_s": f_first, "retries": retries, "task_attempts": attempts,
+                "stream_fault": {"plan": OBS_FAULT_STREAM["fugue.tpu.fault.plan"], "raised": raised,
+                                 "bytes_before": before, "bytes_after_raise": after_raise, "bytes_after_gc": after_gc},
+                "stream_launches": s_launches,
+                "checks": f"keys, counts, min/max exact, sum/avg rtol={ORACLE_RTOL} vs the untraced run; one retry; "
+                          "the stream's injected error, no producer left, device bytes back",
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"]["fault-retry"] = line
+        del tdf, tbl, teng, seng
+    finally:
+        tracer.disable()
+        tracer.clear()
+        metrics.clear()
+        sampler.stop()
+        sampler.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def _release(torch) -> None:
     """Between phases: collect what the phase before left in reference
     cycles (a ``FugueSQLWorkflow`` and its frames form one, as in the JAX
@@ -3659,8 +4006,12 @@ def main() -> int:
     plan_path = phase_plan_path(torch, np, pd, pa, bg, api, ff, col, TorchExecutionEngine(), args.seed,
                                 rows=args.rows, stream_rows=args.plan_stream_rows or args.rows)
     _release(torch)
+    plan_frame_, plan_exp = plan_path.pop("handover"), plan_path.pop("handover_oracle")
     analysis_path = phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, TorchExecutionEngine(),
-                                        plan_path.pop("handover"), stream_rows=args.plan_stream_rows or args.rows)
+                                        plan_frame_, stream_rows=args.plan_stream_rows or args.rows)
+    _release(torch)
+    obs_path = phase_obs_path(torch, np, pd, pa, bg, ff, col, TorchExecutionEngine(), plan_frame_, plan_exp)
+    del plan_frame_, plan_exp
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -3680,7 +4031,9 @@ def main() -> int:
                    "stream_path": {c: r["launches"][name] for c, r in stream_path["cells"].items()},
                    "plan_path": {c: r["launches"][name] for c, r in plan_path["cells"].items()},
                    "analysis_path": {c: r["launches"][name] + r.get("stream_launches", {}).get(name, 0)
-                                     for c, r in analysis_path["cells"].items()}}
+                                     for c, r in analysis_path["cells"].items()},
+                   "obs_path": {c: r["launches"][name] + r.get("stream_launches", {}).get(name, 0)
+                                for c, r in obs_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -3701,7 +4054,8 @@ def main() -> int:
             + sum(by_path["cogroup_path"].values())
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
-            + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values()),
+            + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
+            + sum(by_path["obs_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

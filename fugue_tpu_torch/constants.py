@@ -1,7 +1,7 @@
 """Configuration keys of the port, copied from ``fugue_tpu/constants.py``
 (:131-140, :41, :35, :471) and trimmed to the streaming keys, the host
 map's pool, the distinct's guard, the workflow's keys and their global
-defaults. The names are the JAX package's, so one
+defaults, and the resilience and observability keys (:49-127). The names are the JAX package's, so one
 conf dict drives either engine."""
 
 from ._utils.params import ParamDict
@@ -52,11 +52,49 @@ A10_WORKFLOW_KEYS = {
     "fugue.tpu.cache.enabled": "the result cache",
     "fugue.tpu.dist.enabled": "the distributed pass",
     "fugue.tpu.dist.board": "the distributed pass",
-    "fugue.tpu.retry.task.attempts": "task retries",
-    "fugue.tpu.fault.plan": "fault injection",
     "fugue.tpu.tuning.enabled": "the tuner",
-    "fugue.tpu.trace.dir": "the trace export",
 }
+# the retry knobs of the HTTP RPC server and the forked map pool
+# (``RetryPolicy.from_conf``'s default prefix ``fugue.tpu.retry``), which
+# the port does not have either: a run that sets one at all raises. A
+# workflow task's retries read ``fugue.tpu.retry.task.*``
+A10_RETRY_KEYS = tuple(
+    f"fugue.tpu.retry.{knob}"
+    for knob in ("attempts", "base", "multiplier", "max_backoff", "jitter")
+)
+
+# --- resilience (``fugue_tpu_torch/resilience``; ``fugue_tpu/constants.py``
+# :49-70). Attempts of one workflow task (default 1: fail fast); a retried
+# task re-reads the strong checkpoints its upstream tasks wrote. Its
+# backoff reads ``fugue.tpu.retry.task.base/multiplier/max_backoff/jitter``
+FUGUE_TPU_CONF_RETRY_TASK_ATTEMPTS = "fugue.tpu.retry.task.attempts"
+# the fault plan (grammar in ``resilience/fault.py``); also read from the
+# FUGUE_TPU_FAULT_PLAN environment variable
+FUGUE_TPU_CONF_FAULT_PLAN = "fugue.tpu.fault.plan"
+
+# --- observability (``fugue_tpu_torch/obs``; ``fugue_tpu/constants.py``
+# :72-127). The span tracer's switch (the FUGUE_TPU_TRACE environment
+# variable overrides it both ways)
+FUGUE_TPU_CONF_TRACE_ENABLED = "fugue.tpu.trace.enabled"
+# mirror spans opened with ``annotate=True`` into ``torch.profiler``
+# ranges of the same name (default true; only while tracing is on)
+FUGUE_TPU_CONF_TRACE_XLA = "fugue.tpu.trace.xla"
+# directory a workflow run writes one Chrome trace file into; unset: none
+FUGUE_TPU_CONF_TRACE_DIR = "fugue.tpu.trace.dir"
+# the span buffer's cap; later spans are dropped and counted
+FUGUE_TPU_CONF_TRACE_MAX_SPANS = "fugue.tpu.trace.max_spans"
+# the recovery-event log's switch and directory (FUGUE_TPU_EVENTS and
+# FUGUE_TPU_EVENTS_DIR override them)
+FUGUE_TPU_CONF_EVENTS_ENABLED = "fugue.tpu.events.enabled"
+FUGUE_TPU_CONF_EVENTS_DIR = "fugue.tpu.events.dir"
+# the resource sampler's switch (FUGUE_TPU_TELEMETRY overrides it), its
+# interval in seconds (default 0.25) and its ring's capacity in samples
+FUGUE_TPU_CONF_TELEMETRY_ENABLED = "fugue.tpu.telemetry.enabled"
+FUGUE_TPU_CONF_TELEMETRY_INTERVAL = "fugue.tpu.telemetry.interval"
+FUGUE_TPU_CONF_TELEMETRY_RING = "fugue.tpu.telemetry.ring_size"
+# the `workflow` label of every span-histogram sample during a run
+# (default: an 8-hex hash of the workflow's task uuids)
+FUGUE_TPU_CONF_TELEMETRY_WORKFLOW = "fugue.tpu.telemetry.workflow"
 
 # the plan optimizer (``fugue_tpu_torch/plan``), rewriting the task DAG at
 # ``FugueWorkflow.run``: the master switch and one switch a pass, all on by

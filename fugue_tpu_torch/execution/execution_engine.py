@@ -31,7 +31,16 @@ For the workflow: the ``SQLEngine`` facet (:124) and ``sql_engine``,
 ``create_default_sql_engine`` and ``set_sql_engine`` (:267-297), the
 yields (:932-943), and ``run_conf_scope`` (:238), which binds a run's
 conf over the engine's for the current context only, so a workflow's
-conf never leaks into the engine's."""
+conf never leaks into the engine's.
+
+Observability (:192-215, :417-540): construction applies the trace,
+telemetry and event conf (``fugue_tpu_torch/obs``) and registers the
+engine's resource probes; ``metrics`` is one ``MetricsRegistry`` over the
+engine's stats sources (``resilience``, ``plan``, ``analysis``, and the
+process-wide ``latency`` and ``telemetry``), read by ``stats()``, zeroed
+by ``reset_stats()`` and rendered by ``report()``. The JAX package's
+``cache`` and ``tuning`` sources come with the result cache and the
+tuner (ROADMAP.md A.10)."""
 
 import logging
 from abc import ABC, abstractmethod
@@ -176,7 +185,23 @@ class ExecutionEngine(ABC):
         self._stopped = False
         self._plan_stats: Any = None
         self._analysis_stats: Any = None
+        self._resilience_stats: Any = None
+        self._metrics: Any = None
         self._rpc_server: Any = None
+        # the trace switches (fugue.tpu.trace.* / FUGUE_TPU_TRACE), the
+        # resource sampler's (fugue.tpu.telemetry.* / FUGUE_TPU_TELEMETRY)
+        # and the event log's (fugue.tpu.events.*), then this engine's
+        # probes on the sampler
+        from ..obs import (
+            configure_events_from_conf,
+            configure_from_conf,
+            configure_sampler_from_conf,
+        )
+
+        configure_from_conf(self._conf)
+        configure_sampler_from_conf(self._conf)
+        configure_events_from_conf(self._conf)
+        self._register_resource_probes()
 
     @property
     def conf(self) -> ParamDict:
@@ -221,6 +246,106 @@ class ExecutionEngine(ABC):
 
                     self._plan_stats = PlanStats()
         return self._plan_stats
+
+    # ---- observability ----------------------------------------------------
+    @property
+    def metrics(self) -> Any:
+        """The engine's :class:`~fugue_tpu_torch.obs.MetricsRegistry` — one
+        surface over every stats object (resilience, plan and analysis on
+        every engine; pipeline on the torch engine)."""
+        if self._metrics is None:
+            with self._rlock:
+                if self._metrics is None:
+                    from ..obs import MetricsRegistry, get_sampler, get_span_metrics
+
+                    reg = MetricsRegistry()
+                    for name, source in self._stats_sources().items():
+                        reg.register(name, source)
+                    # process-wide, like the tracer feeding them, but mounted
+                    # here so stats() carries them and reset_stats() zeroes
+                    # their observations (series and probes stay)
+                    reg.register("latency", get_span_metrics)
+                    reg.register("telemetry", get_sampler)
+                    self._metrics = reg
+        return self._metrics
+
+    def _stats_sources(self) -> Dict[str, Callable[[], Any]]:
+        """Name → zero-arg provider of each of this engine's stats sources
+        (resolved at every read, so lazy sources stay lazy); subclasses
+        extend."""
+        return {
+            "resilience": lambda: self.resilience_stats,
+            "plan": lambda: self.plan_stats,
+            "analysis": lambda: self.analysis_stats,
+        }
+
+    def _register_resource_probes(self) -> None:
+        """Register this engine's probes on the process's resource sampler.
+        A probe binds the engine through a ``weakref``: once the engine is
+        collected it raises ``ProbeGone`` and the sampler drops it; a newer
+        engine's probe of the same name replaces an older one's."""
+        import weakref
+
+        from ..obs import get_sampler
+        from ..obs.sampler import ProbeGone
+
+        ref = weakref.ref(self)
+
+        def _bound(fn: Callable[["ExecutionEngine"], float]) -> Callable[[], float]:
+            def probe() -> float:
+                e = ref()
+                if e is None:
+                    raise ProbeGone()
+                return fn(e)
+
+            return probe
+
+        sampler = get_sampler()
+        for name, fn in self._resource_probe_fns().items():
+            sampler.register_probe(name, _bound(fn))
+
+    def _resource_probe_fns(self) -> Dict[str, Callable[["ExecutionEngine"], float]]:
+        """Name → (engine → value) probe map; subclasses extend. A probe
+        runs on the sampler's thread and must not create what it reads.
+        The JAX package's result-cache probes come with the cache."""
+        return {}
+
+    def stats(self) -> Dict[str, Any]:
+        """Every registered stats source as one dict."""
+        return self.metrics.as_dict()
+
+    def reset_stats(self) -> None:
+        """Reset every registered stats source: counters and observations
+        to zero; histogram series, sampler probes and the sampler's thread
+        stay."""
+        self.metrics.reset()
+
+    def report(self, top_n: int = 15) -> str:
+        """Plain-text report: the top spans of the process's tracer by
+        total wall, with p50/p95/p99 from the span-latency histograms, and
+        this engine's stats."""
+        from ..obs import get_span_metrics, get_tracer, render_report
+
+        return render_report(
+            get_tracer().records(),
+            self.stats(),
+            top_n=top_n,
+            span_metrics=get_span_metrics(),
+        )
+
+    @property
+    def resilience_stats(self) -> Any:
+        """Recovery counters (``fugue_tpu_torch/resilience``
+        ``ResilienceStats``): each task retry and checkpoint replay of a
+        workflow run on this engine counts here. Alias of
+        ``engine.stats()["resilience"]``."""
+        if self._resilience_stats is None:
+            with self._rlock:
+                if self._resilience_stats is None:
+                    from ..resilience import ResilienceStats
+
+                    self._resilience_stats = ResilienceStats()
+        return self._resilience_stats
 
     @property
     def analysis_stats(self) -> Any:

@@ -99,7 +99,8 @@ class PlanStats:
 
 
 class PlanReport:
-    """What one optimization run did — rendered by ``workflow.explain()``."""
+    """What one optimization run did — rendered by ``workflow.explain()``
+    and attached (as attrs) to the ``plan.optimize`` span."""
 
     def __init__(self, enabled: bool):
         self.enabled = enabled
@@ -123,6 +124,18 @@ class PlanReport:
     def note(self, msg: str) -> None:
         if msg not in self.notes:
             self.notes.append(msg)
+
+    def span_attrs(self) -> Dict[str, Any]:
+        return {
+            "enabled": self.enabled,
+            "cols_pruned": self.cols_pruned,
+            "filters_pushed": self.filters_pushed,
+            "verbs_fused": self.verbs_fused,
+            "bytes_skipped": self.bytes_skipped,
+            "segments_lowered": self.segments_lowered,
+            "verbs_absorbed": self.verbs_absorbed,
+            "udfs_translated": self.udfs_translated,
+        }
 
     @property
     def changed(self) -> bool:

@@ -4,9 +4,9 @@
 ``RPCHandler`` wraps the calling process's callables; ``RPCServer`` hands out
 ``RPCClient`` stubs that call back into the calling process. ``NativeRPCServer`` is
 the in-process implementation, the engine's default (``make_rpc_server``).
-The HTTP server of ``fugue_tpu/rpc/http.py`` imports the resilience and
-observability layers, and waits with them (ROADMAP.md A.10): a
-``fugue.rpc.server`` that names it raises ``NotImplementedError``.
+The HTTP server of ``fugue_tpu/rpc/http.py`` is not ported yet
+(ROADMAP.md A.10): a ``fugue.rpc.server`` that names it raises
+``NotImplementedError``.
 """
 
 import pickle

@@ -112,6 +112,7 @@ from ..exceptions import FugueInvalidOperation
 from ..execution.execution_engine import ExecutionEngine, MapEngine
 from ..execution.native_execution_engine import NativeExecutionEngine, PandasMapEngine
 from ..ops.join import MAX_BROADCAST_ROWS, device_expand_join, device_hash_join
+from ..obs import get_tracer, traced_verb
 from ..ops.random import uniform
 from ..ops.segment import (
     _DENSE_MAX_RANGE,
@@ -187,6 +188,7 @@ class TorchMapEngine(MapEngine):
             execution_engine._host_engine, parallelism_engine=execution_engine
         )
 
+    @traced_verb("engine.transform")
     def map_dataframe(
         self,
         df: Any,
@@ -482,8 +484,28 @@ class TorchExecutionEngine(ExecutionEngine):
         super().__init__(conf)
         self._device = resolve_device(device)
         self._host_engine = NativeExecutionEngine(conf)
+        # the host engine runs maps and joins on this engine's behalf: one
+        # counter sink, so their recoveries show on the engine the user holds
+        self._host_engine._resilience_stats = self.resilience_stats
         self._map_engine = TorchMapEngine(self)
         self._pipeline_stats = PipelineStats()
+
+    def _stats_sources(self) -> Dict[str, Callable[[], Any]]:
+        """The base sources and ``pipeline``. The JAX engine's
+        ``jit_cache`` has no counterpart here (no jit), and ``shuffle``
+        comes with the out-of-core shuffle (ROADMAP.md A.7)."""
+        return {**super()._stats_sources(), "pipeline": lambda: self._pipeline_stats}
+
+    def _resource_probe_fns(self) -> Dict[str, Callable[[Any], float]]:
+        """The base probes and the ingest pipeline's ``overlap_fraction``.
+        Registered from the base constructor, before ``_pipeline_stats``
+        exists, so it reads that attribute guarded."""
+
+        def overlap(e: Any) -> float:
+            ps = getattr(e, "_pipeline_stats", None)
+            return float(ps.as_dict()["overlap_fraction"]) if ps is not None else 0.0
+
+        return {**super()._resource_probe_fns(), "overlap_fraction": overlap}
 
     @property
     def device(self) -> torch.device:
@@ -523,6 +545,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
         return scope
 
+    @traced_verb("engine.to_df")
     def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
         """A pandas frame, an arrow table, a local frame, rows with a
         schema or a ``TorchDataFrame`` as a ``TorchDataFrame`` on this
@@ -576,17 +599,20 @@ class TorchExecutionEngine(ExecutionEngine):
         )
         return df
 
+    @traced_verb("engine.persist")
     def persist(self, df: Any, lazy: bool = False, **kwargs: Any) -> TorchDataFrame:
         tdf = self.to_df(df)
         if not lazy and tdf.device.type == "cuda":
             torch.cuda.synchronize(tdf.device)
         return tdf
 
+    @traced_verb("engine.broadcast")
     def broadcast(self, df: Any) -> TorchDataFrame:
         """On one device every frame is already whole: the same tensors,
         with the valid mask, null masks and encodings they carry."""
         return self.to_df(df)
 
+    @traced_verb("engine.repartition")
     def repartition(self, df: Any, partition_spec: PartitionSpec) -> Any:
         """The JAX engine's exchange (``repartition`` :779) sends each row
         to the shard its ``algo`` picks: by the hash of the keys (``hash``,
@@ -765,6 +791,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
     # ---- row-local verbs -------------------------------------------------------
 
+    @traced_verb("engine.filter")
     def filter(self, df: Any, condition: ColumnExpr, _plan: Any = None) -> TorchDataFrame:
         """Device filter: the condition becomes a validity mask — no rows
         move, downstream device verbs and the way to the host honor it.
@@ -803,6 +830,7 @@ class TorchExecutionEngine(ExecutionEngine):
                 mask = torch.zeros_like(mask)
         return mask
 
+    @traced_verb("engine.select")
     def select(
         self,
         df: Any,
@@ -918,6 +946,7 @@ class TorchExecutionEngine(ExecutionEngine):
             )
         )
 
+    @traced_verb("engine.dropna")
     def dropna(
         self, df: Any, how: str = "any", thresh: Optional[int] = None,
         subset: Optional[List[str]] = None,
@@ -953,6 +982,7 @@ class TorchExecutionEngine(ExecutionEngine):
             lambda h, d: h.dropna(d, how=how, thresh=thresh, subset=subset), tdf
         )
 
+    @traced_verb("engine.fillna")
     def fillna(self, df: Any, value: Any, subset: Optional[List[str]] = None) -> TorchDataFrame:
         """Frames whose every column is on the device: NaN floats and
         masked cells filled on the device (filled masks clear), the value
@@ -1001,6 +1031,7 @@ class TorchExecutionEngine(ExecutionEngine):
             )
         return self._host_call(lambda h, d: h.fillna(d, value, subset=subset), tdf)
 
+    @traced_verb("engine.aggregate")
     def aggregate(
         self,
         df: Any,
@@ -1194,6 +1225,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
     # ---- plan verbs (``fugue_tpu_torch/plan``) ---------------------------------
 
+    @traced_verb("engine.fused")
     def fused_apply(self, df: Any, steps: Any) -> DataFrame:
         """A fused chain of row-local verbs (``plan/fused.py``):
 
@@ -1272,7 +1304,14 @@ class TorchExecutionEngine(ExecutionEngine):
         if runner is None:
             self.plan_stats.inc("segments_fallback")
             return super().lowered_segment(dfs, steps, terminal, partition_spec, fingerprint)
-        with record_function("fugue::plan_segment"):
+        with record_function("fugue::plan_segment"), get_tracer().span(
+            "plan.segment",
+            cat="plan",
+            annotate=True,
+            segment=fingerprint,
+            terminal=terminal[0],
+            steps=len(steps),
+        ):
             res = runner()
         self.plan_stats.inc("segments_executed")
         return res
@@ -1453,6 +1492,12 @@ class TorchExecutionEngine(ExecutionEngine):
     # ---- joins -------------------------------------------------------------
 
     def join(self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None) -> DataFrame:
+        """One ``engine.join`` span (reference :1583) over :meth:`_join_impl`,
+        its ``strategy`` attribute naming the plan that ran."""
+        with get_tracer().span("engine.join", cat="engine", annotate=True) as sp:
+            return self._join_impl(df1, df2, how, on, sp)
+
+    def _join_impl(self, df1: Any, df2: Any, how: str, on: Optional[List[str]], sp: Any) -> DataFrame:
         """Hash joins on the device (``ops/join.py``): inner / left_outer /
         left_semi / left_anti by a probe of the hash-sorted right side when
         its keys are unique, by the 1:N/N:M expansion when they are not;
@@ -1473,6 +1518,7 @@ class TorchExecutionEngine(ExecutionEngine):
         if is_stream_frame(df1) or is_stream_frame(df2):
             res = streaming_hash_join(self, df1, df2, how, on)
             if res is not None:
+                sp.set(strategy="stream")
                 return res
         with record_function("fugue::join"):
             jt = parse_join_type(how)
@@ -1490,7 +1536,9 @@ class TorchExecutionEngine(ExecutionEngine):
             else:
                 res = self._cross_device(j1, j2, on)
             if res is not None:
+                sp.set(strategy="broadcast" if jt == "cross" else "device")
                 return res
+            sp.set(strategy="host")
             local1, local2 = self._host(j1), self._host(j2)
             with record_function("fugue::host_join"):
                 local = self._host_engine.join(local1, local2, how=how, on=on)
@@ -1818,6 +1866,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
     # ---- union and the set verbs ---------------------------------------------
 
+    @traced_verb("engine.union")
     def union(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
         """Device union: both frames' rows, one after the other, then the
         device ``distinct`` when ``distinct``. Dictionary columns unify into
@@ -1834,12 +1883,14 @@ class TorchExecutionEngine(ExecutionEngine):
             lambda h, a, b: h.union(a, b, distinct=distinct), j1, j2, span="fugue::host_union"
         )
 
+    @traced_verb("engine.subtract")
     def subtract(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
         """EXCEPT: with ``distinct`` over two NULL-free plain frames, the
         device anti join of their distinct rows on every column; otherwise
         the host engine (``fugue::host_setop``), which refuses EXCEPT ALL."""
         return self._set_op(df1, df2, distinct, "anti", "subtract")
 
+    @traced_verb("engine.intersect")
     def intersect(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
         """INTERSECT: with ``distinct`` over two NULL-free plain frames, the
         device semi join of their distinct rows on every column; otherwise
@@ -1860,6 +1911,7 @@ class TorchExecutionEngine(ExecutionEngine):
             lambda h, a, b: getattr(h, verb)(a, b, distinct=distinct), j1, j2, span="fugue::host_setop"
         )
 
+    @traced_verb("engine.distinct")
     def distinct(self, df: Any) -> TorchDataFrame:
         """SELECT DISTINCT. A frame whose every column is on the device
         runs the device groupby of all its columns with one presence count:
@@ -1900,6 +1952,7 @@ class TorchExecutionEngine(ExecutionEngine):
             res = _decode_partial_keys(tdf, res, mask_names)
         return self.to_df(PandasDataFrame(res[tdf.schema.names], tdf.schema))
 
+    @traced_verb("engine.sample")
     def sample(
         self, df: Any, n: Optional[int] = None, frac: Optional[float] = None,
         replace: bool = False, seed: Optional[int] = None,
@@ -1924,6 +1977,7 @@ class TorchExecutionEngine(ExecutionEngine):
             span="fugue::host_sample",
         )
 
+    @traced_verb("engine.take")
     def take(
         self, df: Any, n: int, presort: str, na_position: str = "last",
         partition_spec: Optional[PartitionSpec] = None,

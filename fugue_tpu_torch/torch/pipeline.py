@@ -21,9 +21,15 @@
 Spans for ``torch.profiler``: ``fugue::stream_chunk`` around the making of
 each chunk (decode, staging and the copy's launch, on the producer's
 thread) and ``fugue::stream_wait`` around the consumer's wait for it. They
-record nothing unless a profiler runs. The JAX package's tuner handle,
-fault injector and per-chunk tracer (``engine_prefetcher`` :682) are not
-ported (ROADMAP.md A.10).
+record nothing unless a profiler runs.
+
+``engine_prefetcher`` (reference :682-724) also arms the engine's fault
+plan at ``stream.chunk`` on the producer's side (a fault reaches the
+consumer as the producer's exception; the serial path has no such site,
+as in the JAX package) and, while the tracer (``fugue_tpu_torch/obs``) is
+on, wraps the chunks in :class:`_TracedChunks`, whose ``stream.chunk``
+spans open on the consuming thread, under the verb's span. The JAX
+package's tuner handle comes with the tuner (ROADMAP.md A.10).
 """
 
 import contextvars
@@ -38,6 +44,8 @@ import torch
 from torch.profiler import record_function
 
 from ..constants import FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH
+from ..obs import get_tracer
+from ..resilience import SITE_STREAM_CHUNK, FaultInjector
 
 DEFAULT_PREFETCH_DEPTH = 2
 
@@ -182,6 +190,7 @@ class ChunkPrefetcher:
         depth: int,
         stats: Optional[PipelineStats] = None,
         verb: str = "",
+        injector: Any = None,
     ):
         self._src = source
         self._depth = max(1, int(depth))
@@ -189,6 +198,7 @@ class ChunkPrefetcher:
         self._stop = threading.Event()
         self._stats = stats
         self._verb = verb
+        self._injector = injector
         self._chunks = 0
         self._rows = 0
         self._producer_busy = 0.0
@@ -216,6 +226,10 @@ class ChunkPrefetcher:
                         item = next(self._src)
                 except StopIteration:
                     break
+                if self._injector is not None:
+                    # the poison-chunk site: the fault must reach the
+                    # consumer, never hang the queue
+                    self._injector.fire(SITE_STREAM_CHUNK)
                 self._producer_busy += time.perf_counter() - t0
                 if not self._put(item):
                     return
@@ -254,8 +268,15 @@ class ChunkPrefetcher:
             self._finish()
             self.close()
             # the original exception object keeps its traceback: the
-            # producer's frames show where the chunk failed
-            raise obj.exc
+            # producer's frames show where the chunk failed. No local of
+            # this frame keeps it, or the frame and the exception would
+            # hold each other (and the chunks the frames hold) until a
+            # collection
+            exc, obj = obj.exc, None
+            try:
+                raise exc
+            finally:
+                exc = None
         self._chunks += 1
         self._rows += _rows_of(obj)
         return obj
@@ -289,24 +310,98 @@ class ChunkPrefetcher:
 
 
 def maybe_prefetch(
-    source: Iterator[Any], depth: int, stats: Optional[PipelineStats] = None, verb: str = ""
+    source: Iterator[Any],
+    depth: int,
+    stats: Optional[PipelineStats] = None,
+    verb: str = "",
+    injector: Any = None,
 ) -> Any:
     """``source`` behind a :class:`ChunkPrefetcher` (``depth > 0``) or the
     serial shim of the same interface (``depth <= 0``)."""
     if depth <= 0:
         return _SerialChunks(iter(source))
-    return ChunkPrefetcher(iter(source), depth, stats=stats, verb=verb)
+    return ChunkPrefetcher(iter(source), depth, stats=stats, verb=verb, injector=injector)
+
+
+class _TracedChunks:
+    """Per-chunk spans over a (possibly prefetched) chunk iterator.
+
+    Span ``stream.chunk`` #n opens on the consuming thread when chunk n is
+    handed over and closes when the consumer asks for chunk n+1 (or closes
+    the stream): it measures the downstream work on that chunk, nested in
+    the verb's span open on that thread. ``fetch_wait_ns`` is how long the
+    consumer waited for the chunk itself. The span also enters a
+    ``torch.profiler`` range of its name."""
+
+    def __init__(self, inner: Any, verb: str, tracer: Any):
+        self._inner = inner
+        self._verb = verb
+        self._tracer = tracer
+        self._open: Any = None
+        self._i = 0
+
+    def __iter__(self) -> "_TracedChunks":
+        return self
+
+    def _end_open(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+    def __next__(self) -> Any:
+        self._end_open()
+        t0 = time.perf_counter_ns()
+        item = next(self._inner)
+        sp = self._tracer.span(
+            "stream.chunk",
+            cat="stream",
+            annotate=True,
+            verb=self._verb,
+            chunk=self._i,
+            fetch_wait_ns=time.perf_counter_ns() - t0,
+            **_chunk_attrs(item),
+        )
+        sp.__enter__()
+        self._open = sp
+        self._i += 1
+        return item
+
+    def close(self) -> None:
+        self._end_open()
+        self._inner.close()
+
+
+def _chunk_attrs(item: Any) -> Dict[str, Any]:
+    """Rows (and bytes where cheap) of a chunk of any streamed shape:
+    ``(n, ...)`` tuples, pandas frames, arrow tables."""
+    try:
+        if isinstance(item, tuple) and len(item) > 0 and isinstance(item[0], int):
+            return {"rows": item[0]}
+        num_rows = getattr(item, "num_rows", None)  # pyarrow.Table
+        if isinstance(num_rows, int):
+            return {"rows": num_rows, "bytes": int(getattr(item, "nbytes", 0))}
+        if hasattr(item, "memory_usage") and hasattr(item, "__len__"):  # pandas
+            return {"rows": len(item), "bytes": int(item.memory_usage(index=False).sum())}
+    except Exception:
+        pass
+    return {}
 
 
 def engine_prefetcher(engine: Any, source: Iterator[Any], verb: str) -> Any:
-    """The streaming paths' prefetcher: depth from the engine's conf, runs
-    recorded in its ``pipeline_stats``."""
-    return maybe_prefetch(
+    """The streaming paths' prefetcher: depth and fault plan from the
+    engine's conf, runs recorded in its ``pipeline_stats``, and per-chunk
+    spans while the tracer is on."""
+    it = maybe_prefetch(
         source,
         prefetch_depth(engine.conf, engine.device),
         stats=engine.pipeline_stats,
         verb=verb,
+        injector=FaultInjector.from_conf(engine.conf),
     )
+    tracer = get_tracer()
+    if tracer.enabled:
+        return _TracedChunks(it, verb, tracer)
+    return it
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:

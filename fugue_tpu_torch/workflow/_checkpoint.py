@@ -6,8 +6,9 @@ temporary and permanent directories under
 ``fugue.workflow.checkpoint.path``.
 
 A strong checkpoint writes to a temporary name and renames it into place,
-so a reader never sees a half-written file. The fault injector the JAX
-package fires between the two is not ported (ROADMAP.md A.10)."""
+so a reader never sees a half-written file. The engine's fault plan fires
+at ``checkpoint.save`` between the two (reference :171-179): a fault there
+leaves no file at the final path."""
 
 import os
 import shutil
@@ -21,6 +22,7 @@ from ..constants import FUGUE_CONF_WORKFLOW_CHECKPOINT_PATH
 from ..dataframe import DataFrame
 from ..exceptions import FugueWorkflowCompileError, FugueWorkflowRuntimeError
 from ..execution.execution_engine import ExecutionEngine
+from ..resilience import SITE_CHECKPOINT_SAVE, FaultInjector
 
 
 def _atomic_publish(tmp: str, final: str) -> None:
@@ -169,6 +171,9 @@ class StrongCheckpoint(Checkpoint):
                         force_single=self.single,
                         **self.kwargs,
                     )
+                    # between the write and the publish: a fault here shows
+                    # that a torn checkpoint is never read as one
+                    FaultInjector.from_conf(engine.conf).fire(SITE_CHECKPOINT_SAVE)
                     _atomic_publish(tmp, fp)
                 finally:
                     if os.path.exists(tmp):  # failed before publish

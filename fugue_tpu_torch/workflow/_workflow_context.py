@@ -10,12 +10,23 @@ A task whose deterministic checkpoint exists loads it instead of running
 (resume). The plan optimizer may run clones of the compiled tasks:
 ``result_aliases`` maps a compiled task to the task that computes its
 result, and the handle of a result the rewrites removed raises
-(``fugue_tpu/workflow/_workflow_context.py`` :67, :111-120). Not ported (ROADMAP.md A.10): the result cache, the distributed
-pass, task retries and fault injection (:45-57, :120-160), the tracer's
-spans and the RPC server; ``FugueWorkflow.run`` refuses the conf keys that
-turn them on."""
+(``fugue_tpu/workflow/_workflow_context.py`` :67, :111-120).
+
+Resilience and spans (:20-55, :240-300, :367): the run's fault plan
+(``fugue.tpu.fault.plan``, one budget for the whole run) fires at
+``task.execute`` before each task body, and each task runs under the
+task ``RetryPolicy`` (``fugue.tpu.retry.task.*``, one attempt unless set):
+a failure that is not deterministic is retried, and each attempt first
+re-reads the task's strong checkpoint, so work that reached storage
+replays (``workflow.checkpoint_replays``) instead of running again. Each
+task is one ``workflow.task`` span, parented explicitly on the
+``workflow.run`` span so the tasks of pool threads nest under it too.
+Not ported (ROADMAP.md A.10): the result cache and the distributed pass
+(:120-160); ``FugueWorkflow.run`` refuses the conf keys that turn them
+on."""
 
 import contextvars
+import time
 import uuid as _uuid
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
 from typing import Any, Dict, List, Optional, Set
@@ -24,6 +35,8 @@ from ..constants import FUGUE_CONF_WORKFLOW_CONCURRENCY
 from ..dataframe import DataFrame
 from ..exceptions import FugueWorkflowError, FugueWorkflowRuntimeError
 from ..execution.execution_engine import ExecutionEngine
+from ..obs import get_tracer
+from ..resilience import SITE_TASK_EXECUTE, FaultInjector, RetryPolicy, classify_failure
 from ._checkpoint import CheckpointPath, StrongCheckpoint
 from ._tasks import FugueTask
 
@@ -38,6 +51,13 @@ class FugueWorkflowContext:
         self._results: Dict[int, DataFrame] = {}
         self._aliases: Dict[int, FugueTask] = {}
         self._removed: Set[int] = set()
+        # the fault budgets span the run: `error@1` fails one task once,
+        # not once an attempt
+        self._injector = FaultInjector.from_conf(conf)
+        self._task_policy = RetryPolicy.from_conf(
+            conf, prefix="fugue.tpu.retry.task", default_attempts=1
+        )
+        self._trace_root: Optional[str] = None
 
     @property
     def execution_engine(self) -> ExecutionEngine:
@@ -77,6 +97,9 @@ class FugueWorkflowContext:
         for t in tasks:
             for d in t.inputs:
                 self._consumers[id(d)] = self._consumers.get(id(d), 0) + 1
+        # the workflow.run span of this thread: tasks on pool threads, whose
+        # span stacks are empty, parent on it explicitly
+        self._trace_root = get_tracer().current_span_id()
         # the RPC server's start/stop is counted (RPCHandler._running), so
         # concurrent runs on one engine share one live server and the last
         # to finish stops it
@@ -126,12 +149,41 @@ class FugueWorkflowContext:
             raise first_error[0]
 
     def _run_task(self, task: FugueTask) -> None:
-        try:
-            self._run_task_once(task)
-        except Exception as ex:
-            if task.defined_at and hasattr(ex, "add_note"):
-                ex.add_note(f"[fugue-tpu-torch] failing task defined at {task.defined_at}")
-            raise
+        """One task under the task retry policy. A deterministic (POISON)
+        failure is never retried: the same inputs fail the same way."""
+        policy = self._task_policy
+        attempts = 0
+        with get_tracer().span(
+            "workflow.task",
+            cat="workflow",
+            parent=self._trace_root,
+            task=task.name or type(task).__name__,
+        ) as sp:
+            while True:
+                try:
+                    self._run_task_once(task)
+                    sp.set(attempts=attempts + 1)
+                    return
+                except Exception as ex:
+                    cat = classify_failure(ex)
+                    attempts += 1
+                    if not policy.should_retry(cat, attempts):
+                        sp.set(attempts=attempts)
+                        if task.defined_at and hasattr(ex, "add_note"):
+                            ex.add_note(
+                                f"[fugue-tpu-torch] failing task defined at {task.defined_at}"
+                            )
+                        raise
+                    self._engine.resilience_stats.inc("workflow.task_retries")
+                    self._engine.log.warning(
+                        "task %s failed with %s [%s]; retry %d/%d",
+                        task.name or type(task).__name__,
+                        type(ex).__name__,
+                        cat.value,
+                        attempts,
+                        policy.max_attempts - 1,
+                    )
+                    time.sleep(policy.delay(attempts, seed=task.__uuid__()))
 
     def _run_task_once(self, task: FugueTask) -> None:
         cp = task.checkpoint
@@ -139,14 +191,17 @@ class FugueWorkflowContext:
             tid = task.__uuid__()
             cp.set_id(tid)
             if cp.exists(self._checkpoint_path, tid):
-                df = cp.load(self._checkpoint_path)
-                if task.broadcast_flag:
-                    df = self._engine.broadcast(df)
-                if task.yield_dataframe_handler is not None:
-                    task.yield_dataframe_handler(df)
-                self._results[id(task)] = df
+                self._engine.resilience_stats.inc("workflow.checkpoint_replays")
+                with get_tracer().span("task.checkpoint_replay", cat="workflow", task_uuid=tid):
+                    df = cp.load(self._checkpoint_path)
+                    if task.broadcast_flag:
+                        df = self._engine.broadcast(df)
+                    if task.yield_dataframe_handler is not None:
+                        task.yield_dataframe_handler(df)
+                    self._results[id(task)] = df
                 return
         inputs = [self._results[id(d)] for d in task.inputs]
+        self._injector.fire(SITE_TASK_EXECUTE)
         result = task.execute(self, inputs)
         if result is not None:
             result = task.set_result(self, result)

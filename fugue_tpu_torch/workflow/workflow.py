@@ -10,8 +10,19 @@ optimizer (``fugue_tpu_torch/plan``) rewrites the DAG: filter pushdown,
 column pruning, verb fusion and segment lowering, each giving the result
 of the DAG as compiled; ``fugue.tpu.plan.optimize=false`` turns it off,
 ``explain()`` shows what it would do and ``last_plan_report`` what it
-did. The tracer, the tuner and the result cache are not ported (A.10)."""
+did.
 
+While the tracer (``fugue_tpu_torch/obs``) is on, a run is one
+``workflow.run`` span in a trace scope of its own, after a
+``plan.optimize`` span, and its span metrics carry ``workflow`` and
+``run`` labels; ``fugue.tpu.trace.dir`` writes one Chrome trace file a
+run, and ``timeline()`` renders the run's recovery events. The tuner and
+the result cache are not ported (A.10)."""
+
+import hashlib
+import os
+import uuid as _uuid
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional
 
 from torch.profiler import record_function
@@ -27,12 +38,15 @@ from ..column import SelectColumns as ColSelectColumns
 from ..constants import (
     FUGUE_CONF_WORKFLOW_AUTO_PERSIST,
     FUGUE_CONF_WORKFLOW_AUTO_PERSIST_VALUE,
+    FUGUE_TPU_CONF_EVENTS_DIR,
+    FUGUE_TPU_CONF_TELEMETRY_WORKFLOW,
+    FUGUE_TPU_CONF_TRACE_DIR,
 )
 from ..dataframe import DataFrame, YieldedDataFrame
 from ..exceptions import FugueWorkflowCompileError, FugueWorkflowError
 from ..execution.execution_engine import ExecutionEngine
 from ..execution.factory import make_execution_engine
-from ..constants import A10_WORKFLOW_KEYS
+from ..constants import A10_RETRY_KEYS, A10_WORKFLOW_KEYS
 from ..extensions._builtins import creators as bc
 from ..extensions._builtins import outputters as bo
 from ..extensions._builtins import processors as bp
@@ -848,16 +862,76 @@ class FugueWorkflow:
         ctx = FugueWorkflowContext(e, conf=plan_conf)
         self._last_context = ctx
         self._apply_auto_persist(e, plan_conf)
+        from ..obs import current_trace_id, get_tracer, run_labels, trace_scope
         from ..plan import optimize_tasks
 
-        with record_function("fugue::plan_optimize"):
+        tracer = get_tracer()
+        with record_function("fugue::plan_optimize"), tracer.span(
+            "plan.optimize", cat="plan", tasks=len(self._tasks)
+        ) as psp:
             run_tasks, aliases, removed, report = optimize_tasks(
                 self._tasks, plan_conf, stats=e.plan_stats, analysis_stats=e.analysis_stats
             )
+            psp.set(**report.span_attrs())
         self._last_plan_report = report
-        with e.run_conf_scope(self._conf), e._as_context(borrowed=True):
-            ctx.run(run_tasks, result_aliases=aliases, removed_results=removed)
+        # while tracing is on, every span-metric sample of the run carries
+        # its workflow and run labels (the workflow's: a hash of the task
+        # uuids, the same across runs of one DAG, unless the conf names
+        # one), and the run is one trace: a new id, or the one of an
+        # enclosing trace scope
+        run_attrs: Dict[str, Any] = {}
+        run_ctx: Any = nullcontext()
+        trace_ctx: Any = nullcontext()
+        if tracer.enabled:
+            wf_label = str(plan_conf.get(FUGUE_TPU_CONF_TELEMETRY_WORKFLOW, "")) or (
+                "wf-"
+                + hashlib.sha1("|".join(t.__uuid__() for t in self._tasks).encode()).hexdigest()[:8]
+            )
+            run_attrs = {"workflow": wf_label, "run": _uuid.uuid4().hex[:8]}
+            run_ctx = run_labels(**run_attrs)
+            self._last_trace_id = current_trace_id() or _uuid.uuid4().hex[:16]
+            run_attrs["trace"] = self._last_trace_id
+            trace_ctx = trace_scope(self._last_trace_id)
+        try:
+            with e.run_conf_scope(self._conf), e._as_context(borrowed=True):
+                with trace_ctx, run_ctx, tracer.span(
+                    "workflow.run", cat="workflow", tasks=len(run_tasks), **run_attrs
+                ):
+                    ctx.run(run_tasks, result_aliases=aliases, removed_results=removed)
+        finally:
+            self._maybe_export_trace(e, tracer, plan_conf)
         return FugueWorkflowResult(self._yields)
+
+    def _maybe_export_trace(self, engine: Any, tracer: Any, conf: ParamDict) -> None:
+        """With the tracer on and ``fugue.tpu.trace.dir`` set in the run's
+        conf, write the tracer's spans there as one Chrome trace file."""
+        trace_dir = conf.get(FUGUE_TPU_CONF_TRACE_DIR, "")
+        if not tracer.enabled or trace_dir == "":
+            return
+        from ..obs import write_chrome_trace
+
+        try:
+            path = os.path.join(trace_dir, f"fugue_trace_{_uuid.uuid4().hex[:8]}.json")
+            write_chrome_trace(path, tracer.records())
+            engine.log.info("workflow trace exported to %s", path)
+        except Exception as ex:  # an export never fails the run
+            engine.log.warning("trace export failed: %s", ex)
+
+    def timeline(self, events_dir: Optional[str] = None, conf: Any = None) -> str:
+        """The recovery events of the last run (``obs/events.py``), merged
+        from every process's event file under ``events_dir`` (default: the
+        FUGUE_TPU_EVENTS_DIR environment variable, then the run conf's
+        ``fugue.tpu.events.dir``) and filtered to the run's trace id."""
+        from ..obs import read_events, render_timeline
+
+        if events_dir is None:
+            events_dir = os.environ.get("FUGUE_TPU_EVENTS_DIR", "")
+            if not events_dir:
+                merged = self._merged_plan_conf(conf, getattr(self, "_last_engine", None))
+                events_dir = str(merged.get(FUGUE_TPU_CONF_EVENTS_DIR, ""))
+        if not events_dir:
+            return "(no events dir configured — set fugue.tpu.events.dir)"
+        return render_timeline(read_events(events_dir), trace=getattr(self, "_last_trace_id", None))
 
     def plan_report(self, conf: Any = None, engine: Any = None) -> Any:
         """The ``PlanReport`` of what the plan optimizer would do to this
@@ -990,11 +1064,15 @@ def _refuse_a10(conf: ParamDict) -> None:
         v = conf.get(key, None)
         if isinstance(v, str):
             v = v.strip().lower() not in ("", "0", "false", "no", "off")
-        elif isinstance(v, (int, float)) and not isinstance(v, bool):
-            v = v > 1 if key.endswith("attempts") else v != 0
         if v:
             raise NotImplementedError(
                 f"{key}={conf[key]!r}: {what} of the workflow is not ported (ROADMAP.md A.10)"
+            )
+    for key in A10_RETRY_KEYS:
+        if key in conf:
+            raise NotImplementedError(
+                f"{key}={conf[key]!r}: the retries of the HTTP server and the map pool are not "
+                "ported (ROADMAP.md A.10); a workflow task's read fugue.tpu.retry.task.*"
             )
 
 

@@ -43,7 +43,7 @@ from fugue_tpu_torch import api
 from fugue_tpu_torch import dataframe as tdf
 from fugue_tpu_torch import workflow as twf
 from fugue_tpu_torch.collections import PartitionSpec
-from fugue_tpu_torch.constants import A10_WORKFLOW_KEYS
+from fugue_tpu_torch.constants import A10_RETRY_KEYS, A10_WORKFLOW_KEYS
 from fugue_tpu_torch.execution import ExecutionEngine, NativeExecutionEngine
 from fugue_tpu_torch.torch import TorchExecutionEngine
 
@@ -584,14 +584,29 @@ def test_cotransform_zip_and_callbacks_are_refused(jax_engine, port_engine, tmp_
 
 @pytest.mark.parametrize("key", sorted(A10_WORKFLOW_KEYS))
 def test_a10_workflow_services_are_refused(key, port_engine):
-    value = 3 if key.endswith("attempts") else ("/some/dir" if key.endswith(("dir", "board", "plan")) else True)
-    dag = twf.FugueWorkflow({key: value})
+    dag = twf.FugueWorkflow({key: "/some/dir" if key.endswith("board") else True})
     dag.df([[1]], "a:long").show()
     with pytest.raises(NotImplementedError, match="A.10"):
         dag.run(port_engine)
-    off = twf.FugueWorkflow({key: 1 if key.endswith("attempts") else False})
+    off = twf.FugueWorkflow({key: False})
     off.df([[1]], "a:long").show()
     off.run(port_engine)
+
+
+@pytest.mark.parametrize("key", A10_RETRY_KEYS)
+def test_a10_retry_knobs_are_refused(key, port_engine):
+    """The server's and the map pool's retry knobs have no reader in the
+    port: set at all, on the workflow or the engine, they make a run raise;
+    the task's own knob of the same name is read."""
+    for dag, eng in ((twf.FugueWorkflow({key: 0}), port_engine),
+                     (twf.FugueWorkflow(), NativeExecutionEngine({key: 0.5}))):
+        dag.df([[1]], "a:long").show()
+        with pytest.raises(NotImplementedError, match="A.10"):
+            dag.run(eng)
+    task_key = key.replace("fugue.tpu.retry.", "fugue.tpu.retry.task.")
+    ok = twf.FugueWorkflow({task_key: 1})
+    ok.df([[1]], "a:long").yield_dataframe_as("r", as_local=True)
+    assert ok.run(port_engine)["r"].result.as_array() == [[1]]
 
 
 # ---- what the port adds: threads, run-scoped conf, modules, the registry -----------
