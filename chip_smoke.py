@@ -99,7 +99,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``FugueWorkflow``: ``dag.zip(a, b, partition={"by": ["k"]})
    .transform(cogroup)``), ``sql-cogroup-uniform-1k`` (the same as
    FugueSQL ``TRANSFORM a, b PREPARTITION BY k USING cogroup``) and
-   ``stream-cogroup`` (a key-sorted stream cut in scale to 2·10^7 rows in
+   ``stream-cogroup`` (a key-sorted stream cut in scale to 8·10^6 rows in
    chunks of 4·10^6, ``--cogroup-stream-rows``, zipped with a bounded
    frame of 10^4 rows in shuffled order), each against a ``np.bincount``
    oracle with the launch counts set to 0 just before and read just after
@@ -197,7 +197,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    B1 once a chunk; off and on) and ``fault-retry`` (``task.execute``
    failing once, two attempts a task: the untraced run's result and one
    retry counted; then ``stream.chunk`` failing with no retry: the
-   injected error, no producer thread left, the device bytes back).
+   injected error, no producer thread left, the device bytes back);
+19. services_path: the profiler hooks, the HTTP RPC server and the host
+   map's fork pool, one line a cell: ``profiled-lowered`` (plan_path's
+   lowered workflow inside ``profiled_engine_context`` and an
+   ``annotate`` region, tracing off: the oracle, B1 once, the written
+   Chrome trace holding one ``plan.segment`` range with B1's kernel inside
+   and no ``fugue::plan_segment``), ``http-callback-1k`` (analysis_path's
+   ``callback-1k`` with ``fugue.rpc.server`` naming the port's
+   ``HttpRPCServer`` on loopback, beside the in-process cell; then
+   ``rpc.request`` failing once under two attempts: one retry),
+   ``http-scrape`` (``/metrics``, ``/metrics/snapshot``, ``/healthz``,
+   ``/readyz``, ``/stats`` from the server the engine bound, after traced
+   lowered calls that ``/metrics`` counts), ``pool-demean-1m``
+   (BASELINE.json config #1 with ``fugue.tpu.map.parallelism`` at
+   ``min(8, cpu_count)`` beside its serial twin), ``pool-demean-device-10m``
+   (``demean-dense``'s frame cut in scale to 10^7 rows, on the card,
+   forked after CUDA is initialized: oracle, twin, the copies and the
+   pooled pandas apart) and ``pool-kill`` (a worker SIGKILLed: the twin's
+   result, the recovery counted, no child left).
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
@@ -241,6 +259,9 @@ TRANSFORM_RTOL, TRANSFORM_ATOL, RIDGE_ATOL = 1e-5, 1e-8, 1e-6
 # 7.5e-9, and a prefix sum taken in another order is off by a few
 RUNNING_SUM_ATOL = 1e-6
 TRACE_WINDOW_MS = 20  # transform_path: trace as many calls as fill this
+# the engine's profiler ranges: its sub-verb steps, and the regions it
+# names as the span tracer does (plan.segment, engine.join, engine.fused)
+ENGINE_RANGES = ("fugue::", "engine.", "plan.")
 TRANSFORM_KEYS, HPO_CONFIGS = 1000, 32
 KERNEL_BUCKETS = (2, 5, 130, 1024, 12_289, 1 << 18, (1 << 20) + 3)
 KERNEL_ROWS, KERNEL_ROWS_LARGE = (1 << 20) + 37, (1 << 16) + 37  # above 2**18 buckets
@@ -713,7 +734,8 @@ def _trace(torch, fn, calls: int = 1, all_threads: bool = False, warm_up=None) -
     """``calls`` calls of ``fn`` under ``torch.profiler`` (one unless a call
     is too short to trace alone): per call, the device's busy and idle
     share of the wall time, the top device operations, and the host time of
-    the engine's ``fugue::`` spans. With ``all_threads`` the spans of every
+    the engine's ranges (``fugue::*``, and ``engine.join``, ``engine.fused``
+    and ``plan.segment``, which it opens with tracing off too). With ``all_threads`` the spans of every
     thread are recorded (the stream's producer threads), where this
     PyTorch's profiler offers it (``"all_threads"`` in the result says).
 
@@ -743,12 +765,12 @@ def _trace(torch, fn, calls: int = 1, all_threads: bool = False, warm_up=None) -
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
         prof.step()
     events = prof.key_averages()
-    # the engine's spans and the profiler's step appear on the device side
+    # the engine's ranges and the profiler's step appear on the device side
     # too, holding the device time of kernels inside them: only kernels and
     # copies count as busy
     device = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-              and not e.key.startswith(("fugue::", "ProfilerStep"))]
+              and not e.key.startswith(ENGINE_RANGES + ("ProfilerStep",))]
     device.sort(key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in device) / 1e3 / calls
     return {
@@ -761,7 +783,7 @@ def _trace(torch, fn, calls: int = 1, all_threads: bool = False, warm_up=None) -
         "by_kernel": [{"name": e.key[:80], "ms": e.device_time_total / 1e3 / calls,
                        "calls": e.count / calls} for e in device[:10]],
         "host_spans_ms": {e.key: e.cpu_time_total / 1e3 / calls for e in events
-                          if e.key.startswith("fugue::") and e.device_type == torch.autograd.DeviceType.CPU},
+                          if e.key.startswith(ENGINE_RANGES) and e.device_type == torch.autograd.DeviceType.CPU},
     }
 
 
@@ -1406,7 +1428,10 @@ def phase_window_path(torch, np, pd, bg, api, engine, tdf, arrays: dict) -> dict
 COGROUP_ROWS, COGROUP_B_ROWS = 20_000_000, 1_000_000
 COGROUP_KEYS, COGROUP_B_KEYS = 1_000, 1_100  # the second frame holds 100 keys the first lacks
 COGROUP_REPS = 3  # medians of 3 calls, after the checked one
-COGROUP_STREAM_ROWS, COGROUP_STREAM_CHUNK = 20_000_000, 4_000_000  # cut in scale, as setop_path's streams
+# the stream cut in scale, as setop_path's streams, then from 2·10^7 to
+# 8·10^6 rows (2 chunks: keys still cross a chunk's end) to make room for
+# services_path under the budget
+COGROUP_STREAM_ROWS, COGROUP_STREAM_CHUNK = 8_000_000, 4_000_000
 COGROUP_STREAM_KEYS = 10_000  # ascending keys; the bounded frame holds each once, shuffled
 COGROUP_SCHEMA = "k:long,n_a:long,sum_v:double,n_b:long,mean_w:double"
 COGROUP_SQL = f"r = TRANSFORM a, b PREPARTITION BY k USING cogroup SCHEMA {COGROUP_SCHEMA}"
@@ -2390,6 +2415,23 @@ def _first_call(torch, bg, fn) -> tuple:
     return res, out
 
 
+def _traced_first_call(torch, bg, fn, warm_up) -> tuple:
+    """``(fn(), line, profile)``: the first call, traced (``_trace`` with
+    ``warm_up`` as its warm-up step), with ``_first_call``'s line; for a
+    call long enough to be its own timing, run once."""
+    got = {}
+    for k in bg.LAUNCHES:
+        bg.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profile = _trace(torch, lambda: got.update(r=_synced(torch, fn)), warm_up=warm_up)
+    res, syncs = got.pop("r")
+    line = {"launches": dict(bg.LAUNCHES), "first_call_s": profile["wall_ms"] / 1e3,
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "host_syncs": len(_port_syncs(syncs)), "host_sync_lines": syncs}
+    return res, line, profile
+
+
 def _time_and_trace(torch, fn, out: dict, rows_left: int, reps: int = JOIN_REPS) -> dict:
     """``out`` with the median and range of ``reps`` calls of ``fn``, the
     left rows a second, and one traced call."""
@@ -2609,8 +2651,8 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
     past ``MAX_EXPAND_ROWS``: the join the JAX engine makes on its host).
     Each is held against a host oracle with its kernel launches counted
     from 0, timed, and traced once (idle share, device operations, and the
-    D2H, pandas and H2D steps apart); the two large cells time their
-    traced call, so each runs its UDF or join twice."""
+    D2H, pandas and H2D steps apart); the two large cells check, time and
+    trace one call, so each runs its UDF or join once."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2684,15 +2726,15 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
         return api.transform(tdf, demean, schema="*", partition={"by": ["k"]}, engine=engine,
                              as_fugue=True)
 
-    res, line = _first_call(torch, bg, big_call)
+    # one call is long enough to trace alone: a tiny op is the warm-up step.
+    # The traced call is the checked and the timed one (host-bound: the
+    # profiler records the torch ops, not pandas), so the UDF runs once
+    res, line, profile = _traced_first_call(torch, bg, big_call,
+                                            warm_up=lambda: torch.ones(1, device=engine.device) + 1)
     require(res.valid_mask is None and res.count() == rows, "pandas-demean-100m: rows")
     check_demean(np, "pandas-demean-100m", res.device_cols["k"], res.device_cols["v"],
                  cols["k"], cols["v"], torch=torch)
     del res
-    # one call is long enough to trace alone: a tiny op is the warm-up step.
-    # The traced call is the timed one (host-bound: the profiler records
-    # the torch ops, not pandas), so the cell runs the UDF twice, not three times
-    profile = _trace(torch, big_call, warm_up=lambda: torch.ones(1, device=engine.device) + 1)
     ms = profile["wall_ms"]
     line.update(rows=rows, groups=TRANSFORM_KEYS, generate_s=generate_s, ms=ms, rows_per_s=rows / ms * 1e3,
                 compiled_ms=compiled_ms, copies_bytes={"d2h": 16 * rows, "h2d": 16 * rows},
@@ -2716,14 +2758,14 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
         return api.join(odf, lineitem, how="inner", on=["l_orderkey"], engine=engine)
 
     joins = _Calls(engine._host_engine, "join")
-    res, line = _first_call(torch, bg, join_call)
+    res, line, profile = _traced_first_call(torch, bg, join_call,
+                                            warm_up=lambda: torch.ones(1, device=engine.device) + 1)
     require(joins.count == 1, "orders-lineitem-expand-sf10: not the host join")
     joins.restore()
     check_expand(np, pa, res, tbl, aux, oaux)
     rows_out = res.count()
     del res
-    profile = _trace(torch, join_call, warm_up=lambda: torch.ones(1, device=engine.device) + 1)
-    ms = profile["wall_ms"]  # the traced call is the timed one, as above
+    ms = profile["wall_ms"]  # the traced call is the checked and the timed one, as above
     d2h = _tensor_bytes(_frame_tensors(odf)) + _tensor_bytes(_frame_tensors(lineitem))
     line.update(plan="host", rows_in=[odf.count(), lineitem.count()], rows_out=rows_out,
                 generate_s=generate_s, ingest_s=ingest_s, ms=ms, left_rows_per_s=odf.count() / ms * 1e3,
@@ -3909,6 +3951,7 @@ def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows
                 "phase_s_so_far": time.perf_counter() - start}
         emit(line)
         out["cells"]["fault-retry"] = line
+        out["handover"] = tdf  # services_path profiles the same frame
         del tdf, tbl, teng, seng
     finally:
         tracer.disable()
@@ -3916,6 +3959,359 @@ def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows
         metrics.clear()
         sampler.stop()
         sampler.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# services_path: the profiler hooks, the HTTP RPC server and the host map's
+# fork pool, on plan_path's frame and config #1's
+SERVICES_REPS = 3  # medians of 3 calls, after the checked one
+SERVICES_TRACED_CALLS = 3  # http-scrape: traced lowered calls its /metrics counts
+POOL_DEVICE_ROWS = 10_000_000  # pool-demean-device-10m: demean-dense's frame cut in scale from 10^8
+SERVICES_ROUTES = ("/metrics", "/metrics/snapshot", "/healthz", "/readyz", "/stats")
+HTTP_SERVER = "fugue_tpu_torch.rpc.http.HttpRPCServer"
+SERVICES_FAULT_RPC = {"fugue.tpu.fault.plan": "rpc.request=error:TimeoutError", "fugue.tpu.retry.rpc.attempts": 2,
+                      "fugue.tpu.retry.rpc.base": 0.01}
+
+
+def _child_pids() -> list:
+    """The pids whose parent is this process (``/proc``)."""
+    import os
+
+    me, out = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+                out.append(int(entry))
+    return out
+
+
+def _same_frames(np, got, exp, what: str) -> None:
+    """Two pandas results of one UDF, equal row for row in (k, v) order."""
+    g, e = got.sort_values(["k", "v"]).reset_index(drop=True), exp.sort_values(["k", "v"]).reset_index(drop=True)
+    require(list(g.columns) == list(e.columns) and len(g) == len(e), f"{what}: {len(g)} rows vs {len(e)}")
+    for c in g.columns:
+        require(np.array_equal(g[c].to_numpy(), e[c].to_numpy()), f"{what}: {c} vs the serial twin")
+
+
+def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, device, pdf, exp, seed: int,
+                        tdf=None, lowered_ms=None, callback_ms=None, callback_rows: int = CALLBACK_ROWS,
+                        udf_rows: int = UDF_ROWS, device_rows: int = POOL_DEVICE_ROWS, workers=None) -> dict:
+    """The profiler hooks, the HTTP RPC server and the host map's fork pool
+    on the card, one line a cell; launch counts set to 0 just before each
+    checked call and read just after:
+
+    - ``profiled-lowered``: plan_path's lowered workflow over ``pdf``
+      (``exp`` its oracle; ``tdf``, when given, is ``pdf`` already on the
+      card) inside ``profiled_engine_context(engine,
+      conf={"fugue.tpu.profile.dir": d})`` and an ``annotate`` region, with
+      tracing off: the oracle, B1 once, and the written Chrome trace holding
+      one ``plan.segment`` range with B1's kernel inside it and no
+      ``fugue::plan_segment``; its ms beside ``lowered_ms``, the file's bytes;
+    - ``http-callback-1k``: analysis_path's ``callback-1k`` with
+      ``fugue.rpc.server`` naming the port's ``HttpRPCServer`` on loopback:
+      the rows and the calls, the median of ``SERVICES_REPS`` calls beside
+      ``callback_ms``; then one call with ``rpc.request`` failing once under
+      two attempts: the same answer, one retry counted by the server;
+    - ``http-scrape``: ``SERVICES_TRACED_CALLS`` traced lowered calls, then
+      ``SERVICES_ROUTES`` fetched from the server the engine bound:
+      ``/metrics`` through the Prometheus validator, its ``plan.segment``
+      histogram counting the traced calls; ``/readyz`` 200 with
+      ``serve_bound: false``; each fetch's ms;
+    - ``pool-demean-1m``: host_path's ``pandas-demean-1m`` (BASELINE.json
+      config #1, ``udf_rows`` rows, pandas in and out) with
+      ``fugue.tpu.map.parallelism`` at ``workers`` (``min(8, cpu_count)``)
+      beside its serial twin: equal results, the medians, and the
+      ``map.worker_chunk`` spans that came home;
+    - ``pool-demean-device-10m``: transform_path's ``demean-dense`` frame
+      cut to ``device_rows`` rows, made on the card, through the pool after
+      CUDA is initialized: the float64 oracle, equal to the serial twin, back
+      on the card; the split into copy to host, pooled pandas, copy back;
+    - ``pool-kill``: ``pool-demean-1m`` with ``map.chunk=kill``: one worker
+      SIGKILLed, its chunk retried on a fresh pool, the result equal, and no
+      child process left.
+
+    The tracer is process-wide: the phase turns it off and empties it at
+    its end. No pool or server error is caught here."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import urllib.request
+    from pathlib import Path
+
+    from fugue_tpu_torch.obs import get_span_metrics, get_tracer, validate_prometheus_text
+    from fugue_tpu_torch.parallel.profiler import annotate, profiled_engine_context
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    out = {"phase": "services_path", "cells": {}}
+    on_card = device.type == "cuda"
+    tracer, metrics = get_tracer(), get_span_metrics()
+    workers = workers or min(8, os.cpu_count() or 1)
+    aggs = dict(s=ff.sum(col("z")), n=ff.count(col("z")), m=ff.avg(col("z")),
+                lo=ff.min(col("z")), hi=ff.max(col("z")))
+
+    def chain(src, conf=None):
+        dag = FugueWorkflow(conf)
+        (dag.df(src).filter(col("v") > 0.25).select(col("k"), (col("v") * col("w")).alias("z"))
+         .partition_by("k").aggregate(**aggs).yield_dataframe_as("r"))
+        return dag
+
+    def run(eng, dag):
+        dag.run(eng)
+        return dag.yields["r"].result
+
+    def zero():
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+
+    def emit_cell(cell: str, line: dict) -> None:
+        line = {"phase": "services_path", "cell": cell, **line, "phase_s_so_far": time.perf_counter() - start}
+        emit(line)
+        out["cells"][cell] = line
+
+    tmp = Path(tempfile.mkdtemp(prefix=".services_path_", dir=Path(__file__).resolve().parent))
+    try:
+        # profiled-lowered: one capture of the lowered call, tracing off
+        heng = TorchExecutionEngine(device=device, conf={"fugue.rpc.server": HTTP_SERVER})
+        tracer.disable()
+        t0 = time.perf_counter()
+        tdf = heng.persist(heng.to_df(pdf if tdf is None else tdf))
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        with profiled_engine_context(heng, conf={"fugue.tpu.profile.dir": str(tmp / "warm")}):
+            # the first call, in a capture of its own: a first capture may drop kernels
+            got = run(heng, chain(tdf)).as_pandas().sort_values("k").reset_index(drop=True)
+        _check_agg(np, got, exp, "profiled-lowered")
+        zero()
+        torch.cuda.synchronize()
+        t_capture = time.perf_counter()
+        with profiled_engine_context(heng, conf={"fugue.tpu.profile.dir": str(tmp / "profile")}) as e, \
+                annotate("services.profiled-lowered"):
+            t0 = time.perf_counter()
+            res = run(e, chain(tdf))
+            res.count()
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+        capture_ms = (time.perf_counter() - t_capture) * 1e3
+        launches = dict(bg.LAUNCHES)
+        got = res.as_pandas().sort_values("k").reset_index(drop=True)
+        _check_agg(np, got, exp, "profiled-lowered")
+        require(launches == {"bin_sum": 1 if on_card else 0, "bin_sum_count": 0},
+                f"profiled-lowered: launches {launches}")
+        files = sorted((tmp / "profile").glob("*.json"))
+        require(len(files) == 1, f"profiled-lowered: {len(files)} trace files")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        region = sum(1 for ev in events if ev.get("name") == "services.profiled-lowered" and ev.get("ph") == "X")
+        ranges = profiled_ranges(str(files[0]), "plan.segment", "binned_")
+        old = profiled_ranges(str(files[0]), "fugue::plan_segment", "binned_")["ranges"]
+        require(region >= 1 and ranges["ranges"] == 1 and old == 0,
+                f"profiled-lowered: region {region}, plan.segment {ranges}, fugue::plan_segment {old}")
+        if on_card:
+            require(ranges["kernels"] == 1 and ranges["inside"] == 1, f"profiled-lowered: B1 in the trace {ranges}")
+        emit_cell("profiled-lowered", {
+            "rows": len(pdf), "ingest_s": ingest_s, "launches": launches, "ms": profiled_ms,
+            "capture_ms": capture_ms, "lowered_uniform_1k_ms": lowered_ms, "trace_file_bytes": files[0].stat().st_size,
+            "trace_events": len(events), "annotate_ranges": region, "profile_ranges": ranges,
+            "fugue_plan_segment_ranges": old,
+            "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; one plan.segment "
+                      "range holding B1's kernel, no fugue::plan_segment"})
+        del got, res
+
+        # http-callback-1k: callbacks over the HTTP server on loopback
+        small = pdf.iloc[:callback_rows]
+        calls = {"calls": 0, "rows": 0}
+
+        def counter(n: int) -> None:
+            calls["calls"] += 1
+            calls["rows"] += n
+
+        def by_key(eng):
+            calls.update(calls=0, rows=0)
+            dag = FugueWorkflow()
+            dag.df(small).partition_by("k").transform(report_rows, schema="*", callback=counter).yield_dataframe_as("r")
+            dag.run(eng)
+            return dag.yields["r"].result.count()
+
+        keys = int(small["k"].nunique())
+        zero()
+        ms_all, n_out = [], []
+        for _ in range(SERVICES_REPS):
+            ms_all += _wall_ms(torch, lambda: n_out.append(by_key(heng)), 1)
+            require(calls == {"calls": keys, "rows": len(small)} and n_out[-1] == len(small),
+                    f"http-callback-1k: {calls}, {n_out[-1]} rows out over {keys} keys")
+        h_launches = dict(bg.LAUNCHES)
+        require(type(heng.rpc_server).__name__ == "HttpRPCServer" and not heng.rpc_server.running,
+                f"http-callback-1k: server {heng.rpc_server}")
+        feng = TorchExecutionEngine(device=device, conf={"fugue.rpc.server": HTTP_SERVER, **SERVICES_FAULT_RPC})
+        f_out = by_key(feng)
+        retries = feng.rpc_server.resilience_stats.as_dict()
+        require(f_out == len(small) and calls == {"calls": keys, "rows": len(small)} and retries == {"rpc.retries": 1},
+                f"http-callback-1k fault: {calls}, {f_out} rows, {retries}")
+        emit_cell("http-callback-1k", {
+            "rows": len(small), "keys": keys, "callback": calls, "launches": h_launches,
+            "ms": statistics.median(ms_all), "ms_all": ms_all, "in_process_ms": callback_ms,
+            "fault": {"plan": SERVICES_FAULT_RPC["fugue.tpu.fault.plan"], "retries": retries},
+            "checks": "one call a key reporting every row; rows out as in; the faulted call's answer and one retry"})
+        del feng
+
+        # http-scrape: traced lowered calls, then the bound server's routes
+        tracer.clear()
+        metrics.clear()
+        tracer.enable()
+        zero()
+        for _ in range(SERVICES_TRACED_CALLS):
+            run(heng, chain(tdf)).count()
+        tracer.disable()
+        s_launches = dict(bg.LAUNCHES)
+        srv = heng.rpc_server
+        fetched, fetch_ms = {}, {}
+        with srv.start():
+            for route in SERVICES_ROUTES:
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(f"http://{srv.host}:{srv.port}{route}", timeout=30) as r:
+                    fetched[route] = (r.status, r.read())
+                fetch_ms[route] = (time.perf_counter() - t0) * 1e3
+        require(all(status == 200 for status, _ in fetched.values()), f"http-scrape: {fetched}")
+        text = fetched["/metrics"][1].decode()
+        prom = validate_prometheus_text(text)
+        segs = sum(int(float(m)) for m in re.findall(
+            r'fugue_tpu_span_latency_seconds_count\{[^}]*span="plan\.segment"[^}]*\}\s+(\S+)', text))
+        ready = json.loads(fetched["/readyz"][1])
+        stats = json.loads(fetched["/stats"][1])
+        require(segs == SERVICES_TRACED_CALLS, f"http-scrape: plan.segment counts {segs}")
+        require(ready == {"status": "ready", "serve_bound": False}, f"http-scrape: /readyz {ready}")
+        require(stats["engine"]["plan"]["segments_executed"] >= SERVICES_TRACED_CALLS, f"http-scrape: /stats {stats}")
+        emit_cell("http-scrape", {
+            "traced_calls": SERVICES_TRACED_CALLS, "launches": s_launches, "fetch_ms": fetch_ms,
+            "bytes": {r: len(b) for r, (_, b) in fetched.items()},
+            "prometheus": {"families": len(prom["names"]), "samples": prom["samples"],
+                           "histogram_series": prom["histogram_series"], "plan_segment_count": segs},
+            "readyz": ready, "healthz": json.loads(fetched["/healthz"][1]),
+            "checks": "every route 200; the Prometheus validator; plan.segment counted once a traced call; "
+                      "/readyz serve_bound false"})
+        tracer.clear()
+        metrics.clear()
+        del tdf, heng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # pool-demean-1m: BASELINE.json config #1 through the fork pool
+        got = {}
+        demean = host_udfs(pd)["demean"]
+        upd = udf_frame(np, pd).iloc[:udf_rows]
+        k, v = upd["k"].to_numpy(), upd["v"].to_numpy()
+        serial = TorchExecutionEngine(device=device)
+        pooled = TorchExecutionEngine(device=device, conf={"fugue.tpu.map.parallelism": workers})
+
+        def udf_call(eng):
+            return api.transform(upd, demean, schema="*", partition={"by": ["k"]}, engine=eng)
+
+        zero()
+        serial_ms = _wall_ms(torch, lambda: got.update(serial=udf_call(serial)), 1)
+        exp_serial = got.pop("serial")
+        tracer.clear()
+        tracer.enable()
+        pool_ms = _wall_ms(torch, lambda: got.update(pool=udf_call(pooled)), 1)
+        got_pool = got.pop("pool")
+        tracer.disable()
+        p_launches = dict(bg.LAUNCHES)
+        spans = [r for r in tracer.records() if r["name"] == "map.worker_chunk"]
+        st = pooled.resilience_stats.as_dict()
+        require(isinstance(got_pool, pd.DataFrame), "pool-demean-1m: pandas in, pandas out")
+        check_demean(np, "pool-demean-1m", got_pool["k"].to_numpy(), got_pool["v"].to_numpy(), k, v)
+        _same_frames(np, got_pool, exp_serial, "pool-demean-1m")
+        require(spans and st.get("map.chunks_ok") == len(spans) and workers > 1,
+                f"pool-demean-1m: {len(spans)} worker spans, {st}, {workers} workers")
+        serial_ms += _wall_ms(torch, lambda: udf_call(serial), SERVICES_REPS - 1)
+        pool_ms += _wall_ms(torch, lambda: udf_call(pooled), SERVICES_REPS - 1)
+        tracer.clear()
+        emit_cell("pool-demean-1m", {
+            "rows": len(upd), "groups": int(upd["k"].nunique()), "workers": workers, "cpu_count": os.cpu_count(),
+            "launches": p_launches, "ms": statistics.median(pool_ms), "ms_all": pool_ms,
+            "serial_ms": statistics.median(serial_ms), "serial_ms_all": serial_ms,
+            "speedup": statistics.median(serial_ms) / statistics.median(pool_ms),
+            "worker_chunk_spans": len(spans), "worker_pids": len({r["args"]["worker_pid"] for r in spans}),
+            "worker_chunk_ms": [r["dur"] / 1e6 for r in spans], "resilience": st,
+            "checks": f"keys exact, v rtol={HOST_RTOL} atol={HOST_ATOL} vs float64 oracle; equal to the serial twin"})
+
+        # pool-demean-device-10m: a frame on the card, forked after CUDA is up
+        t0 = time.perf_counter()
+        cols, schema, _ = transform_frame(np, "bench", device_rows, seed)
+        generate_s = time.perf_counter() - t0
+        deng = TorchExecutionEngine(device=device, conf={"fugue.tpu.map.parallelism": workers})
+        ddf = deng.persist(frame_from_numpy(cols, schema, nan_cols=(), device=device))
+        require(not on_card or torch.cuda.is_initialized(), "pool-demean-device-10m: CUDA not initialized")
+
+        def device_call(eng):
+            return api.transform(ddf, demean, schema="*", partition={"by": ["k"]}, engine=eng, as_fugue=True)
+
+        before = dict(deng.resilience_stats.as_dict())
+        # one pooled call, traced: the copies and the pooled pandas apart
+        res, d_line, profile = _traced_first_call(torch, bg, lambda: device_call(deng),
+                                                  warm_up=lambda: torch.ones(1, device=device) + 1)
+        require(type(res).__name__ == "TorchDataFrame" and res.device == device and res.count() == device_rows,
+                f"pool-demean-device-10m: {type(res).__name__} on {getattr(res, 'device', None)}")
+        check_demean(np, "pool-demean-device-10m", res.device_cols["k"], res.device_cols["v"], cols["k"], cols["v"],
+                     torch=torch)
+        twin_ms = _wall_ms(torch, lambda: got.update(twin=device_call(serial)), 1)[0]
+        twin = got.pop("twin")
+        g, t = _order_by_t(torch, res.device_cols["k"], res.device_cols["v"]), \
+            _order_by_t(torch, twin.device_cols["k"], twin.device_cols["v"])
+        require(bool(torch.equal(res.device_cols["k"][g], twin.device_cols["k"][t]))
+                and bool(torch.equal(res.device_cols["v"][g], twin.device_cols["v"][t])),
+                "pool-demean-device-10m: not the serial twin's rows")
+        st = deng.resilience_stats.as_dict()
+        lost = {c: st.get(c, 0) - before.get(c, 0) for c in ("map.worker_lost", "map.chunk_retries",
+                                                             "map.serial_fallbacks")}
+        require(st.get("map.chunks_ok", 0) > before.get("map.chunks_ok", 0) and not any(lost.values()),
+                f"pool-demean-device-10m: {st}")
+        del res, twin
+        d_line.update(rows=device_rows, groups=TRANSFORM_KEYS, workers=workers, generate_s=generate_s,
+                      ms=profile["wall_ms"], serial_ms=twin_ms, split=_copy_split(profile, "fugue::host_map"),
+                      cuda_initialized_before_fork=bool(torch.cuda.is_initialized()), resilience=st,
+                      profile=profile,
+                      checks=f"keys exact, v rtol={HOST_RTOL} atol={HOST_ATOL} vs float64 oracle on the card; "
+                             "equal to the serial twin; no lost worker, retry or fallback")
+        emit_cell("pool-demean-device-10m", d_line)
+        del ddf, cols, deng
+        torch.cuda.empty_cache()
+
+        # pool-kill: one worker SIGKILLed mid-chunk
+        keng = TorchExecutionEngine(device=device, conf={"fugue.tpu.map.parallelism": workers,
+                                                         "fugue.tpu.fault.plan": "map.chunk=kill",
+                                                         "fugue.tpu.retry.base": 0.01})
+        zero()
+        t0 = time.perf_counter()
+        got_kill = udf_call(keng)
+        kill_ms = (time.perf_counter() - t0) * 1e3
+        k_launches = dict(bg.LAUNCHES)
+        st = keng.resilience_stats.as_dict()
+        _same_frames(np, got_kill, exp_serial, "pool-kill")
+        left = _child_pids()
+        import multiprocessing
+
+        require(st.get("map.worker_lost") == 1 and st.get("map.chunk_retries", 0) >= 1
+                and st.get("map.pool_rebuilds", 0) >= 1, f"pool-kill: {st}")
+        require(not multiprocessing.active_children() and not left, f"pool-kill: children left {left}")
+        emit_cell("pool-kill", {
+            "rows": len(upd), "workers": workers, "launches": k_launches, "ms": kill_ms,
+            "pool_ms": statistics.median(pool_ms), "resilience": st, "children_left": left,
+            "checks": "equal to the serial twin; one worker lost, its chunk retried on a fresh pool; no child left"})
+    finally:
+        tracer.disable()
+        tracer.clear()
+        metrics.clear()
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - start
@@ -4011,6 +4407,11 @@ def main() -> int:
                                         plan_frame_, stream_rows=args.plan_stream_rows or args.rows)
     _release(torch)
     obs_path = phase_obs_path(torch, np, pd, pa, bg, ff, col, TorchExecutionEngine(), plan_frame_, plan_exp)
+    _release(torch)
+    services_path = phase_services_path(
+        torch, np, pd, bg, api, ff, col, frame_from_numpy, dev, plan_frame_, plan_exp, args.seed,
+        tdf=obs_path.pop("handover"), lowered_ms=plan_path["cells"]["lowered-uniform-1k"]["ms"],
+        callback_ms=analysis_path["cells"]["callback-1k"]["ms"])
     del plan_frame_, plan_exp
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
@@ -4033,7 +4434,8 @@ def main() -> int:
                    "analysis_path": {c: r["launches"][name] + r.get("stream_launches", {}).get(name, 0)
                                      for c, r in analysis_path["cells"].items()},
                    "obs_path": {c: r["launches"][name] + r.get("stream_launches", {}).get(name, 0)
-                                for c, r in obs_path["cells"].items()}}
+                                for c, r in obs_path["cells"].items()},
+                   "services_path": {c: r["launches"][name] for c, r in services_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -4055,7 +4457,7 @@ def main() -> int:
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
             + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
-            + sum(by_path["obs_path"].values()),
+            + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

@@ -14,6 +14,12 @@ The walk degrades in tiers, never upward:
   (column arithmetic/comparisons/masks, ``fillna``/``clip``/``where``/
   ``mask``/``isin``/``astype``/``np.where``, statically-decidable ``if``
   over bound scalar params). ``steps`` holds the translation.
+  Comparisons translate where a NULL gives the same rows in both logics:
+  as a filter's or a conditional's test, alone or under ``&``/``|``.
+  Where pandas' two-valued answer (a NULL compares False, and ``!=``
+  True) and the column IR's NULL part ways, the shape refuses as
+  ``unknown-construct``: ``!=``, ``~`` over a comparison, and a
+  comparison kept as a column's value.
 - **pure** — recognized constructs only, but something crosses rows
   (a ``.sum()``-style reduction, a data-dependent ``if``): no steps, but
   reads/writes stay EXACT, so pruning still reaches the producer.
@@ -35,6 +41,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 from ..column.expressions import (
     ColumnExpr,
+    _BinaryOpExpr,
     _InExpr,
     case_when,
     col as _col,
@@ -275,6 +282,22 @@ _CMPOPS = {
 _SCALARS = (bool, int, float, str, bytes, type(None))
 
 
+def _holds_compare(e: ColumnExpr) -> bool:
+    """Whether a comparison is in ``e``'s tree: over a NULL, pandas
+    answers it False and the column IR NULL."""
+    if isinstance(e, _BinaryOpExpr) and e.op in ("<", "<=", ">", ">=", "==", "!="):
+        return True
+    return any(_holds_compare(c) for c in e.children)
+
+
+def _as_value(e: ColumnExpr) -> ColumnExpr:
+    """``e`` where it becomes a column's values: a comparison, or ``&``
+    / ``|`` over one, would hold NULL where pandas holds False."""
+    if isinstance(e, _BinaryOpExpr) and e.op in ("&", "|", "<", "<=", ">", ">=", "==") and _holds_compare(e):
+        raise _Soft("unknown-construct", "a comparison kept as a column: pandas' False, the IR's NULL")
+    return e
+
+
 class _Tracer:
     def __init__(self, func: Any, bound: Dict[str, Any]):
         self.func = func
@@ -449,7 +472,7 @@ class _Tracer:
             name = self._const_str(target.slice)
             if name is None:
                 raise _Hard("unknown-construct", "non-literal column target")
-            e = self._expr(value)
+            e = _as_value(self._expr(value))
             if self.t.writes is not None:
                 self.t.writes.add(name)
             self._emit(("assign", (e.alias(name),)))
@@ -708,7 +731,7 @@ class _Tracer:
                     raise _Hard("unknown-call", "positional assign")
                 exprs: List[ColumnExpr] = []
                 for name, vexpr in kw.items():
-                    e = self._expr(vexpr)
+                    e = _as_value(self._expr(vexpr))
                     exprs.append(e.alias(str(name)))
                     if self.t.writes is not None:
                         self.t.writes.add(str(name))
@@ -761,12 +784,17 @@ class _Tracer:
         if isinstance(node, ast.Compare):
             if len(node.ops) != 1 or type(node.ops[0]) not in _CMPOPS:
                 raise _Hard("unknown-construct", "chained/unknown comparison")
+            if isinstance(node.ops[0], ast.NotEq):
+                raise _Soft("unknown-construct", "!= keeps a NULL row in pandas, not in the IR")
             return _CMPOPS[type(node.ops[0])](
                 self._expr(node.left), self._expr(node.comparators[0])
             )
         if isinstance(node, ast.UnaryOp):
             if isinstance(node.op, ast.Invert):
-                return ~self._expr(node.operand)
+                inner = self._expr(node.operand)
+                if _holds_compare(inner):
+                    raise _Soft("unknown-construct", "~ over a comparison: pandas' True, the IR's NULL")
+                return ~inner
             if isinstance(node.op, ast.USub):
                 return -self._expr(node.operand)
             raise _Hard("unknown-construct", "not/+ on a column")

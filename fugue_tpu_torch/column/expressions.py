@@ -4,9 +4,9 @@ with operators (``+ - * /``, comparisons, ``& | ~``, unary ``-``,
 ``is_null``/``not_null``), ``alias`` and ``cast``; ``case_when``,
 ``_InExpr`` and ``_LikeExpr``. One tree is evaluated on the host by
 ``column/eval.py`` (pandas) and on the device by ``column/torch_eval.py``.
-``_WindowExpr`` (``func(args) OVER (...)``) is the expression class only:
-the SQL parser builds it, and no engine of the port evaluates it
-(ROADMAP.md A.11)."""
+``_WindowExpr`` (``func(args) OVER (...)``) is built by the SQL parser and
+evaluated by the windowed SELECT (``torch/window.py`` on the device,
+``column/window.py`` on the host)."""
 
 from typing import Any, Iterable, List, Optional, Union
 

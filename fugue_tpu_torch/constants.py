@@ -1,7 +1,8 @@
 """Configuration keys of the port, copied from ``fugue_tpu/constants.py``
 (:131-140, :41, :35, :471) and trimmed to the streaming keys, the host
 map's pool, the distinct's guard, the workflow's keys and their global
-defaults, and the resilience and observability keys (:49-127). The names are the JAX package's, so one
+defaults, the resilience, RPC and observability keys (:49-127) and the
+profiler's directory. The names are the JAX package's, so one
 conf dict drives either engine."""
 
 from ._utils.params import ParamDict
@@ -17,11 +18,14 @@ FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH = "fugue.tpu.stream.prefetch_depth"
 # without it the range is probed from the first chunk, and a later key
 # outside it raises (a one-pass stream cannot be read again)
 FUGUE_TPU_CONF_STREAM_KEY_RANGE = "fugue.tpu.stream.key_range"
-# processes of the host map's forked pool (the JAX package's default, -1,
-# sizes it by the engine's parallelism, 1 on one device). The pool is not
-# ported (ROADMAP.md A.10): the map runs serially, and a value above 1
-# raises
+# processes of the host map's forked pool (``execution/parallel_map.py``);
+# -1 (auto) sizes it by the engine's parallelism capped by the host's
+# cores, 1 on one card; 0 and 1 map serially
 FUGUE_TPU_CONF_MAP_PARALLELISM = "fugue.tpu.map.parallelism"
+# frames below this row count always map serially (pool setup ~100 ms)
+FUGUE_TPU_CONF_MAP_PARALLEL_MIN_ROWS = "fugue.tpu.map.parallel_min_rows"
+# per-chunk wall-clock deadline (seconds) of the pool; 0/unset: unbounded
+FUGUE_TPU_CONF_MAP_CHUNK_TIMEOUT = "fugue.tpu.map.chunk_timeout"
 # the most groups a device ``distinct`` brings to the host (default 2**22,
 # the JAX engine's); above it the host engine dedupes the frame
 FUGUE_TPU_CONF_MAX_PARTIAL_ROWS = "fugue.tpu.max_partial_rows"
@@ -54,20 +58,19 @@ A10_WORKFLOW_KEYS = {
     "fugue.tpu.dist.board": "the distributed pass",
     "fugue.tpu.tuning.enabled": "the tuner",
 }
-# the retry knobs of the HTTP RPC server and the forked map pool
-# (``RetryPolicy.from_conf``'s default prefix ``fugue.tpu.retry``), which
-# the port does not have either: a run that sets one at all raises. A
-# workflow task's retries read ``fugue.tpu.retry.task.*``
-A10_RETRY_KEYS = tuple(
-    f"fugue.tpu.retry.{knob}"
-    for knob in ("attempts", "base", "multiplier", "max_backoff", "jitter")
-)
-
 # --- resilience (``fugue_tpu_torch/resilience``; ``fugue_tpu/constants.py``
-# :49-70). Attempts of one workflow task (default 1: fail fast); a retried
-# task re-reads the strong checkpoints its upstream tasks wrote. Its
-# backoff reads ``fugue.tpu.retry.task.base/multiplier/max_backoff/jitter``
+# :49-73). ``RetryPolicy.from_conf`` reads ``<prefix>.attempts`` (1
+# disables retry), ``.base``, ``.multiplier``, ``.max_backoff`` (seconds)
+# and ``.jitter``: the pool's chunks under ``fugue.tpu.retry``, the HTTP
+# client's calls under ``fugue.tpu.retry.rpc`` (connect-phase failures and
+# idempotent calls only: a request that may have reached the server is not
+# re-sent), a workflow task under ``fugue.tpu.retry.task``. Attempts of one
+# workflow task (default 1: fail fast); a retried task re-reads the strong
+# checkpoints its upstream tasks wrote
 FUGUE_TPU_CONF_RETRY_TASK_ATTEMPTS = "fugue.tpu.retry.task.attempts"
+# the HTTP RPC client's socket timeouts (seconds)
+FUGUE_RPC_CONF_HTTP_CONNECT_TIMEOUT = "fugue.rpc.http_client.connect_timeout"
+FUGUE_RPC_CONF_HTTP_READ_TIMEOUT = "fugue.rpc.http_client.read_timeout"
 # the fault plan (grammar in ``resilience/fault.py``); also read from the
 # FUGUE_TPU_FAULT_PLAN environment variable
 FUGUE_TPU_CONF_FAULT_PLAN = "fugue.tpu.fault.plan"
@@ -114,7 +117,7 @@ FUGUE_TPU_CONF_PLAN_FUSE = "fugue.tpu.plan.fuse"
 # distinct or broadcast-join probe becomes one task the torch engine runs
 # over the raw columns, with no frame between the verbs
 FUGUE_TPU_CONF_PLAN_LOWER_SEGMENTS = "fugue.tpu.plan.lower_segments"
-# the UDF analyzer's switches (``fugue_tpu/analysis``): read, and without
-# effect until the analyzer is ported (ROADMAP.md queue A)
+# the UDF analyzer's switches (``analysis/``): analyze the transform
+# tasks' UDFs, and splice the translated ones into the plan
 FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS = "fugue.tpu.plan.analyze_udfs"
 FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS = "fugue.tpu.plan.translate_udfs"

@@ -364,18 +364,27 @@ class ExecutionEngine(ABC):
     def rpc_server(self) -> Any:
         """The server that hands transformer callbacks their clients, built
         from conf on first use (``fugue.rpc.server``; the in-process
-        ``NativeRPCServer`` by default, ``fugue_tpu_torch/rpc``)."""
+        ``NativeRPCServer`` by default, ``fugue_tpu_torch/rpc``). A server
+        with telemetry routes (``HttpRPCServer``'s ``/metrics``,
+        ``/stats``) is bound to this engine."""
         if self._rpc_server is None:
             with self._rlock:
                 if self._rpc_server is None:
                     from ..rpc import make_rpc_server
 
-                    self._rpc_server = make_rpc_server(self.conf)
+                    server = make_rpc_server(self.conf)
+                    self._bind_rpc_metrics(server)
+                    self._rpc_server = server
         return self._rpc_server
 
     def set_rpc_server(self, server: Any) -> None:
         with self._rlock:
             self._rpc_server = server
+        self._bind_rpc_metrics(server)
+
+    def _bind_rpc_metrics(self, server: Any) -> None:
+        if hasattr(server, "bind_engine"):
+            server.bind_engine(self)
 
     def thread_scope(self) -> Callable[[], ContextManager]:
         """Called on the thread that starts a workflow run: a factory of

@@ -6,9 +6,10 @@ device engine hands to its host engine, as ``JaxExecutionEngine`` does
 - ``PandasMapEngine.map_dataframe`` (:101-200): one sort, one reorder
   into group-clustered order, then one call per logical partition over a
   zero-copy slice. Groups keep NULL keys (``dropna=False``), and sorts put
-  NULLs first. The map is serial: the JAX package's forked pool
-  (``parallel_map.py``) is not ported (ROADMAP.md A.10), and
-  ``fugue.tpu.map.parallelism`` above 1 raises;
+  NULLs first. With ``fugue.tpu.map.parallelism`` above 1 the partitions
+  run in the supervised fork pool of ``parallel_map.py`` (``_pool_workers``
+  :56, ``_run_forked`` :202); the auto size is 1 on one card, so the map
+  is serial unless the conf asks;
 - ``join`` (:345) with SQL NULL semantics (a NULL key matches nothing),
   ``union``, ``subtract``, ``intersect``, ``distinct``, ``dropna``,
   ``fillna``, ``sample``, ``take``, ``repartition`` (the frame itself:
@@ -18,10 +19,12 @@ device engine hands to its host engine, as ``JaxExecutionEngine`` does
   class: the column IR evaluated over pandas (``column/eval.py``), and
   the base class's SQL engine (``sql/local_sql.py``) over these verbs."""
 
+import os
 from typing import Any, Callable, List, Optional, Union
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
 
 from .._utils.io import load_df as _io_load_df
 from .._utils.io import save_df as _io_save_df
@@ -32,7 +35,11 @@ from ..collections.partition import (
     PartitionSpec,
     parse_presort_exp,
 )
-from ..constants import FUGUE_TPU_CONF_MAP_PARALLELISM
+from ..constants import (
+    FUGUE_TPU_CONF_MAP_CHUNK_TIMEOUT,
+    FUGUE_TPU_CONF_MAP_PARALLEL_MIN_ROWS,
+    FUGUE_TPU_CONF_MAP_PARALLELISM,
+)
 from ..dataframe import (
     ArrayDataFrame,
     ArrowDataFrame,
@@ -50,13 +57,34 @@ from .execution_engine import ExecutionEngine, MapEngine
 
 
 class PandasMapEngine(MapEngine):
-    """Sort + groupby-apply over pandas, serial. ``parallelism_engine``
-    answers ``CONCURRENCY`` in a partition number: the device engine that
-    hands its map here passes itself."""
+    """Sort + groupby-apply over pandas, with a fork pool over the logical
+    partitions. ``parallelism_engine`` answers ``CONCURRENCY`` in a
+    partition number and sizes the auto pool: the device engine that hands
+    its map here passes itself."""
 
     def __init__(self, execution_engine: ExecutionEngine, parallelism_engine: Any = None):
         super().__init__(execution_engine)
         self._parallelism_engine = parallelism_engine or execution_engine
+
+    def _pool_workers(self, map_func: Callable, n_rows: int, n_parts: int) -> int:
+        """Process-pool size for this map call; ≤1 = run serial."""
+        from .parallel_map import fork_available, map_func_parallel_safe
+
+        workers = int(self.conf.get(FUGUE_TPU_CONF_MAP_PARALLELISM, -1))
+        if workers < 0:
+            # auto: the pool runs host pandas, so the engine's parallelism
+            # is capped by the host's cores (1 on one card)
+            workers = min(int(self._parallelism_engine.get_current_parallelism()), os.cpu_count() or 1)
+        min_rows = int(self.conf.get(FUGUE_TPU_CONF_MAP_PARALLEL_MIN_ROWS, 100_000))
+        if (
+            workers <= 1
+            or n_parts <= 1
+            or n_rows < min_rows
+            or not fork_available()
+            or not map_func_parallel_safe(map_func)
+        ):
+            return 1
+        return workers
 
     def map_dataframe(
         self,
@@ -67,12 +95,6 @@ class PandasMapEngine(MapEngine):
         on_init: Optional[Callable[[int, DataFrame], Any]] = None,
         map_func_format_hint: Optional[str] = None,
     ) -> DataFrame:
-        workers = int(self.conf.get(FUGUE_TPU_CONF_MAP_PARALLELISM, -1))
-        if workers > 1:
-            raise NotImplementedError(
-                f"{FUGUE_TPU_CONF_MAP_PARALLELISM}={workers}: the host map's forked pool "
-                "is not ported, the map runs serially (ROADMAP.md A.10)"
-            )
         output_schema = output_schema if isinstance(output_schema, Schema) else Schema(output_schema)
         input_df = self.to_df(df).as_local_bounded()
         if input_df.empty:
@@ -111,14 +133,74 @@ class PandasMapEngine(MapEngine):
             if not (len(counts) == len(gid) or (np.diff(gid) >= 0).all()):
                 pdf = pdf.take(np.argsort(gid, kind="stable")).reset_index(drop=True)
             bounds = np.concatenate([[0], np.cumsum(counts)])
+        groups = [slice(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+        workers = self._pool_workers(map_func, len(pdf), len(groups))
+        if workers > 1:
+            return self._run_forked(pdf, schema, groups, map_func, cursor, output_schema, workers)
         results: List[LocalDataFrame] = []
-        for no, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
-            part = PandasDataFrame(
-                pdf.iloc[int(a) : int(b)].reset_index(drop=True), schema, pandas_df_wrapper=True
-            )
+        for no, sl in enumerate(groups):
+            part = _wrap_pandas_part(pdf.iloc[sl].reset_index(drop=True), schema)
             cursor.set(lambda p=part: p.peek_array(), no, 0)
             results.append(map_func(cursor, part).as_local_bounded())
         return _to_output(LocalDataFrameIterableDataFrame(iter(results), output_schema), output_schema)
+
+    def _run_forked(
+        self,
+        pdf: pd.DataFrame,
+        schema: Schema,
+        groups: List[Any],
+        map_func: Callable,
+        cursor: PartitionCursor,
+        output_schema: Schema,
+        workers: int,
+    ) -> DataFrame:
+        """The partitions in the supervised fork pool, under the engine's
+        ``fugue.tpu.retry.*`` policy, fault plan and chunk deadline; the
+        recoveries count in its ``resilience_stats``."""
+        from ..resilience import FaultInjector, RetryPolicy
+        from .parallel_map import run_partitions_forked
+
+        engine = self.execution_engine
+        tables = run_partitions_forked(
+            pdf,
+            schema,
+            groups,
+            map_func,
+            cursor,
+            output_schema,
+            workers,
+            wrap_df=_wrap_pandas_part,
+            to_arrow=_result_to_arrow,
+            chunk_timeout=float(engine.conf.get(FUGUE_TPU_CONF_MAP_CHUNK_TIMEOUT, 0.0)),
+            policy=RetryPolicy.from_conf(engine.conf),
+            # a fresh injector a map call: fault budgets ("kill one worker")
+            # are per map, not per process
+            injector=FaultInjector.from_conf(engine.conf),
+            stats=engine.resilience_stats,
+        )
+        tables = [t for t in tables if t.num_rows > 0]
+        if len(tables) == 0:
+            return PandasDataFrame(None, output_schema)
+        target = output_schema.pa_schema
+        tables = [t if t.schema == target else t.cast(target) for t in tables]
+        return ArrowDataFrame(pa.concat_tables(tables), output_schema)
+
+
+def _wrap_pandas_part(sub: pd.DataFrame, schema: Schema) -> PandasDataFrame:
+    return PandasDataFrame(sub, schema, pandas_df_wrapper=True)
+
+
+def _result_to_arrow(res: DataFrame, output_schema: Schema) -> Any:
+    """One partition's result as arrow, in a pool worker. A pandas result
+    converts on the worker's thread: the default conversion starts and
+    joins a thread pool a call, which costs more than a partition's
+    conversion does, 8 workers at a time."""
+    res = _to_output(res, output_schema)
+    if isinstance(res, PandasDataFrame):
+        return pa.Table.from_pandas(
+            res.native, schema=output_schema.pa_schema, preserve_index=False, safe=False, nthreads=1
+        )
+    return res.as_arrow()
 
 
 def _to_output(out: DataFrame, output_schema: Schema) -> LocalBoundedDataFrame:

@@ -1,0 +1,93 @@
+"""Profiling hooks, the counterpart of ``fugue_tpu/parallel/profiler.py``.
+
+Usage::
+
+    from fugue_tpu_torch.parallel.profiler import profile
+
+    with profile("/tmp/fugue_trace"):
+        fa.transform(df, fn, engine="torch")
+
+:func:`profile` is one ``torch.profiler`` capture: host activity, and the
+card's kernels and copies when CUDA is available. It writes one Chrome
+trace (``fugue_profile_<pid>_<ns>.json``) into ``log_dir``, for Perfetto
+or ``chrome://tracing``. :func:`annotate` names a region of the timeline
+(``torch.profiler.record_function``).
+
+Conf-driven: setting ``fugue.tpu.profile.dir`` makes
+:func:`profiled_engine_context` capture everything inside the context.
+
+The engine names its regions through :func:`annotate`, with the span
+tracer's names (``fugue_tpu_torch/obs``): ``plan.segment``, ``engine.join``
+and ``engine.fused`` show in a capture whether tracing is on or off. With
+``fugue.tpu.trace.enabled`` on, every other engine-verb span
+(``engine.<verb>``) enters a range of its name too.
+"""
+
+import os
+import time
+from contextlib import contextmanager
+from typing import Any, Iterator
+
+FUGUE_TPU_CONF_PROFILE_DIR = "fugue.tpu.profile.dir"
+
+
+@contextmanager
+def profile(log_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace into ``log_dir``. Raises
+    ``RuntimeError`` inside another capture: a nested one records nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, schedule
+
+    if torch._C._autograd._profiler_enabled():
+        raise RuntimeError(
+            "a torch.profiler capture is already active; profile() does not nest"
+        )
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    # an empty warm-up step first: the card's activity recording is set up
+    # before the recorded step starts, or its first kernels may go unrecorded
+    with torch.profiler.profile(
+        activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+    ) as prof:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof.step()
+        yield
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof.step()
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"fugue_profile_{os.getpid()}_{time.time_ns()}.json")
+    )
+
+
+@contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Name a region in the trace (shows up in the profiler timeline); a
+    no-op outside a capture."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        yield
+
+
+@contextmanager
+def profiled_engine_context(engine: Any = None, conf: Any = None) -> Iterator[Any]:
+    """``engine_context`` that captures when the conf sets a profile dir.
+    An engine instance keeps its own conf: the dir is read from ``conf``
+    first, then from the engine's."""
+    from .._utils.params import ParamDict
+    from ..execution.api import engine_context
+    from ..execution.execution_engine import ExecutionEngine
+
+    given = isinstance(engine, ExecutionEngine)
+    with engine_context(engine, None if given else conf) as e:
+        log_dir = ParamDict(conf).get(FUGUE_TPU_CONF_PROFILE_DIR, "") if given else ""
+        log_dir = log_dir or e.conf.get(FUGUE_TPU_CONF_PROFILE_DIR, "")
+        if log_dir == "":
+            yield e
+        else:
+            with profile(log_dir):
+                yield e

@@ -21,7 +21,7 @@ Execution is engine-mediated via ``engine.lowered_segment``:
   goes to the device once and never returns to the host between verbs.
 
 Everything is gated by ``fugue.tpu.plan.lower_segments`` (default ON). A
-lowered segment runs under ONE ``fugue::plan_segment`` span, in place of
+lowered segment runs under ONE ``plan.segment`` range, in place of
 the per-verb spans.
 """
 
@@ -78,7 +78,7 @@ class LoweredSegment(Processor):
 
 def segment_fingerprint(steps: List[Tuple], terminal: Tuple) -> str:
     """Stable short id of a segment's shape — labels its
-    ``fugue::plan_segment`` span and the explain() rendering."""
+    ``plan.segment`` range and the explain() rendering."""
     return to_uuid(list(steps), list(terminal))[:8]
 
 

@@ -1,5 +1,5 @@
-"""The RPC channel of transformer callbacks (``base.py``), copied from
-``fugue_tpu/rpc``."""
+"""The RPC channel of transformer callbacks (``base.py``, and ``http.py``'s
+HTTP server), copied from ``fugue_tpu/rpc``."""
 
 from .base import (
     EmptyRPCHandler,

@@ -3,10 +3,8 @@
 
 ``RPCHandler`` wraps the calling process's callables; ``RPCServer`` hands out
 ``RPCClient`` stubs that call back into the calling process. ``NativeRPCServer`` is
-the in-process implementation, the engine's default (``make_rpc_server``).
-The HTTP server of ``fugue_tpu/rpc/http.py`` is not ported yet
-(ROADMAP.md A.10): a ``fugue.rpc.server`` that names it raises
-``NotImplementedError``.
+the in-process implementation, the engine's default (``make_rpc_server``);
+``http.py``'s ``HttpRPCServer`` serves the same over HTTP.
 """
 
 import pickle
@@ -180,11 +178,5 @@ def make_rpc_server(conf: Any = None) -> RPCServer:
     class or its dotted name; the in-process server when unset)."""
     conf = ParamDict(conf)
     tp = conf.get_or_none("fugue.rpc.server", object)
-    name = tp if isinstance(tp, str) else getattr(tp, "__name__", "")
-    if "http" in name.rsplit(".", 1)[-1].lower() or ".rpc.http" in name:
-        raise NotImplementedError(
-            f"fugue.rpc.server={name!r}: the HTTP RPC server is not ported (ROADMAP.md A.10); "
-            "leave the key unset for the in-process server"
-        )
     t_server = NativeRPCServer if tp is None else to_type(tp, RPCServer)
     return t_server(conf)  # type: ignore

@@ -51,7 +51,7 @@ from ..dataframe import ArrowDataFrame, DataFrame
 from ..exceptions import FugueDataFrameInitError
 from ..ops.segment import minmax_probe
 from ..parallel.device import resolve_device
-from ..schema import Schema
+from ..schema import Schema, _pandas_to_pa_schema
 
 # arrow type name → numpy dtype of the device tensor; the unsigned types
 # above uint8 live widened (``to_storage``)
@@ -227,6 +227,11 @@ class TorchDataFrame(DataFrame):
         if isinstance(df, TorchDataFrame):
             df = df.as_arrow()
         elif isinstance(df, pd.DataFrame):
+            # a column of only NULLs infers arrow's ``null``; pandas frames
+            # take the host engine's schema (``null`` → ``str``), as the
+            # JAX frame does through its host engine
+            if schema is None:
+                schema = Schema(_pandas_to_pa_schema(df))
             df = pa.Table.from_pandas(df, preserve_index=False)
         elif not isinstance(df, pa.Table):
             raise FugueDataFrameInitError(f"can't build a TorchDataFrame from {type(df)}")

@@ -128,6 +128,7 @@ from ..ops.segment import (
     merge_partials,
 )
 from ..parallel.device import resolve_device
+from ..parallel.profiler import annotate
 from ..schema import Schema
 from ..torch_annotations import sniff_torch_func
 from .dataframe import TorchDataFrame, from_storage, is_wide_unsigned
@@ -1225,7 +1226,7 @@ class TorchExecutionEngine(ExecutionEngine):
 
     # ---- plan verbs (``fugue_tpu_torch/plan``) ---------------------------------
 
-    @traced_verb("engine.fused")
+    @traced_verb("engine.fused", annotate=False)
     def fused_apply(self, df: Any, steps: Any) -> DataFrame:
         """A fused chain of row-local verbs (``plan/fused.py``):
 
@@ -1239,14 +1240,12 @@ class TorchExecutionEngine(ExecutionEngine):
           what the unfused chain runs."""
         from .streaming import streaming_fused_steps
 
-        if is_stream_frame(df):
-            return streaming_fused_steps(self, df, steps)
-        tdf = self.to_df(df)
-        with record_function("fugue::fused"):
+        with annotate("engine.fused"):
+            if is_stream_frame(df):
+                return streaming_fused_steps(self, df, steps)
+            tdf = self.to_df(df)
             res = self._try_fused_device(tdf, steps)
-        if res is not None:
-            return res
-        return super().fused_apply(tdf, steps)
+            return res if res is not None else super().fused_apply(tdf, steps)
 
     def _try_fused_device(self, tdf: TorchDataFrame, steps: Any) -> Optional[TorchDataFrame]:
         """The composed chain on the device (reference ``_try_fused_device``
@@ -1304,10 +1303,9 @@ class TorchExecutionEngine(ExecutionEngine):
         if runner is None:
             self.plan_stats.inc("segments_fallback")
             return super().lowered_segment(dfs, steps, terminal, partition_spec, fingerprint)
-        with record_function("fugue::plan_segment"), get_tracer().span(
+        with annotate("plan.segment"), get_tracer().span(
             "plan.segment",
             cat="plan",
-            annotate=True,
             segment=fingerprint,
             terminal=terminal[0],
             steps=len(steps),
@@ -1494,7 +1492,7 @@ class TorchExecutionEngine(ExecutionEngine):
     def join(self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None) -> DataFrame:
         """One ``engine.join`` span (reference :1583) over :meth:`_join_impl`,
         its ``strategy`` attribute naming the plan that ran."""
-        with get_tracer().span("engine.join", cat="engine", annotate=True) as sp:
+        with annotate("engine.join"), get_tracer().span("engine.join", cat="engine") as sp:
             return self._join_impl(df1, df2, how, on, sp)
 
     def _join_impl(self, df1: Any, df2: Any, how: str, on: Optional[List[str]], sp: Any) -> DataFrame:
@@ -1520,29 +1518,28 @@ class TorchExecutionEngine(ExecutionEngine):
             if res is not None:
                 sp.set(strategy="stream")
                 return res
-        with record_function("fugue::join"):
-            jt = parse_join_type(how)
-            j1, j2 = self.to_df(df1), self.to_df(df2)
-            if jt in _KERNEL_HOW:
-                res = self._join_device(j1, j2, _KERNEL_HOW[jt], on)
-            elif jt == "right_outer":
-                # mirrored left_outer, columns re-ordered to the contract schema
-                res = self._join_device(j2, j1, "left_outer", on)
-                _, out_schema = get_join_schemas(j1, j2, how="right_outer", on=on)
-                if res is not None and res.schema.names != out_schema.names:
-                    res = res[out_schema.names]
-            elif jt == "full_outer":
-                res = self._full_outer_device(j1, j2, on)
-            else:
-                res = self._cross_device(j1, j2, on)
-            if res is not None:
-                sp.set(strategy="broadcast" if jt == "cross" else "device")
-                return res
-            sp.set(strategy="host")
-            local1, local2 = self._host(j1), self._host(j2)
-            with record_function("fugue::host_join"):
-                local = self._host_engine.join(local1, local2, how=how, on=on)
-            return self._back(local)
+        jt = parse_join_type(how)
+        j1, j2 = self.to_df(df1), self.to_df(df2)
+        if jt in _KERNEL_HOW:
+            res = self._join_device(j1, j2, _KERNEL_HOW[jt], on)
+        elif jt == "right_outer":
+            # mirrored left_outer, columns re-ordered to the contract schema
+            res = self._join_device(j2, j1, "left_outer", on)
+            _, out_schema = get_join_schemas(j1, j2, how="right_outer", on=on)
+            if res is not None and res.schema.names != out_schema.names:
+                res = res[out_schema.names]
+        elif jt == "full_outer":
+            res = self._full_outer_device(j1, j2, on)
+        else:
+            res = self._cross_device(j1, j2, on)
+        if res is not None:
+            sp.set(strategy="broadcast" if jt == "cross" else "device")
+            return res
+        sp.set(strategy="host")
+        local1, local2 = self._host(j1), self._host(j2)
+        with record_function("fugue::host_join"):
+            local = self._host_engine.join(local1, local2, how=how, on=on)
+        return self._back(local)
 
     def _full_outer_device(
         self, j1: TorchDataFrame, j2: TorchDataFrame, on: Optional[List[str]]

@@ -46,7 +46,7 @@ from ..dataframe import DataFrame, YieldedDataFrame
 from ..exceptions import FugueWorkflowCompileError, FugueWorkflowError
 from ..execution.execution_engine import ExecutionEngine
 from ..execution.factory import make_execution_engine
-from ..constants import A10_RETRY_KEYS, A10_WORKFLOW_KEYS
+from ..constants import A10_WORKFLOW_KEYS
 from ..extensions._builtins import creators as bc
 from ..extensions._builtins import outputters as bo
 from ..extensions._builtins import processors as bp
@@ -1067,12 +1067,6 @@ def _refuse_a10(conf: ParamDict) -> None:
         if v:
             raise NotImplementedError(
                 f"{key}={conf[key]!r}: {what} of the workflow is not ported (ROADMAP.md A.10)"
-            )
-    for key in A10_RETRY_KEYS:
-        if key in conf:
-            raise NotImplementedError(
-                f"{key}={conf[key]!r}: the retries of the HTTP server and the map pool are not "
-                "ported (ROADMAP.md A.10); a workflow task's read fugue.tpu.retry.task.*"
             )
 
 

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import pandas as pd
 import pyarrow as pa
+import pyarrow.compute as pc
 import pytest
 
 import fugue_tpu.analysis as janalysis
@@ -759,3 +760,71 @@ def test_chip_smoke_analysis_path_on_the_cpu():
     assert json.loads(lines["CALLBACK"]) == [{"calls": 1000, "rows": 20_000},
                                               {"report_rows": "signature", "scale": "callback"}]
     assert lines["JAX"] == "False"
+
+
+# ---------------------------------------------------------------------------
+# C20: NULL compares answer as the UDF does in pandas
+# ---------------------------------------------------------------------------
+
+
+def udf_not_positive(df: pd.DataFrame) -> pd.DataFrame:
+    df = df[~(df["v"] > 0.0)]
+    return df
+
+
+def udf_not_a(df: pd.DataFrame) -> pd.DataFrame:
+    df = df[df["s"] != "a"]
+    return df
+
+
+def udf_both_flags(df: pd.DataFrame) -> pd.DataFrame:
+    df["z"] = (df["v"] > 0.0) & (df["i"] > 2)
+    return df
+
+
+def _null_frame(n: int = 40, seed: int = 3) -> pd.DataFrame:
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=n)
+    v[rng.random(n) < 0.2] = np.nan
+    i = pd.array(rng.integers(0, 5, n), dtype="Int64")
+    i[rng.random(n) < 0.25] = pd.NA
+    s = rng.choice(np.array(["a", "b", "c"], dtype=object), n)
+    s[rng.random(n) < 0.2] = None
+    return pd.DataFrame({"k": np.arange(n), "v": v, "i": i, "s": s})
+
+
+@pytest.mark.parametrize("udf,schema", [(udf_not_positive, "*"), (udf_not_a, "*"),
+                                        (udf_both_flags, "*,z:bool")])
+def test_null_compares_answer_as_pandas(udf, schema):
+    """C20: with the analyzer on, the port refuses ``~`` over a comparison,
+    ``!=`` and a comparison kept as a column (``unknown-construct``), so
+    the UDF runs in pandas and gives what it gives there: the reference's
+    answer, and the port's own, with ``fugue.tpu.plan.analyze_udfs=false``.
+    The reference with the analyzer on translates them and answers in the
+    column IR's three-valued logic (ROADMAP.md §C C20). Rows exact, in key
+    order, compared as arrow values."""
+    pdf = _null_frame()
+
+    def build(dag: Any, m: Any) -> None:
+        dag.transform(pdf.copy(), using=udf, schema=schema).yield_dataframe_as("r", as_local=True)
+
+    def rows(conf: dict, m: Any) -> Any:
+        eng = _engine(m, conf)
+        dag = m.Workflow()
+        build(dag, m)
+        dag.run(eng)
+        tbl = dag.yields["r"].result.as_arrow()
+        return tbl.take(pc.sort_indices(tbl, [("k", "ascending")])).to_pylist(), eng, dag
+
+    off = {ANALYZE: False}
+    got, eng, dag = rows({}, PORT)
+    exp, ref_on = rows(off, REF)[0], rows({}, REF)[0]
+    assert got == exp == rows(off, PORT)[0]
+    assert dag.last_plan_report.udfs_translated == 0
+    assert eng.analysis_stats.as_dict()["refused"] == {"unknown-construct": 1}
+    a, _ = _analysis_of(build, PORT)
+    assert a.steps is None and a.code == "unknown-construct" and a.reads == ({"v"} if udf is udf_not_positive
+                                                                         else {"s"} if udf is udf_not_a
+                                                                         else {"v", "i"})
+    # the reference, translating, answers otherwise on these NULLs
+    assert got != ref_on

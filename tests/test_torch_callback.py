@@ -280,14 +280,22 @@ def test_callback_keeps_the_udf_interpreted():
 
 def test_rpc_server_from_conf():
     """``fugue.rpc.server`` unset gives the in-process server; a class
-    name resolves; the HTTP server is not ported (ROADMAP.md A.10)."""
+    name resolves. The port's HTTP server (``rpc/http.py``) builds from its
+    name, and the engine binds itself to it; the JAX package's class is
+    not a server of the port, and is refused."""
+    from fugue_tpu_torch.rpc.http import HttpRPCServer
+
     assert isinstance(make_rpc_server(), NativeRPCServer)
     assert isinstance(make_rpc_server({"fugue.rpc.server": NativeRPCServer}), NativeRPCServer)
-    for name in ("fugue_tpu.rpc.http.HttpRPCServer", "fugue_tpu_torch.rpc.http.HttpRPCServer"):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            make_rpc_server({"fugue.rpc.server": name})
-        with pytest.raises(NotImplementedError, match="A.10"):
-            TorchExecutionEngine(device="cpu", conf={"fugue.rpc.server": name}).rpc_server
+    name = "fugue_tpu_torch.rpc.http.HttpRPCServer"
+    assert isinstance(make_rpc_server({"fugue.rpc.server": name}), HttpRPCServer)
+    bound = TorchExecutionEngine(device="cpu", conf={"fugue.rpc.server": name})
+    assert isinstance(bound.rpc_server, HttpRPCServer) and bound.rpc_server._metrics_engine() is bound
+    for conf in ({"fugue.rpc.server": "fugue_tpu.rpc.http.HttpRPCServer"},):
+        with pytest.raises(TypeError, match="not a subclass"):
+            make_rpc_server(conf)
+        with pytest.raises(TypeError, match="not a subclass"):
+            TorchExecutionEngine(device="cpu", conf=conf).rpc_server
     server = NativeRPCServer()
     with server.start():
         client = server.make_client(RPCFunc(lambda a, b: a + b))

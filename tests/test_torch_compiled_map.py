@@ -515,7 +515,8 @@ def test_refused_keyed_shapes(jax_engine, engine, case):
 def test_host_transformers_are_not_ported(engine, jax_engine):
     """What of the host transformers is still not ported: a function
     annotated with ``jax.Array`` (the port never imports JAX to run it)
-    and the host map's forked pool (ROADMAP.md A.10). The transformers
+    (the forked pool, refused here until it was ported, runs: its result
+    equals the serial map's). The transformers
     both packages run on their host engines are held against each other
     in ``test_host_transformers_run_on_the_host_engine``. A callback (not
     ported before the RPC server was) runs: a device function that takes
@@ -526,9 +527,12 @@ def test_host_transformers_are_not_ported(engine, jax_engine):
 
     with pytest.raises(NotImplementedError, match="jax.Array"):
         api.transform(_frame(16), jax_annotated, schema="k:long,v:double", engine=engine)
-    pool = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.map.parallelism": 4})
-    with pytest.raises(NotImplementedError, match="A.10"):
-        api.transform(_frame(16), _pandas_identity, schema="*", partition={"by": ["k"]}, engine=pool)
+    pool = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.map.parallelism": 4,
+                                                    "fugue.tpu.map.parallel_min_rows": 0})
+    pooled = api.transform(_frame(16), _pandas_identity, schema="*", partition={"by": ["k"]}, engine=pool)
+    serial = api.transform(_frame(16), _pandas_identity, schema="*", partition={"by": ["k"]}, engine=engine)
+    assert sorted(map(tuple, pooled.values.tolist())) == sorted(map(tuple, serial.values.tolist()))
+    assert pool.resilience_stats.as_dict()["map.chunks_ok"] >= 2
     seen = {"jax": [], "torch": []}
     fa.transform(jax_engine.to_df(_frame(16)), _pandas_counting, schema="*", partition={"by": ["k"]},
                  callback=seen["jax"].append, engine=jax_engine)

@@ -201,3 +201,54 @@ def test_dates_and_timestamps_round_trip_through_pandas():
     back = tdf.as_pandas()
     assert back["t"].isna().tolist() == [False, False, True]
     assert str(back["t"].iloc[0]) == "2020-01-01 03:00:00"
+
+
+def _c19_rows(df) -> list:
+    return sorted((tuple(None if v is None or v != v else v for v in r) for r in df.as_array()),
+                  key=repr)
+
+
+def test_an_all_null_string_column():
+    """C19: a pandas column of only NULLs comes into the torch engine as
+    ``str`` (the host engine's ``null`` → ``str``), as into the JAX engine,
+    so the filters answer in three-valued logic on the device and an
+    aggregate keyed by such a column answers (NULL, 3.0). Held against
+    ``JaxExecutionEngine`` on ROADMAP.md §C's three inputs; exact."""
+    import pandas as pd
+
+    import fugue_tpu.api as fa
+    from fugue_tpu.column import col as jcol
+    from fugue_tpu.column import functions as jff
+    from fugue_tpu.jax import JaxExecutionEngine
+    from fugue_tpu_torch import api
+    from fugue_tpu_torch.column import col
+    from fugue_tpu_torch.column import functions as ff
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+
+    jeng, teng = JaxExecutionEngine(), TorchExecutionEngine(device="cpu")
+    frame = pd.DataFrame({"k": [1, 2, 3], "v": [0.1, np.nan, -0.3], "s": [None] * 3})
+    keyed = pd.DataFrame({"k": [None, None], "v": [1.0, 2.0]})
+    for pdf in (frame, keyed):
+        assert str(teng.to_df(pdf).schema) == str(jeng.to_df(pdf).schema)
+    assert str(teng.to_df(frame).schema) == "k:long,v:double,s:str"
+    got = {
+        "ne": api.filter(teng.to_df(frame), col("s") != "a", engine=teng, as_fugue=True),
+        "not_gt": api.filter(teng.to_df(frame), ~(col("v") > 0), engine=teng, as_fugue=True),
+        "agg": api.aggregate(teng.to_df(keyed), partition_by="k", engine=teng, as_fugue=True,
+                             s=ff.sum(col("v"))),
+        "distinct": api.distinct(teng.to_df(frame), engine=teng, as_fugue=True),
+    }
+    exp = {
+        "ne": fa.filter(jeng.to_df(frame), jcol("s") != "a", engine=jeng, as_fugue=True),
+        "not_gt": fa.filter(jeng.to_df(frame), ~(jcol("v") > 0), engine=jeng, as_fugue=True),
+        "agg": fa.aggregate(jeng.to_df(keyed), partition_by="k", engine=jeng, as_fugue=True,
+                            s=jff.sum(jcol("v"))),
+        "distinct": fa.distinct(jeng.to_df(frame), engine=jeng, as_fugue=True),
+    }
+    for case in got:
+        assert str(got[case].schema) == str(exp[case].schema), case
+        assert _c19_rows(got[case]) == _c19_rows(exp[case]), case
+    assert _c19_rows(got["ne"]) == []
+    assert [r[0] for r in _c19_rows(got["not_gt"])] == [3]
+    assert _c19_rows(got["agg"]) == [(None, 3.0)]
+    jeng.stop()

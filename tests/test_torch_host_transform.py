@@ -322,14 +322,21 @@ def reporting_form(df: pd.DataFrame, cb: callable) -> pd.DataFrame:
 
 @pytest.mark.parametrize("case", ["pool", "callback"])
 def test_pool_and_callbacks_are_refused(jax_engine, engine, case):
-    """The host map's forked pool is refused, naming A.10. A callback
-    (refused, under this name, until the RPC server was ported) reaches
-    the function once a partition through ``api.transform`` and
+    """The host map's forked pool and callbacks, refused under this name
+    until they were ported, run. The pool (``fugue.tpu.map.parallelism``
+    2) gives the JAX engine's pooled answer. A callback reaches the
+    function once a partition through ``api.transform`` and
     ``api.out_transform``, with the rows the JAX engine sends it."""
     if case == "pool":
-        eng = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.map.parallelism": 2})
-        with pytest.raises(NotImplementedError, match="A.10"):
-            api.transform(_frame(), pandas_form, schema="*,n:long", partition={"by": ["k"]}, engine=eng)
+        conf = {"fugue.tpu.map.parallelism": 2, "fugue.tpu.map.parallel_min_rows": 0}
+        eng = TorchExecutionEngine(device="cpu", conf=conf)
+        got = api.transform(_frame(), pandas_form, schema="*,n:long", partition={"by": ["k"]}, engine=eng)
+        jeng = JaxExecutionEngine(conf)
+        exp = fa.transform(_frame(), pandas_form, schema="*,n:long", partition={"by": ["k"]}, engine=jeng)
+        jeng.stop()
+        cols = ["k", "v", "n"]
+        assert got.sort_values(cols)[cols].values.tolist() == exp.sort_values(cols)[cols].values.tolist()
+        assert eng.resilience_stats.as_dict()["map.chunks_ok"] >= 2
         return
     seen: Dict[str, List[int]] = {"jax": [], "torch": [], "jax_out": [], "torch_out": []}
     exp = fa.transform(_frame(), reporting_form, schema="*,n:long", partition={"by": ["k"]},

@@ -451,10 +451,11 @@ def test_a_join_spans_its_steps(engine, monkeypatch):
         yield
 
     monkeypatch.setattr(te, "record_function", record)
+    monkeypatch.setattr(te, "annotate", record)
     left = pd.DataFrame({"k": [1, 2, 3], "v": [1.0, 2.0, 3.0]})
     engine.join(engine.to_df(left), engine.to_df(pd.DataFrame({"k": [1, 1], "w": [1.0, 2.0]})),
                 how="inner")
-    assert entered == ["fugue::join", "fugue::join_prep", "fugue::join_probe", "fugue::join_expand"]
+    assert entered == ["engine.join", "fugue::join_prep", "fugue::join_probe", "fugue::join_expand"]
 
 
 def test_user_errors_are_the_reference_errors(jax_engine, engine):

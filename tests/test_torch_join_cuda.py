@@ -121,4 +121,4 @@ def test_join_spans_appear_in_a_trace(cuda_device):
         e.join(left, right, how="left_outer")
         torch.cuda.synchronize()
     names = {ev.key for ev in prof.key_averages()}
-    assert {"fugue::join", "fugue::join_prep", "fugue::join_probe", "fugue::join_expand"} <= names
+    assert {"engine.join", "fugue::join_prep", "fugue::join_probe", "fugue::join_expand"} <= names

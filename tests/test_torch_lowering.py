@@ -193,7 +193,7 @@ def _host_only(dag, m, pdf):
 def test_refusal_host_only_chain_runs_per_verb():
     """A streamed chain over a string column: the segment forms, its gate
     refuses, and it runs per verb — the reference's counts, and the
-    per-verb path's spans with no ``fugue::plan_segment``."""
+    per-verb path's ranges with no ``plan.segment``."""
     pdf = _frame(strings=True)
     st, jst = _three(lambda dag, m: _host_only(dag, m, pdf), ["k"])
     assert {c: st[c] for c in _STATS} == {c: jst[c] for c in _STATS}
@@ -205,8 +205,8 @@ def test_refusal_host_only_chain_runs_per_verb():
         _host_only(dag, PORT, pdf)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             dag.run(eng)
-        spans[lower] = {e.key for e in prof.key_averages() if e.key.startswith("fugue::")}
-    assert "fugue::plan_segment" not in spans[True]
+        spans[lower] = {e.key for e in prof.key_averages() if e.key.startswith(("fugue::", "engine.", "plan."))}
+    assert "plan.segment" not in spans[True]
     assert spans[True] - {"fugue::plan_optimize"} == spans[False] - {"fugue::plan_optimize"}
 
 
@@ -243,7 +243,8 @@ def test_refusal_key_range_over_the_dense_bound():
 
 
 def test_span_shape():
-    """One ``fugue::plan_segment`` span in place of the per-verb spans."""
+    """One ``plan.segment`` range in place of the per-verb ranges, with
+    tracing off: the engine opens it through ``annotate``."""
     pdf = _frame()
     for stream in (True, False):
         eng = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.stream.chunk_rows": CHUNK})
@@ -254,8 +255,8 @@ def test_span_shape():
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             dag.run(eng)
         counts = {e.key: e.count for e in prof.key_averages()}
-        assert counts.get("fugue::plan_segment") == 1
-        assert not {"fugue::fused", "fugue::filter", "fugue::project"} & set(counts)
+        assert counts.get("plan.segment") == 1
+        assert not {"engine.fused", "fugue::filter", "fugue::project"} & set(counts)
 
 
 def test_conf_gate_off_keeps_per_verb_plan():

@@ -388,7 +388,7 @@ def test_pruning_reaches_stream_parquet(tmp_path, monkeypatch):
 
 
 def test_fusion_runs_one_device_step():
-    """The fused chain runs under ``fugue::fused``, with no per-verb
+    """The fused chain runs under ``engine.fused``, with no per-verb
     device step (``fugue::filter``, ``fugue::project``)."""
     pdf = _frame(cols=2)
     dag = FugueWorkflow()
@@ -397,7 +397,7 @@ def test_fusion_runs_one_device_step():
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         dag.run(TorchExecutionEngine(device="cpu"))
     names = {e.key for e in prof.key_averages()}
-    assert {"fugue::plan_optimize", "fugue::fused"} <= names
+    assert {"fugue::plan_optimize", "engine.fused"} <= names
     assert "fugue::filter" not in names and "fugue::project" not in names
     assert dag.last_plan_report.verbs_fused >= 2 and dag.last_plan_report.cols_pruned >= 1
     out = dag.yields["r"].result.as_pandas()

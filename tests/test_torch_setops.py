@@ -803,3 +803,34 @@ def test_unsigned_columns_with_nulls_take_the_host_in_set_ops(jax_engine, engine
     got, calls = _both(jax_engine, engine, [data, data], lambda e, x, y: getattr(e, verb)(x, y),
                        lambda e, x, y: getattr(e, verb)(x, y))
     assert calls[verb] == 1
+
+
+def test_tied_take_against_a_one_device_mesh(engine):
+    """C23 (ROADMAP.md §C): which tied rows a device ``take`` keeps depends
+    on the reference's mesh. After ``filter(v IS NULL OR w < 0.5)`` and
+    ``select(k, i * 2 AS z)``, ``take(3, presort="z desc")`` with many rows
+    tied at the top: on a one-device mesh (``fugue.tpu.mesh_shape=[1]``)
+    the reference keeps the first tied rows in row order, as the port and
+    a stable pandas sort do. Rows exact, in order."""
+    from fugue_tpu.column import SelectColumns as JSelectColumns
+    from fugue_tpu_torch.column import SelectColumns
+
+    rng = np.random.default_rng(23)
+    n = 300
+    v = rng.random(n)
+    v[rng.random(n) < 0.3] = np.nan
+    pdf = pd.DataFrame({"k": np.arange(n), "v": v, "w": rng.random(n), "i": rng.integers(0, 9, n)})
+    one = JaxExecutionEngine({"fugue.tpu.mesh_shape": [1], "fugue.tpu.cache.enabled": False})
+
+    def top(eng, c, cols):
+        df = eng.filter(eng.to_df(pdf), c("v").is_null() | (c("w") < 0.5))
+        df = eng.select(df, cols(c("k"), (c("i") * 2).alias("z")))
+        return eng.take(df, 3, presort="z desc")
+
+    kept = pdf[pdf["v"].isna() | (pdf["w"] < 0.5)]
+    exp = kept.assign(z=kept["i"] * 2).sort_values("z", ascending=False, kind="stable")[["k", "z"]].head(3)
+    assert (kept["i"] == kept["i"].max()).sum() > 3  # the top value is tied
+    got = top(engine, col, SelectColumns)
+    _same(got, top(one, jcol, JSelectColumns), ordered=True)
+    assert _pandas(got).values.tolist() == exp.values.tolist()
+    one.stop_engine()

@@ -723,3 +723,32 @@ def test_row_streams_through_take_and_distinct():
         assert isinstance(got, TorchDataFrame) and got.count() == 3
     finally:
         je.stop_engine()
+
+
+# ---- C21: a keyless aggregate of a one-pass stream ---------------------------
+
+
+def test_keyless_aggregate_of_a_stream(engines):
+    """C21 (ROADMAP.md §C): ``aggregate(stream, no keys, [sum(v), count(v)])``
+    over ``v = 1..5`` in chunks of 2. The port reads the stream once and
+    answers as pandas does, ``[15.0, 5]``, through the engine verb and
+    through a workflow (stream → filter → select → aggregate, the fused
+    chain handing the aggregate a stream). The reference hands its keyless
+    route the stream it already read, and answers ``[NULL, 0]``."""
+    je, te = engines
+    pdf = pd.DataFrame({"v": [1.0, 2.0, 3.0, 4.0, 5.0]})
+    exp = [float(pdf["v"].sum()), int(pdf["v"].count())]
+    js, ts = _streams(pdf, 3)
+    jaggs, taggs = _aggs([("s", "sum", "v"), ("n", "count", "v")])
+    got = te.aggregate(ts, PartitionSpec(), taggs).as_array()
+    ref = je.aggregate(js, JPartitionSpec(), jaggs).as_array()
+    assert got == [exp]
+    assert len(ref) == 1 and (ref[0][0] is None or np.isnan(ref[0][0])) and ref[0][1] == 0, ref
+
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    dag = FugueWorkflow()
+    (dag.df(_streams(pdf, 3)[1]).filter(col("v") > 0).select(col("v"))
+     .aggregate(s=ff.sum(col("v")), n=ff.count(col("v"))).yield_dataframe_as("r", as_local=True))
+    dag.run(te)
+    assert dag.yields["r"].result.as_array() == [exp]

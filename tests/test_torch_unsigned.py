@@ -271,3 +271,33 @@ def test_streamed_aggregate_and_join(name):
         exp = far.to_pandas().groupby("u").size()
         assert dict(zip(got["u"].tolist(), got["n"].tolist())) == {int(k): int(n) for k, n in exp.items()}
         assert int(got["u"].min()) < (1 << 63) <= int(got["u"].max())
+
+
+@pytest.mark.parametrize("step", ["filter", "select"])
+@pytest.mark.parametrize("rows", [4, 0])
+def test_uint64_key_after_a_device_step(engines, step, rows):
+    """C22 (ROADMAP.md §C): a uint64 key through a device ``filter`` or
+    ``select``, then an aggregate by it. The port gives pandas' exact
+    groups (Python integers); the reference's key range over a masked or
+    computed frame fills with ``iinfo(uint64).max``, which its jitted call
+    cannot parse: ``OverflowError``, with 0 rows too."""
+    je, te = engines
+    keys = [7, 7, 2**63 + 7, 2**62 + 7][:rows]
+    vals = [1.0, 2.0, 3.0, 0.5][:rows]
+    tbl = pa.table({"k": pa.array(keys, pa.uint64()), "v": pa.array(vals, pa.float64())})
+
+    def chain(eng, c, f, cols, spec):
+        df = eng.to_df(tbl)
+        if step == "filter":
+            df = eng.filter(df, c("v") > 0)
+        else:
+            df = eng.select(df, cols(c("k"), (c("v") * 2).alias("v")))
+        return eng.aggregate(df, spec(by=["k"]), [f.sum(c("v")).alias("s"), f.count(c("v")).alias("n")])
+
+    got = _rows(chain(te, col, ff, SelectColumns, PartitionSpec))
+    scale = 1.0 if step == "filter" else 2.0
+    pdf = pd.DataFrame({"k": pd.array(keys, dtype="UInt64"), "v": np.array(vals, dtype=np.float64) * scale})
+    exp = sorted(((int(k), float(g["v"].sum()), int(g["v"].count())) for k, g in pdf.groupby("k")), key=repr)
+    assert got == exp
+    with pytest.raises(OverflowError):
+        chain(je, jcol, jff, JSelectColumns, JPartitionSpec)

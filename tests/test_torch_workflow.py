@@ -43,7 +43,7 @@ from fugue_tpu_torch import api
 from fugue_tpu_torch import dataframe as tdf
 from fugue_tpu_torch import workflow as twf
 from fugue_tpu_torch.collections import PartitionSpec
-from fugue_tpu_torch.constants import A10_RETRY_KEYS, A10_WORKFLOW_KEYS
+from fugue_tpu_torch.constants import A10_WORKFLOW_KEYS
 from fugue_tpu_torch.execution import ExecutionEngine, NativeExecutionEngine
 from fugue_tpu_torch.torch import TorchExecutionEngine
 
@@ -593,16 +593,41 @@ def test_a10_workflow_services_are_refused(key, port_engine):
     off.run(port_engine)
 
 
-@pytest.mark.parametrize("key", A10_RETRY_KEYS)
-def test_a10_retry_knobs_are_refused(key, port_engine):
-    """The server's and the map pool's retry knobs have no reader in the
-    port: set at all, on the workflow or the engine, they make a run raise;
-    the task's own knob of the same name is read."""
-    for dag, eng in ((twf.FugueWorkflow({key: 0}), port_engine),
-                     (twf.FugueWorkflow(), NativeExecutionEngine({key: 0.5}))):
-        dag.df([[1]], "a:long").show()
-        with pytest.raises(NotImplementedError, match="A.10"):
-            dag.run(eng)
+RETRY_KNOBS = {"fugue.tpu.retry.attempts": ("max_attempts", 5), "fugue.tpu.retry.base": ("base_delay", 0.5),
+               "fugue.tpu.retry.multiplier": ("multiplier", 3.0),
+               "fugue.tpu.retry.max_backoff": ("max_delay", 7.0), "fugue.tpu.retry.jitter": ("jitter", 0.3)}
+
+
+def _report_k(df: pd.DataFrame) -> pd.DataFrame:
+    return df.assign(n=len(df))
+
+
+@pytest.mark.parametrize("key", sorted(RETRY_KNOBS))
+def test_a10_retry_knobs_are_refused(key, port_engine, monkeypatch):
+    """The pool's retry knobs (refused, under this name, until the pool was
+    ported) reach the ``RetryPolicy`` of the host map's fork pool, set on
+    the workflow or on the engine; the task's own knob of the same name
+    still reaches the task's policy."""
+    from fugue_tpu_torch.execution import parallel_map as pm
+
+    attr, value = RETRY_KNOBS[key]
+    seen = []
+    real = pm.run_partitions_forked
+
+    def spy(*a, **k):
+        seen.append(getattr(k["policy"], attr))
+        return real(*a, **k)
+
+    monkeypatch.setattr(pm, "run_partitions_forked", spy)
+    pool = {"fugue.tpu.map.parallelism": 2, "fugue.tpu.map.parallel_min_rows": 0}
+    pdf = pd.DataFrame({"k": [1, 1, 2, 3], "v": [1.0, 2.0, 3.0, 4.0]})
+    for dag, eng in ((twf.FugueWorkflow({key: value, **pool}), port_engine),
+                     (twf.FugueWorkflow(), NativeExecutionEngine({key: value, **pool}))):
+        dag.df(pdf).partition_by("k").transform(_report_k, schema="*,n:long").yield_dataframe_as(
+            "r", as_local=True)
+        dag.run(eng)
+        assert sorted(dag.yields["r"].result.as_array()) == [[1, 1.0, 2], [1, 2.0, 2], [2, 3.0, 1], [3, 4.0, 1]]
+    assert seen == [value, value]
     task_key = key.replace("fugue.tpu.retry.", "fugue.tpu.retry.task.")
     ok = twf.FugueWorkflow({task_key: 1})
     ok.df([[1]], "a:long").yield_dataframe_as("r", as_local=True)
