@@ -103,7 +103,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    chunks of 4·10^6, ``--cogroup-stream-rows``, zipped with a bounded
    frame of 10^4 rows in shuffled order), each against a ``np.bincount``
    oracle with the launch counts set to 0 just before and read just after
-   (B1 and B2 launch 0 times here), timed, with the copy to the host in
+   (B1 and B2 launch 0 times here), timed (one call after the checked
+   one), with the copy to the host in
    seconds and bytes, the peak device memory and one traced call; then
    the tutorial's §2 block inside ``engine_context("torch")`` over
    sql_path's parquet frame, checked once against pandas;
@@ -148,8 +149,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    in chunks of 4·10^6 from ``default_rng(seed + i)`` and never held
    whole, streamed through the group means, then through the join of the
    means onto every row and the demean; bench.py's assertions, the means
-   against a float64 oracle pass of the same chunks, ``d`` on every 25th
-   chunk; each pass's wall time, rows/s, the generator's host seconds,
+   against a float64 oracle taken from the aggregate pass's chunks as they
+   are made (on its producer thread), ``d`` on every 25th chunk; each pass's wall time, rows/s, the generator's host seconds,
    peak device bytes (under 1 GiB), the ingest pipeline's stats and a
    traced window of 6 chunks a pass, every thread's spans) and
    ``f32-aggregate`` (``--rows`` rows with ``v`` as float32, streamed into
@@ -215,7 +216,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``demean-dense``'s frame cut in scale to 10^7 rows, on the card,
    forked after CUDA is initialized: oracle, twin, the copies and the
    pooled pandas apart) and ``pool-kill`` (a worker SIGKILLed: the twin's
-   result, the recovery counted, no child left).
+   result, the recovery counted, no child left);
+20. cache_path: the result cache, the delta cache and the tuner on
+   plan_path's frame, written as 10 parquet files of 10^7 rows, through
+   ``FugueWorkflow.run`` of ``LOAD dir → filter(v > 0.25) → select(k, v *
+   w AS z) → aggregate`` (one lowered segment, B1 for SUM(z)), one line a
+   cell: ``cache-cold`` (memory and disk tiers: a miss that publishes, B1
+   once over every row), ``cache-warm-mem`` (the same engine: a memory
+   hit, B1 0 times, one ``task.cache_hit`` span and no producer's),
+   ``cache-warm-disk`` (a fresh engine on the same directory: a disk hit,
+   B1 0 times), ``cache-delta`` (an 11th file: one
+   ``task.delta_recompute`` over 10/11 partitions, B1 over the new rows
+   only, against the oracle of all 11 files and the twin with the cache
+   off; the device bytes of the memory tiers, and the device's allocated
+   bytes back to the phase's start after ``clear()``; B1 alone at the
+   delta's shape beside its bound and ``index_add_``) and ``tuned-stream``
+   (2·10^7 rows streamed in chunks of 2^18, cut in scale, three runs with
+   the tuner on beside a tuning-off twin: each run's chunks those
+   ``adjust_stream`` gives, B1 once a chunk, the oracle). Each line has
+   its wall time, its B1 launches counted from 0 just before,
+   ``engine.stats()["cache"]`` and its spans.
+
+Every cell line of the phases before cache_path carries ``cache_hits``,
+the result-cache hits the engines it ran on have served: it must be 0.
+Cells whose input the cache would serve after their first call (a LOAD
+of one file, a pandas frame under 64 MiB) run on engines with
+``fugue.tpu.cache.enabled=false``, and the streamed cells that run through
+workflows with ``fugue.tpu.tuning.enabled=false``, so they measure what
+they measured.
 
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
@@ -271,7 +299,22 @@ REPLACES = {
 }
 
 
-def emit(obj) -> None:
+# a cell that would hit the cache (its input is a parquet file or a small
+# pandas frame, fingerprinted) runs on an engine with the cache off and keeps
+# measuring the compute it measured; a streamed cell keeps its static chunk size
+NO_CACHE = {"fugue.tpu.cache.enabled": False}
+STATIC_CHUNKS = {"fugue.tpu.tuning.enabled": False}
+
+
+def emit(obj, *engines) -> None:
+    """Print one line. Given the engines a cell ran on, the line carries
+    ``cache_hits``, the result-cache hits (memory and disk) those engines
+    have served since they were made (``engine.stats()["cache"]``), and a
+    hit fails the run."""
+    if engines:
+        obj["cache_hits"] = sum(st["hits_mem"] + st["hits_disk"]
+                                for st in (e.result_cache.stats.as_dict() for e in engines))
+        require(obj["cache_hits"] == 0, f"{obj.get('cell', obj.get('phase'))}: {obj['cache_hits']} result-cache hits")
     print(json.dumps(obj), flush=True)
 
 
@@ -1014,7 +1057,7 @@ def phase_select_path(torch, np, bg, api, ff, col, engine, tdf, oracles: dict) -
         if name == "q1-select":
             line["project_profile"] = _trace(torch, lambda: api.assign(
                 tdf, engine=engine, disc_price=col("l_extendedprice") * (1 - col("l_discount"))))
-        emit(line)
+        emit(line, engine)
         out["cells"][name] = line
     return out
 
@@ -1102,8 +1145,8 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
     frame ``tdf`` (the table ``lineitem``), each held against its
     select_path twin's oracle, and ``sql-pipeline-4m`` (bench.py's config
     #2 text and ``rescale`` over a parquet file of ``pipeline_rows`` rows
-    in a temporary directory of the checkout, removed after) against a
-    pandas oracle. Each line: the first call's seconds with the launch
+    in a temporary directory of the checkout, removed after, on an engine
+    with the result cache off) against a pandas oracle. Each line: the first call's seconds with the launch
     counts set to 0 just before and read just after (asserted equal to
     the twin's), the compile (building the workflow) timed apart, the
     median of ``SQL_REPS`` calls beside the twin's (``select_cells``) and
@@ -1115,6 +1158,8 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
     import pyarrow as pa
     import pyarrow.parquet as pq
 
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+
     start = time.perf_counter()
     out = {"cells": {}}
 
@@ -1122,10 +1167,11 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
         df["s"] = df["s"] / df["s"].max()
         return df
 
-    def run_cell(cell: str, call, compile_only, check, twin=None, rows=0, extra=None) -> None:
+    def run_cell(cell: str, call, compile_only, check, twin=None, rows=0, extra=None, eng=None) -> None:
+        eng = eng or engine
         for k in bg.LAUNCHES:
             bg.LAUNCHES[k] = 0
-        before = engine.plan_stats.as_dict()
+        before = eng.plan_stats.as_dict()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = call()
@@ -1133,14 +1179,14 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
         first_s = time.perf_counter() - t0
         launches = dict(bg.LAUNCHES)
         # the optimizer's report of the same DAG, nothing run
-        plan = _plan_summary(compile_only().plan_report(engine=engine), before, engine.plan_stats.as_dict())
+        plan = _plan_summary(compile_only().plan_report(engine=eng), before, eng.plan_stats.as_dict())
         checks = check(res)
         del res
         if twin is not None:
             want = select_cells[twin]["launches"]
             require(launches == want, f"{cell}: launches {launches}, its twin {twin} {want}")
         if cell == "sql-shipmode-where":
-            require(launches["bin_sum"] == (2 if engine.device.type == "cuda" else 0),
+            require(launches["bin_sum"] == (2 if eng.device.type == "cuda" else 0),
                     f"{cell}: bin_sum launched {launches['bin_sum']} times")
         compile_ms = []
         for _ in range(SQL_REPS):
@@ -1164,7 +1210,7 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
         line.update(extra or {})
         line["profile"] = _trace(torch, call)
         line["phase_s_so_far"] = time.perf_counter() - start
-        emit(line)
+        emit(line, eng)
         out["cells"][cell] = line
 
     rows = tdf.count()
@@ -1203,6 +1249,9 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
         setup_s = time.perf_counter() - t0
         sql = sql_pipeline_text(path)
 
+        # a LOAD of one file: the cache would serve every call after the first
+        nc_engine = TorchExecutionEngine(device=engine.device, conf=NO_CACHE)
+
         def run(engine):
             return api.fugue_sql(sql, rescale=rescale, engine=engine, as_fugue=True)
 
@@ -1212,8 +1261,8 @@ def phase_sql_path(torch, np, pd, bg, api, engine, tdf, oracles: dict, select_ce
             return (f"keys and counts exact; s rtol={SQL_PIPELINE_RTOL} atol={SQL_PIPELINE_ATOL} "
                     "vs a pandas oracle of the same frame")
 
-        run_cell("sql-pipeline-4m", lambda: run(engine), lambda: api.fugue_sql_flow(sql, rescale=rescale),
-                 check, rows=pipeline_rows, extra={"groups": len(expected), "setup_s": setup_s})
+        run_cell("sql-pipeline-4m", lambda: run(nc_engine), lambda: api.fugue_sql_flow(sql, rescale=rescale),
+                 check, rows=pipeline_rows, extra={"groups": len(expected), "setup_s": setup_s}, eng=nc_engine)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - start
@@ -1392,7 +1441,7 @@ def phase_window_path(torch, np, pd, bg, api, engine, tdf, arrays: dict) -> dict
                 "ms_all": wall, "rows_per_s": rows / ms * 1e3, "bound_ms": bound_ms, "bound_by": bound_by,
                 "peak_device_gb": peak / 1e9, "peak_above_frame_gb": (peak - base) / 1e9, "checks": checks,
                 "profile": profile, "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, engine)
         out["cells"][cell] = line
     # repartition on one device: no row moves, no copy
     for spec in ({"by": ["l_orderkey"], "algo": "hash"}, "per_row"):
@@ -1427,7 +1476,9 @@ def phase_window_path(torch, np, pd, bg, api, engine, tdf, arrays: dict) -> dict
 # the phase took 194 s on the card (a call 15.6-19.0 s), over its 180 s budget
 COGROUP_ROWS, COGROUP_B_ROWS = 20_000_000, 1_000_000
 COGROUP_KEYS, COGROUP_B_KEYS = 1_000, 1_100  # the second frame holds 100 keys the first lacks
-COGROUP_REPS = 3  # medians of 3 calls, after the checked one
+# one timed call after the checked one: cut in depth from 3 (each ~5 s of
+# pandas, one call a key) to make room for cache_path
+COGROUP_REPS = 1
 # the stream cut in scale, as setop_path's streams, then from 2·10^7 to
 # 8·10^6 rows (2 chunks: keys still cross a chunk's end) to make room for
 # services_path under the budget
@@ -1593,7 +1644,7 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
         if cell.startswith("sql-"):
             twin = out["cells"]["cogroup-uniform-1k"]["ms"]
             line.update(twin="cogroup-uniform-1k", twin_ms=twin, sql_cost_ms=ms - twin)
-        emit(line)
+        emit(line, engine)
         out["cells"][cell] = line
     del ta, tb, small
     torch.cuda.empty_cache()
@@ -1629,7 +1680,9 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
                           dim["k"].to_numpy(), dim["w"].to_numpy())
     del parts
     oracle_s = time.perf_counter() - t0
-    sengine = TorchExecutionEngine(device=engine.device, conf={"fugue.tpu.stream.chunk_rows": stream_chunk})
+    # the cache would serve the bounded frame's create after the first run
+    sengine = TorchExecutionEngine(device=engine.device, conf={"fugue.tpu.stream.chunk_rows": stream_chunk,
+                                                               **STATIC_CHUNKS, **NO_CACHE})
 
     def stream_run(chunks: int = n_chunks):
         dag = FugueWorkflow()
@@ -1663,7 +1716,7 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
             "peak_device_gb": peak / 1e9, "checks": checks,
             "profile_one_chunk": profile, "split_one_chunk": _comap_split(profile),
             "phase_s_so_far": time.perf_counter() - start}
-    emit(line)
+    emit(line, sengine)
     out["cells"]["stream-cogroup"] = line
     del res, got
 
@@ -1696,7 +1749,7 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
     out["engine_context"] = {"rows": ctx_rows, "seconds": ctx_s,
                              "checks": "keys exact, sums rtol=1e-9 vs pandas; verbs on the context engine"}
     out["seconds"] = time.perf_counter() - start
-    emit({"phase": "cogroup_path_end", "engine_context": out["engine_context"], "seconds": out["seconds"]})
+    emit({"phase": "cogroup_path_end", "engine_context": out["engine_context"], "seconds": out["seconds"]}, e)
     return out
 
 
@@ -1875,9 +1928,9 @@ def phase_setop_path(torch, np, pd, pa, bg, api, col, engine, tdf, oracles: dict
     rows = tdf.count()
     out = {"cells": {}}
 
-    def emit_cell(cell: str, line: dict) -> None:
+    def emit_cell(cell: str, line: dict, *engines) -> None:
         line = {"phase": "setop_path", "cell": cell, **line, "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, engine, *engines)
         out["cells"][cell] = line
 
     for name, (fn, reads) in setop_path_cells(api, col, engine).items():
@@ -1962,10 +2015,11 @@ def phase_setop_path(torch, np, pd, pa, bg, api, col, engine, tdf, oracles: dict
     require(stats["chunks"] == len(chunks), f"stream-take: read {stats['chunks']} of {len(chunks)} chunks")
     # no presort: the first chunk holds the 1000 rows; the pipeline's
     # read-ahead may have made up to its depth + 1 more, serial none
-    early = {}
+    early, early_engines = {}, []
     for depth in (0, None):
         conf = {} if depth is None else {FUGUE_TPU_CONF_STREAM_PREFETCH_DEPTH: depth}
         eng = TorchExecutionEngine(device=engine.device, conf=conf)
+        early_engines.append(eng)
         made = [0]
         head = api.take(stream(produced=made), 1000, presort="", engine=eng)
         require(head.count() == 1000 and streaming.last_run_stats["chunks"] == 1,
@@ -1978,7 +2032,7 @@ def phase_setop_path(torch, np, pd, pa, bg, api, col, engine, tdf, oracles: dict
         "rows_per_s": stream_rows / wall_s, "peak_device_gb": peak / 1e9, "stream_stats": stats,
         "early_stop": early, "checks": "take(100, 'v desc, k, b'): key columns in order and rows vs np.lexsort; "
                                       "take(1000) with no presort reads one chunk",
-    })
+    }, *early_engines)
     res, wall_s, peak = streamed(lambda: api.distinct(stream(["k", "b"]), engine=engine))
     got = res.as_pandas()
     _same_rows(np, got, distinct_exp, "stream-distinct")
@@ -2198,7 +2252,7 @@ def phase_transform_path(torch, np, bg, api, go, frame_from_numpy, engine, seed:
                 # too short a window to read an idle share from
                 "profile": _trace(torch, call, calls=max(1, int(TRACE_WINDOW_MS / ms))),
             }
-            emit(line)
+            emit(line, engine)
             out["cells"][cell] = line
         del tdf, cols, aux
         torch.cuda.empty_cache()
@@ -2461,7 +2515,7 @@ def phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, s
 
     def emit_cell(cell: str, line: dict) -> None:
         line = {"phase": "join_path", "cell": cell, **line}
-        emit(line)
+        emit(line, engine)
         out["cells"][line.get("key", cell)] = line
 
     # north-star-100m
@@ -2659,24 +2713,29 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
 
     import pyarrow.parquet as pq
 
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+
     out = {"phase": "host_path", "cells": {},
            "checks": f"keys and row counts exact; values rtol={HOST_RTOL} atol={HOST_ATOL} vs "
                      "float64 oracle; the expansion's row set exact"}
     demean = host_udfs(pd)["demean"]
 
-    def emit_cell(cell: str, line: dict) -> None:
+    def emit_cell(cell: str, line: dict, *engines) -> None:
         line = {"phase": "host_path", "cell": cell, **line}
-        emit(line)
+        emit(line, engine, *engines)
         out["cells"][cell] = line
 
     # pandas-demean-1m: pandas in, pandas out
     pdf = udf_frame(np, pd)
     k, v = pdf["k"].to_numpy(), pdf["v"].to_numpy()
 
-    def udf_call():
-        return api.transform(pdf, demean, schema="*", partition={"by": ["k"]}, engine=engine)
+    # a pandas frame under 64 MiB is fingerprinted: the cache would serve every call after the first
+    ueng = TorchExecutionEngine(device=engine.device, conf=NO_CACHE)
 
-    maps = _Calls(engine.map_engine._host_map, "map_dataframe")
+    def udf_call():
+        return api.transform(pdf, demean, schema="*", partition={"by": ["k"]}, engine=ueng)
+
+    maps = _Calls(ueng.map_engine._host_map, "map_dataframe")
     res, line = _first_call(torch, bg, udf_call)
     require(maps.count == 1, "pandas-demean-1m: not the host map")
     maps.restore()
@@ -2713,7 +2772,7 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
                 copies_bytes={"d2h": 16 * len(pdf), "h2d": 16 * len(pdf)},
                 split=_copy_split(profile, "fugue::host_map"), profile=profile,
                 round_trip_s=round_trip_s)
-    emit_cell("pandas-demean-1m", line)
+    emit_cell("pandas-demean-1m", line, ueng)
     del pdf, k, v, loaded, mapped, back
 
     # pandas-demean-100m: the frame already on the card
@@ -2787,12 +2846,14 @@ STREAM_PEAK_LIMIT = 1 << 30  # the north star's peak device bytes stay under 1 G
 
 
 def stream_chunks(np, pd, PandasDataFrame, rows: int, chunk: int, seed: int, clock: dict,
-                  count=None, f32: bool = False):
+                  count=None, f32: bool = False, tap=None):
     """bench.py's ``_north_star`` chunks: chunk i from
     ``np.random.default_rng(seed + i)``, ``k`` uniform over ``NS_GROUPS``
     keys, ``v`` uniform (float32 with ``f32``), as PandasDataFrames of
     ``k:long,v:double`` (``v:float``); the host seconds spent making them
-    add up in ``clock["generate_s"]``."""
+    add up in ``clock["generate_s"]``. ``tap(k, v)``, where given, sees
+    each chunk's arrays as they are made (its seconds add up in
+    ``clock["tap_s"]``)."""
     schema = "k:long,v:float" if f32 else "k:long,v:double"
     n_chunks = (rows + chunk - 1) // chunk
     for i in range(n_chunks if count is None else min(count, n_chunks)):
@@ -2802,6 +2863,10 @@ def stream_chunks(np, pd, PandasDataFrame, rows: int, chunk: int, seed: int, clo
         k, v = rng.integers(0, NS_GROUPS, n), rng.random(n)
         part = PandasDataFrame(pd.DataFrame({"k": k, "v": v.astype(np.float32) if f32 else v}), schema)
         clock["generate_s"] += time.perf_counter() - t0
+        if tap is not None:
+            t0 = time.perf_counter()
+            tap(k, v)
+            clock["tap_s"] = clock.get("tap_s", 0.0) + time.perf_counter() - t0
         yield part
 
 
@@ -2828,7 +2893,10 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
       bench.py's assertions (every row out, ``|Σd| < 1``), the means
       against a float64 ``np.bincount`` oracle (``rtol=STREAM_RTOL``), and
       ``d`` against ``v − mean[k]`` (``atol=1e-9``) on every
-      ``check_every``-th chunk; timed by pass, the peak device bytes under
+      ``check_every``-th chunk; timed by pass (the oracle is taken on the
+      aggregate pass's producer thread, and its seconds are taken out of
+      ``aggregate_s`` and ``rows_per_s``; ``*_with_oracle_s`` keep the raw
+      wall), the peak device bytes under
       ``STREAM_PEAK_LIMIT``, the pipeline's stats, the generator's host
       seconds, and a traced window of ``STREAM_TRACE_CHUNKS`` chunks a pass.
     - ``f32-aggregate``: ``f32_rows`` rows with ``v`` as float32 streamed
@@ -2852,10 +2920,10 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
     out = {"phase": "stream_path", "cells": {}}
     n_chunks = (rows + chunk - 1) // chunk
 
-    def stream(clock, count=None, f32=False, n=rows):
+    def stream(clock, count=None, f32=False, n=rows, tap=None):
         schema = "k:long,v:float" if f32 else "k:long,v:double"
         return LocalDataFrameIterableDataFrame(
-            stream_chunks(np, pd, PandasDataFrame, n, chunk, seed, clock, count, f32), schema=schema)
+            stream_chunks(np, pd, PandasDataFrame, n, chunk, seed, clock, count, f32, tap), schema=schema)
 
     def aggregate(eng, s):
         return eng.aggregate(s, PartitionSpec(by=["k"]), [ff.avg(col("v")).alias("m")])
@@ -2864,20 +2932,28 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
         return api.transform(eng.join(s, means, how="inner"), demean, schema="k:long,d:double",
                              engine=eng, as_fugue=True)
 
-    # north-star: the oracle pass first, then the two timed passes
-    t0 = time.perf_counter()
-    sums, counts = _stream_oracle(np, pd, PandasDataFrame, rows, chunk, seed, f32=False)
-    oracle_s = time.perf_counter() - t0
-    mean = sums / np.maximum(counts, 1)
-    eng = TorchExecutionEngine(device=device, conf=conf)
+    # north-star: two timed passes. The float64 oracle is taken from the
+    # aggregate pass's own chunks as they are made (cut in depth: it was a
+    # third pass over the 10^9 rows, made again), on its producer thread,
+    # which paces the stream: its seconds (tap_s) are taken out of the
+    # aggregate pass's time that rows_per_s reads, and the raw wall is kept
+    sums, counts = np.zeros(NS_GROUPS), np.zeros(NS_GROUPS, dtype=np.int64)
+
+    def tap(k, v) -> None:
+        np.add(sums, np.bincount(k, weights=v, minlength=NS_GROUPS), out=sums)
+        np.add(counts, np.bincount(k, minlength=NS_GROUPS), out=counts)
+
+    eng = TorchExecutionEngine(device=device, conf={**conf, **STATIC_CHUNKS})
     for name in bg.LAUNCHES:
         bg.LAUNCHES[name] = 0
     clock = {"generate_s": 0.0}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    means = aggregate(eng, stream(clock))
+    means = aggregate(eng, stream(clock, tap=tap))
     agg_s = time.perf_counter() - t0
+    oracle_s = clock["tap_s"]
+    mean = sums / np.maximum(counts, 1)
     agg_peak = torch.cuda.max_memory_allocated()
     agg_generate_s = clock["generate_s"]
     agg_stats = dict(streaming.last_run_stats)
@@ -2914,16 +2990,17 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
         "join_map": _trace(torch, lambda: [p.count() for p in join_map(
             eng, stream({"generate_s": 0.0}, window), means).native], all_threads=True),
     }
-    wall = agg_s + join_map_s
+    wall = agg_s - oracle_s + join_map_s
     line = {"phase": "stream_path", "cell": "north-star", "rows": rows, "chunk": chunk,
             "chunks": n_chunks, "groups": int(len(present)), "launches": launches,
-            "aggregate_s": agg_s, "join_map_s": join_map_s, "wall_s": wall,
+            "aggregate_s": agg_s - oracle_s, "aggregate_with_oracle_s": agg_s, "join_map_s": join_map_s,
+            "wall_s": wall, "wall_with_oracle_s": agg_s + join_map_s,
             "rows_per_s": rows / wall, "generate_s": {"aggregate": agg_generate_s,
                                                      "join_map": clock["generate_s"] - agg_generate_s},
             "oracle_s": oracle_s, "peak_device_bytes": peak, "checked_chunks": sorted(kept),
             "aggregate_run": agg_stats, "join_map_run": dict(streaming.last_run_stats),
             "pipeline": eng.pipeline_stats.as_dict(), "trace_chunks": window, "profile": traces}
-    emit(line)
+    emit(line, eng)
     out["cells"]["north-star"] = line
     del means, mp, kept, eng
     torch.cuda.empty_cache()
@@ -2932,7 +3009,7 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
     t0 = time.perf_counter()
     sums, counts = _stream_oracle(np, pd, PandasDataFrame, f32_rows, chunk, seed, f32=True)
     oracle_s = time.perf_counter() - t0
-    eng = TorchExecutionEngine(device=device, conf=conf)
+    eng = TorchExecutionEngine(device=device, conf={**conf, **STATIC_CHUNKS})
     f32_chunks = (f32_rows + chunk - 1) // chunk
     for name in bg.LAUNCHES:
         bg.LAUNCHES[name] = 0
@@ -2975,7 +3052,7 @@ def phase_stream_path(torch, np, pd, bg, api, ff, col, device, seed: int, rows: 
             "chunks": f32_chunks, "groups": int(len(present)), "launches": launches, "wall_s": wall,
             "rows_per_s": f32_rows / wall, "generate_s": clock["generate_s"], "oracle_s": oracle_s,
             "peak_device_bytes": peak, "run": dict(streaming.last_run_stats), "bin_sum": b1}
-    emit(line)
+    emit(line, eng)
     out["cells"]["f32-aggregate"] = line
     return out
 
@@ -3064,7 +3141,10 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
     - ``stream-lowered-f32``: the same chain over ``stream_rows`` of the
       same rows streamed in chunks of ``stream_chunk`` rows: B1 once a
       chunk, the peak device bytes under ``STREAM_PEAK_LIMIT``, one traced
-      call; beside its per-verb twin;
+      call; beside its per-verb twin, and beside ``PLAN_REPS`` runs with
+      the tuner at its default (on), a cold run and warm ones, each with
+      its chunks, its B1 launches and the tuner's decision (``tuned_ms``:
+      the median of the warm runs);
     - ``unsigned-keys``: the frame's ``k`` as uint32, aggregated
       SUM/COUNT/AVG/MIN/MAX of ``v`` (the dense route, B1 once), then an
       inner join of ``PLAN_JOIN_ROWS`` rows by a uint64 key straddling
@@ -3078,6 +3158,10 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
     twin, with the launch counts set to 0 just before the checked call and
     read just after, then timed (median of ``PLAN_REPS`` calls, the twin's
     beside it) and traced once; each line has the PlanReport in short."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
     from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
     from fugue_tpu_torch.sql import FugueSQLWorkflow
     from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
@@ -3161,7 +3245,7 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
                 "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle and twin",
                 "profile": _trace(torch, call), "twin_profile": _trace(torch, twin_call),
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, engine)
         out["cells"]["lowered-uniform-1k"] = line
         del tdf
         torch.cuda.empty_cache()
@@ -3172,7 +3256,7 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
         chunks = (n_stream + stream_chunk - 1) // stream_chunk
         stream_exp = exp if n_stream == rows else plan_oracle(np, pd, k[:n_stream], v[:n_stream], w[:n_stream])
         seng = TorchExecutionEngine(device=engine.device, conf={
-            "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+            "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999", **STATIC_CHUNKS})
 
         def stream():
             return LocalDataFrameIterableDataFrame(
@@ -3196,20 +3280,48 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
         twin_call = lambda: run_dag(seng, lambda: chain(stream(), {LOWER_KEY: False}))[0].count()  # noqa: E731
         ms_all = _wall_ms(torch, call, PLAN_REPS)
         twin_all = _wall_ms(torch, twin_call, PLAN_REPS)
+        # the tuner at its default (on), its store in a temporary file: a
+        # cold run, then warm ones that read what the runs before learned,
+        # each timed as ``call`` is and checked, beside the static runs
+        tuned_dir = tempfile.mkdtemp(prefix=".plan_path_tuned_", dir=Path(__file__).resolve().parent)
+        try:
+            teng = TorchExecutionEngine(device=engine.device, conf={
+                "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999",
+                "fugue.tpu.tuning.path": str(Path(tuned_dir) / "tuned.json")})
+            tuned = []
+            for i in range(PLAN_REPS):
+                for name in bg.LAUNCHES:
+                    bg.LAUNCHES[name] = 0
+                held = []
+                t_ms = _wall_ms(torch, lambda: held.append(run_dag(teng, lambda: chain(stream()))[0])
+                                or held[-1].count(), 1)[0]
+                t_chunks, t_launches = streaming.last_run_stats["chunks"], dict(bg.LAUNCHES)
+                t_got = held.pop().as_pandas().sort_values("k").reset_index(drop=True)
+                _check_agg(np, t_got, stream_exp, f"stream-lowered-f32 tuned run {i}")
+                same_as_twin(t_got, got, f"stream-lowered-f32 tuned run {i}")
+                require(t_launches["bin_sum"] == (t_chunks if on_card else 0),
+                        f"stream-lowered-f32 tuned run {i}: bin_sum {t_launches} over {t_chunks} chunks")
+                decided = [x["value"] for x in teng.tuner.as_dict()["last_decisions"] if x["target"] == "stream"]
+                tuned.append({"ms": t_ms, "chunks": t_chunks, "launches": t_launches,
+                              "decision": decided[-1] if decided else None})
+        finally:
+            shutil.rmtree(tuned_dir, ignore_errors=True)
+        tuned_all = [r["ms"] for r in tuned]
         bound_ms, bound_by = _bound(n_stream, 16, 1024 * 41)
         line = {"phase": "plan_path", "cell": "stream-lowered-f32", "rows": n_stream, "chunk": stream_chunk,
                 "chunks": chunks, "plan": plan, "launches": launches, "twin_launches": twin_launches,
                 "first_call_s": first_s, "twin_first_call_s": twin_first_s, "ms": statistics.median(ms_all),
                 "ms_all": ms_all, "twin_ms": statistics.median(twin_all), "twin_ms_all": twin_all,
-                "rows_per_s": n_stream / statistics.median(ms_all) * 1e3, "bound_ms": bound_ms,
+                "tuned_ms": statistics.median(tuned_all[1:] or tuned_all), "tuned_ms_all": tuned_all,
+                "tuned_runs": tuned, "rows_per_s": n_stream / statistics.median(ms_all) * 1e3, "bound_ms": bound_ms,
                 "bound_by": bound_by, "peak_device_bytes": peak, "resident_before_bytes": resident, "run": run_stats,
                 "pipeline": seng.pipeline_stats.as_dict(),
                 "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle and twin",
                 "profile": _trace(torch, call, all_threads=True),
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, seng, teng)
         out["cells"]["stream-lowered-f32"] = line
-        del tbl, seng
+        del tbl, seng, teng
         torch.cuda.empty_cache()
 
     if "unsigned-keys" in cells:
@@ -3260,7 +3372,7 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
                 "checks": (f"aggregate: keys, counts, min/max exact, sum/avg rtol={ORACLE_RTOL} vs float64 oracle; "
                            "join: rows exact vs numpy"),
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, engine)
         out["cells"]["unsigned-keys"] = line
         del ldf, rdf, jres
         torch.cuda.empty_cache()
@@ -3303,7 +3415,7 @@ def phase_plan_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, rows
                 "checks": f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle and the spark twin",
                 "profile": _trace(torch, lambda: run_sql("postgres")[0].count()),
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, engine)
         out["cells"]["sql-dialect"] = line
         del tdf
         torch.cuda.empty_cache()
@@ -3479,7 +3591,7 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
             "bound_ms": bound_ms, "bound_by": bound_by,
             "checks": f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle, the twin too",
             "profile": _trace(torch, call), "phase_s_so_far": time.perf_counter() - start}
-    emit(line)
+    emit(line, engine)
     out["cells"]["translated-uniform-1k"] = line
 
     # B1 at the shapes of the lowered and translated cells, on this frame
@@ -3511,7 +3623,7 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
     stream_exp = exp if n_stream == rows else scale_oracle(np, k, v, w, 0, n_stream)
     stream_check = lambda got, what: _check_scaled(np, got, stream_exp, what)  # noqa: E731
     seng = TorchExecutionEngine(device=engine.device, conf={
-        "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+        "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999", **STATIC_CHUNKS})
 
     def stream(t=tbl):
         return LocalDataFrameIterableDataFrame(
@@ -3536,7 +3648,7 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
             "resident_before_bytes": resident, "run": run_stats, "bound_ms": _bound(n_stream, 16, 1024 * 21)[0],
             "checks": f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle, the twin too",
             "profile": _trace(torch, call, all_threads=True), "phase_s_so_far": time.perf_counter() - start}
-    emit(line)
+    emit(line, seng)
     out["cells"]["stream-translated-f32"] = line
     del tbl, seng
     torch.cuda.empty_cache()
@@ -3575,7 +3687,7 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
         sk = np.nonzero(n_s)[0]
         uexp, usum = (sk, n_s[sk], s_s[sk]), {"su": (sk * n_s[sk]) % (1 << 32)}
     seng = TorchExecutionEngine(device=engine.device, conf={
-        "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+        "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999", **STATIC_CHUNKS})
     s_launches, s_plan, s_first = checked(seng, lambda: chain_u(stream(utbl)), "lowered-uint32 stream", ucheck)
     s_ms = _wall_ms(torch, lambda: run_dag(seng, chain_u(stream(utbl)))[0].count(), PLAN_REPS)
     for plan, launches, want, what in ((b_plan, b_launches, 1, "lowered-uint32"),
@@ -3588,7 +3700,7 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
             "stream_ms": statistics.median(s_ms), "stream_ms_all": s_ms,
             "checks": f"keys, counts, SUM(u) exact; sums rtol={ORACLE_RTOL} vs float64 oracle",
             "phase_s_so_far": time.perf_counter() - start}
-    emit(line)
+    emit(line, engine, seng)
     out["cells"]["lowered-uint32"] = line
     del utbl, seng
     torch.cuda.empty_cache()
@@ -3628,7 +3740,7 @@ def phase_analysis_path(torch, np, pd, pa, bg, api, ff, col, engine, pdf, stream
             "launches": launches, "ms": ms, "lint": lint,
             "checks": "1,000 calls reporting 10^6 rows; rows out as in; the lint verdicts",
             "phase_s_so_far": time.perf_counter() - start}
-    emit(line)
+    emit(line, engine)
     out["cells"]["callback-1k"] = line
     out["seconds"] = time.perf_counter() - start
     return out
@@ -3863,7 +3975,7 @@ def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows
                 "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; span tree; "
                           "chrome trace; prometheus text; sampled bytes in [frame, peak]; B1 inside plan.segment",
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, teng)
         out["cells"]["traced-lowered"] = line
 
         # traced-stream: the same chain over the rows streamed
@@ -3872,7 +3984,7 @@ def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows
         stream_exp = exp if n_stream == rows else plan_oracle(np, pd, k[:n_stream], v[:n_stream], w[:n_stream])
         tbl = pa.table({"k": k[:n_stream], "v": v[:n_stream], "w": w[:n_stream]})
         seng = TorchExecutionEngine(device=engine.device, conf={
-            "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999"})
+            "fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999", **STATIC_CHUNKS})
 
         def stream():
             return LocalDataFrameIterableDataFrame(
@@ -3903,7 +4015,7 @@ def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows
                 "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; one chunk "
                           "span a chunk under the segment, rows summed",
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, seng)
         out["cells"]["traced-stream"] = line
 
         # fault-retry: task.execute fails once, two attempts a task
@@ -3949,7 +4061,7 @@ def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows
                 "checks": f"keys, counts, min/max exact, sum/avg rtol={ORACLE_RTOL} vs the untraced run; one retry; "
                           "the stream's injected error, no producer left, device bytes back",
                 "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, teng, seng)
         out["cells"]["fault-retry"] = line
         out["handover"] = tdf  # services_path profiles the same frame
         del tdf, tbl, teng, seng
@@ -4074,9 +4186,9 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
         for name in bg.LAUNCHES:
             bg.LAUNCHES[name] = 0
 
-    def emit_cell(cell: str, line: dict) -> None:
+    def emit_cell(cell: str, line: dict, *engines) -> None:
         line = {"phase": "services_path", "cell": cell, **line, "phase_s_so_far": time.perf_counter() - start}
-        emit(line)
+        emit(line, *engines)
         out["cells"][cell] = line
 
     tmp = Path(tempfile.mkdtemp(prefix=".services_path_", dir=Path(__file__).resolve().parent))
@@ -4104,14 +4216,14 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
             profiled_ms = (time.perf_counter() - t0) * 1e3
         capture_ms = (time.perf_counter() - t_capture) * 1e3
         launches = dict(bg.LAUNCHES)
-        got = res.as_pandas().sort_values("k").reset_index(drop=True)
-        _check_agg(np, got, exp, "profiled-lowered")
-        require(launches == {"bin_sum": 1 if on_card else 0, "bin_sum_count": 0},
-                f"profiled-lowered: launches {launches}")
         files = sorted((tmp / "profile").glob("*.json"))
         require(len(files) == 1, f"profiled-lowered: {len(files)} trace files")
         with open(files[0]) as f:
             events = json.load(f)["traceEvents"]
+        got = res.as_pandas().sort_values("k").reset_index(drop=True)
+        _check_agg(np, got, exp, "profiled-lowered")
+        require(launches == {"bin_sum": 1 if on_card else 0, "bin_sum_count": 0},
+                f"profiled-lowered: launches {launches}")
         region = sum(1 for ev in events if ev.get("name") == "services.profiled-lowered" and ev.get("ph") == "X")
         ranges = profiled_ranges(str(files[0]), "plan.segment", "binned_")
         old = profiled_ranges(str(files[0]), "fugue::plan_segment", "binned_")["ranges"]
@@ -4125,7 +4237,7 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
             "trace_events": len(events), "annotate_ranges": region, "profile_ranges": ranges,
             "fugue_plan_segment_ranges": old,
             "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; one plan.segment "
-                      "range holding B1's kernel, no fugue::plan_segment"})
+                      "range holding B1's kernel, no fugue::plan_segment"}, heng)
         del got, res
 
         # http-callback-1k: callbacks over the HTTP server on loopback
@@ -4144,16 +4256,19 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
             return dag.yields["r"].result.count()
 
         keys = int(small["k"].nunique())
+        # the cache would serve the pandas input's create after the first call
+        ceng = TorchExecutionEngine(device=device, conf={"fugue.rpc.server": HTTP_SERVER, **NO_CACHE})
         zero()
         ms_all, n_out = [], []
         for _ in range(SERVICES_REPS):
-            ms_all += _wall_ms(torch, lambda: n_out.append(by_key(heng)), 1)
+            ms_all += _wall_ms(torch, lambda: n_out.append(by_key(ceng)), 1)
             require(calls == {"calls": keys, "rows": len(small)} and n_out[-1] == len(small),
                     f"http-callback-1k: {calls}, {n_out[-1]} rows out over {keys} keys")
         h_launches = dict(bg.LAUNCHES)
-        require(type(heng.rpc_server).__name__ == "HttpRPCServer" and not heng.rpc_server.running,
-                f"http-callback-1k: server {heng.rpc_server}")
-        feng = TorchExecutionEngine(device=device, conf={"fugue.rpc.server": HTTP_SERVER, **SERVICES_FAULT_RPC})
+        require(type(ceng.rpc_server).__name__ == "HttpRPCServer" and not ceng.rpc_server.running,
+                f"http-callback-1k: server {ceng.rpc_server}")
+        feng = TorchExecutionEngine(device=device, conf={"fugue.rpc.server": HTTP_SERVER, **SERVICES_FAULT_RPC,
+                                                         **NO_CACHE})
         f_out = by_key(feng)
         retries = feng.rpc_server.resilience_stats.as_dict()
         require(f_out == len(small) and calls == {"calls": keys, "rows": len(small)} and retries == {"rpc.retries": 1},
@@ -4162,8 +4277,9 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
             "rows": len(small), "keys": keys, "callback": calls, "launches": h_launches,
             "ms": statistics.median(ms_all), "ms_all": ms_all, "in_process_ms": callback_ms,
             "fault": {"plan": SERVICES_FAULT_RPC["fugue.tpu.fault.plan"], "retries": retries},
-            "checks": "one call a key reporting every row; rows out as in; the faulted call's answer and one retry"})
-        del feng
+            "checks": "one call a key reporting every row; rows out as in; the faulted call's answer and one retry"},
+            ceng, feng)
+        del ceng, feng
 
         # http-scrape: traced lowered calls, then the bound server's routes
         tracer.clear()
@@ -4199,7 +4315,7 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
                            "histogram_series": prom["histogram_series"], "plan_segment_count": segs},
             "readyz": ready, "healthz": json.loads(fetched["/healthz"][1]),
             "checks": "every route 200; the Prometheus validator; plan.segment counted once a traced call; "
-                      "/readyz serve_bound false"})
+                      "/readyz serve_bound false"}, heng)
         tracer.clear()
         metrics.clear()
         del tdf, heng
@@ -4211,8 +4327,9 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
         demean = host_udfs(pd)["demean"]
         upd = udf_frame(np, pd).iloc[:udf_rows]
         k, v = upd["k"].to_numpy(), upd["v"].to_numpy()
-        serial = TorchExecutionEngine(device=device)
-        pooled = TorchExecutionEngine(device=device, conf={"fugue.tpu.map.parallelism": workers})
+        # the cache would serve every call of a pandas frame after the first
+        serial = TorchExecutionEngine(device=device, conf=NO_CACHE)
+        pooled = TorchExecutionEngine(device=device, conf={"fugue.tpu.map.parallelism": workers, **NO_CACHE})
 
         def udf_call(eng):
             return api.transform(upd, demean, schema="*", partition={"by": ["k"]}, engine=eng)
@@ -4243,7 +4360,8 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
             "speedup": statistics.median(serial_ms) / statistics.median(pool_ms),
             "worker_chunk_spans": len(spans), "worker_pids": len({r["args"]["worker_pid"] for r in spans}),
             "worker_chunk_ms": [r["dur"] / 1e6 for r in spans], "resilience": st,
-            "checks": f"keys exact, v rtol={HOST_RTOL} atol={HOST_ATOL} vs float64 oracle; equal to the serial twin"})
+            "checks": f"keys exact, v rtol={HOST_RTOL} atol={HOST_ATOL} vs float64 oracle; equal to the serial twin"},
+            serial, pooled)
 
         # pool-demean-device-10m: a frame on the card, forked after CUDA is up
         t0 = time.perf_counter()
@@ -4283,14 +4401,14 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
                       profile=profile,
                       checks=f"keys exact, v rtol={HOST_RTOL} atol={HOST_ATOL} vs float64 oracle on the card; "
                              "equal to the serial twin; no lost worker, retry or fallback")
-        emit_cell("pool-demean-device-10m", d_line)
+        emit_cell("pool-demean-device-10m", d_line, deng, serial)
         del ddf, cols, deng
         torch.cuda.empty_cache()
 
         # pool-kill: one worker SIGKILLed mid-chunk
         keng = TorchExecutionEngine(device=device, conf={"fugue.tpu.map.parallelism": workers,
                                                          "fugue.tpu.fault.plan": "map.chunk=kill",
-                                                         "fugue.tpu.retry.base": 0.01})
+                                                         "fugue.tpu.retry.base": 0.01, **NO_CACHE})
         zero()
         t0 = time.perf_counter()
         got_kill = udf_call(keng)
@@ -4307,11 +4425,365 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
         emit_cell("pool-kill", {
             "rows": len(upd), "workers": workers, "launches": k_launches, "ms": kill_ms,
             "pool_ms": statistics.median(pool_ms), "resilience": st, "children_left": left,
-            "checks": "equal to the serial twin; one worker lost, its chunk retried on a fresh pool; no child left"})
+            "checks": "equal to the serial twin; one worker lost, its chunk retried on a fresh pool; no child left"},
+            keng)
     finally:
         tracer.disable()
         tracer.clear()
         metrics.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# cache_path: the result cache, the delta cache and the tuner on plan_path's frame
+CACHE_FILES = 10  # plan_path's 10^8 rows as 10 parquet files of 10^7
+# the tuned stream, cut in scale as traced-stream is: 2·10^7 rows in
+# chunks of 2^18 (77 chunks), so that the tuner has chunks to merge
+TUNED_STREAM_ROWS, TUNED_STREAM_CHUNK = 20_000_000, 1 << 18
+TUNED_RUNS = 3
+CACHE_AGGS = ("s", "n", "lo", "hi")  # no AVG: the finished table is the partial accumulator
+
+
+def _tuned_chunks(n: int, src_chunk: int, size: int) -> int:
+    """The chunks a stream of ``n`` rows made in chunks of ``src_chunk``
+    reaches the device in at chunk size ``size``: a learned size merges the
+    source's chunks up to it (``_maybe_coalesce``), then each is cut at it
+    (``_rechunk``)."""
+    src = [min(src_chunk, n - s) for s in range(0, n, src_chunk)]
+    if size != src_chunk:
+        merged, have = [], 0
+        for c in src:
+            if c >= size and have == 0:
+                merged.append(c)
+                continue
+            have += c
+            if have >= size:
+                merged, have = merged + [have], 0
+        src = merged + ([have] if have else [])
+    return sum(-(-c // size) for c in src)
+
+
+def _merge_oracles(np, pd, a, b):
+    """The oracle of two sources' rows from theirs: counts and float64 sums
+    add, the float32 MIN and MAX meet, a group with no value stays NULL."""
+    m = a.merge(b, on="k", how="outer", suffixes=("_a", "_b")).sort_values("k").reset_index(drop=True)
+    n = m["n_a"].fillna(0).astype(np.int64) + m["n_b"].fillna(0).astype(np.int64)
+    s = m["s_a"].fillna(0.0) + m["s_b"].fillna(0.0)
+    out = pd.DataFrame({"k": m["k"].to_numpy(), "n": n.to_numpy()})
+    out["s"] = np.where(n > 0, s, np.nan)
+    out["lo"] = np.fmin(m["lo_a"].to_numpy(), m["lo_b"].to_numpy())
+    out["hi"] = np.fmax(m["hi_a"].to_numpy(), m["hi_b"].to_numpy())
+    return out[["k", "s", "n", "lo", "hi"]]
+
+
+def _check_cache(np, got, exp, what: str) -> str:
+    require(list(got.columns) == ["k", *CACHE_AGGS], f"{what}: columns {list(got.columns)}")
+    require(len(got) == len(exp), f"{what}: {len(got)} groups, expected {len(exp)}")
+    for c in ("k", "n", "lo", "hi"):
+        require(np.array_equal(got[c].to_numpy(), exp[c].to_numpy(), equal_nan=True), f"{what}: {c}")
+    g, e = got["s"].to_numpy(), exp["s"].to_numpy()
+    require((np.isnan(g) == np.isnan(e)).all(), f"{what}: NULLs of s")
+    ok = ~np.isnan(e)
+    require(np.allclose(g[ok], e[ok], rtol=ORACLE_RTOL, atol=0), f"{what}: s vs oracle")
+    return f"keys, counts, min/max exact; sums rtol={ORACLE_RTOL} vs float64 oracle"
+
+
+def phase_cache_path(torch, np, pd, pa, bg, ff, col, device, pdf, seed: int, exp=None, files: int = CACHE_FILES,
+                     stream_rows: int = TUNED_STREAM_ROWS, stream_chunk: int = TUNED_STREAM_CHUNK,
+                     tmp_root=None) -> dict:
+    """The result cache, the delta cache and the tuner on the card, through
+    ``FugueWorkflow.run``, one line a cell. ``pdf`` (plan_path's frame, handed
+    over; ``exp`` its oracle) is written as ``files`` parquet files into a
+    temporary directory of the checkout (removed after), and each run is
+    ``LOAD dir → filter(v > 0.25) → select(k, v * w AS z) → aggregate`` by
+    ``k`` (SUM/COUNT/MIN/MAX of ``z``): one lowered segment, B1 for SUM(z).
+
+    - ``cache-cold``: the memory and disk tiers (``fugue.tpu.cache.dir``): a
+      miss that publishes, B1 once over every row;
+    - ``cache-warm-mem``: the same DAG on the same engine: one memory hit,
+      B1 0 times, one ``task.cache_hit`` span and no producer's;
+    - ``cache-warm-disk``: a fresh engine on the same directory: one disk
+      hit, B1 0 times;
+    - ``cache-delta``: one more file of ``len(pdf) / files`` new rows: one
+      ``task.delta_recompute`` span over ``files/files+1`` partitions, B1
+      over the new rows only, the merged partials against the oracle of
+      every file and against the twin with the cache off; then the device
+      bytes the memory tiers hold, and, after their ``clear()``, the
+      device's allocated bytes back to the phase's start, to the byte;
+    - ``tuned-stream``: ``stream_rows`` rows streamed in chunks of
+      ``stream_chunk`` through the same chain, ``TUNED_RUNS`` runs with the
+      tuner on (its store in the temporary directory) beside a tuning-off
+      twin: each run's chunks, the tuner's decision, B1 once a chunk, and
+      the result against the oracle; the chunk counts follow what
+      ``adjust_stream`` gives for the run before.
+
+    Each line has its wall time, its B1 launches counted from 0 just before,
+    ``engine.stats()["cache"]`` and its spans (the port's tracer on). The
+    first call of each cell is its measure: a second call would be a hit."""
+    import shutil
+    import tempfile
+    from collections import Counter
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import pyarrow.parquet as pq
+
+    from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
+    from fugue_tpu_torch.obs import get_tracer
+    from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
+    from fugue_tpu_torch.torch.pipeline import prefetch_depth
+    from fugue_tpu_torch.tuning import adjust_stream
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {"phase": "cache_path", "cells": {}}
+    rows = len(pdf)
+    per = rows // files
+    rows = per * files
+    k, v, w = (pdf[c].to_numpy()[:rows] for c in ("k", "v", "w"))
+    exp = plan_oracle(np, pd, k, v, w) if exp is None or rows != len(pdf) else exp
+    exp = exp[["k", *CACHE_AGGS]]
+    rng = np.random.default_rng(seed + 29)  # the new file's rows
+    nk = rng.integers(0, 1000, per, dtype=np.int64)
+    nv = rng.random(per, dtype=np.float32)
+    nv[rng.random(per) < 0.01] = np.nan
+    nw = rng.random(per, dtype=np.float32)
+    exp11 = _merge_oracles(np, pd, exp, plan_oracle(np, pd, nk, nv, nw)[["k", *CACHE_AGGS]])
+    aggs = dict(s=ff.sum(col("z")), n=ff.count(col("z")), lo=ff.min(col("z")), hi=ff.max(col("z")))
+    tracer = get_tracer()
+    b1_rows: list = []
+    real_b1 = bg.bin_sum
+
+    def spy_b1(keys, values, valid, buckets):  # the rows each B1 call gets
+        b1_rows.append(int(keys.shape[0]))
+        return real_b1(keys, values, valid, buckets)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated() if on_card else 0
+    root = Path(tmp_root) if tmp_root else Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix=".cache_path_", dir=root))
+    src = tmp / "src"
+    src.mkdir()
+    conf = {"fugue.tpu.cache.dir": str(tmp / "cache")}
+    bg.bin_sum = spy_b1
+    tracer.clear()
+    tracer.enable()
+    try:
+        def write(i: int) -> None:
+            sl = slice(i * per, (i + 1) * per)
+            pq.write_table(pa.table({"k": k[sl], "v": v[sl], "w": w[sl]}), src / f"part_{i:03d}.parquet",
+                           compression="none")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(min(files, os.cpu_count() or 1)) as pool:
+            list(pool.map(write, range(files)))
+        write_s = time.perf_counter() - t0
+
+        def chain(conf_=None):
+            dag = FugueWorkflow(conf_)
+            (dag.load(str(src), fmt="parquet").filter(col("v") > 0.25)
+             .select(col("k"), (col("v") * col("w")).alias("z")).partition_by("k").aggregate(**aggs)
+             .yield_dataframe_as("r", as_local=True))
+            return dag
+
+        def run(eng, cell: str, oracle, conf_=None) -> tuple:
+            """One checked run: (result pandas, line fields)."""
+            for name in bg.LAUNCHES:
+                bg.LAUNCHES[name] = 0
+            b1_rows.clear()
+            tracer.clear()
+            before = eng.stats()["cache"]
+            dag = chain(conf_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dag.run(eng)
+            got = dag.yields["r"].result.as_pandas().sort_values("k").reset_index(drop=True)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            after = eng.stats()["cache"]
+            recs = tracer.records()
+            spans = dict(Counter(r["name"] for r in recs))
+            keep = ("tier", "outcome", "partitions", "bytes_skipped", "task")
+            cache_spans = [{"name": r["name"], **{a: r["args"][a] for a in keep if a in r["args"]}}
+                           for r in recs if r["name"].startswith(("cache.", "task."))]
+            delta = {c: after[c] - before[c] for c in after if isinstance(after[c], int)
+                     and not isinstance(after[c], bool)}
+            line = {"phase": "cache_path", "cell": cell, "wall_s": wall_s, "launches": dict(bg.LAUNCHES),
+                    "b1_rows": list(b1_rows), "cache": after, "cache_delta": delta, "spans": spans,
+                    "cache_spans": cache_spans, "checks": _check_cache(np, got, oracle, cell),
+                    "segments_lowered": dag.last_plan_report.segments_lowered}
+            return got, line, dag
+
+        def finish(line: dict) -> None:
+            line["phase_s_so_far"] = time.perf_counter() - start
+            emit(line)
+            out["cells"][line["cell"]] = line
+
+        eng = TorchExecutionEngine(device=device, conf=conf)
+        cold, line, dag = run(eng, "cache-cold", exp)
+        d = line["cache_delta"]
+        require(d["hits_mem"] + d["hits_disk"] == 0 and d["misses"] >= 1 and d["publishes"] >= 1,
+                f"cache-cold: {d}")
+        require(line["segments_lowered"] == 1, "cache-cold: not one lowered segment")
+        require(line["launches"]["bin_sum"] == (1 if on_card else 0) and line["b1_rows"] == [rows],
+                f"cache-cold: B1 {line['launches']} over {line['b1_rows']} rows")
+        line.update(rows=rows, files=files, write_s=write_s)
+        finish(line)
+        del dag
+
+        warm, line, dag = run(eng, "cache-warm-mem", exp)
+        d, sp = line["cache_delta"], line["spans"]
+        require(d["hits_mem"] == 1 and d["hits_disk"] == 0, f"cache-warm-mem: {d}")
+        require(line["launches"]["bin_sum"] == 0 and not line["b1_rows"], f"cache-warm-mem: B1 {line['launches']}")
+        require(sp.get("task.cache_hit") == 1 and sp.get("workflow.task") == 1 and "plan.segment" not in sp,
+                f"cache-warm-mem: spans {sp}")
+        require(cold.equals(warm), "cache-warm-mem: not the cold run's result")
+        finish(line)
+        del dag
+
+        deng = TorchExecutionEngine(device=device, conf=conf)
+        disk, line, dag = run(deng, "cache-warm-disk", exp)
+        d, sp = line["cache_delta"], line["spans"]
+        require(d["hits_disk"] == 1 and d["hits_mem"] == 0, f"cache-warm-disk: {d}")
+        require(line["launches"]["bin_sum"] == 0 and not line["b1_rows"], f"cache-warm-disk: B1 {line['launches']}")
+        require(sp.get("task.cache_hit") == 1 and "plan.segment" not in sp, f"cache-warm-disk: spans {sp}")
+        require(cold.equals(disk), "cache-warm-disk: not the cold run's result")
+        finish(line)
+        del dag, disk, warm
+
+        t0 = time.perf_counter()
+        pq.write_table(pa.table({"k": nk, "v": nv, "w": nw}), src / f"part_{files:03d}.parquet",
+                       compression="none")
+        append_s = time.perf_counter() - t0
+        got, line, dag = run(eng, "cache-delta", exp11)
+        d, sp = line["cache_delta"], line["spans"]
+        (rec,) = [c for c in line["cache_spans"] if c["name"] == "task.delta_recompute"]
+        require(d["partial_hits"] == 1 and d["delta_partitions"] == files and d["hits_mem"] + d["hits_disk"] == 1,
+                f"cache-delta: {d}")
+        require(rec["partitions"] == f"{files}/{files + 1}", f"cache-delta: partitions {rec}")
+        # B1 over the new rows (the fresh partial), then the merge of the
+        # two partials' float32 sums (one row a key each) where the engine
+        # sums them in float32
+        require(line["b1_rows"][:1] == [per] and all(r <= 2 * 1000 for r in line["b1_rows"][1:]),
+                f"cache-delta: B1 over {line['b1_rows']} rows")
+        require(line["launches"]["bin_sum"] == (len(line["b1_rows"]) if on_card else 0),
+                f"cache-delta: B1 {line['launches']}")
+        del dag
+        twin_eng = TorchExecutionEngine(device=device, conf={**conf, **NO_CACHE})
+        twin, tline, dag = run(twin_eng, "cache-delta twin", exp11)
+        require(tline["b1_rows"] == [rows + per], f"cache-delta twin: B1 over {tline['b1_rows']} rows")
+        for c in ("k", "n", "lo", "hi"):
+            require(np.array_equal(got[c].to_numpy(), twin[c].to_numpy(), equal_nan=True), f"cache-delta: {c} vs twin")
+        require(np.allclose(got["s"].to_numpy(), twin["s"].to_numpy(), rtol=ORACLE_RTOL, atol=0, equal_nan=True),
+                "cache-delta: s vs twin")
+        del dag, twin, got, cold
+        # B1 alone at the delta's shape: the new rows under the chain's mask
+        kd = torch.from_numpy(nk).to(device)
+        vd, wd = torch.from_numpy(nv).to(device), torch.from_numpy(nw).to(device)
+        bg.bin_sum = real_b1
+        b1 = (b1_at_shape(torch, bg, kd, vd * wd, vd > 0.25, 0, 999, plain_reps=3) if on_card
+              else {"rows": per, "ms": None, "note": "timed on the card only"})
+        bg.bin_sum = spy_b1
+        del kd, vd, wd
+        # the device bytes the memory tiers hold, then cleared, to the byte
+        held = {name: e._resource_probe_fns()["result_cache_mem_bytes"](e)
+                for name, e in (("engine", eng), ("fresh_engine", deng))}
+        entries = {name: e.result_cache.mem.entries for name, e in (("engine", eng), ("fresh_engine", deng))}
+        for e in (eng, deng, twin_eng):
+            e.result_cache.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated() if on_card else 0
+        require(mem_after == mem_before, f"cache-delta: {mem_after - mem_before} device bytes held after clear()")
+        line.update(rows_new=per, files=files + 1, append_s=append_s, twin_wall_s=tline["wall_s"],
+                    twin_launches=tline["launches"], twin_b1_rows=tline["b1_rows"],
+                    mem_tier_device_bytes=held, mem_tier_entries=entries,
+                    memory={"before_phase": mem_before, "after_clear": mem_after}, b1_at_shape=b1)
+        finish(line)
+        out["b1"] = {"cache-delta": {**b1, "launches": line["launches"]["bin_sum"]}}
+        del eng, deng, twin_eng
+
+        # tuned-stream: the tuner learns the lowered stream's chunk size
+        n = min(stream_rows, rows)
+        tbl = pa.table({"k": k[:n], "v": v[:n], "w": w[:n]})
+        sexp = plan_oracle(np, pd, k[:n], v[:n], w[:n])[["k", *CACHE_AGGS]]
+        tconf = {"fugue.tpu.stream.chunk_rows": stream_chunk, "fugue.tpu.stream.key_range": "0,999",
+                 "fugue.tpu.tuning.path": str(tmp / "tuned.json"), **NO_CACHE}
+
+        def stream():
+            return LocalDataFrameIterableDataFrame(
+                (ArrowDataFrame(tbl.slice(s, stream_chunk)) for s in range(0, n, stream_chunk)),
+                schema="k:long,v:float,w:float")
+
+        def stream_run(e):
+            for name in bg.LAUNCHES:
+                bg.LAUNCHES[name] = 0
+            dag = FugueWorkflow()
+            (dag.df(stream()).filter(col("v") > 0.25).select(col("k"), (col("v") * col("w")).alias("z"))
+             .partition_by("k").aggregate(**aggs).yield_dataframe_as("r", as_local=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dag.run(e)
+            got = dag.yields["r"].result.as_pandas().sort_values("k").reset_index(drop=True)
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0, dict(bg.LAUNCHES), dict(streaming.last_run_stats)
+
+        # before the run: the counts adjust_stream gives a run above MIN_WALL_S
+        predicted, size = [], stream_chunk
+        for _ in range(TUNED_RUNS):
+            predicted.append(_tuned_chunks(n, stream_chunk, size))
+            adj = adjust_stream(size, 2, {"chunks_prefetched": predicted[-1], "wall_s": 1.0, "rows": n}, 0)
+            size = adj["chunk_rows"] if adj else size
+        teng = TorchExecutionEngine(device=device, conf=tconf)
+        runs, size, results = [], stream_chunk, []
+        for i in range(TUNED_RUNS):
+            got, wall_s, launches, stats = stream_run(teng)
+            last = teng.pipeline_stats.last_run
+            decision = [x for x in teng.stats()["tuning"]["last_decisions"] if x["target"] == "stream"][-1]
+            require(decision["value"]["chunk_rows"] == size, f"tuned-stream run {i}: decision {decision}")
+            require(stats["chunks"] == _tuned_chunks(n, stream_chunk, size),
+                    f"tuned-stream run {i}: {stats['chunks']} chunks at {size}")
+            require(launches["bin_sum"] == (stats["chunks"] if on_card else 0),
+                    f"tuned-stream run {i}: B1 {launches} over {stats['chunks']} chunks")
+            _check_cache(np, got, sexp, f"tuned-stream run {i}")
+            runs.append({"chunks": stats["chunks"], "chunk_rows": size, "decision": decision, "wall_s": wall_s,
+                         "launches": launches, "peak_device_bytes": stats.get("peak_device_bytes"),
+                         "pipeline_run": last})
+            results.append(got)
+            depth = decision["value"]["prefetch_depth"]
+            depth = prefetch_depth(teng.conf, device) if depth is None else depth
+            adj = adjust_stream(size, depth, {"chunks_prefetched": last["chunks_prefetched"],
+                                              "wall_s": last["wall_s"], "rows": n}, 0)
+            size = adj["chunk_rows"] if adj else size
+        counts = [r["chunks"] for r in runs]
+        require(counts[1] < counts[0], f"tuned-stream: chunk counts {counts} did not fall")
+        twin_e = TorchExecutionEngine(device=device, conf={**tconf, **STATIC_CHUNKS})
+        twin, twin_wall, twin_launches, twin_stats = stream_run(twin_e)
+        require(twin_stats["chunks"] == counts[0], f"tuned-stream twin: {twin_stats['chunks']} chunks")
+        for i, got in enumerate(results):
+            for c in ("k", "n", "lo", "hi"):
+                require(np.array_equal(got[c].to_numpy(), twin[c].to_numpy(), equal_nan=True),
+                        f"tuned-stream run {i}: {c} vs twin")
+            require(np.allclose(got["s"].to_numpy(), twin["s"].to_numpy(), rtol=ORACLE_RTOL, atol=0,
+                                equal_nan=True), f"tuned-stream run {i}: s vs twin")
+        finish({"phase": "cache_path", "cell": "tuned-stream", "rows": n, "chunk": stream_chunk,
+                "predicted_chunks": predicted, "chunks": counts, "runs": runs, "twin_wall_s": twin_wall,
+                "twin_launches": twin_launches, "twin_chunks": twin_stats["chunks"],
+                "tuning": teng.stats()["tuning"],
+                "checks": f"keys, counts, min/max exact; sums rtol={ORACLE_RTOL} vs float64 oracle and the twin; "
+                          "each run's chunks those adjust_stream gives for the run before"})
+        del teng, twin_e, tbl, results, twin
+    finally:
+        bg.bin_sum = real_b1
+        tracer.disable()
+        tracer.clear()
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - start
@@ -4412,6 +4884,8 @@ def main() -> int:
         torch, np, pd, bg, api, ff, col, frame_from_numpy, dev, plan_frame_, plan_exp, args.seed,
         tdf=obs_path.pop("handover"), lowered_ms=plan_path["cells"]["lowered-uniform-1k"]["ms"],
         callback_ms=analysis_path["cells"]["callback-1k"]["ms"])
+    _release(torch)
+    cache_path = phase_cache_path(torch, np, pd, pa, bg, ff, col, dev, plan_frame_, args.seed, exp=plan_exp)
     del plan_frame_, plan_exp
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
@@ -4435,7 +4909,10 @@ def main() -> int:
                                      for c, r in analysis_path["cells"].items()},
                    "obs_path": {c: r["launches"][name] + r.get("stream_launches", {}).get(name, 0)
                                 for c, r in obs_path["cells"].items()},
-                   "services_path": {c: r["launches"][name] for c, r in services_path["cells"].items()}}
+                   "services_path": {c: r["launches"][name] for c, r in services_path["cells"].items()},
+                   "cache_path": {c: (r["launches"][name] if "launches" in r
+                                      else sum(x["launches"][name] for x in r["runs"]))
+                                  for c, r in cache_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -4445,6 +4922,7 @@ def main() -> int:
                                     for k in ("route", "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
             by_frame["stream-chunk"] = stream_path["cells"]["f32-aggregate"]["bin_sum"]
             by_frame.update(analysis_path["b1"])  # plan_path's and analysis_path's shapes
+            by_frame.update(cache_path["b1"])  # the delta recompute's new rows
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4457,7 +4935,8 @@ def main() -> int:
             + sum(by_path["transform_path"].values()) + sum(by_path["join_path"].values())
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
             + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
-            + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values()),
+            + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values())
+            + sum(by_path["cache_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

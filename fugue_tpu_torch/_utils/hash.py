@@ -35,6 +35,15 @@ def _feed(h: Any, obj: Any) -> None:
         for x in obj:
             _feed(h, x)
         h.update(b"\x00l")
+    elif callable(obj):
+        # a function by its module and qualified name, stable across runs
+        # (its repr carries its address)
+        h.update(
+            b"\x00C"
+            + getattr(obj, "__module__", "").encode()
+            + b"."
+            + getattr(obj, "__qualname__", repr(type(obj))).encode()
+        )
     else:
         h.update(b"\x00O" + repr(obj).encode())
 

@@ -7,8 +7,9 @@ per-partition UDFs. For every ``transform`` task the analyzer produces
   analysis no longer treats a UDF as "reads everything" and column
   pruning / filter pushdown commute through it;
 - a **purity / determinism / row-locality verdict** — so a filter
-  commutes below a row-local UDF (the delta cache that also reads it
-  waits for ROADMAP.md A.10);
+  commutes below a row-local UDF, and the delta cache
+  (``fugue_tpu_torch/cache/delta.py``) splits a row-local UDF's input at
+  a partition boundary;
 - for the recognized shape subset (column arithmetic, comparisons,
   boolean masks, ``fillna``/``clip``/``where``/``mask``, ``np.where``
   conditionals, ``isin``, casts) a **translation** into the SAME step

@@ -1100,8 +1100,9 @@ def _analyze_transform_task(task: Any) -> Optional[UdfAnalysis]:
 
 def transform_row_local(task: Any) -> bool:
     """Whether this transform task provably computes each output row from
-    one input row (the delta cache's splitting precondition, ROADMAP.md
-    A.10). Conservative: any analysis failure is False."""
+    one input row (the delta cache's splitting precondition,
+    ``plan/ir.py`` ``node_delta_row_local``). Conservative: any analysis
+    failure is False."""
     try:
         a = analyze_transform_task(task)
         return a is not None and a.row_local and a.deterministic

@@ -1,8 +1,9 @@
 """Configuration keys of the port, copied from ``fugue_tpu/constants.py``
 (:131-140, :41, :35, :471) and trimmed to the streaming keys, the host
 map's pool, the distinct's guard, the workflow's keys and their global
-defaults, the resilience, RPC and observability keys (:49-127) and the
-profiler's directory. The names are the JAX package's, so one
+defaults, the resilience, RPC and observability keys (:49-127), the
+profiler's directory, and the result cache's and the tuner's keys
+(:183-214, :438-462). The names are the JAX package's, so one
 conf dict drives either engine."""
 
 from ._utils.params import ParamDict
@@ -53,11 +54,59 @@ _FUGUE_GLOBAL_CONF = ParamDict(
 # (ROADMAP.md A.10): each key, set to turn its service on, makes a run
 # raise. Their defaults are a plain run
 A10_WORKFLOW_KEYS = {
-    "fugue.tpu.cache.enabled": "the result cache",
     "fugue.tpu.dist.enabled": "the distributed pass",
     "fugue.tpu.dist.board": "the distributed pass",
-    "fugue.tpu.tuning.enabled": "the tuner",
 }
+
+# --- the result cache (``fugue_tpu_torch/cache``; ``fugue_tpu/constants.py``
+# :183-214): task outputs memoized across runs, keyed on the fingerprints
+# of the optimized plan. The master switch, default ON: with no
+# ``cache.dir`` the cache is memory-only and scoped to one engine; false is
+# the run with no cache at all
+FUGUE_TPU_CONF_CACHE_ENABLED = "fugue.tpu.cache.enabled"
+# the artifact store's directory (shared across processes; atomic
+# publishes); unset or empty: no disk tier. The FUGUE_TPU_CACHE_DIR
+# environment variable is read when the key is unset; an unwritable
+# directory leaves the cache memory-only, with one warning
+FUGUE_TPU_CONF_CACHE_DIR = "fugue.tpu.cache.dir"
+# the byte budget of the memory tier's LRU over live result frames (on
+# the card for a device frame); default 256 MiB
+FUGUE_TPU_CONF_CACHE_MEM_BYTES = "fugue.tpu.cache.mem_bytes"
+# the disk tier's size cap, LRU-evicted past it
+FUGUE_TPU_CONF_CACHE_DISK_BYTES = "fugue.tpu.cache.disk_bytes"
+# a frame larger than this is never written to the disk tier
+FUGUE_TPU_CONF_CACHE_MAX_ARTIFACT_BYTES = "fugue.tpu.cache.max_artifact_bytes"
+# a created table above this is refused (poisoned), not hashed
+FUGUE_TPU_CONF_CACHE_FINGERPRINT_MAX_BYTES = "fugue.tpu.cache.fingerprint_max_bytes"
+# mixed into every fingerprint: a new salt misses every old entry
+FUGUE_TPU_CONF_CACHE_SALT = "fugue.tpu.cache.salt"
+# the delta cache: a run over a grown LOAD source recomputes only the new
+# partitions and merges them with the cached result or partial
+# accumulator; default ON, false is the whole-task cache
+FUGUE_TPU_CONF_CACHE_DELTA_ENABLED = "fugue.tpu.cache.delta.enabled"
+# the disk tier's artifact-count cap (0: none), LRU-evicted past it
+FUGUE_TPU_CONF_CACHE_DISK_MAX_ENTRIES = "fugue.tpu.cache.disk_max_entries"
+# ``fugue.default.partitions`` changes what an unkeyed transformer sees,
+# so it is part of every fingerprint
+FUGUE_CONF_DEFAULT_PARTITIONS = "fugue.default.partitions"
+
+# --- the adaptive tuner (``fugue_tpu_torch/tuning``; ``fugue_tpu/constants.py``
+# :438-462): a stream's chunk size and prefetch depth learned from the
+# engine's own telemetry, keyed by the optimized plan's fingerprint. The
+# master switch, default ON; false resolves every knob from the static
+# conf, as before the tuner. Scoped to a run like ``fugue.tpu.plan.*``
+FUGUE_TPU_CONF_TUNING_ENABLED = "fugue.tpu.tuning.enabled"
+FUGUE_TPU_CONF_TUNING_PREFIX = "fugue.tpu.tuning."
+# where the learned settings persist (atomic temp-write and rename; a
+# corrupt or unwritable file degrades to the static conf with one
+# warning). The FUGUE_TPU_TUNING_PATH environment variable is read next;
+# the default is ``fugue_tpu_torch/build/_tuned.json``
+FUGUE_TPU_CONF_TUNING_PATH = "fugue.tpu.tuning.path"
+# plan entries kept in the store; the least recently used past it go
+FUGUE_TPU_CONF_TUNING_MAX_ENTRIES = "fugue.tpu.tuning.max_entries"
+# record each traced verb's bytes/s and rows/s in the store's
+# "rooflines" key while tracing is on (record only; default ON)
+FUGUE_TPU_CONF_TUNING_ROOFLINES = "fugue.tpu.tuning.rooflines"
 # --- resilience (``fugue_tpu_torch/resilience``; ``fugue_tpu/constants.py``
 # :49-73). ``RetryPolicy.from_conf`` reads ``<prefix>.attempts`` (1
 # disables retry), ``.base``, ``.multiplier``, ``.max_backoff`` (seconds)

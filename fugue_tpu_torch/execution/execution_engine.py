@@ -35,12 +35,20 @@ conf never leaks into the engine's.
 
 Observability (:192-215, :417-540): construction applies the trace,
 telemetry and event conf (``fugue_tpu_torch/obs``) and registers the
-engine's resource probes; ``metrics`` is one ``MetricsRegistry`` over the
-engine's stats sources (``resilience``, ``plan``, ``analysis``, and the
-process-wide ``latency`` and ``telemetry``), read by ``stats()``, zeroed
-by ``reset_stats()`` and rendered by ``report()``. The JAX package's
-``cache`` and ``tuning`` sources come with the result cache and the
-tuner (ROADMAP.md A.10)."""
+engine's resource probes (``result_cache_mem_bytes``,
+``result_cache_mem_entries``); ``metrics`` is one ``MetricsRegistry``
+over the engine's stats sources (``resilience``, ``plan``, ``analysis``,
+``cache``, ``tuning``, and the process-wide ``latency`` and
+``telemetry``), read by ``stats()``, zeroed by ``reset_stats()`` and
+rendered by ``report()``.
+
+The result cache and the tuner (:570-603): ``result_cache`` is the
+engine's ``ResultCache`` (``fugue_tpu_torch/cache``; its memory tier
+holds this engine's frames, on its device), ``tuner`` its ``Tuner``
+(``fugue_tpu_torch/tuning``). Both are made at first use from the
+engine's own conf, never from a run's scoped view of it: a workflow's
+conf switches either off for its run (``fugue.tpu.cache.enabled``,
+``fugue.tpu.tuning.enabled``) without becoming the engine's."""
 
 import logging
 from abc import ABC, abstractmethod
@@ -186,6 +194,8 @@ class ExecutionEngine(ABC):
         self._plan_stats: Any = None
         self._analysis_stats: Any = None
         self._resilience_stats: Any = None
+        self._result_cache: Any = None
+        self._tuner: Any = None
         self._metrics: Any = None
         self._rpc_server: Any = None
         # the trace switches (fugue.tpu.trace.* / FUGUE_TPU_TRACE), the
@@ -277,6 +287,8 @@ class ExecutionEngine(ABC):
             "resilience": lambda: self.resilience_stats,
             "plan": lambda: self.plan_stats,
             "analysis": lambda: self.analysis_stats,
+            "cache": lambda: self.result_cache.stats,
+            "tuning": lambda: self.tuner,
         }
 
     def _register_resource_probes(self) -> None:
@@ -306,9 +318,20 @@ class ExecutionEngine(ABC):
 
     def _resource_probe_fns(self) -> Dict[str, Callable[["ExecutionEngine"], float]]:
         """Name → (engine → value) probe map; subclasses extend. A probe
-        runs on the sampler's thread and must not create what it reads.
-        The JAX package's result-cache probes come with the cache."""
-        return {}
+        runs on the sampler's thread and must not create what it reads:
+        the result-cache probes read 0 until the cache exists."""
+
+        def _rc(attr: str) -> Callable[["ExecutionEngine"], float]:
+            def fn(e: "ExecutionEngine") -> float:
+                rc = getattr(e, "_result_cache", None)
+                return float(getattr(rc.mem, attr)) if rc is not None else 0.0
+
+            return fn
+
+        return {
+            "result_cache_mem_bytes": _rc("bytes"),
+            "result_cache_mem_entries": _rc("entries"),
+        }
 
     def stats(self) -> Dict[str, Any]:
         """Every registered stats source as one dict."""
@@ -322,15 +345,23 @@ class ExecutionEngine(ABC):
 
     def report(self, top_n: int = 15) -> str:
         """Plain-text report: the top spans of the process's tracer by
-        total wall, with p50/p95/p99 from the span-latency histograms, and
-        this engine's stats."""
+        total wall, with p50/p95/p99 from the span-latency histograms,
+        this engine's stats, and the tuner's verb rooflines where the
+        tuner exists (the report does not make it)."""
         from ..obs import get_span_metrics, get_tracer, render_report
 
+        rooflines = None
+        if self._tuner is not None:
+            try:
+                rooflines = self._tuner.roofline.snapshot() or None
+            except Exception:
+                rooflines = None
         return render_report(
             get_tracer().records(),
             self.stats(),
             top_n=top_n,
             span_metrics=get_span_metrics(),
+            rooflines=rooflines,
         )
 
     @property
@@ -359,6 +390,37 @@ class ExecutionEngine(ABC):
 
                     self._analysis_stats = AnalysisStats()
         return self._analysis_stats
+
+    @property
+    def tuner(self) -> Any:
+        """This engine's ``Tuner`` (``fugue_tpu_torch/tuning``): a stream's
+        chunk size and prefetch depth learned from the engine's own
+        pipeline telemetry, keyed by plan fingerprint and persisted across
+        restarts. Decisions and counters are ``engine.stats()["tuning"]``;
+        ``reset_stats()`` zeroes the counters and keeps what was learned."""
+        if self._tuner is None:
+            with self._rlock:
+                if self._tuner is None:
+                    from ..tuning import Tuner
+
+                    self._tuner = Tuner(self._conf, device=getattr(self, "device", None))
+        return self._tuner
+
+    @property
+    def result_cache(self) -> Any:
+        """This engine's ``ResultCache`` (``fugue_tpu_torch/cache``): the
+        memory tier holds this engine's result frames (a device frame on
+        its card), the disk tier is shared by every engine whose conf
+        names the same ``fugue.tpu.cache.dir``. Counters are
+        ``engine.stats()["cache"]``; ``reset_stats()`` zeroes them and
+        evicts nothing."""
+        if self._result_cache is None:
+            with self._rlock:
+                if self._result_cache is None:
+                    from ..cache import ResultCache
+
+                    self._result_cache = ResultCache(self._conf, log=self.log)
+        return self._result_cache
 
     @property
     def rpc_server(self) -> Any:

@@ -24,9 +24,9 @@ A transformer's column usage comes from the UDF analyzer
 (``fugue_tpu_torch/analysis``), attached to its node as
 ``info["analysis"]``: exact read/write sets, the declared output names and
 the row-local verdict. Where the analyzer refuses, a transformer demands
-every column and its output names are unknown. The delta-cache
-classification of the other kinds (``node_delta_row_local``) waits for
-ROADMAP.md A.10.
+every column and its output names are unknown. ``node_delta_row_local``
+classifies the nodes the delta cache (``fugue_tpu_torch/cache/delta.py``)
+may split at a partition boundary.
 """
 
 from typing import Any, Dict, List, Optional, Set, Tuple
@@ -76,6 +76,39 @@ FUSABLE_KINDS = {K_PROJECT, K_DROP, K_RENAME, K_FILTER, K_SELECT, K_ASSIGN}
 # kinds a device-resident segment may terminate in (lowering.py): the verb
 # that consumes the fused row-local chain inside ONE compiled program
 SEGMENT_TERMINAL_KINDS = {K_AGGREGATE, K_TAKE, K_DISTINCT, K_JOIN}
+
+# kinds whose output rows each depend on exactly ONE input row — the
+# precondition for partition-level delta recompute (cache/delta.py):
+# f(old ++ new) == f(old) ++ f(new). dropna/fillna are row-local but not
+# fusable (they have no per-chunk step form); distinct/take/sample are NOT
+# (row identity / position spans partitions).
+DELTA_ROW_LOCAL_KINDS = FUSABLE_KINDS | {K_DROPNA, K_FILLNA, K_FUSED}
+
+
+def node_delta_row_local(n: "LNode") -> bool:
+    """Whether this node provably computes each output row from one input
+    row (delta recompute may split its input at any partition boundary).
+    Mirrors the fusion pass's K_SELECT guard: an aggregating / distinct /
+    HAVING select reads the whole frame. A UDF transformer qualifies when
+    the static analyzer (``fugue_tpu_torch/analysis``) proves it
+    row-local, pure and deterministic — every analysis failure is False."""
+    if n.kind == K_TRANSFORM:
+        if n.task is None:
+            return False
+        a = n.info.get("analysis")
+        if a is not None:
+            return bool(a.row_local and a.deterministic)
+        from ..analysis import transform_row_local
+
+        return transform_row_local(n.task)
+    if n.kind not in DELTA_ROW_LOCAL_KINDS:
+        return False
+    if n.kind == K_SELECT:
+        sc = n.info["columns"]
+        if sc.has_agg or sc.is_distinct or n.info.get("having") is not None:
+            return False
+    return True
+
 
 class LNode:
     """One logical node. ``task`` is the originating FugueTask (None for

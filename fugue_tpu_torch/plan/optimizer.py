@@ -7,12 +7,12 @@ before execution. Everything is gated by ``fugue.tpu.plan.optimize``
 conf key away.
 
 The UDF analyzer's pass (``fugue_tpu_torch/analysis``) runs first, gated
-by ``fugue.tpu.plan.analyze_udfs`` and ``.translate_udfs``. Two passes of
-the reference wait for the layers they read, and the report notes each
-once: the join-strategy annotation (``annotate_join_strategies``, over
-``shuffle/strategy.py``, ROADMAP.md A.7) and the delta-cache annotation
-(``annotate_delta_eligibility``, over ``cache/delta.py``, A.10). They
-only annotate; neither changes a result on one card.
+by ``fugue.tpu.plan.analyze_udfs`` and ``.translate_udfs``. The last
+pass, ``annotate_delta_eligibility``, marks the verbs the delta cache
+(``fugue_tpu_torch/cache/delta.py``) can serve incrementally. The
+reference's join-strategy annotation (``annotate_join_strategies``, over
+``shuffle/strategy.py``) waits for ROADMAP.md A.7, and the report notes
+it once. Annotations change no result.
 """
 
 import threading
@@ -28,17 +28,14 @@ from ..constants import (
     FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS,
 )
 from ..workflow._tasks import FugueTask
-from .ir import LNode, build_graph
+from .ir import K_LOAD, LNode, build_graph
 from .lowering import lower_segments
 from .passes import emit, fuse_verbs, prune_columns, pushdown_filters
 
 __all__ = ["PlanReport", "PlanStats", "optimize_tasks"]
 
-# what the report says of the passes that wait for their layers
-_WAITING = (
-    "join strategies not annotated: the shuffle ladder is ROADMAP.md A.7",
-    "delta eligibility not annotated: the delta cache is ROADMAP.md A.10",
-)
+# what the report says of the pass that waits for its layer
+_WAITING = ("join strategies not annotated: the shuffle ladder is ROADMAP.md A.7",)
 
 
 class PlanStats:
@@ -196,6 +193,62 @@ def _flag(conf: Any, key: str, default: bool = True) -> bool:
         return default
 
 
+def annotate_delta_eligibility(nodes: List[LNode], report: "PlanReport") -> None:
+    """Mark every verb the partition-level delta cache
+    (``cache/delta.py``) can serve incrementally: row-local verbs split
+    at any partition boundary; sum/count/avg/min/max aggregates maintain
+    a partial accumulator. Everything unmarked takes the whole-task path
+    — ``workflow.explain()``'s cache section shows the per-task refusal
+    reason."""
+    from .ir import node_delta_row_local
+
+    marked = 0
+    for n in nodes:
+        try:
+            if n.kind == K_LOAD:
+                n.annotations.append("delta:source")
+            elif node_delta_row_local(n):
+                n.annotations.append("delta:row-local")
+            elif n.kind in ("aggregate", "segment"):
+                from ..cache.delta import _DeltaRefused, parse_agg_spec
+
+                # a segment synthesized THIS pass keeps its terminal/task
+                # on node attributes; a re-classified segment task carries
+                # them in info/params
+                origin = n.task if n.task is not None else n.tail_origin
+                if n.kind == "segment":
+                    terminal = n.info.get("terminal") or n.terminal or ("?",)
+                    if terminal[0] != "aggregate":
+                        continue
+                    cols = list(terminal[1])
+                else:
+                    cols = list(
+                        origin.params.get("columns", [])
+                        if origin is not None
+                        else []
+                    )
+                keys = (
+                    list(origin.partition_spec.partition_by)
+                    if origin is not None
+                    else []
+                )
+                try:
+                    parse_agg_spec(keys, cols)
+                except _DeltaRefused:
+                    continue
+                n.annotations.append("delta:accumulator")
+            else:
+                continue
+            marked += 1
+        except Exception:  # annotation must never fail planning
+            continue
+    if marked:
+        report.note(
+            "%d verb(s) delta-eligible (partition-level incremental "
+            "recompute)" % marked
+        )
+
+
 def optimize_tasks(
     tasks: List[FugueTask],
     conf: Any,
@@ -236,6 +289,7 @@ def optimize_tasks(
         fuse_verbs(nodes, report)
     if _flag(conf, FUGUE_TPU_CONF_PLAN_LOWER_SEGMENTS, True):
         lower_segments(nodes, report)
+    annotate_delta_eligibility(nodes, report)
     report.after = _render_nodes(nodes)
     if not report.changed:
         return tasks, {}, set(), report

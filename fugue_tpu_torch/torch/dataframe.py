@@ -260,6 +260,19 @@ class TorchDataFrame(DataFrame):
         return self._cols
 
     @property
+    def device_nbytes(self) -> int:
+        """The frame's resident bytes, for the result cache's accounting:
+        its device columns, NULL masks and validity mask, plus the arrow
+        bytes of the columns kept on the host."""
+        total = sum(int(t.nbytes) for t in self._cols.values())
+        total += sum(int(t.nbytes) for t in self._null_masks.values())
+        if self._valid_mask is not None:
+            total += int(self._valid_mask.nbytes)
+        if self._host_tbl is not None:
+            total += int(self._host_tbl.nbytes)
+        return total
+
+    @property
     def host_table(self) -> Optional[pa.Table]:
         """The columns that stay on the host, aligned with the device rows
         by position; None when every column is on the device."""

@@ -490,6 +490,12 @@ class TorchExecutionEngine(ExecutionEngine):
         self._host_engine._resilience_stats = self.resilience_stats
         self._map_engine = TorchMapEngine(self)
         self._pipeline_stats = PipelineStats()
+        # per-verb roofline recording (record only): while tracing is on,
+        # each traced verb's close folds its bytes/s and rows/s into this
+        # engine's tuner; fugue.tpu.tuning.rooflines=false opts out
+        from ..tuning import install_verb_observer
+
+        install_verb_observer(self)
 
     def _stats_sources(self) -> Dict[str, Callable[[], Any]]:
         """The base sources and ``pipeline``. The JAX engine's

@@ -28,8 +28,13 @@ plan at ``stream.chunk`` on the producer's side (a fault reaches the
 consumer as the producer's exception; the serial path has no such site,
 as in the JAX package) and, while the tracer (``fugue_tpu_torch/obs``) is
 on, wraps the chunks in :class:`_TracedChunks`, whose ``stream.chunk``
-spans open on the consuming thread, under the verb's span. The JAX
-package's tuner handle comes with the tuner (ROADMAP.md A.10).
+spans open on the consuming thread, under the verb's span. Where the
+chunk-size site left a tuner handle for the verb (``Tuner.stream_params``
+inside a workflow's run scope, ``fugue_tpu_torch/tuning``), the handle
+gives the learned prefetch depth, keys the run's per-stream stats by its
+stream id, and takes the finished run's record (chunks, rows, bytes,
+waits, wall) as the next generation's evidence; the serial path measures
+the same record for it. With no handle nothing changes.
 """
 
 import contextvars
@@ -37,7 +42,7 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -67,6 +72,14 @@ def prefetch_depth(conf: Any, device: torch.device) -> int:
     return default_prefetch_depth(device) if raw is None else int(raw)
 
 
+def stream_depth(engine: Any, handle: Any = None) -> int:
+    """A stream's prefetch depth: the tuner handle's learned depth, else
+    the engine's :func:`prefetch_depth`."""
+    if handle is not None and handle.prefetch_depth is not None:
+        return int(handle.prefetch_depth)
+    return prefetch_depth(engine.conf, engine.device)
+
+
 class PipelineStats:
     """Thread-safe counters of an engine's ingest pipeline.
 
@@ -75,9 +88,12 @@ class PipelineStats:
     serial, toward 1 = hidden. Producer wait is time the producer sat on a
     full queue (the consumer sets the pace); consumer wait is time the
     consumer sat on an empty one (the producer sets it). Runs are also
-    summed by verb."""
+    summed by verb and by stream (the tuner's stream id inside a run
+    scope, else the verb; at most ``MAX_STREAMS`` of them, the oldest
+    dropped first)."""
 
     _KEYS = ("producer_busy_s", "producer_wait_s", "consumer_wait_s", "wall_s", "overlap_saved_s")
+    MAX_STREAMS = 64
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -102,6 +118,7 @@ class PipelineStats:
         producer_wait_s: float,
         consumer_wait_s: float,
         wall_s: float,
+        stream: str = "",
     ) -> None:
         serial = producer_busy_s + max(wall_s - consumer_wait_s, 0.0)
         run = {
@@ -115,11 +132,20 @@ class PipelineStats:
             "wall_s": wall_s,
             "overlap_saved_s": max(serial - wall_s, 0.0),
         }
+        key = stream or verb
         with self._lock:
-            for t in (self._totals, self._by_verb.setdefault(verb, self._zero())):
+            if key not in self._streams:
+                while len(self._streams) >= self.MAX_STREAMS:
+                    self._streams.pop(next(iter(self._streams)))
+                self._streams[key] = self._zero()
+            for t in (
+                self._totals,
+                self._by_verb.setdefault(verb, self._zero()),
+                self._streams[key],
+            ):
                 for k in t:
                     t[k] += run[k]
-            self._last = self._with_overlap(run)
+            self._last = {**self._with_overlap(run), "stream": key}
 
     @property
     def last_run(self) -> Dict[str, Any]:
@@ -130,6 +156,7 @@ class PipelineStats:
         with self._lock:
             out = self._with_overlap(dict(self._totals))
             out["by_verb"] = {v: self._with_overlap(dict(t)) for v, t in self._by_verb.items()}
+            out["streams"] = {k: self._with_overlap(dict(t)) for k, t in self._streams.items()}
             out["last_run"] = dict(self._last)
         return out
 
@@ -137,6 +164,7 @@ class PipelineStats:
         with self._lock:
             self._totals = self._zero()
             self._by_verb: Dict[str, Dict[str, Any]] = {}
+            self._streams: Dict[str, Dict[str, Any]] = {}
             self._last: Dict[str, Any] = {}
 
 
@@ -148,22 +176,82 @@ def _rows_of(item: Any) -> int:
 
 
 class _SerialChunks:
-    """``depth <= 0``: the same iterator and ``close()``, no thread."""
+    """``depth <= 0``: the same iterator and ``close()``, no thread. With
+    an ``observer`` (a tuner handle) it measures the run's chunk count,
+    rows, bytes and wall for it, with no waits (there is no queue); with
+    none it measures nothing, and it never records in ``PipelineStats``
+    (whose counters mean "prefetched")."""
 
-    def __init__(self, source: Iterator[Any]):
+    def __init__(
+        self,
+        source: Iterator[Any],
+        verb: str = "",
+        stream: str = "",
+        observer: Optional[Callable[[Dict[str, Any]], None]] = None,
+    ):
         self._src = source
+        self._verb = verb
+        self._stream = stream
+        self._observer = observer
+        self._chunks = 0
+        self._rows = 0
+        self._bytes = 0
+        self._busy = 0.0
+        self._done = False
+        self._t0 = time.perf_counter()
 
     def __iter__(self) -> "_SerialChunks":
         return self
 
     def __next__(self) -> Any:
-        with record_function("fugue::stream_chunk"):
-            return next(self._src)
+        if self._observer is None:
+            with record_function("fugue::stream_chunk"):
+                return next(self._src)
+        t0 = time.perf_counter()
+        try:
+            with record_function("fugue::stream_chunk"):
+                item = next(self._src)
+        except StopIteration:
+            self._finish()
+            raise
+        self._busy += time.perf_counter() - t0
+        self._chunks += 1
+        attrs = _chunk_attrs(item)
+        self._rows += int(attrs.get("rows", 0))
+        self._bytes += int(attrs.get("bytes", 0))
+        return item
+
+    def _finish(self) -> None:
+        if self._done or self._observer is None:
+            return
+        self._done = True
+        _observe(
+            self._observer,
+            {
+                "verb": self._verb,
+                "stream": self._stream or self._verb,
+                "chunks_prefetched": self._chunks,
+                "rows": self._rows,
+                "bytes": self._bytes,
+                "producer_busy_s": self._busy,
+                "producer_wait_s": 0.0,
+                "consumer_wait_s": 0.0,
+                "wall_s": time.perf_counter() - self._t0,
+            },
+        )
 
     def close(self) -> None:
+        self._finish()
         close = getattr(self._src, "close", None)
         if close is not None:
             close()
+
+
+def _observe(observer: Callable[[Dict[str, Any]], None], run: Dict[str, Any]) -> None:
+    try:  # learning never fails the stream
+        observer(run)
+    except Exception:
+        pass
 
 
 class _Failure:
@@ -191,9 +279,14 @@ class ChunkPrefetcher:
         stats: Optional[PipelineStats] = None,
         verb: str = "",
         injector: Any = None,
+        stream: str = "",
+        observer: Optional[Callable[[Dict[str, Any]], None]] = None,
     ):
         self._src = source
         self._depth = max(1, int(depth))
+        self._stream = stream
+        self._observer = observer
+        self._bytes = 0
         self._q: "queue.Queue[Any]" = queue.Queue(maxsize=self._depth)
         self._stop = threading.Event()
         self._stats = stats
@@ -278,13 +371,16 @@ class ChunkPrefetcher:
             finally:
                 exc = None
         self._chunks += 1
-        self._rows += _rows_of(obj)
+        attrs = _chunk_attrs(obj)
+        self._rows += int(attrs.get("rows", _rows_of(obj)))
+        self._bytes += int(attrs.get("bytes", 0))
         return obj
 
     def _finish(self) -> None:
         if self._finished:
             return
         self._finished = True
+        wall = time.perf_counter() - self._t0
         if self._stats is not None:
             self._stats.record_run(
                 self._verb,
@@ -293,7 +389,23 @@ class ChunkPrefetcher:
                 self._producer_busy,
                 self._producer_wait,
                 self._consumer_wait,
-                time.perf_counter() - self._t0,
+                wall,
+                stream=self._stream,
+            )
+        if self._observer is not None:
+            _observe(
+                self._observer,
+                {
+                    "verb": self._verb,
+                    "stream": self._stream or self._verb,
+                    "chunks_prefetched": self._chunks,
+                    "rows": self._rows,
+                    "bytes": self._bytes,
+                    "producer_busy_s": self._producer_busy,
+                    "producer_wait_s": self._producer_wait,
+                    "consumer_wait_s": self._consumer_wait,
+                    "wall_s": wall,
+                },
             )
 
     def close(self) -> None:
@@ -315,12 +427,17 @@ def maybe_prefetch(
     stats: Optional[PipelineStats] = None,
     verb: str = "",
     injector: Any = None,
+    stream: str = "",
+    observer: Optional[Callable[[Dict[str, Any]], None]] = None,
 ) -> Any:
     """``source`` behind a :class:`ChunkPrefetcher` (``depth > 0``) or the
     serial shim of the same interface (``depth <= 0``)."""
     if depth <= 0:
-        return _SerialChunks(iter(source))
-    return ChunkPrefetcher(iter(source), depth, stats=stats, verb=verb, injector=injector)
+        return _SerialChunks(iter(source), verb=verb, stream=stream, observer=observer)
+    return ChunkPrefetcher(
+        iter(source), depth, stats=stats, verb=verb, injector=injector,
+        stream=stream, observer=observer,
+    )
 
 
 class _TracedChunks:
@@ -390,13 +507,25 @@ def _chunk_attrs(item: Any) -> Dict[str, Any]:
 def engine_prefetcher(engine: Any, source: Iterator[Any], verb: str) -> Any:
     """The streaming paths' prefetcher: depth and fault plan from the
     engine's conf, runs recorded in its ``pipeline_stats``, and per-chunk
-    spans while the tracer is on."""
+    spans while the tracer is on. The tuner's handle for ``verb``, where
+    the chunk-size site left one, gives the learned depth and takes the
+    run's record."""
+    handle = engine.tuner.take_stream_handle(verb)
+    depth = stream_depth(engine, handle)
+    observer = None
+    stream = ""
+    if handle is not None:
+        handle.used_depth = depth
+        observer = handle.observe
+        stream = handle.sid
     it = maybe_prefetch(
         source,
-        prefetch_depth(engine.conf, engine.device),
+        depth,
         stats=engine.pipeline_stats,
         verb=verb,
         injector=FaultInjector.from_conf(engine.conf),
+        stream=stream,
+        observer=observer,
     )
     tracer = get_tracer()
     if tracer.enabled:

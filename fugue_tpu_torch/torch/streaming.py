@@ -25,7 +25,11 @@ holds O(chunk) rows whatever the stream's length:
   reading after ``n`` rows).
 
 Chunks of ``fugue.tpu.stream.chunk_rows`` rows (default 2^20) come through
-the ingest pipeline (``torch/pipeline.py``). ``last_run_stats`` holds the
+the ingest pipeline (``torch/pipeline.py``). Inside a workflow's run scope
+the engine's tuner (``fugue_tpu_torch/tuning``) may resolve a stream's
+chunk size from what earlier runs of the plan observed
+(:func:`_tuned_chunk_rows`); a learned size also merges undersized source
+chunks up to it (:func:`_maybe_coalesce`). ``last_run_stats`` holds the
 chunks, rows and peak device bytes of the most recent streaming run: on
 CUDA ``torch.cuda.max_memory_allocated`` since the stream started, on the
 CPU the bytes of the tensors the stream held at its fullest.
@@ -73,7 +77,7 @@ from ..exceptions import FugueInvalidOperation
 from ..execution.native_execution_engine import _drop_duplicates
 from ..schema import Schema
 from .dataframe import from_storage, is_wide_unsigned, storage_dtype, to_storage
-from .pipeline import HostToDevice, _torch_dtype, engine_prefetcher, prefetch_depth
+from .pipeline import HostToDevice, _torch_dtype, engine_prefetcher, stream_depth
 
 DEFAULT_CHUNK_ROWS = 1 << 20
 
@@ -182,23 +186,70 @@ def _closing(chunks_it: Any) -> Iterator[Any]:
         chunks_it.close()
 
 
-def _prefetched_pandas_chunks(engine: Any, df: Any, verb: str) -> Any:
+def _prefetched_pandas_chunks(
+    engine: Any, df: Any, verb: str, chunk_rows: Optional[int] = None, tune: Any = None
+) -> Any:
     """Chunks decoded to pandas on the producer's thread, for the paths
-    whose work starts downstream (the keyed map, take, distinct)."""
-    frames = _iter_local_frames(df, _chunk_rows(engine))
+    whose work starts downstream (the keyed map, take, distinct). The
+    chunk size is resolved here unless the caller resolved it."""
+    if chunk_rows is None:
+        chunk_rows, tune = _tuned_chunk_rows(engine, verb)
+    frames = _maybe_coalesce(_iter_local_frames(df, chunk_rows), chunk_rows, tune)
     return engine_prefetcher(engine, (f.as_pandas() for f in frames), verb)
 
 
-def _chunk_rows(engine: Any) -> int:
-    """The stream's chunk size: the JAX package's ``_tuned_chunk_rows``
-    (:219) without the tuner, i.e. ``fugue.tpu.stream.chunk_rows``."""
-    return max(int(engine.conf.get(FUGUE_TPU_CONF_STREAM_CHUNK_ROWS, DEFAULT_CHUNK_ROWS)), 1)
+def _tuned_chunk_rows(engine: Any, verb: str) -> Tuple[int, Any]:
+    """One stream's chunk size (reference :219): ``fugue.tpu.stream.
+    chunk_rows``, or what the tuner learned for this stream of this plan
+    inside an enabled run scope. The handle (None outside a scope or with
+    tuning off) reaches ``engine_prefetcher`` under the same ``verb``."""
+    static = max(int(engine.conf.get(FUGUE_TPU_CONF_STREAM_CHUNK_ROWS, DEFAULT_CHUNK_ROWS)), 1)
+    h = engine.tuner.stream_params(verb, static)
+    if h is None:
+        return static, None
+    return max(int(h.chunk_rows), 1), h
 
 
-def _stager(engine: Any, capacity: int) -> HostToDevice:
-    return HostToDevice(
-        engine.device, capacity, slots=prefetch_depth(engine.conf, engine.device) + 1
+def _maybe_coalesce(
+    frames: Iterator[LocalDataFrame], target_rows: int, tune: Any
+) -> Iterator[LocalDataFrame]:
+    """Merge undersized source chunks up to ``target_rows`` where a
+    LEARNED chunk size asks for it (reference :240): ``_rechunk`` only
+    splits, so a source chunked finer than the learned size would keep
+    its per-chunk cost. The static path never merges: its chunks are the
+    ones the tuner-less engine made."""
+    if tune is None or not tune.coalesce or target_rows <= 0:
+        yield from frames
+        return
+    buf: List[LocalDataFrame] = []
+    have = 0
+    for f in frames:
+        n = f.count()
+        if n <= 0:
+            continue
+        if n >= target_rows and not buf:
+            yield f
+            continue
+        buf.append(f)
+        have += n
+        if have >= target_rows:
+            yield _concat_local(buf)
+            buf, have = [], 0
+    if buf:
+        yield buf[0] if len(buf) == 1 else _concat_local(buf)
+
+
+def _concat_local(frames: List[LocalDataFrame]) -> LocalDataFrame:
+    """One frame from one stream's chunks (one schema)."""
+    if all(isinstance(f, ArrowDataFrame) for f in frames):
+        return ArrowDataFrame(pa.concat_tables([f.native for f in frames]))
+    return PandasDataFrame(
+        pd.concat([f.as_pandas() for f in frames], ignore_index=True), frames[0].schema
     )
+
+
+def _stager(engine: Any, capacity: int, tune: Any = None) -> HostToDevice:
+    return HostToDevice(engine.device, capacity, slots=stream_depth(engine, tune) + 1)
 
 
 def _reset_peak(device: torch.device) -> None:
@@ -316,7 +367,7 @@ def streaming_dense_aggregate(
     if len(keys) != 1:
         return None
     device = engine.device
-    capacity = _chunk_rows(engine)
+    capacity, tune = _tuned_chunk_rows(engine, "aggregate")
     # the plan of an empty frame of the stream's schema: nothing is read
     tdf0 = TorchDataFrame(Schema(df.schema).create_empty_arrow_table(), device=device)
     plan = _plan_device_agg(tdf0, keys, agg_cols)
@@ -345,7 +396,7 @@ def streaming_dense_aggregate(
         key_range = (int(lo), int(hi))
 
     # ---- the stream is read from here on: failures raise ----------------
-    frames = _rechunk(_iter_local_frames(df, capacity), capacity)
+    frames = _rechunk(_maybe_coalesce(_iter_local_frames(df, capacity), capacity, tune), capacity)
     first = next(frames, None)
     if first is None:  # an empty stream: no groups, the declared schema
         return engine.to_df(plan["schema"].create_empty_arrow_table())
@@ -372,7 +423,7 @@ def streaming_dense_aggregate(
     # later chunk may hold NaN where the first did not
     vidx = {s: i for i, s in enumerate(avals)}
     agg_sig = tuple((name, agg, vidx[src], float_val[src]) for name, agg, src in plan["aggs"])
-    stager = _stager(engine, capacity)
+    stager = _stager(engine, capacity, tune)
     valid_for = _valid_masks(device, capacity)
 
     def put_chunk(n: int, cols: Dict[str, np.ndarray], nulls: Dict[str, int]) -> Any:
@@ -538,7 +589,7 @@ def streaming_hash_join(
     n_build = len(bkeys)
     payload_names = [n for n in build_df.schema.names if n != key]
     device = engine.device
-    capacity = _chunk_rows(engine)
+    capacity, tune = _tuned_chunk_rows(engine, "join")
 
     if n_build == 0 and not outer:
         # inner with an empty build side: empty, and the stream stays unread
@@ -552,7 +603,9 @@ def streaming_hash_join(
     bk_dev = torch.from_numpy(np.ascontiguousarray(_key_image(bsorted))).to(device)
 
     def produce(stager: HostToDevice) -> Iterator[Tuple[int, Any]]:
-        for f in _rechunk(_iter_local_frames(stream_df, capacity), capacity):
+        for f in _rechunk(
+            _maybe_coalesce(_iter_local_frames(stream_df, capacity), capacity, tune), capacity
+        ):
             pf = f.as_pandas().reset_index(drop=True)
             n = len(pf)
             if n_build == 0:  # outer with an empty build side: no probe
@@ -569,7 +622,7 @@ def streaming_hash_join(
         stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
         _reset_peak(device)
         valid_for = _valid_masks(device, capacity)
-        chunks = engine_prefetcher(engine, produce(_stager(engine, capacity)), "join")
+        chunks = engine_prefetcher(engine, produce(_stager(engine, capacity, tune)), "join")
         for n, pf, chunk in _closing(chunks):
             stats["chunks"] += 1
             stats["rows"] += n
@@ -652,14 +705,14 @@ def streaming_compiled_map(
     from .group_ops import VALID
 
     device = engine.device
-    capacity = _chunk_rows(engine)
+    capacity, tune = _tuned_chunk_rows(engine, "map")
     np_dtypes = _stream_np_dtypes(Schema(df.schema), "streaming compiled map")
     names = list(np_dtypes)
     out_schema = Schema(output_schema)
     out_np = {f.name: np.dtype(f.type.to_pandas_dtype()) for f in out_schema.fields}
 
     def produce(stager: HostToDevice) -> Iterator[Tuple[int, Any]]:
-        for f in _rechunk(_iter_local_frames(df, capacity), capacity):
+        for f in _rechunk(_maybe_coalesce(_iter_local_frames(df, capacity), capacity, tune), capacity):
             n, cols, nulls = _chunk_columns(f, names)
             for c in names:
                 if np_dtypes[c].kind != "f":
@@ -673,7 +726,7 @@ def streaming_compiled_map(
         stats = {"chunks": 0, "rows": 0, "peak_device_bytes": 0}
         _reset_peak(device)
         valid_for = _valid_masks(device, capacity)
-        chunks = engine_prefetcher(engine, produce(_stager(engine, capacity)), "map")
+        chunks = engine_prefetcher(engine, produce(_stager(engine, capacity, tune)), "map")
         for n, chunk in _closing(chunks):
             cols = dict(chunk.tensors())
             cols[VALID] = valid_for(n)
@@ -725,7 +778,7 @@ def streaming_keyed_compiled_map(
     in_schema = Schema(df.schema)
     np_dtypes = _stream_np_dtypes(in_schema, "streaming keyed compiled map")
     device = engine.device
-    capacity = _chunk_rows(engine)
+    capacity, tune = _tuned_chunk_rows(engine, "keyed_map")
     out_schema = Schema(output_schema)
     map_engine = engine.map_engine
     names = list(in_schema.names)
@@ -778,7 +831,7 @@ def streaming_keyed_compiled_map(
                 stats["peak_device_bytes"] = max(stats["peak_device_bytes"], peak)
                 yield PandasDataFrame(out, out_schema)
 
-        for pf in _closing(_prefetched_pandas_chunks(engine, df, "keyed_map")):
+        for pf in _closing(_prefetched_pandas_chunks(engine, df, "keyed_map", capacity, tune)):
             stats["chunks"] += 1
             stats["rows"] += len(pf)
             merged = pf if carry is None or len(carry) == 0 else pd.concat(
@@ -1096,7 +1149,7 @@ def streaming_comap(
 
     out_schema = output_schema if isinstance(output_schema, Schema) else Schema(output_schema)
     keys = zdf.zip_keys
-    chunk_rows = _chunk_rows(engine)
+    chunk_rows, _ = _tuned_chunk_rows(engine, "comap")
     # a comap-time presort overrides the zip-time one, as in memory
     presort = dict(zdf.zip_presort)
     if partition_spec is not None and len(partition_spec.presort) > 0:
@@ -1230,7 +1283,8 @@ def streaming_fused_steps(engine: Any, df: Any, steps: Any) -> DataFrame:
     out_schema = apply_steps_engine(engine, ArrayDataFrame([], df.schema), steps).schema
 
     def gen() -> Iterator[LocalDataFrame]:
-        for f in _iter_local_frames(df, _chunk_rows(engine)):
+        chunk_rows, _ = _tuned_chunk_rows(engine, "fused")
+        for f in _iter_local_frames(df, chunk_rows):
             out = apply_steps_engine(engine, f, steps)
             if out.count() > 0:
                 yield out.as_local_bounded()
@@ -1425,8 +1479,8 @@ def plan_streaming_lowered_aggregate(
 
     def run() -> DataFrame:
         # ---- the stream is read from here on: failures raise ------------
-        capacity = _chunk_rows(engine)
-        frames = _rechunk(_iter_local_frames(df, capacity), capacity)
+        capacity, tune = _tuned_chunk_rows(engine, label)
+        frames = _rechunk(_maybe_coalesce(_iter_local_frames(df, capacity), capacity, tune), capacity)
         first = next(frames, None)
         if first is None:
             return engine.to_df(plan["schema"].create_empty_arrow_table())
@@ -1447,7 +1501,7 @@ def plan_streaming_lowered_aggregate(
                 "pre-bucket the key, or disable fugue.tpu.plan.lower_segments"
             )
         buckets = dense_buckets(kmax - kmin + 1)
-        stager = _stager(engine, capacity)
+        stager = _stager(engine, capacity, tune)
         valid_for = _valid_masks(device, capacity)
 
         def put_chunk(n: int, cols: Dict[str, np.ndarray], nulls: Dict[str, int]) -> Any:
@@ -1541,12 +1595,14 @@ def plan_lowered_steps_stream(
     label = f"segment:{fingerprint or 'anon'}"
 
     def make_stream() -> DataFrame:
-        capacity = _chunk_rows(engine)
+        capacity, tune = _tuned_chunk_rows(engine, label)
 
         def gen() -> Iterator[LocalDataFrame]:
-            stager = _stager(engine, capacity)
+            stager = _stager(engine, capacity, tune)
             valid_for = _valid_masks(device, capacity)
-            for f in _rechunk(_iter_local_frames(df, capacity), capacity):
+            for f in _rechunk(
+                _maybe_coalesce(_iter_local_frames(df, capacity), capacity, tune), capacity
+            ):
                 n, cols, nulls = _chunk_columns(f, needed)
                 if any(nulls[c] > 0 and in_np[c].kind != "f" for c in needed):
                     engine.plan_stats.inc("chunks_per_verb")

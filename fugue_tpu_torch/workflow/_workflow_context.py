@@ -21,9 +21,17 @@ re-reads the task's strong checkpoint, so work that reached storage
 replays (``workflow.checkpoint_replays``) instead of running again. Each
 task is one ``workflow.task`` span, parented explicitly on the
 ``workflow.run`` span so the tasks of pool threads nest under it too.
-Not ported (ROADMAP.md A.10): the result cache and the distributed pass
-(:120-160); ``FugueWorkflow.run`` refuses the conf keys that turn them
-on."""
+
+The result cache (:120-135, :305-430; ``fugue_tpu_torch/cache``): with
+the engine's cache and the run's conf both on, ``run`` fingerprints the
+optimized DAG, cuts it at the deepest cached frontier and loads the
+frontier frames (``plan_cache``); tasks upstream of the cut never run. A
+hit is one ``task.cache_hit`` span, a grown source's partial hit one
+``task.delta_recompute`` span over the new partitions only, and every
+finished bounded result is published under its fingerprint
+(``cache.publish`` span), with the delta manifest kept up to date. Not
+ported (ROADMAP.md A.10): the distributed pass (:137-160);
+``FugueWorkflow.run`` refuses the conf keys that turn it on."""
 
 import contextvars
 import time
@@ -51,6 +59,7 @@ class FugueWorkflowContext:
         self._results: Dict[int, DataFrame] = {}
         self._aliases: Dict[int, FugueTask] = {}
         self._removed: Set[int] = set()
+        self._cache_plan: Any = None
         # the fault budgets span the run: `error@1` fails one task once,
         # not once an attempt
         self._injector = FaultInjector.from_conf(conf)
@@ -77,6 +86,15 @@ class FugueWorkflowContext:
                 "yield_dataframe_as(), or disable the optimizer with "
                 "fugue.tpu.plan.optimize=false"
             )
+        plan = self._cache_plan
+        if id(t) not in self._results and plan is not None and id(t) in plan.skipped:
+            raise FugueWorkflowError(
+                "this task was never executed: a downstream result-cache "
+                "hit cut the plan above it (fugue_tpu_torch/cache); pin it "
+                "with persist()/checkpoint()/yield_dataframe_as() to keep it "
+                "addressable, or disable the cache with "
+                "fugue.tpu.cache.enabled=false"
+            )
         return self._results[id(t)]
 
     def has_result(self, task: FugueTask) -> bool:
@@ -91,6 +109,16 @@ class FugueWorkflowContext:
         self._aliases = result_aliases or {}
         self._removed = removed_results or set()
         self._checkpoint_path.init_temp_path(str(_uuid.uuid4()))
+        # the result cache: fingerprint the optimized DAG, cut it at the
+        # deepest cached frontier and load the frontier frames; tasks
+        # upstream of the cut never run. Off (the engine's
+        # fugue.tpu.cache.enabled=false), this is one boolean check
+        self._cache_plan = None
+        cache = self._engine.result_cache
+        if cache.enabled:
+            from ..cache import plan_cache
+
+            self._cache_plan = plan_cache(tasks, self._engine, cache, self._checkpoint_path)
         # a one-pass stream consumed by more than one task is read whole
         # once, or the second consumer would find it exhausted
         self._consumers: Dict[int, int] = {}
@@ -113,9 +141,13 @@ class FugueWorkflowContext:
 
     def _run_graph(self, tasks: List[FugueTask]) -> None:
         concurrency = int(self._conf.get(FUGUE_CONF_WORKFLOW_CONCURRENCY, 1))
+        # tasks a cache hit cut away count as done: a consumer that needed
+        # one would not have been cut
+        cut = set(self._cache_plan.skipped) if self._cache_plan is not None else set()
         if concurrency <= 1:
             for t in tasks:
-                self._run_task(t)
+                if id(t) not in cut:
+                    self._run_task(t)
             return
         thread_scope = self._engine.thread_scope()
 
@@ -123,8 +155,8 @@ class FugueWorkflowContext:
             with thread_scope():
                 self._run_task(t)
 
-        remaining = {id(t): t for t in tasks}
-        done: Set[int] = set()
+        remaining = {id(t): t for t in tasks if id(t) not in cut}
+        done: Set[int] = set(cut)
         running: Dict[Future, int] = {}
         first_error: List[BaseException] = []
         with ThreadPoolExecutor(max_workers=concurrency) as pool:
@@ -186,9 +218,10 @@ class FugueWorkflowContext:
                     time.sleep(policy.delay(attempts, seed=task.__uuid__()))
 
     def _run_task_once(self, task: FugueTask) -> None:
+        tid = task.__uuid__()
+        plan = self._cache_plan
         cp = task.checkpoint
         if isinstance(cp, StrongCheckpoint):
-            tid = task.__uuid__()
             cp.set_id(tid)
             if cp.exists(self._checkpoint_path, tid):
                 self._engine.resilience_stats.inc("workflow.checkpoint_replays")
@@ -199,7 +232,39 @@ class FugueWorkflowContext:
                     if task.yield_dataframe_handler is not None:
                         task.yield_dataframe_handler(df)
                     self._results[id(task)] = df
+                # one artifact, two indexes: the replayed checkpoint file
+                # gets a cache ref, so later runs also cut above this task
+                self._maybe_cache_publish(task, df)
                 return
+        if plan is not None and id(task) in plan.hits:
+            # served from the result cache: the frame was loaded at plan
+            # time; the checkpoint, broadcast and yield contracts still run
+            with get_tracer().span(
+                "task.cache_hit", cat="cache", task_uuid=tid, tier=plan.hit_tier.get(id(task), "")
+            ):
+                self._results[id(task)] = task.set_result(self, plan.hits[id(task)])
+            return
+        if plan is not None and id(task) in plan.delta_hits:
+            # partition-level delta recompute (cache/delta.py): the cached
+            # partitions were loaded at plan time; only the new partitions
+            # go through the chain here, then merge
+            from ..cache.delta import execute_delta
+
+            hit = plan.delta_hits[id(task)]
+            with get_tracer().span(
+                "task.delta_recompute",
+                cat="cache",
+                task_uuid=tid,
+                partitions=f"{hit.matched_parts}/{hit.total_parts}",
+                bytes_skipped=hit.bytes_matched,
+            ):
+                result = task.set_result(self, execute_delta(self, task, hit))
+                self._results[id(task)] = result
+            # the merged result under the new full fingerprint (a later
+            # exact run takes the whole-task path), and the fresh segment
+            # or partial appended to the manifest
+            self._maybe_cache_publish(task, result, delta_hit=hit)
+            return
         inputs = [self._results[id(d)] for d in task.inputs]
         self._injector.fire(SITE_TASK_EXECUTE)
         result = task.execute(self, inputs)
@@ -208,3 +273,40 @@ class FugueWorkflowContext:
             if self._consumers.get(id(task), 0) > 1 and result.is_local and not result.is_bounded:
                 result = result.as_local_bounded()
             self._results[id(task)] = result
+            self._maybe_cache_publish(task, result, inputs=inputs)
+
+    def _maybe_cache_publish(
+        self,
+        task: FugueTask,
+        result: DataFrame,
+        inputs: Optional[List[DataFrame]] = None,
+        delta_hit: Any = None,
+    ) -> None:
+        """Publish a finished bounded result under its plan fingerprint. A
+        permanent file checkpoint is indexed by reference, not written
+        again. A delta-eligible task (``cache/delta.py``) also keeps its
+        source's partition manifest, so the next run over a grown source
+        recomputes only the new partitions."""
+        plan = self._cache_plan
+        if plan is None:
+            return
+        fp = plan.fp(task)
+        if fp is None or (result.is_local and not result.is_bounded):
+            return  # publishing would consume a one-pass stream
+        ref = None
+        cp = task.checkpoint
+        if isinstance(cp, StrongCheckpoint) and cp.storage_type == "file" and cp.permanent:
+            try:
+                ref = cp._file_path(self._checkpoint_path)
+            except Exception:
+                ref = None
+        with get_tracer().span(
+            "cache.publish", cat="cache", task=task.name or type(task.extension).__name__, fp=fp[:12]
+        ) as sp:
+            info = self._engine.result_cache.publish(
+                fp, result, self._engine, str(result.schema), ref_path=ref
+            )
+            sp.set(**info)
+        from ..cache.delta import publish_manifest_after
+
+        publish_manifest_after(self, task, result, inputs=inputs, hit=delta_hit)

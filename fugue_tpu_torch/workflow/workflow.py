@@ -16,8 +16,15 @@ While the tracer (``fugue_tpu_torch/obs``) is on, a run is one
 ``workflow.run`` span in a trace scope of its own, after a
 ``plan.optimize`` span, and its span metrics carry ``workflow`` and
 ``run`` labels; ``fugue.tpu.trace.dir`` writes one Chrome trace file a
-run, and ``timeline()`` renders the run's recovery events. The tuner and
-the result cache are not ported (A.10)."""
+run, and ``timeline()`` renders the run's recovery events.
+
+A run goes through the engine's result cache (``fugue_tpu_torch/cache``,
+on by default: ``fugue.tpu.cache.enabled=false`` turns it off) and, inside
+``run_scope``, the engine's tuner (``fugue_tpu_torch/tuning``, on by
+default: ``fugue.tpu.tuning.enabled=false``) keyed by the optimized
+plan's fingerprint. ``explain()`` renders the cache's would-be cut and
+the tuner's settings after the plan; ``last_cache_plan`` and
+``last_plan_fingerprint`` describe the last run."""
 
 import hashlib
 import os
@@ -892,11 +899,18 @@ class FugueWorkflow:
             self._last_trace_id = current_trace_id() or _uuid.uuid4().hex[:16]
             run_attrs["trace"] = self._last_trace_id
             trace_ctx = trace_scope(self._last_trace_id)
+        # adaptive execution: this run's telemetry is keyed by the
+        # optimized plan's fingerprint, so the tuner's learned settings
+        # apply to, and learn from, this plan; plan_conf carries a
+        # workflow's tuning switch without touching the engine's conf
+        from ..tuning import plan_fingerprint, run_scope
+
+        self._last_plan_fingerprint = plan_fingerprint(run_tasks)
         try:
             with e.run_conf_scope(self._conf), e._as_context(borrowed=True):
                 with trace_ctx, run_ctx, tracer.span(
                     "workflow.run", cat="workflow", tasks=len(run_tasks), **run_attrs
-                ):
+                ), run_scope(e, self._last_plan_fingerprint, plan_conf):
                     ctx.run(run_tasks, result_aliases=aliases, removed_results=removed)
         finally:
             self._maybe_export_trace(e, tracer, plan_conf)
@@ -954,9 +968,34 @@ class FugueWorkflow:
         (``lowered segment <fingerprint>: steps -> terminal``) and the
         notes: every UDF's analyzer verdict (``udf <name>[<fp>]:
         translated ...`` or ``interpreted -- <reason>``), refusals, and
-        the passes that are not ported. ``lint=True`` appends the
-        structured static-check section (:meth:`lint`)."""
-        lines = [self.plan_report(conf, engine).render()]
+        the passes that are not ported. Then the result cache's would-be
+        cut over the optimized plan (which tasks hit, which are
+        uncacheable and why, which producers a warm run skips, which
+        grown sources recompute only their new partitions) and the
+        tuner's settings for the plan. Nothing runs; ``engine`` (if given)
+        lends its live cache tiers and tuned store. ``lint=True`` appends
+        the structured static-check section (:meth:`lint`)."""
+        from ..cache import describe_cache
+        from ..plan import optimize_tasks
+        from ..plan.ir import build_graph
+        from ..plan.optimizer import _render_nodes
+        from ..tuning import describe_tuning, plan_fingerprint
+
+        merged = self._merged_plan_conf(conf, engine)
+        run_tasks, _, _, report = optimize_tasks(self._tasks, merged)
+        if not report.before:
+            report.before = _render_nodes(build_graph(self._tasks))
+        eng = engine if isinstance(engine, ExecutionEngine) else None
+        lines = [report.render()]
+        lines.extend(
+            describe_cache(
+                run_tasks,
+                merged,
+                cache=None if eng is None else eng.result_cache,
+                engine_kind="any" if eng is None else type(eng).__name__,
+            )
+        )
+        lines.extend(describe_tuning(merged, plan_fingerprint(run_tasks), engine=eng))
         if lint:
             lines.append(self.lint(conf=conf, engine=engine).render())
         return "\n".join(lines)
@@ -984,6 +1023,21 @@ class FugueWorkflow:
     def last_plan_report(self) -> Any:
         """The ``PlanReport`` of the last ``run()`` (None before the first)."""
         return getattr(self, "_last_plan_report", None)
+
+    @property
+    def last_plan_fingerprint(self) -> Optional[str]:
+        """The plan fingerprint of the last ``run()``: the key the tuner
+        keeps its learned settings under (None before the first run or
+        for a plan with no fingerprint)."""
+        return getattr(self, "_last_plan_fingerprint", None)
+
+    @property
+    def last_cache_plan(self) -> Any:
+        """The ``CachePlan`` of the last ``run()``: fingerprints, frontier
+        hits and the skipped upstream tasks (None before the first run or
+        with the cache off)."""
+        ctx = getattr(self, "_last_context", None)
+        return None if ctx is None else ctx._cache_plan
 
     def _collect_raw_inputs(self) -> List[Any]:
         """The data the DAG's ``df``/``create_data`` tasks hold."""

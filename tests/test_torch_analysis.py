@@ -1,9 +1,9 @@
 """The port's UDF static analyzer (``fugue_tpu_torch/analysis``) against the
 JAX package's (``fugue_tpu/analysis``).
 
-Every case of ``tests/analysis/test_analysis.py`` that needs no result
-cache and no ``obs`` builds the same workflow through both packages, on
-the same seeded numpy frames, and holds three things:
+Every case of ``tests/analysis/test_analysis.py`` that needs no ``obs``
+builds the same workflow through both packages, on the same seeded numpy
+frames, and holds three things:
 
 - the port's ``UdfAnalysis`` of the transform task equals the
   reference's: the verdict code, ``row_local``, ``pure``,
@@ -48,6 +48,7 @@ from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableData
 from fugue_tpu_torch.execution import NativeExecutionEngine
 from fugue_tpu_torch.torch import TorchExecutionEngine
 from fugue_tpu_torch.workflow import FugueWorkflow
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 ANALYZE = "fugue.tpu.plan.analyze_udfs"
 TRANSLATE = "fugue.tpu.plan.translate_udfs"
@@ -631,6 +632,72 @@ def test_fingerprint_follows_the_udf_source():
     assert len(fps) == 2
     for u in (udf_edit_v1, udf_edit_v2):
         _same_analysis(_transform(u, "*,z:double", n=50))
+
+
+def test_fingerprint_invalidation_on_udf_edit(tmp_path):
+    """Reference ``test_fingerprint_invalidation_on_udf_edit``: with the
+    result cache on, a translated plan's identity follows the translated
+    steps: the same UDF hits warm, an edited one misses; the results equal
+    the JAX engine's."""
+    pdf = _frame(800)
+    out = {}
+    for m in (PORT, REF):
+        conf = {"fugue.tpu.cache.enabled": True, "fugue.tpu.cache.dir": str(tmp_path / m.name)}
+
+        def build_with(udf):
+            return lambda dag, m: dag.transform(pdf.copy(), using=udf, schema="*,z:double").yield_dataframe_as(
+                "r", as_local=True)
+
+        r1, _, _ = _run_once(build_with(udf_edit_v1), m, conf)
+        r1b, _, d1b = _run_once(build_with(udf_edit_v1), m, conf)
+        assert d1b.last_cache_plan.summary()["executes"] == 0  # a warm hit
+        pd.testing.assert_frame_equal(r1, r1b)
+        r2, _, d2 = _run_once(build_with(udf_edit_v2), m, conf)
+        assert d2.last_cache_plan.summary()["executes"] >= 1  # edited: computed again
+        assert not r1.equals(r2)
+        out[m.name] = (r1, r2)
+    for got, exp in zip(out["port"], out["ref"]):
+        pd.testing.assert_frame_equal(got, exp)
+
+
+def test_delta_cache_serves_analyzed_udf_chain(tmp_path):
+    """Reference ``test_delta_cache_serves_analyzed_udf_chain``: a row-local
+    analyzed UDF chain over a grown parquet directory recomputes only the
+    appended partition on the warm run, equal to a run with the cache off
+    and to the JAX engine's."""
+    import os
+
+    import pyarrow.parquet as pq
+
+    out = {}
+    for m in (PORT, REF):
+        src = str(tmp_path / m.name / "src")
+        os.makedirs(src)
+
+        def write_part(i):
+            rng = np.random.default_rng(500 + i)
+            n = 700
+            pq.write_table(pa.table({"k": rng.integers(0, 8, n).astype("int64"), "v": rng.random(n),
+                                     "w": rng.random(n)}), os.path.join(src, f"part_{i:03d}.parquet"))
+
+        for i in range(3):
+            write_part(i)
+
+        def build(dag, m):
+            dag.load(src, fmt="parquet").transform(using=udf_arith, schema="*,z:double").yield_dataframe_as(
+                "r", as_local=True)
+
+        conf = {"fugue.tpu.cache.enabled": True, "fugue.tpu.cache.dir": str(tmp_path / m.name / "cache")}
+        _run_once(build, m, conf)
+        write_part(3)  # the source grows
+        r2, e2, _ = _run_once(build, m, conf)
+        cs = e2.stats()["cache"]
+        assert cs["partial_hits"] >= 1, cs
+        assert cs["delta_partitions_fresh"] == 1 and cs["delta_partitions"] == 3, cs
+        ref, _, _ = _run_once(build, m, {"fugue.tpu.cache.enabled": False})
+        pd.testing.assert_frame_equal(r2, ref)
+        out[m.name] = r2
+    pd.testing.assert_frame_equal(out["port"], out["ref"])
 
 
 # ---------------------------------------------------------------------------

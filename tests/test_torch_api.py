@@ -31,6 +31,7 @@ from fugue_tpu_torch.execution.factory import make_execution_engine
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
 
 from test_torch_sql import _same
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 REF_CONF = {"fugue.tpu.cache.enabled": False}
 

@@ -33,6 +33,7 @@ from fugue_tpu_torch.execution import NativeExecutionEngine
 from fugue_tpu_torch.rpc import NativeRPCServer, RPCFunc, make_rpc_server
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
 from fugue_tpu_torch.workflow import FugueWorkflow
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 REF_CONF = {"fugue.tpu.cache.enabled": False, "fugue.tpu.stream.chunk_rows": 256}
 PORT_CONF = {"fugue.tpu.stream.chunk_rows": 256}

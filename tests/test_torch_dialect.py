@@ -30,6 +30,7 @@ from fugue_tpu_torch.sql import DialectProfile, register_dialect, transpile
 from fugue_tpu_torch.sql import dialect as tdialect
 from fugue_tpu_torch.sql.fsql import FugueSQLWorkflow
 from fugue_tpu_torch.torch import TorchExecutionEngine
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 REF_CONF = {"fugue.tpu.cache.enabled": False}
 

@@ -36,6 +36,7 @@ from fugue_tpu_torch import dataframe as tdf
 from fugue_tpu_torch import extensions as ttr
 from fugue_tpu_torch.exceptions import FugueWorkflowRuntimeValidationError
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -49,7 +49,6 @@ from fugue_tpu_torch.workflow import FugueWorkflow
 REF_SERVER = "fugue_tpu.rpc.http.HttpRPCServer"
 PORT_SERVER = "fugue_tpu_torch.rpc.http.HttpRPCServer"
 # families of sources the port does not have yet (the result cache, the tuner)
-REF_ONLY = ("fugue_tpu_cache_", "fugue_tpu_tuning_")
 PORT_ONLY = ("fugue_tpu_plan_chunks_per_verb",)
 
 
@@ -146,14 +145,19 @@ def test_unbound_routes_answer_404(route):
     assert s1 == s2 == 404 and b1 == b2
 
 
-def test_metrics_match_the_reference(tracers):
+def test_metrics_match_the_reference(tracers, tmp_path):
     """The same traced workflow on each package's host engine, each with its
-    HTTP server bound; ``/metrics`` and ``/stats`` scraped after."""
+    HTTP server bound and the same conf (result cache off, a tuned store of
+    its own); ``/metrics`` and ``/stats`` scraped after."""
     pages = {}
+    conf = {"fugue.tpu.cache.enabled": False}
     for tag, wf, eng, c in (
-        ("port", FugueWorkflow, NativeExecutionEngine({"fugue.rpc.server": PORT_SERVER}), tcolumn),
-        ("ref", JFugueWorkflow, JNativeExecutionEngine({"fugue.rpc.server": REF_SERVER,
-                                                        "fugue.tpu.cache.enabled": False}), jcolumn),
+        ("port", FugueWorkflow, NativeExecutionEngine(
+            {"fugue.rpc.server": PORT_SERVER, "fugue.tpu.tuning.path": str(tmp_path / "p.json"), **conf}),
+         tcolumn),
+        ("ref", JFugueWorkflow, JNativeExecutionEngine(
+            {"fugue.rpc.server": REF_SERVER, "fugue.tpu.tuning.path": str(tmp_path / "r.json"), **conf}),
+         jcolumn),
     ):
         dag = wf()
         (dag.df(_frame()).filter(c.col("v") > 0.5).partition_by("k")
@@ -169,7 +173,7 @@ def test_metrics_match_the_reference(tracers):
         assert set(snap) == {"replica", "proc", "spans"} and snap["spans"]["latency"]
         pages[tag] = _families(body.decode())
     (pf, pv), (rf, rv) = pages["port"], pages["ref"]
-    rf = {k: v for k, v in rf.items() if not k.startswith(REF_ONLY)}
+    assert any(k.startswith(("fugue_tpu_cache_", "fugue_tpu_tuning_")) for k in pf)
     assert set(pf) - set(rf) == set(PORT_ONLY)
     assert {k: v for k, v in pf.items() if k not in PORT_ONLY} == rf
     counts = {k: v for k, v in pv.items() if k[0] == "fugue_tpu_span_latency_seconds_count"}

@@ -32,6 +32,7 @@ from fugue_tpu_torch.exceptions import FugueInvalidOperation
 from fugue_tpu_torch.torch import TorchExecutionEngine
 from fugue_tpu_torch.workflow import FugueWorkflow
 from tests.test_torch_plan import PORT, REF, _stream, run_case, same_frames
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 LOWER = "fugue.tpu.plan.lower_segments"
 CHUNK = 2048

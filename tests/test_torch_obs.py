@@ -66,9 +66,10 @@ from fugue_tpu_torch.execution import NativeExecutionEngine
 from fugue_tpu_torch.obs import sampler as tsampler
 from fugue_tpu_torch.obs.tracer import NULL_SPAN
 from fugue_tpu_torch.torch import TorchExecutionEngine
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
-# the JAX package's result cache would serve a DAG it ran before without
-# running (or tracing) its tasks; the port has none (ROADMAP.md A.10)
+# either package's result cache would serve a DAG it ran before without
+# running (or tracing) its tasks: both engines run with it off
 REF_CONF = {"fugue.tpu.cache.enabled": False}
 
 REF = SimpleNamespace(
@@ -81,7 +82,7 @@ PORT = SimpleNamespace(
     FugueWorkflow=twf.FugueWorkflow, col=tcolumn.col, ff=tcolumn.functions,
     ArrowDataFrame=tdf.ArrowDataFrame, Iterable=tdf.LocalDataFrameIterableDataFrame,
     obs=tobs, array=lambda: torch.Tensor,
-    engine=lambda conf=None: TorchExecutionEngine(device="cpu", conf=conf),
+    engine=lambda conf=None: TorchExecutionEngine(device="cpu", conf={**REF_CONF, **(conf or {})}),
 )
 
 
@@ -482,11 +483,11 @@ def _families(text: str) -> set:
 def test_prometheus_text_passes_both_validators(tracers, samplers):
     """The same faulted-and-retried lowered workflow on both engines: the
     port's page passes both validators, and the families of the shared
-    sources (``resilience``, ``latency``, ``telemetry``) are the same. The
-    resource gauges differ by the probes each engine registers: the JAX
-    engine's jit-cache, result-cache and spill probes have no port here,
-    and the port's ``device_bytes`` drops out under a torch built
-    without CUDA."""
+    sources (``resilience``, ``latency``, ``telemetry``, ``cache``,
+    ``tuning``) are the same. The resource gauges differ by the probes each
+    engine registers: the JAX engine's jit-cache and spill probes have no
+    port here, and the port's ``device_bytes`` drops out under a torch
+    built without CUDA."""
     pdf = _f32_frame(4000, 10)
     conf = {"fugue.tpu.fault.plan": "task.execute=error", "fugue.tpu.retry.task.attempts": 2,
             "fugue.tpu.retry.task.base": 0.001}
@@ -511,7 +512,8 @@ def test_prometheus_text_passes_both_validators(tracers, samplers):
     def shared(names):
         return {
             n for n in names
-            if n.startswith(("fugue_tpu_resilience_", "fugue_tpu_span_", "fugue_tpu_telemetry_"))
+            if n.startswith(("fugue_tpu_resilience_", "fugue_tpu_span_", "fugue_tpu_telemetry_",
+                             "fugue_tpu_cache_", "fugue_tpu_tuning_"))
         }
 
     assert shared(fams["port"]) == shared(fams["ref"])
@@ -519,7 +521,7 @@ def test_prometheus_text_passes_both_validators(tracers, samplers):
     res = {k: {n for n in v if n.startswith("fugue_tpu_resource_")} for k, v in fams.items()}
     assert res["port"] <= res["ref"]
     only_ref = {n[len("fugue_tpu_resource_"):] for n in res["ref"] - res["port"]}
-    expect = {"jit_cache_entries", "result_cache_mem_bytes", "result_cache_mem_entries", "shuffle_spill_bytes"}
+    expect = {"jit_cache_entries", "shuffle_spill_bytes"}
     if not torch.backends.cuda.is_built():
         expect.add("device_bytes")
     assert only_ref == expect
@@ -537,7 +539,9 @@ def test_engine_stats_surface_and_reset_keeps_entries(tracers, samplers):
     )
     try:
         st = e.stats()
-        assert set(st) == {"resilience", "plan", "analysis", "pipeline", "latency", "telemetry"}
+        assert set(st) == {"resilience", "plan", "analysis", "cache", "tuning", "pipeline", "latency",
+                           "telemetry"}
+        assert e.result_cache.stats is e.metrics.get("cache") and e.tuner is e.metrics.get("tuning")
         assert e.pipeline_stats is e.metrics.get("pipeline")
         assert e.resilience_stats is e.metrics.get("resilience")
         assert e._host_engine.resilience_stats is e.resilience_stats

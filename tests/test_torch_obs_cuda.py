@@ -38,6 +38,7 @@ from fugue_tpu_torch.ops import bin_groupby as bg
 from fugue_tpu_torch.resilience import InjectedFaultError
 from fugue_tpu_torch.torch import TorchExecutionEngine
 from fugue_tpu_torch.workflow import FugueWorkflow
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 pytestmark = pytest.mark.cuda
 

@@ -48,6 +48,7 @@ from fugue_tpu_torch.dataframe import (
 )
 from fugue_tpu_torch.torch import TorchExecutionEngine, pipeline, streaming
 from fugue_tpu_torch.torch import group_ops as go
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 CHUNK = 2048
 

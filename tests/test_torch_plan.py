@@ -46,6 +46,7 @@ from fugue_tpu_torch.execution import NativeExecutionEngine
 from fugue_tpu_torch.plan import optimize_tasks
 from fugue_tpu_torch.torch import TorchExecutionEngine
 from fugue_tpu_torch.workflow import FugueWorkflow
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 OPT = "fugue.tpu.plan.optimize"
 GATES = ["fugue.tpu.plan.pushdown", "fugue.tpu.plan.prune", "fugue.tpu.plan.fuse",
@@ -417,9 +418,9 @@ def test_explain_report():
         assert "== logical plan ==" in text and "== optimized plan" in text and "pruned" in text
         assert "lowered segment" in text and "segments_lowered=1" in text
         assert "optimizer disabled" in dag.explain(conf={OPT: False})
-    # the port's segment line is the reference's (fingerprint, steps and
-    # terminal), less the reference's delta-cache annotation (A.10)
-    lines = [[s.split("; delta:")[0] for s in _built(m, pdf).explain().splitlines() if "lowered segment" in s]
+    # the port's segment line is the reference's: fingerprint, steps,
+    # terminal and the delta-cache annotation
+    lines = [[s for s in _built(m, pdf).explain().splitlines() if "lowered segment" in s]
              for m in (PORT, REF)]
     assert lines[0] == lines[1] and len(lines[0]) == 1
 

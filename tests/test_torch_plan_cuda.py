@@ -25,6 +25,7 @@ from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableData
 from fugue_tpu_torch.ops import bin_groupby as bg
 from fugue_tpu_torch.torch import TorchExecutionEngine
 from fugue_tpu_torch.workflow import FugueWorkflow
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 pytestmark = pytest.mark.cuda
 

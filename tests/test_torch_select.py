@@ -59,6 +59,7 @@ from fugue_tpu_torch.column import expressions as texpr
 from fugue_tpu_torch.column import functions as ff
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
 from fugue_tpu_torch.torch import group_ops as tgo
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 ROOT = Path(__file__).resolve().parent.parent
 HOST_VERBS = ("select", "filter", "aggregate", "dropna", "fillna")

@@ -20,6 +20,7 @@ from fugue_tpu_torch import api
 from fugue_tpu_torch import workflow as twf
 from fugue_tpu_torch.ops import bin_groupby as bg
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 pytestmark = pytest.mark.cuda
 

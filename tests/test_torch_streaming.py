@@ -54,6 +54,7 @@ from fugue_tpu_torch.exceptions import FugueInvalidOperation
 from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
 from fugue_tpu_torch.torch import group_ops as go
 from fugue_tpu_torch.torch import streaming
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 ROOT = Path(__file__).resolve().parent.parent
 CHUNK = 4096

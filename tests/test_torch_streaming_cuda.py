@@ -28,6 +28,7 @@ from fugue_tpu_torch.constants import (
 from fugue_tpu_torch.dataframe import LocalDataFrameIterableDataFrame
 from fugue_tpu_torch.ops import bin_groupby as bg
 from fugue_tpu_torch.torch import TorchExecutionEngine, streaming
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 pytestmark = pytest.mark.cuda
 

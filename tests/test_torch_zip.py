@@ -54,6 +54,7 @@ from fugue_tpu_torch.torch import streaming as tstreaming
 from fugue_tpu_torch.torch.zipped import ZippedTorchDataFrame
 
 from test_torch_sql import _rows, _same
+from torch_tuned_store import own_tuned_store  # noqa: F401  (a tuned store of each test's own)
 
 REF = SimpleNamespace(
     FugueWorkflow=fugue_tpu.FugueWorkflow, DataFrames=JDataFrames, PartitionSpec=JPartitionSpec,
