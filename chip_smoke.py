@@ -233,9 +233,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    delta's shape beside its bound and ``index_add_``) and ``tuned-stream``
    (2·10^7 rows streamed in chunks of 2^18, cut in scale, three runs with
    the tuner on beside a tuning-off twin: each run's chunks those
-   ``adjust_stream`` gives, B1 once a chunk, the oracle). Each line has
-   its wall time, its B1 launches counted from 0 just before,
-   ``engine.stats()["cache"]`` and its spans.
+   ``adjust_stream`` gives, B1 once a chunk, the oracle; then B1 alone at
+   each chunk shape beside ``index_add_``). Each line has its wall time,
+   its B1 launches counted from 0 just before, ``engine.stats()["cache"]``
+   and its spans. Its 11 files are handed over to serve_path;
+21. serve_path: the serving layer and the standing views over
+   cache_path's 11 files (1.1·10^8 rows), each submission ``LOAD dir →
+   filter(v > t) → select(k, v * w AS z) → aggregate`` by ``k`` against a
+   float64 oracle, one line a cell: ``serve-dedup`` (4 sessions, one plan:
+   one execution, 3 deduped waiters, B1 once), ``serve-mixed`` (4 tenants,
+   4 plans, priorities 0-3, two workers: B1 4 times, executions started in
+   priority order, beside the four run one after another),
+   ``serve-http`` (through ``ServeHttpClient`` on loopback: an idempotent
+   replay, a 429 for a tenant whose budget lies below the first result's
+   device bytes, ``/readyz`` and ``/stats``), ``serve-fleet`` (two
+   replicas on two engines over one store, one plan to both at once: B1
+   once across both) and ``serve-view`` (a standing view: generation 1
+   over every row, then an appended file of 10^7 rows classified
+   ``append`` and delta-served, ``/serve/view`` against the oracle of all
+   12 files). Each line has each submission's queue wait and run time,
+   B1's launches and the rows of each call, ``engine.stats()["serve"]``
+   and the peak device bytes; at the end the device's allocated bytes are
+   back to the phase's start, to the byte.
 
 Every cell line of the phases before cache_path carries ``cache_hits``,
 the result-cache hits the engines it ran on have served: it must be 0.
@@ -248,7 +267,7 @@ they measured.
 Then a line with the run's seconds, a line ``{"kernels": [...]}`` and,
 last, ``{"ok": true, "device": ...}``.
 Run from the repository root: ``python3 chip_smoke.py [--seed 0]`` (``--rows
-N`` cuts the dense, the transform, the north-star and the 100m host frames,
+N`` cuts the dense, the transform and the north-star frames,
 ``--orders N`` the lineitem frames and ``--expand-orders N`` the expansion's, for a quick
 try; ``--stream-rows N`` cuts the streamed north star, ``--setop-stream-rows N``
 setop_path's streams, ``--sql-rows N`` sql_path's parquet file and the
@@ -2613,6 +2632,7 @@ def phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, s
 # host_path: the host engine, with the device↔host moves around it
 UDF_GROUPS, UDF_FRAME_ROWS, UDF_ROWS = 1000, 2_000_000, 1_000_000  # bench.py's N_GROUPS, N_ROWS, UDF_ROWS
 HOST_REPS = 5  # host_path: the 1m cell's median of 5 calls, after the checked one
+HOST_BIG_ROWS = 20_000_000  # pandas-demean-100m, cut in scale from 10^8 rows (35-44 s of pandas)
 HOST_RTOL, HOST_ATOL = 1e-5, 1e-8
 
 
@@ -2699,8 +2719,9 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
     pandas in, pandas out, median of ``HOST_REPS`` calls; and a round trip
     through parquet, ``engine.load_df``, the transform and
     ``engine.save_df``), ``pandas-demean-100m`` (the same UDF over
-    transform_path's ``demean-dense`` frame of ``rows`` rows already on the
-    card, beside the compiled map's time ``compiled_ms``) and
+    transform_path's ``demean-dense`` frame already on the card, cut in
+    scale to the first ``HOST_BIG_ROWS`` of its ``rows`` rows, beside the
+    compiled map's time ``compiled_ms`` over all of them) and
     ``orders-lineitem-expand-sf10`` (``orders`` orders inner their lines,
     past ``MAX_EXPAND_ROWS``: the join the JAX engine makes on its host).
     Each is held against a host oracle with its kernel launches counted
@@ -2775,7 +2796,9 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
     emit_cell("pandas-demean-1m", line, ueng)
     del pdf, k, v, loaded, mapped, back
 
-    # pandas-demean-100m: the frame already on the card
+    # pandas-demean-100m: the frame already on the card, cut in scale to
+    # HOST_BIG_ROWS rows (its pandas time paced the whole smoke)
+    full_rows, rows = rows, min(rows, HOST_BIG_ROWS)
     t0 = time.perf_counter()
     cols, schema, _ = transform_frame(np, "bench", rows, seed)
     generate_s = time.perf_counter() - t0
@@ -2795,8 +2818,8 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
                  cols["k"], cols["v"], torch=torch)
     del res
     ms = profile["wall_ms"]
-    line.update(rows=rows, groups=TRANSFORM_KEYS, generate_s=generate_s, ms=ms, rows_per_s=rows / ms * 1e3,
-                compiled_ms=compiled_ms, copies_bytes={"d2h": 16 * rows, "h2d": 16 * rows},
+    line.update(rows=rows, cut_in_scale_from=full_rows, groups=TRANSFORM_KEYS, generate_s=generate_s, ms=ms,
+                rows_per_s=rows / ms * 1e3, compiled_ms=compiled_ms, copies_bytes={"d2h": 16 * rows, "h2d": 16 * rows},
                 split=_copy_split(profile, "fugue::host_map"), profile=profile)
     emit_cell("pandas-demean-100m", line)
     del tdf, cols
@@ -3812,6 +3835,18 @@ def profiled_ranges(path: str, outer: str, kernel: str) -> dict:
             "kernel_names": sorted({e["name"][:60] for e in kernels})}
 
 
+def launches_without_kernel(path: str) -> dict:
+    """In a ``torch.profiler`` Chrome trace: the kernel launches (runtime
+    or driver calls) and how many of them have no kernel event of their
+    correlation id, the records the capture lost."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    launches = [e["args"]["correlation"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", "") and "correlation" in e.get("args", {})]
+    return {"launches": len(launches), "without_kernel": sum(c not in kernels for c in launches)}
+
+
 def phase_obs_path(torch, np, pd, pa, bg, ff, col, engine, pdf, exp, stream_rows: int = OBS_STREAM_ROWS,
                    stream_chunk: int = PLAN_STREAM_CHUNK) -> dict:
     """The observability and resilience layers on the card, on plan_path's
@@ -4235,7 +4270,7 @@ def phase_services_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, devic
             "rows": len(pdf), "ingest_s": ingest_s, "launches": launches, "ms": profiled_ms,
             "capture_ms": capture_ms, "lowered_uniform_1k_ms": lowered_ms, "trace_file_bytes": files[0].stat().st_size,
             "trace_events": len(events), "annotate_ranges": region, "profile_ranges": ranges,
-            "fugue_plan_segment_ranges": old,
+            "fugue_plan_segment_ranges": old, "kernel_records": launches_without_kernel(str(files[0])),
             "checks": f"keys, counts, min/max exact; sum/avg rtol={ORACLE_RTOL} vs float64 oracle; one plan.segment "
                       "range holding B1's kernel, no fugue::plan_segment"}, heng)
         del got, res
@@ -4492,7 +4527,7 @@ def _check_cache(np, got, exp, what: str) -> str:
 
 def phase_cache_path(torch, np, pd, pa, bg, ff, col, device, pdf, seed: int, exp=None, files: int = CACHE_FILES,
                      stream_rows: int = TUNED_STREAM_ROWS, stream_chunk: int = TUNED_STREAM_CHUNK,
-                     tmp_root=None) -> dict:
+                     tmp_root=None, keep_source: bool = False) -> dict:
     """The result cache, the delta cache and the tuner on the card, through
     ``FugueWorkflow.run``, one line a cell. ``pdf`` (plan_path's frame, handed
     over; ``exp`` its oracle) is written as ``files`` parquet files into a
@@ -4521,7 +4556,11 @@ def phase_cache_path(torch, np, pd, pa, bg, ff, col, device, pdf, seed: int, exp
 
     Each line has its wall time, its B1 launches counted from 0 just before,
     ``engine.stats()["cache"]`` and its spans (the port's tracer on). The
-    first call of each cell is its measure: a second call would be a hit."""
+    first call of each cell is its measure: a second call would be a hit.
+    Then B1 alone at the shapes of ``tuned-stream``'s chunks, beside one
+    ``index_add_``. With ``keep_source`` the parquet directory (``files`` + 1
+    files) is not removed but handed over in ``out["handover"]`` with its
+    columns."""
     import shutil
     import tempfile
     from collections import Counter
@@ -4575,6 +4614,7 @@ def phase_cache_path(torch, np, pd, pa, bg, ff, col, device, pdf, seed: int, exp
     bg.bin_sum = spy_b1
     tracer.clear()
     tracer.enable()
+    handed = False
     try:
         def write(i: int) -> None:
             sl = slice(i * per, (i + 1) * per)
@@ -4780,14 +4820,522 @@ def phase_cache_path(torch, np, pd, pa, bg, ff, col, device, pdf, seed: int, exp
                 "checks": f"keys, counts, min/max exact; sums rtol={ORACLE_RTOL} vs float64 oracle and the twin; "
                           "each run's chunks those adjust_stream gives for the run before"})
         del teng, twin_e, tbl, results, twin
+        # B1 alone at each chunk shape the tuned stream ran (its first rows)
+        bg.bin_sum = real_b1
+        for size in sorted({r["chunk_rows"] for r in runs}):
+            m = min(size, n)
+            kd = torch.from_numpy(k[:m]).to(device)
+            vd, wd = torch.from_numpy(v[:m]).to(device), torch.from_numpy(w[:m]).to(device)
+            at = (b1_at_shape(torch, bg, kd, vd * wd, vd > 0.25, 0, 999, plain_reps=3) if on_card
+                  else {"rows": m, "ms": None, "note": "timed on the card only"})
+            out["b1"][f"tuned-stream-{m}"] = {**at, "launches": sum(r["launches"]["bin_sum"] for r in runs
+                                                                   if r["chunk_rows"] == size)}
+            del kd, vd, wd
+        if keep_source:
+            out["handover"] = {"tmp": tmp, "src": str(src), "files": files + 1, "rows": rows + per,
+                               "arrays": (k, v, w), "new": (nk, nv, nw)}
+            handed = True
     finally:
         bg.bin_sum = real_b1
         tracer.disable()
         tracer.clear()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not handed:
+            shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - start
     return out
+
+
+# serve_path: the serving layer and the standing views on the card
+SERVE_THRESHOLDS = (0.1, 0.25, 0.5, 0.75)  # serve-mixed's four plans, priorities 0..3
+SERVE_NEW_ROWS = 10_000_000  # serve-view's appended file
+SERVE_TIMEOUT_S = 600.0
+
+
+def serve_oracles(np, pd, k, v, w, thresholds) -> dict:
+    """For each ``t`` of the ascending ``thresholds``, per key of ``k`` over
+    the rows ``v > t`` keeps (NaN dropped; ``w`` has no NaN), of ``z = v *
+    w`` in float32 as the card computes it: the count and the float64
+    sum. One pass: each row's level is how many thresholds it passes, one
+    ``bincount`` by (key, level) a slice of rows on a thread, and a
+    threshold takes the levels above its index."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    levels = len(thresholds) + 1
+    size = (int(k.max()) + 1) * levels if len(k) else levels
+
+    def part(sl):
+        kk, vv = k[sl], v[sl]
+        level = np.zeros(len(vv), dtype=np.int64)
+        for t in thresholds:
+            level += vv > t
+        key = kk * levels + level
+        z = (vv * w[sl]).astype(np.float64)
+        z[level == 0] = 0.0  # NaN rows are level 0; level 0 is read by no threshold
+        return np.bincount(key, minlength=size), np.bincount(key, weights=z, minlength=size)
+
+    parts = min(8, os.cpu_count() or 1)
+    step = -(-len(k) // parts) or 1
+    with ThreadPoolExecutor(parts) as pool:
+        got = list(pool.map(part, [slice(i, i + step) for i in range(0, max(len(k), 1), step)]))
+    n = sum(g[0] for g in got).reshape(-1, levels)
+    s = sum(g[1] for g in got).reshape(-1, levels)
+    out = {}
+    for i, t in enumerate(thresholds):
+        ni, si = n[:, i + 1:].sum(axis=1), s[:, i + 1:].sum(axis=1)
+        keys = np.nonzero(ni > 0)[0]
+        out[t] = pd.DataFrame({"k": keys, "s": si[keys], "n": ni[keys]})
+    return out
+
+
+def _merge_sn(np, pd, a, b):
+    """The oracle of two sources' rows from theirs: counts and sums add."""
+    m = a.merge(b, on="k", how="outer", suffixes=("_a", "_b")).sort_values("k").reset_index(drop=True)
+    n = m["n_a"].fillna(0).astype(np.int64) + m["n_b"].fillna(0).astype(np.int64)
+    out = pd.DataFrame({"k": m["k"].to_numpy(), "n": n.to_numpy()})
+    out["s"] = np.where(n > 0, m["s_a"].fillna(0.0) + m["s_b"].fillna(0.0), np.nan)
+    return out[["k", "s", "n"]]
+
+
+def _check_serve(np, got, exp, what: str) -> str:
+    got = got.sort_values("k").reset_index(drop=True)
+    require(list(got.columns) == ["k", "s", "n"], f"{what}: columns {list(got.columns)}")
+    require(len(got) == len(exp), f"{what}: {len(got)} groups, expected {len(exp)}")
+    for c in ("k", "n"):
+        require(np.array_equal(got[c].to_numpy(), exp[c].to_numpy()), f"{what}: {c}")
+    g, e = got["s"].to_numpy(), exp["s"].to_numpy()
+    require((np.isnan(g) == np.isnan(e)).all(), f"{what}: NULLs of s")
+    ok = ~np.isnan(e)
+    require(np.allclose(g[ok], e[ok], rtol=ORACLE_RTOL, atol=0), f"{what}: s vs oracle")
+    return f"keys, counts exact; sums rtol={ORACLE_RTOL} vs float64 oracle"
+
+
+def phase_serve_path(torch, np, pd, pa, bg, ff, col, device, handover: dict, seed: int,
+                     new_rows: int = SERVE_NEW_ROWS) -> dict:
+    """The serving layer and the standing views on the card, one line a
+    cell, over cache_path's parquet directory (``handover``: its 11 files
+    of config #3's frame plus ``w``, their columns; removed at the end).
+    Each submission is ``LOAD dir → filter(v > t) → select(k, v * w AS z) →
+    aggregate`` by ``k`` (SUM and COUNT of ``z``): one lowered segment, B1
+    for SUM(z), checked against a float64 numpy oracle over the files it
+    read. The engines run with the result cache off, but ``serve-fleet``'s
+    and ``serve-view``'s, which need the shared store.
+
+    - ``serve-dedup``: 4 sessions (threads) submit the same plan at once
+      (``t = 0.25``, ``max_concurrent = 4``): one execution, 3 deduped
+      waiters sharing its frame, B1 once;
+    - ``serve-mixed``: 4 tenants, one distinct plan each (``t`` in
+      ``SERVE_THRESHOLDS``, priorities 0-3, submitted lowest first while
+      two gates hold the ``max_concurrent = 2`` workers): B1 4 times,
+      executions started in priority order, the batch's wall time beside
+      the four plans run one after another on the same engine;
+    - ``serve-http``: through ``ServeHttpClient`` on loopback: submit, the
+      same idempotency key replayed (the same submission id), poll, then a
+      second submission of the tenant, whose ``budget_bytes`` lies below
+      the first result's charged device bytes, refused with 429, then the
+      result; ``/readyz`` (``serve_bound``) and ``/stats`` (``serve``);
+    - ``serve-fleet``: two replicas on two engines on the card over one
+      store (``fugue.tpu.cache.dir``), the same plan submitted to both at
+      once: B1 once across both, both answer the oracle;
+    - ``serve-view``: ``fugue.tpu.views.enabled``; a view of the chain over
+      the directory: ``tick_once`` publishes generation 1 (B1 over every
+      row); a file of ``new_rows`` rows appended, ``tick_once`` publishes
+      generation 2, classified ``append`` and delta-served (B1 over the
+      new rows, then the merge of the two partials); ``/serve/view``
+      answers the oracle over all the files; the view's lag.
+
+    Each line has its wall time, each submission's queue wait and run
+    time, B1 launches counted from 0 just before the cell and the rows of
+    each B1 call, ``engine.stats()["serve"]`` and the peak device bytes.
+    After the servers stop and their yielded frames are dropped, the
+    device's allocated bytes return to the phase's start, to the byte,
+    while the stopped servers, their retained submissions and their
+    engines are still referenced."""
+    import os
+    import shutil
+    import threading
+    from pathlib import Path
+
+    import pyarrow.parquet as pq
+
+    from fugue_tpu_torch.serve import EngineServer, ServeHttpClient, ServeRejected
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {"phase": "serve_path", "cells": {}}
+    tmp, src = Path(handover["tmp"]), handover["src"]
+    files, rows = handover["files"], handover["rows"]
+    k, v, w = handover["arrays"]
+    nk, nv, nw = handover["new"]
+    b1_rows: list = []
+    real_b1 = bg.bin_sum
+
+    def spy_b1(keys, values, valid, buckets):  # the rows each B1 call gets
+        b1_rows.append(int(keys.shape[0]))
+        return real_b1(keys, values, valid, buckets)
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def chain(t: float, as_local: bool = False):
+        def build():
+            dag = FugueWorkflow()
+            (dag.load(src, fmt="parquet").filter(col("v") > t).select(col("k"), (col("v") * col("w")).alias("z"))
+             .partition_by("k").aggregate(s=ff.sum(col("z")), n=ff.count(col("z")))
+             .yield_dataframe_as("r", as_local=as_local))
+            return dag
+
+        return build
+
+
+    def begin() -> None:
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        b1_rows.clear()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def subs_line(subs: dict) -> dict:
+        return {name: {"id": s.id, "tenant": s.tenant, "priority": s.priority, "deduped": s.deduped,
+                       "queue_wait_s": s.queue_wait_s, "run_s": s.run_s} for name, s in subs.items()}
+
+    def finish(cell: str, line: dict, *engines, launches=None, rows_=None) -> None:
+        line = {"phase": "serve_path", "cell": cell, **line, "launches": launches or dict(bg.LAUNCHES),
+                "b1_rows": list(b1_rows) if rows_ is None else rows_,
+                "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line, *engines)
+        out["cells"][cell] = line
+
+    def frame(res):
+        return res.yields["r"].result.as_pandas()
+
+    def gate_dag(release, entered):
+        def make() -> pd.DataFrame:
+            entered.release()
+            require(release.wait(SERVE_TIMEOUT_S), "serve_path: a gate was never released")
+            return pd.DataFrame({"a": [1]})
+
+        dag = FugueWorkflow()
+        dag.create(make, schema="a:long").yield_dataframe_as("g", as_local=True)
+        return dag
+
+    t0 = time.perf_counter()
+    old, new = (serve_oracles(np, pd, *cols, SERVE_THRESHOLDS) for cols in ((k, v, w), (nk, nv, nw)))
+    oracles = {t: _merge_sn(np, pd, old[t], new[t]) for t in SERVE_THRESHOLDS}
+    del old, new
+    oracle_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    mem_before = torch.cuda.memory_allocated() if on_card else 0
+    bg.bin_sum = spy_b1
+    servers: list = []
+
+    def serve_dedup() -> None:
+        """serve-dedup: four sessions, one plan, one execution."""
+        eng = TorchExecutionEngine(device=device, conf={**NO_CACHE, "fugue.tpu.serve.max_concurrent": 4})
+        srv = EngineServer(eng).start()
+        servers.append(srv)
+        begin()
+        subs, barrier = {}, threading.Barrier(4)
+
+        def session(i: int) -> None:
+            barrier.wait()
+            subs[f"session{i}"] = srv.submit(chain(0.25), tenant=f"session{i}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=session, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        require(len(subs) == 4, f"serve-dedup: {len(subs)} of 4 sessions admitted")
+        results = {name: s.result(timeout=SERVE_TIMEOUT_S) for name, s in subs.items()}
+        sync()
+        wall_s = time.perf_counter() - t0
+        frames = [r.yields["r"].result for r in results.values()]
+        require(all(f is frames[0] for f in frames), "serve-dedup: the waiters' frames are not one frame")
+        require(getattr(frames[0], "device", device) == device, "serve-dedup: the frame is not on the card")
+        checks = _check_serve(np, frames[0].as_pandas(), oracles[0.25], "serve-dedup")
+        st = srv.stats()
+        require(st["executions"] == 1 and st["dedup_hits"] == 3 and sum(s.deduped for s in subs.values()) == 3,
+                f"serve-dedup: {st['executions']} executions, {st['dedup_hits']} deduped")
+        require(bg.LAUNCHES["bin_sum"] == (1 if on_card else 0) and b1_rows == [rows],
+                f"serve-dedup: B1 {bg.LAUNCHES} over {b1_rows} rows")
+        finish("serve-dedup", {"rows": rows, "files": files, "t": 0.25, "wall_s": wall_s, "oracle_s": oracle_s,
+                               "submissions": subs_line(subs), "serve": eng.stats()["serve"], "checks": checks},
+               eng)
+        srv.stop()
+        frames.clear()
+        for r in results.values():  # the yields the retained submissions share
+            r.yields.clear()
+
+    def serve_mixed() -> None:
+        """serve-mixed: four tenants, four plans, two workers, priority order."""
+        eng = TorchExecutionEngine(device=device, conf={**NO_CACHE, "fugue.tpu.serve.max_concurrent": 2})
+        srv = EngineServer(eng).start()
+        servers.append(srv)
+        release, entered = threading.Event(), threading.Semaphore(0)
+        gates = [srv.submit(gate_dag(release, entered), tenant="gate") for _ in range(2)]
+        for _ in gates:
+            require(entered.acquire(timeout=SERVE_TIMEOUT_S), "serve-mixed: a gate did not start")
+        begin()
+        subs = {}
+        for p in reversed(range(len(SERVE_THRESHOLDS))):  # the least urgent first
+            t = SERVE_THRESHOLDS[p]
+            subs[f"tenant{p}"] = srv.submit(chain(t), tenant=f"tenant{p}", priority=p)
+        t0 = time.perf_counter()
+        release.set()
+        results = {name: s.result(timeout=SERVE_TIMEOUT_S) for name, s in subs.items()}
+        sync()
+        wall_s = time.perf_counter() - t0
+        [g.result(timeout=SERVE_TIMEOUT_S) for g in gates]
+        started = sorted(subs, key=lambda name: subs[name]._execution.started_at)
+        require(started == [f"tenant{p}" for p in range(len(SERVE_THRESHOLDS))],
+                f"serve-mixed: executions started {started}")
+        checks = [_check_serve(np, frame(results[f"tenant{p}"]), oracles[t], f"serve-mixed t={t}")
+                  for p, t in enumerate(SERVE_THRESHOLDS)][0]
+        launches, batch_rows = dict(bg.LAUNCHES), list(b1_rows)
+        require(launches["bin_sum"] == (4 if on_card else 0) and batch_rows == [rows] * 4,
+                f"serve-mixed: B1 {launches} over {batch_rows} rows")
+        st = eng.stats()["serve"]
+        require(st["executions"] == 6 and st["dedup_hits"] == 0, f"serve-mixed: {st}")
+        serial = {}
+        for t in SERVE_THRESHOLDS:  # the same four plans one after another
+            dag = chain(t)()
+            sync()
+            t1 = time.perf_counter()
+            dag.run(eng)
+            got = frame(dag)
+            sync()
+            serial[t] = time.perf_counter() - t1
+            _check_serve(np, got, oracles[t], f"serve-mixed serial t={t}")
+        bg.LAUNCHES.update(launches)
+        b1_rows[:] = batch_rows
+        finish("serve-mixed", {"rows": rows, "thresholds": list(SERVE_THRESHOLDS), "max_concurrent": 2,
+                               "wall_s": wall_s, "serial_s": serial, "serial_sum_s": sum(serial.values()),
+                               "started": started, "submissions": subs_line(subs), "serve": st,
+                               "checks": checks + "; executions started in priority order"}, eng)
+        srv.stop()
+        for r in results.values():
+            r.yields.clear()
+
+    def serve_http() -> None:
+        """serve-http: the same over http on loopback."""
+        budget = 1024
+        eng = TorchExecutionEngine(device=device, conf={
+            **NO_CACHE, "fugue.rpc.server": HTTP_SERVER, "fugue.tpu.serve.max_concurrent": 2,
+            "fugue.tpu.serve.tenant.tight.budget_bytes": budget})
+        rpc = eng.rpc_server
+        rpc.start()
+        srv = EngineServer(eng).start()
+        servers.append(srv)
+        rpc.bind_serve(srv)
+        try:
+            cl = ServeHttpClient(rpc.host, rpc.port)
+            begin()
+            t0 = time.perf_counter()
+            a = cl.submit(chain(0.5), tenant="tight", idempotency_key="serve-http-1")
+            b = cl.submit(chain(0.5), tenant="tight", idempotency_key="serve-http-1")
+            require(a["id"] == b["id"], f"serve-http: the replay answered {b['id']}, not {a['id']}")
+            polls = 1
+            while cl.poll(a["id"])["status"] not in ("done", "failed"):
+                polls += 1
+                time.sleep(0.01)
+            # "done" shows before the waiters are released, and the charge is
+            # restated to the result's bytes in between
+            require(srv.get(a["id"]).wait(SERVE_TIMEOUT_S), "serve-http: the submission did not finish")
+            held = srv.get(a["id"])._execution.result.yields["r"].result
+            charged = srv.stats()["charged_bytes"].get("tight", 0)
+            require(charged == held.device_nbytes > budget,
+                    f"serve-http: charged {charged} B, the frame's device bytes {held.device_nbytes}")
+            rejected = None
+            try:
+                cl.submit(chain(0.75), tenant="tight")
+            except ServeRejected as ex:  # the client raises it on a 429
+                rejected = ex.reason
+            require(rejected == "tenant_budget", f"serve-http: the over-budget submission got {rejected}")
+            got = cl.result(a["id"], timeout=SERVE_TIMEOUT_S)["r"]
+            sync()
+            wall_s = time.perf_counter() - t0
+            checks = _check_serve(np, got, oracles[0.5], "serve-http")
+            after_claim = srv.stats()["charged_bytes"].get("tight", 0)
+            ready = json.loads(urllib_get(rpc, "/readyz"))
+            stats = json.loads(urllib_get(rpc, "/stats"))
+            require(ready.get("serve_bound") is True and "serve" in stats and stats["serve"]["completed"] >= 1,
+                    f"serve-http: /readyz {ready}, /stats keys {sorted(stats)}")
+            st = srv.stats()
+            require(st["idempotent_replays"] == 1 and st["rejected_budget"] == 1 and st["executions"] == 1,
+                    f"serve-http: {st}")
+            require(bg.LAUNCHES["bin_sum"] == (1 if on_card else 0) and b1_rows == [rows],
+                    f"serve-http: B1 {bg.LAUNCHES} over {b1_rows} rows")
+            finish("serve-http", {"rows": rows, "t": 0.5, "wall_s": wall_s, "polls": polls, "id": a["id"],
+                                  "replayed_id": b["id"], "budget_bytes": budget, "charged_bytes": charged,
+                                  "charged_after_claim": after_claim, "rejected": {"http": 429, "reason": rejected},
+                                  "readyz": ready, "stats_serve_completed": stats["serve"]["completed"],
+                                  "serve": eng.stats()["serve"], "checks": checks}, eng)
+        finally:
+            srv.stop()
+            rpc.stop()
+        srv.get(a["id"]).result(timeout=SERVE_TIMEOUT_S).yields.clear()
+
+    def serve_fleet() -> None:
+        """serve-fleet: two replicas over one store, the same plan to both."""
+        store = tmp / "fleet"
+        fconf = {"fugue.tpu.cache.dir": str(store), "fugue.tpu.serve.fleet.enabled": True}
+        ea = TorchExecutionEngine(device=device, conf={**fconf, "fugue.tpu.serve.replica_id": "replica-a"})
+        eb = TorchExecutionEngine(device=device, conf={**fconf, "fugue.tpu.serve.replica_id": "replica-b"})
+        sa, sb = EngineServer(ea).start(), EngineServer(eb).start()
+        servers.extend([sa, sb])
+        begin()
+        subs, barrier = {}, threading.Barrier(2)
+
+        def replica(name: str, s) -> None:
+            barrier.wait()
+            subs[name] = s.submit(chain(0.25), tenant="fleet")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=replica, args=(n, s)) for n, s in (("replica-a", sa), ("replica-b", sb))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results = {name: s.result(timeout=SERVE_TIMEOUT_S) for name, s in subs.items()}
+        sync()
+        wall_s = time.perf_counter() - t0
+        checks = [_check_serve(np, frame(r), oracles[0.25], f"serve-fleet {name}") for name, r in results.items()][0]
+        sts = {"replica-a": sa.stats(), "replica-b": sb.stats()}
+        fleet = {name: {c: s[c] for c in s if c.startswith("fleet_") or c in ("executions", "dedup_hits")}
+                 for name, s in sts.items()}
+        require(sum(s["fleet_publishes"] for s in sts.values()) == 1, f"serve-fleet: {fleet}")
+        require(bg.LAUNCHES["bin_sum"] == (1 if on_card else 0) and b1_rows == [rows],
+                f"serve-fleet: B1 {bg.LAUNCHES} over {b1_rows} rows")
+        finish("serve-fleet", {"rows": rows, "t": 0.25, "wall_s": wall_s, "submissions": subs_line(subs),
+                                "fleet": fleet, "serve": {"replica-a": ea.stats()["serve"],
+                                                          "replica-b": eb.stats()["serve"]},
+                                "checks": checks})
+        sa.stop()
+        sb.stop()
+        [e.result_cache.clear() for e in (ea, eb)]
+        for r in results.values():
+            r.yields.clear()
+
+    def serve_view() -> None:
+        """serve-view: a standing view, a full generation, then an append."""
+        veng = TorchExecutionEngine(device=device, conf={
+            "fugue.tpu.cache.dir": str(tmp / "views"), "fugue.tpu.views.enabled": True,
+            "fugue.tpu.views.poll_s": 3600.0, "fugue.tpu.serve.replica_id": "views",
+            "fugue.rpc.server": HTTP_SERVER})
+        rpc = veng.rpc_server
+        rpc.start()
+        vsrv = EngineServer(veng).start()
+        servers.append(vsrv)
+        rpc.bind_serve(vsrv)
+        try:
+            vs = vsrv.views
+            # the loop's first tick (at start) ends before the view is
+            # registered, and no other comes: only the tick_once() calls
+            # below publish, none beside a loop tick
+            vs.maintainer.halt_for_test()
+            vs.maintainer._stop_evt.clear()
+            vs.register("serve_agg", chain(0.25, as_local=True), src, fmt="parquet", tenant="views")
+            begin()
+            t0 = time.perf_counter()
+            vs.maintainer.tick_once()
+            sync()
+            gen1_s = time.perf_counter() - t0
+            res = vs.result("serve_agg")
+            require(res is not None and res["generation"] == 1 and res["mode"] == "full",
+                    f"serve-view: generation 1 {None if res is None else (res['generation'], res['mode'])}")
+            _check_serve(np, res["frames"]["r"], oracles[0.25], "serve-view generation 1")
+            gen1 = {"s": gen1_s, "launches": dict(bg.LAUNCHES), "b1_rows": list(b1_rows)}
+            require(gen1["launches"]["bin_sum"] == (1 if on_card else 0) and gen1["b1_rows"] == [rows],
+                    f"serve-view: generation 1 B1 {gen1}")
+            rng = np.random.default_rng(seed + 31)  # the appended file's rows
+            ak = rng.integers(0, 1000, new_rows, dtype=np.int64)
+            av = rng.random(new_rows, dtype=np.float32)
+            av[rng.random(new_rows) < 0.01] = np.nan
+            aw = rng.random(new_rows, dtype=np.float32)
+            pq.write_table(pa.table({"k": ak, "v": av, "w": aw}), os.path.join(src, f"part_{files:03d}.parquet"),
+                           compression="none")
+            exp12 = _merge_sn(np, pd, oracles[0.25], serve_oracles(np, pd, ak, av, aw, (0.25,))[0.25])
+            begin()
+            t0 = time.perf_counter()
+            vs.maintainer.tick_once()
+            sync()
+            gen2_s = time.perf_counter() - t0
+            res = vs.result("serve_agg")
+            head = vs.registry.head("serve_agg")
+            require(res["generation"] == 2 and res["mode"] == "delta" and not head.get("reason"),
+                    f"serve-view: generation 2 {res['generation']} {res['mode']} {head.get('reason')}")
+            # B1 over the new rows (the fresh partial), then the merge of the
+            # two partials' float32 sums (one row a key each)
+            require(b1_rows[:1] == [new_rows] and all(r <= 2 * 1000 for r in b1_rows[1:]),
+                    f"serve-view: generation 2 B1 over {b1_rows} rows")
+            require(bg.LAUNCHES["bin_sum"] == (len(b1_rows) if on_card else 0),
+                    f"serve-view: generation 2 B1 {bg.LAUNCHES}")
+            gen2 = {"launches": dict(bg.LAUNCHES), "b1_rows": list(b1_rows)}
+            t0 = time.perf_counter()
+            served = ServeHttpClient(rpc.host, rpc.port).view("serve_agg", timeout=60)
+            view_ms = (time.perf_counter() - t0) * 1e3
+            checks = _check_serve(np, served["frames"]["r"], exp12, "serve-view /serve/view")
+            vst = veng.stats()["views"]
+            require(vst["generations_published"] == 2 and vst["delta_refusals"] == 0, f"serve-view: {vst}")
+            lag = vs.describe("serve_agg")
+            finish("serve-view", {"rows": rows + new_rows, "files": files + 1, "t": 0.25,
+                                  "generation_1": gen1, "generation_2": {"s": gen2_s, "mode": res["mode"],
+                                                                          "rows_new": new_rows, **gen2},
+                                  "served": {"generation": served["generation"], "mode": served["mode"],
+                                             "staleness_s": served["staleness_s"], "ms": view_ms},
+                                  "lag": {"staleness_s": lag.get("staleness_s"), "as_of": lag.get("as_of")},
+                                  "views": vst, "serve": veng.stats()["serve"], "checks": checks},
+                   launches={n: gen1["launches"][n] + gen2["launches"][n] for n in gen1["launches"]},
+                   rows_=gen1["b1_rows"] + gen2["b1_rows"])
+        finally:
+            vsrv.stop()
+            rpc.stop()
+        veng.result_cache.clear()
+
+    try:
+        serve_dedup()
+        serve_mixed()
+        serve_http()
+        serve_fleet()
+        serve_view()
+    finally:
+        bg.bin_sum = real_b1
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the stopped servers, their retained submissions and their engines still
+    # referenced, the yielded frames dropped: the device back to its start
+    gc.collect()
+    sync()
+    mem_after = torch.cuda.memory_allocated() if on_card else 0
+    retained = sum(srv.stats()["retained"] for srv in servers)
+    require(mem_after == mem_before, f"serve_path: {mem_after - mem_before} device bytes held after stop() "
+                                     f"by {len(servers)} servers retaining {retained} submissions")
+    out["memory"] = {"before_phase": mem_before, "after_stop": mem_after, "servers": len(servers),
+                     "retained_submissions": retained}
+    servers.clear()
+    emit({"phase": "serve_path", "cell": "memory", **out["memory"]})
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+def urllib_get(rpc, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{rpc.host}:{rpc.port}{path}", timeout=30) as r:
+        return r.read().decode()
 
 
 def _release(torch) -> None:
@@ -4885,8 +5433,11 @@ def main() -> int:
         tdf=obs_path.pop("handover"), lowered_ms=plan_path["cells"]["lowered-uniform-1k"]["ms"],
         callback_ms=analysis_path["cells"]["callback-1k"]["ms"])
     _release(torch)
-    cache_path = phase_cache_path(torch, np, pd, pa, bg, ff, col, dev, plan_frame_, args.seed, exp=plan_exp)
+    cache_path = phase_cache_path(torch, np, pd, pa, bg, ff, col, dev, plan_frame_, args.seed, exp=plan_exp,
+                                  keep_source=True)
     del plan_frame_, plan_exp
+    _release(torch)
+    serve_path = phase_serve_path(torch, np, pd, pa, bg, ff, col, dev, cache_path.pop("handover"), args.seed)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -4912,7 +5463,9 @@ def main() -> int:
                    "services_path": {c: r["launches"][name] for c, r in services_path["cells"].items()},
                    "cache_path": {c: (r["launches"][name] if "launches" in r
                                       else sum(x["launches"][name] for x in r["runs"]))
-                                  for c, r in cache_path["cells"].items()}}
+                                  for c, r in cache_path["cells"].items()},
+                   "serve_path": {c: r["launches"][name] for c, r in serve_path["cells"].items()
+                                  if "launches" in r}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -4936,7 +5489,7 @@ def main() -> int:
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
             + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
             + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values())
-            + sum(by_path["cache_path"].values()),
+            + sum(by_path["cache_path"].values()) + sum(by_path["serve_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

@@ -21,9 +21,9 @@ the reader deletes it and the caller recomputes.
 
 Claim files (``try_claim_file``): one small json file created with
 ``O_CREAT|O_EXCL``, so exactly one creator wins a cold race; a claim whose
-lease expired, or whose same-host owner is dead, may be stolen. The JAX
-package's cross-host heartbeat check belongs to its distributed pass,
-which the port does not have (ROADMAP.md A.10).
+lease expired, or whose owner is dead, may be stolen: its heartbeat
+(``dist/heartbeat.py``) gone stale where a heartbeat directory is
+configured, else its same-host pid gone.
 
 :class:`ResultCache` joins both tiers behind ``lookup``/``publish`` and
 owns the :class:`CacheStats` counters of ``engine.stats()["cache"]``.
@@ -257,8 +257,14 @@ class ArtifactStore:
         cap_bytes: int,
         log: Any = None,
         cap_entries: int = 0,
+        hb_dir: Optional[str] = None,
+        hb_stale_s: float = 3.0,
     ):
         self.root = path
+        # with a heartbeat dir, a claim owner's staleness there is proof
+        # of death across hosts (the serve fleet's replicas beat there)
+        self.hb_dir = hb_dir or None
+        self.hb_stale_s = float(hb_stale_s)
         self.objs = os.path.join(path, "objs")
         self.manifests = os.path.join(path, "manifests")
         self.claims = os.path.join(path, "claims")
@@ -315,8 +321,17 @@ class ArtifactStore:
         lease = float(holder.get("lease_s", 0.0))
         if ts + lease <= time.time():
             return True
-        # a SIGKILLed same-host owner shouldn't pin its claim for the
-        # whole lease — a dead pid is stealable immediately
+        # cross-host liveness first: a stale heartbeat is proof of death
+        # regardless of host; a fresh one pins the claim for its lease
+        if self.hb_dir:
+            from ..dist.heartbeat import holder_alive
+
+            alive = holder_alive(str(holder.get("owner") or ""), self.hb_dir, self.hb_stale_s)
+            if alive is not None:
+                return not alive
+        # fallback (no heartbeat dir, or an owner that never beat): a
+        # SIGKILLed same-host owner shouldn't pin its claim for the whole
+        # lease — a dead pid is stealable immediately
         pid = holder.get("pid")
         if pid and holder.get("host") == socket.gethostname():
             try:
@@ -534,6 +549,8 @@ class ResultCache:
             _get(FUGUE_TPU_CONF_CACHE_DIR, "") or os.environ.get("FUGUE_TPU_CACHE_DIR", "")
         )
         if self.enabled and cache_dir:
+            from ..constants import FUGUE_TPU_CONF_DIST_HB_DIR, FUGUE_TPU_CONF_DIST_HB_STALE_S
+
             cap = int(_get(FUGUE_TPU_CONF_CACHE_DISK_BYTES, 4 * 1024 * 1024 * 1024))
             cap_entries = int(_get(FUGUE_TPU_CONF_CACHE_DISK_MAX_ENTRIES, 65536))
             try:
@@ -542,6 +559,8 @@ class ResultCache:
                     cap,
                     log=log,
                     cap_entries=cap_entries,
+                    hb_dir=str(_get(FUGUE_TPU_CONF_DIST_HB_DIR, "")) or None,
+                    hb_stale_s=float(_get(FUGUE_TPU_CONF_DIST_HB_STALE_S, 3.0)),
                 )
                 probe = os.path.join(store.objs, f".probe_{_uuid.uuid4().hex}")
                 with open(probe, "w") as f:

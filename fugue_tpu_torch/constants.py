@@ -170,3 +170,122 @@ FUGUE_TPU_CONF_PLAN_LOWER_SEGMENTS = "fugue.tpu.plan.lower_segments"
 # tasks' UDFs, and splice the translated ones into the plan
 FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS = "fugue.tpu.plan.analyze_udfs"
 FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS = "fugue.tpu.plan.translate_udfs"
+
+
+# --- serving and views (``fugue_tpu_torch/serve``, ``fugue_tpu_torch/views``):
+# the keys of ``fugue_tpu/constants.py`` :279-379, copied with their
+# defaults (views off; the fleet active only over a shared
+# ``fugue.tpu.cache.dir``) ---
+# --- multi-tenant serving layer (fugue_tpu_torch/serve, docs/serving.md) ---
+# concurrent workflow executions one EngineServer runs at a time (its
+# worker-thread pool size); everything past it waits in the admission queue
+FUGUE_TPU_CONF_SERVE_MAX_CONCURRENT = "fugue.tpu.serve.max_concurrent"
+# admission queue capacity: submissions past it are REJECTED (the /readyz
+# readiness endpoint reports "overloaded" with a 503 before that happens,
+# so a load balancer can shed first)
+FUGUE_TPU_CONF_SERVE_QUEUE_DEPTH = "fugue.tpu.serve.queue_depth"
+# priority for submissions that don't name one (lower = sooner; ties FIFO)
+FUGUE_TPU_CONF_SERVE_DEFAULT_PRIORITY = "fugue.tpu.serve.default_priority"
+# starvation guard: a queued execution's effective priority improves by
+# one level per aging_s seconds waited, so FIFO-within-priority can never
+# starve the lowest level under a steady high-priority stream. 0 disables.
+FUGUE_TPU_CONF_SERVE_AGING_S = "fugue.tpu.serve.aging_s"
+# bytes charged against a tenant's budget per admitted submission when
+# the submission doesn't declare its own reserve_bytes (replaced by the
+# measured result bytes once the run finishes — live accounting)
+FUGUE_TPU_CONF_SERVE_RESERVE_BYTES = "fugue.tpu.serve.reserve_bytes"
+# how many completed submissions the server retains for result pickup
+# (oldest evicted past it; their tenant byte charge releases on eviction)
+FUGUE_TPU_CONF_SERVE_RETAIN = "fugue.tpu.serve.retain"
+# per-tenant overlays: fugue.tpu.serve.tenant.<id>.priority (scheduling
+# default), fugue.tpu.serve.tenant.<id>.budget_bytes (admission gate:
+# live charged bytes + the new reserve must stay under it; 0 = unlimited),
+# and fugue.tpu.serve.tenant.<id>.conf.<key> (per-run conf overlay — any
+# fugue.tpu.* key: workflow.run scopes conf per run, so an overlay can
+# never leak into another tenant's run; non-fugue.tpu keys are dropped
+# with a warning)
+FUGUE_TPU_CONF_SERVE_TENANT_PREFIX = "fugue.tpu.serve.tenant."
+# keys every tenant conf overlay must start with (run-scoped by the
+# workflow.run conf overlay; see docs/serving.md)
+FUGUE_TPU_CONF_SERVE_TENANT_OVERLAY_PREFIX = "fugue.tpu."
+# distinct tenant ids the serving layer keeps state for (per-tenant stats
+# breakdown, parsed tenant policies, the one-warning-per-tenant set) —
+# least-recently-seen tenants past it are evicted, the same LRU
+# discipline as the serve.retain retention ring: a hostile client minting
+# tenant ids must not leak memory in a long-lived server
+FUGUE_TPU_CONF_SERVE_MAX_TENANTS = "fugue.tpu.serve.max_tenants"
+
+# --- serving fleet (fugue_tpu_torch/serve/fleet.py, docs/serving.md "Fleet") ---
+# master switch for cross-replica coordination. ON by default but only
+# ACTIVE when the engine mounts a shared disk store (fugue.tpu.cache.dir)
+# — replicas sharing that directory collapse identical submissions across
+# processes via claim files and serve each other's published results.
+# =false (or a single replica with no shared store) preserves the
+# single-server behavior bit-identically, including the /serve/* wire
+# contract.
+FUGUE_TPU_CONF_SERVE_FLEET_ENABLED = "fugue.tpu.serve.fleet.enabled"
+# claim lease in seconds: a claim older than this whose owner can't be
+# proven alive is STEALABLE — a dead replica's in-flight plan is taken
+# over by whichever waiter gets the atomic claim rewrite in first. A
+# same-host owner with a dead pid is stealable immediately.
+FUGUE_TPU_CONF_SERVE_FLEET_LEASE_S = "fugue.tpu.serve.fleet.lease_s"
+# how often a cross-replica waiter re-checks the shared store for the
+# owner's published result (and the owner's claim for expiry)
+FUGUE_TPU_CONF_SERVE_FLEET_POLL_S = "fugue.tpu.serve.fleet.poll_s"
+# published serve-result payloads kept in the shared store (mtime-LRU
+# eviction past it, the ArtifactStore discipline)
+FUGUE_TPU_CONF_SERVE_FLEET_MAX_RESULTS = "fugue.tpu.serve.fleet.max_results"
+# this replica's stable identity in claim files / journal names /
+# /readyz; default "<hostname>-<pid>" (unique per process)
+FUGUE_TPU_CONF_SERVE_REPLICA_ID = "fugue.tpu.serve.replica_id"
+# crash-safe submission journal: the directory holding each replica's
+# append-only fsync'd WAL (<replica_id>.jsonl). Unset (default) disables
+# journaling; on restart a replica REPLAYS its own unfinished entries
+# under their original idempotency keys (docs/serving.md "Fleet").
+FUGUE_TPU_CONF_SERVE_JOURNAL_DIR = "fugue.tpu.serve.journal.dir"
+# journal compaction threshold (bytes): past it the WAL is rewritten
+# atomically with every terminal submission's records dropped — replay
+# semantics are provably unchanged (unfinished() parity). 0 disables.
+FUGUE_TPU_CONF_SERVE_JOURNAL_MAX_BYTES = "fugue.tpu.serve.journal.max_bytes"
+
+# --- continuous views (fugue_tpu_torch/views, docs/views.md) ---
+# master kill-switch, default OFF: =false means no registration
+# endpoints (they 404), no watcher threads, and a serve wire contract /
+# span multiset bit-identical to the pre-views tiers. Turning it on
+# requires a shared store (fugue.tpu.cache.dir) — the registry, heads,
+# leases and generation payloads all live there so any replica can serve
+# while exactly one maintains.
+FUGUE_TPU_CONF_VIEWS_ENABLED = "fugue.tpu.views.enabled"
+# watcher loop interval in seconds: how often the maintainer re-observes
+# every watched source (and renews its watch leases)
+FUGUE_TPU_CONF_VIEWS_POLL_S = "fugue.tpu.views.poll_s"
+# per-view watch lease duration: a lease this old whose holder cannot be
+# proven alive (dist heartbeat / same-host pid probe) is stealable — the
+# exactly-one-maintainer guarantee under replica death
+FUGUE_TPU_CONF_VIEWS_LEASE_S = "fugue.tpu.views.lease_s"
+# published generations retained per view beyond the pinned latest one
+# (older generation payloads are deleted by the maintainer on publish)
+FUGUE_TPU_CONF_VIEWS_KEEP_GENERATIONS = "fugue.tpu.views.keep_generations"
+# how many priority points an SLO-at-risk refresh gains (priority is
+# min-wins, so the boost SUBTRACTS; floor 0)
+FUGUE_TPU_CONF_VIEWS_SLO_BOOST = "fugue.tpu.views.slo_boost"
+# fraction of a tenant's freshness_s after which a pending refresh counts
+# as at-risk and takes the boost (breach itself is at 1.0)
+FUGUE_TPU_CONF_VIEWS_SLO_RISK_FRACTION = "fugue.tpu.views.slo_risk_fraction"
+# registered views cap (bounds /metrics cardinality and registry scans)
+FUGUE_TPU_CONF_VIEWS_MAX = "fugue.tpu.views.max"
+# how long a maintainer waits for one refresh submission to finish before
+# counting it failed and retrying next tick
+FUGUE_TPU_CONF_VIEWS_REFRESH_TIMEOUT_S = "fugue.tpu.views.refresh_timeout_s"
+
+# a serve replica's span spool directory (``fugue_tpu/constants.py`` :96):
+# with tracing on, it publishes its span buffer there after each execution
+FUGUE_TPU_CONF_TRACE_SPOOL_DIR = "fugue.tpu.trace.spool_dir"
+
+# the heartbeat protocol of ``dist/heartbeat.py`` (``fugue_tpu/constants.py``
+# :390-399): every replica or view maintainer with a heartbeat dir writes
+# <dir>/<id>.hb.json every interval_s; a beat older than stale_after_s is
+# proof of death for lease and claim stealing
+FUGUE_TPU_CONF_DIST_HB_DIR = "fugue.tpu.dist.heartbeat.dir"
+FUGUE_TPU_CONF_DIST_HB_INTERVAL_S = "fugue.tpu.dist.heartbeat.interval_s"
+FUGUE_TPU_CONF_DIST_HB_STALE_S = "fugue.tpu.dist.heartbeat.stale_after_s"

@@ -43,6 +43,7 @@ source's header says why.
 """
 
 import ctypes
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,8 +53,15 @@ CHUNK = 1024  # rows per one-hot chunk of the plain version
 # are batched up to it, so the loop runs ~n*buckets/2**26 times, not n/1024
 _ONEHOT_ELEMS = 1 << 26
 
-# kernel launches by wrapper kernel, counted where the kernel is launched
+# kernel launches by wrapper kernel, counted where the kernel is launched;
+# the lock keeps the count exact when several sessions launch at once
 LAUNCHES: Dict[str, int] = {"bin_sum": 0, "bin_sum_count": 0}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 # the global route's claimed-bucket cache slots (csrc/bin_groupby.cu
 # kCacheSlots): 128 KB of shared memory with sums, 192 KB with counts
@@ -250,7 +258,7 @@ def bin_sum(
     sums = torch.zeros(buckets, dtype=torch.float32, device=keys.device)
     if keys.shape[0] > 0:
         _launch(keys, values, valid, buckets, sums, None)
-        LAUNCHES["bin_sum"] += 1
+        _count_launch("bin_sum")
     return sums
 
 
@@ -266,7 +274,7 @@ def bin_sum_count(
     counts = torch.zeros(buckets, dtype=torch.int32, device=keys.device)
     if keys.shape[0] > 0:
         _launch(keys, values, valid, buckets, sums, counts)
-        LAUNCHES["bin_sum_count"] += 1
+        _count_launch("bin_sum_count")
     return sums, counts
 
 

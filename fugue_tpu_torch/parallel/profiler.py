@@ -8,7 +8,11 @@ Usage::
         fa.transform(df, fn, engine="torch")
 
 :func:`profile` is one ``torch.profiler`` capture: host activity, and the
-card's kernels and copies when CUDA is available. It writes one Chrome
+card's kernels and copies when CUDA is available. Its warm-up step, whose
+events are dropped, launches ``WARMUP_KERNELS`` small kernels when the
+process has initialized CUDA already: a capture
+made after earlier ones in a process loses its first kernel records, and
+those take the loss. It writes one Chrome
 trace (``fugue_profile_<pid>_<ns>.json``) into ``log_dir``, for Perfetto
 or ``chrome://tracing``. :func:`annotate` names a region of the timeline
 (``torch.profiler.record_function``).
@@ -30,6 +34,14 @@ from typing import Any, Iterator
 
 FUGUE_TPU_CONF_PROFILE_DIR = "fugue.tpu.profile.dir"
 
+# small kernels launched in the capture's warm-up step, whose events the
+# capture drops: in a process that captured before, the card's activity
+# recording loses the first kernel records of the next capture, more the
+# longer since (about 20 after four idle minutes on the H100 with
+# PyTorch 2.11 and CUDA 12.8, ``tools/profiler_capture_diag.py``); these
+# take the loss in place of the recorded step's kernels
+WARMUP_KERNELS = 1024
+
 
 @contextmanager
 def profile(log_dir: str) -> Iterator[None]:
@@ -46,12 +58,18 @@ def profile(log_dir: str) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    # an empty warm-up step first: the card's activity recording is set up
-    # before the recorded step starts, or its first kernels may go unrecorded
+    # a warm-up step first: the card's activity recording is set up before
+    # the recorded step starts, and the records it loses are the warm-up's
     with torch.profiler.profile(
         activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
     ) as prof:
+        # only where the process already uses the card: a capture of host
+        # work initializes no CUDA context (a fork pool after it stays safe)
         if torch.cuda.is_initialized():
+            x = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+            for _ in range(WARMUP_KERNELS):
+                x.add_(1)
+            del x
             torch.cuda.synchronize()
         prof.step()
         yield

@@ -27,10 +27,10 @@ server never saw it. A failure AFTER the request went out is only retried
 when the client was built with ``idempotent=True``; blindly re-sending a
 stateful callback could double-apply it.
 
-The ``/serve/*``, view and ``/dist/fetch`` routes are copied whole: with
-nothing bound (the port has no serving layer or dist worker yet) they
-answer 404 and ``/readyz`` answers ``serve_bound: false``, as the JAX
-package's server does unbound.
+The ``/serve/*``, view and ``/dist/fetch`` routes are copied whole. An
+``EngineServer`` (``fugue_tpu_torch/serve``) binds the serve and view
+routes with ``bind_serve``; the dist worker is not ported, so
+``/dist/fetch`` answers 404, as the JAX package's server does unbound.
 """
 
 import base64
@@ -89,15 +89,6 @@ def _scope_from_headers(headers: Any) -> Any:
     from ..obs.tracer import trace_scope
 
     return trace_scope(str(trace), headers.get(PARENT_HEADER))
-
-
-class ServeRejected(Exception):
-    """Admission refused by a bound serving front end (queue full, tenant
-    budget, server stopped); ``/serve/submit`` answers it with 429."""
-
-    def __init__(self, reason: str, detail: str = ""):
-        super().__init__(f"submission rejected: {reason}" + (f" ({detail})" if detail else ""))
-        self.reason = reason
 
 
 class HttpRPCClient(RPCClient):
@@ -626,6 +617,8 @@ class HttpRPCServer(RPCServer):
         return 200, "application/json", json.dumps({"unregistered": vid}).encode()
 
     def _serve_submit(self, raw: bytes) -> Any:
+        from ..serve import ServeRejected
+
         srv = self._serve_server()
         if srv is None:
             return 404, "application/json", b'{"error": "no serve bound"}'

@@ -105,3 +105,32 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 def test_unknown_engine_name_raises():
     with pytest.raises(ValueError, match="unknown engine"):
         api.make_execution_engine("jax", device="cpu")
+
+
+def test_the_serving_layer_and_views_load_no_jax():
+    """``serve``, ``views`` and ``dist`` import neither JAX nor
+    ``fugue_tpu``, and a submission answered by an ``EngineServer`` over
+    ``TorchExecutionEngine(device="cpu")`` loads neither."""
+    code = """
+import sys
+import pandas as pd
+import fugue_tpu_torch.dist, fugue_tpu_torch.views
+from fugue_tpu_torch.column import col, functions as ff
+from fugue_tpu_torch.serve import EngineServer
+from fugue_tpu_torch.torch import TorchExecutionEngine
+from fugue_tpu_torch.workflow import FugueWorkflow
+def build():
+    dag = FugueWorkflow()
+    dag.df(pd.DataFrame({"k": [1, 1, 2], "v": [1.0, 2.0, 3.0]})).partition_by("k").aggregate(
+        s=ff.sum(col("v"))).yield_dataframe_as("r")
+    return dag
+with EngineServer(TorchExecutionEngine(device="cpu")) as srv:
+    got = srv.submit(build).result(timeout=60).yields["r"].result.as_pandas()
+assert sorted(got["s"]) == [3.0, 3.0], got
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fugue_tpu')]
+print(bad); sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=180
+    )
+    assert res.returncode == 0, res.stdout + res.stderr

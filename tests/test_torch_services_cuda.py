@@ -11,7 +11,12 @@ where JAX is not installed::
 - the pandas frame the children read is pageable: no column is a view of
   pinned host memory, which CUDA keeps out of a forked child;
 - ``profile()`` of a lowered workflow, with tracing off, holds one
-  ``plan.segment`` range with the B1 kernel launched inside it.
+  ``plan.segment`` range with the B1 kernel launched inside it;
+- so does a ``profile()`` made after 20 earlier captures and then
+  ``IDLE_AFTER_CAPTURES_S`` seconds idle, and it keeps the kernel of every
+  launch it recorded: a capture made a while after earlier ones loses its
+  first kernel records, which the warm-up step's small kernels take (with
+  ``WARMUP_KERNELS = 0`` this test fails).
 """
 
 import os
@@ -39,6 +44,9 @@ pytestmark = pytest.mark.cuda
 ROWS, GROUPS = 400_000, 500
 ROOT = Path(__file__).resolve().parent.parent
 POOL = {"fugue.tpu.map.parallelism": 4, "fugue.tpu.map.parallel_min_rows": 0}
+# idle seconds after the earlier captures: long enough that a capture
+# without the warm-up kernels loses records on the H100
+IDLE_AFTER_CAPTURES_S = 120.0
 
 
 @pytest.fixture
@@ -139,3 +147,47 @@ def test_profile_records_b1_inside_plan_segment(cuda_device, tmp_path):
     ranges = chip_smoke.profiled_ranges(str(files[0]), "plan.segment", "binned_")
     assert ranges["ranges"] == 1 and ranges["kernels"] == 1 and ranges["inside"] == 1, ranges
     assert chip_smoke.profiled_ranges(str(files[0]), "fugue::plan_segment", "binned_")["ranges"] == 0
+
+
+def test_profile_after_earlier_captures_and_idle_keeps_every_kernel(cuda_device, tmp_path):
+    import time
+
+    from torch.profiler import ProfilerActivity, schedule
+    from torch.profiler import profile as tprofile
+
+    e = TorchExecutionEngine(device=cuda_device)
+    tdf = e.persist(e.to_df(_frame(3)))
+
+    def call():
+        dag = FugueWorkflow()
+        (dag.df(tdf).filter(col("v") > 0.25).select(col("k"), (col("v") * col("w")).alias("z"))
+         .partition_by("k").aggregate(s=ff.sum(col("z"))).yield_dataframe_as("r"))
+        dag.run(e)
+        return dag.yields["r"].result.count()
+
+    assert call() == GROUPS
+    x = torch.ones(1 << 16, device=cuda_device)
+    for _ in range(20):  # captures as chip_smoke._trace makes them
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as p:
+            (x * 2).sum()
+            torch.cuda.synchronize()
+            p.step()
+            (x * 3).sum()
+            torch.cuda.synchronize()
+            p.step()
+    # the loss grows with the time since the last capture, not with their number
+    time.sleep(IDLE_AFTER_CAPTURES_S)
+    for name in bg.LAUNCHES:
+        bg.LAUNCHES[name] = 0
+    with profile(str(tmp_path / "trace")):
+        call()
+    assert bg.LAUNCHES["bin_sum"] == 1
+    (path,) = list((tmp_path / "trace").glob("*.json"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    records = chip_smoke.launches_without_kernel(str(path))
+    assert records["launches"] > 0 and records["without_kernel"] == 0, records
+    ranges = chip_smoke.profiled_ranges(str(path), "plan.segment", "binned_")
+    assert ranges["ranges"] == 1 and ranges["kernels"] == 1 and ranges["inside"] == 1, ranges
