@@ -101,7 +101,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    FugueSQL ``TRANSFORM a, b PREPARTITION BY k USING cogroup``) and
    ``stream-cogroup`` (a key-sorted stream cut in scale to 8·10^6 rows in
    chunks of 4·10^6, ``--cogroup-stream-rows``, zipped with a bounded
-   frame of 10^4 rows in shuffled order), each against a ``np.bincount``
+   frame of 2·10^3 rows in shuffled order, cut in scale from 10^4), each against a ``np.bincount``
    oracle with the launch counts set to 0 just before and read just after
    (B1 and B2 launch 0 times here), timed (one call after the checked
    one), with the copy to the host in
@@ -254,7 +254,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    12 files). Each line has each submission's queue wait and run time,
    B1's launches and the rows of each call, ``engine.stats()["serve"]``
    and the peak device bytes; at the end the device's allocated bytes are
-   back to the phase's start, to the byte.
+   back to the phase's start, to the byte;
+22. warehouse_path: config #2 on ``WarehouseTorchExecutionEngine``
+   (``sqlite_torch``: the SQL in sqlite, the maps on the card) over
+   config #2's frame in parquet, one line a cell: ``hybrid-pipeline-4m``
+   (BASELINE config #2 verbatim, 4·10^6 rows, ``--sql-rows``; one call,
+   against the pandas oracle, beside its twin ``sql-pipeline-4m``; B1 0)
+   and ``hybrid-mixed-1m`` (cut in scale to 10^6 rows: SELECT WHERE in
+   sqlite, a keyed torch UDF's map on the card, ``CONNECT torch``
+   SUM/COUNT of the float32 ``z``, ORDER BY in sqlite; one checked call,
+   one timed: the map on the card, ``z`` float32 after sqlite, B1 once a
+   call inside the CONNECT step, its engine stopped, against a float64
+   oracle), each with its wall time split, from the port's warehouse
+   spans, into LOAD's ingest, the sqlite statements, ``fetch_arrow``, the
+   device map, the ingest back, the CONNECT step and the temp tables'
+   drops, the rows each moved, B1's launches and the peak
+   device bytes; then B1 alone at the CONNECT step's shape; at the end no
+   temp table is left and the device's allocated bytes are back to the
+   phase's start, to the byte.
 
 Every cell line of the phases before cache_path carries ``cache_hits``,
 the result-cache hits the engines it ran on have served: it must be 0.
@@ -272,7 +289,8 @@ N`` cuts the dense, the transform and the north-star frames,
 try; ``--stream-rows N`` cuts the streamed north star, ``--setop-stream-rows N``
 setop_path's streams, ``--sql-rows N`` sql_path's parquet file and the
 engine-context check's, ``--cogroup-rows N`` and ``--cogroup-stream-rows N``
-cogroup_path's frames, ``--plan-stream-rows N`` plan_path's stream). With no CUDA
+cogroup_path's frames, ``--plan-stream-rows N`` plan_path's stream;
+``--sql-rows N`` cuts warehouse_path's config #2 cell too). With no CUDA
 device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -1502,7 +1520,9 @@ COGROUP_REPS = 1
 # 8·10^6 rows (2 chunks: keys still cross a chunk's end) to make room for
 # services_path under the budget
 COGROUP_STREAM_ROWS, COGROUP_STREAM_CHUNK = 8_000_000, 4_000_000
-COGROUP_STREAM_KEYS = 10_000  # ascending keys; the bounded frame holds each once, shuffled
+# ascending keys; the bounded frame holds each once, shuffled; cut in scale
+# from 10^4 (~3 s of pandas a 1,000 keys) to make room for warehouse_path
+COGROUP_STREAM_KEYS = 2_000
 COGROUP_SCHEMA = "k:long,n_a:long,sum_v:double,n_b:long,mean_w:double"
 COGROUP_SQL = f"r = TRANSFORM a, b PREPARTITION BY k USING cogroup SCHEMA {COGROUP_SCHEMA}"
 
@@ -5331,6 +5351,323 @@ def phase_serve_path(torch, np, pd, pa, bg, ff, col, device, handover: dict, see
     return out
 
 
+# warehouse_path: config #2 on the hybrid engine (SQL in sqlite, maps on the card)
+WH_MIXED_ROWS = 1_000_000  # hybrid-mixed-1m, cut in scale by the sqlite ingest's ~5.5 us a row
+WH_MIXED_RTOL, WH_MIXED_ATOL = 1e-4, 1e-3  # float32 binned sums vs a float64 oracle
+WH_STEPS = ("load_ingest", "sqlite", "fetch_arrow", "device_map", "ingest_back", "connect", "drop")
+
+
+def wh_mixed_text(path: str) -> str:
+    """The mixed pipeline: a SELECT in sqlite, a keyed torch UDF on the
+    card, a ``CONNECT torch`` aggregate (B1 for the float32 SUM), and an
+    ORDER BY in sqlite."""
+    return f"""
+    src = LOAD "{path}"
+    big = SELECT k, v, w FROM src WHERE w > 0.1
+    centered = TRANSFORM big PREPARTITION BY k USING demean_t SCHEMA k:long,z:float,w:double
+    sums = CONNECT torch SELECT k, SUM(z) AS s, COUNT(*) AS n FROM centered GROUP BY k
+    SELECT k, s, n FROM sums ORDER BY k
+    """
+
+
+def wh_mixed_oracle(np, pdf) -> dict:
+    """The mixed pipeline in float64 numpy: each kept row's z rounded to
+    float32 as the UDF writes it, then summed by key."""
+    keep = pdf["w"].to_numpy() > 0.1
+    k, v, w = pdf["k"].to_numpy()[keep], pdf["v"].to_numpy()[keep], pdf["w"].to_numpy()[keep]
+    keys, inv, n = np.unique(k, return_inverse=True, return_counts=True)
+    mean = np.bincount(inv, weights=v) / n
+    z = ((v - mean[inv]) * w).astype(np.float32)
+    return {"k": keys, "n": n, "s": np.bincount(inv, weights=z.astype(np.float64)), "rows_k": k, "rows_z": z}
+
+
+# the split's steps: the span that times each, counted where no other of
+# these spans encloses it (the LOAD's ingest is the load's, the fetch and
+# the ingest inside a CONNECT are the CONNECT's)
+WH_STEP_SPANS = {"warehouse.load": "load_ingest", "warehouse.materialize": "sqlite",
+                 "warehouse.fetch": "fetch_arrow", "engine.transform": "device_map",
+                 "warehouse.ingest": "ingest_back", "sql.connect": "connect", "warehouse.drop": "drop"}
+
+
+def wh_split(recs: list, wall_ms: float) -> dict:
+    """The split of one call's wall time over ``WH_STEPS``, read from the
+    spans the call recorded: each step's time, calls and the rows its
+    spans report (the device map's, those its ``warehouse.map`` fetched; a
+    statement's, those a whole fetch of its table read, else None; a
+    dropped table's, those its ingest wrote or a fetch read, else None),
+    and ``other`` for the rest. Spans time the host: a step's device work
+    ends by the next copy to the host at the latest."""
+    by_id = {r["id"]: r for r in recs}
+    fetched = {r["args"].get("table"): r["args"].get("rows") for r in recs
+               if r["name"] in ("warehouse.fetch", "warehouse.ingest")}
+    ms = {st: 0.0 for st in WH_STEPS}
+    calls = {st: 0 for st in WH_STEPS}
+    rows: dict = {st: [] for st in WH_STEPS}
+    for r in recs:
+        step = WH_STEP_SPANS.get(r["name"])
+        if step is None:
+            continue
+        parent = by_id.get(r["parent"])
+        up, nested = parent, False
+        while up is not None and not nested:
+            nested = up["name"] in WH_STEP_SPANS
+            up = by_id.get(up["parent"])
+        if nested:
+            continue
+        ms[step] += r["dur"] / 1e6
+        calls[step] += 1
+        if step in ("sqlite", "drop"):
+            rows[step].append(fetched.get(r["args"]["table"]))
+        elif step == "device_map":
+            rows[step].append(parent["args"].get("rows") if parent is not None else None)
+        else:
+            rows[step].append(r["args"].get("rows"))
+    return {"split_ms": {**ms, "other": wall_ms - sum(ms.values())}, "step_calls": calls, "step_rows": rows}
+
+
+def phase_warehouse_path(torch, np, pd, pa, bg, go, device, rows: int = SQL_PIPELINE_ROWS,
+                         mixed_rows: int = WH_MIXED_ROWS, twin=None) -> dict:
+    """Config #2 on ``WarehouseTorchExecutionEngine`` (``sqlite_torch``: the
+    SQL in sqlite, the maps on ``device``), one line a cell, over config
+    #2's frame (``sql_pipeline_frame``) written to parquet in a temporary
+    directory of the checkout, removed after; every engine has the result
+    cache off.
+
+    - ``hybrid-pipeline-4m``: BASELINE config #2 verbatim
+      (``sql_pipeline_text``, ``rescale``, ``rows`` rows), one call,
+      checked against ``sql_pipeline_oracle`` and timed, beside its twin
+      ``sql-pipeline-4m`` of sql_path on the torch engine (``twin``): B1 0
+      (the sums are float64 and run in sqlite); ``rescale`` is a pandas UDF,
+      so the torch map engine runs it through its host path and returns a
+      ``TorchDataFrame``;
+    - ``hybrid-mixed-1m``: ``wh_mixed_text`` over the first ``mixed_rows``
+      rows, one checked call, then one timed call: the torch UDF's map
+      returns a ``TorchDataFrame`` on the card (the dense keyed plan, no
+      host map), ``centered``'s ``z`` is float32 after the sqlite round
+      trip, B1 launches once a call, inside the ``CONNECT torch`` step, and
+      the temporary engine that step makes is stopped; keys and counts
+      equal a float64 numpy oracle, ``s`` within ``WH_MIXED_RTOL`` /
+      ``WH_MIXED_ATOL``, the rows in ORDER BY order; then B1 alone at the
+      shape that step gave it, beside its bound and ``index_add_``.
+
+    Each line has its wall time split into the steps (``WH_STEPS``: LOAD's
+    ingest into sqlite, the sqlite statements, ``fetch_arrow``, the device
+    map, the ingest back, the ``CONNECT`` step, the drops of released
+    temp tables, and the rest), read from the spans the port records
+    while tracing is on (``wh_split``), the rows each step moved, B1
+    launches counted from 0 just before the cell and the peak device
+    bytes. Inside the timed call the harness counts the host map's calls
+    and, as the CONNECT step starts, notes B1's count and reads one row of
+    its input (its arrow schema after sqlite); it holds no frame, so the
+    run drops its tables as it would alone. After the cells, with the frames dropped and
+    before ``stop()``, each engine's connection holds no temp table; after
+    ``stop()`` the device's allocated bytes are back to the phase's start,
+    to the byte."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import pyarrow.parquet as pq
+
+    import fugue_tpu_torch.execution.factory as factory
+    from fugue_tpu_torch import api
+    from fugue_tpu_torch.extensions._builtins.processors import RunSQLSelect
+    from fugue_tpu_torch.obs import get_tracer
+    from fugue_tpu_torch.torch import TorchDataFrame
+    from fugue_tpu_torch.warehouse import WarehouseTorchExecutionEngine
+
+    start = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {"phase": "warehouse_path", "cells": {}}
+    T = Dict[str, torch.Tensor]
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def rescale(df: pd.DataFrame) -> pd.DataFrame:
+        df["s"] = df["s"] / df["s"].max()
+        return df
+
+    def demean_t(cols: T) -> T:
+        z = ((cols["v"] - go.per_row(cols, go.mean(cols, cols["v"]))) * cols["w"]).float()
+        return {"k": cols["k"], "z": z, "w": cols["w"]}
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    sync()
+    mem_before = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    pdf = sql_pipeline_frame(np, pd, rows)
+    expected = sql_pipeline_oracle(pdf)
+    mixed = wh_mixed_oracle(np, pdf.iloc[:mixed_rows])
+    tmp = Path(tempfile.mkdtemp(prefix=".warehouse_path_", dir=Path(__file__).resolve().parent))
+    path, mixed_path = str(tmp / "config2.parquet"), str(tmp / "config2_mixed.parquet")
+    pq.write_table(pa.Table.from_pandas(pdf, preserve_index=False), path)
+    pq.write_table(pa.Table.from_pandas(pdf.iloc[:mixed_rows], preserve_index=False), mixed_path)
+    del pdf
+    setup_s = time.perf_counter() - t0
+    engines: list = []
+    made: list = []  # the engines CONNECT makes; B1's count and its input's schema as it starts
+    connect_b1: list = []
+    centered_types: list = []
+    real_make = factory.make_execution_engine
+    real_connect = RunSQLSelect.process
+    tracer = get_tracer()
+
+    def make_spy(*a, **k):
+        e = real_make(*a, **k)
+        if not any(e is x for x in engines):  # a run resolving its own engine
+            made.append(e)
+        return e
+
+    def connect_spy(self, dfs):
+        """A CONNECT's select: note B1's count as it starts and the arrow
+        schema of its input after sqlite (one row read)."""
+        if self.params.get_or_none("sql_engine", object) is not None:
+            connect_b1.append(bg.LAUNCHES["bin_sum"])
+            centered_types.extend(str(df.head(1).as_arrow().schema) for df in dfs.values())
+        return real_connect(self, dfs)
+
+    def run_cell(cell: str, text: str, cell_rows: int) -> None:
+        eng = WarehouseTorchExecutionEngine(NO_CACHE, device=device)
+        engines.append(eng)
+        host_maps = [0]
+        tmap = eng.torch_engine.map_engine
+        real_host = tmap._host_map.map_dataframe
+
+        def host_spy(*a, **k):
+            host_maps[0] += 1
+            return real_host(*a, **k)
+
+        tmap._host_map.map_dataframe = host_spy
+        checks, runs = [], []
+        try:
+            for _ in range(1 if cell == "hybrid-pipeline-4m" else 2):
+                for name in bg.LAUNCHES:
+                    bg.LAUNCHES[name] = 0
+                host_maps[0] = 0
+                made.clear()
+                connect_b1.clear()
+                centered_types.clear()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                sync()
+                tracer.clear()
+                tracer.enable()
+                try:
+                    t1 = time.perf_counter()
+                    res = api.fugue_sql(text, rescale=rescale, demean_t=demean_t, engine=eng, as_fugue=True)
+                    sync()
+                    wall_ms = (time.perf_counter() - t1) * 1e3
+                finally:
+                    tracer.disable()
+                launches = dict(bg.LAUNCHES)
+                recs = tracer.records()
+                tracer.clear()
+                split = wh_split(recs, wall_ms)
+                maps = [(r["args"].get("frame"), r["args"].get("device")) for r in recs
+                        if r["name"] == "warehouse.map"]
+                got = res.as_pandas()
+                del res, recs
+                stopped = [bool(e._stopped) for e in made]
+                run = {"wall_ms": wall_ms, "launches": launches, **split,
+                       "device_map_results": list(maps), "host_maps": host_maps[0],
+                       "connect_engines": [type(e).__name__ for e in made], "connect_engines_stopped": stopped,
+                       "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None}
+                calls = split["step_calls"]
+                want_calls = {"load_ingest": 1, "device_map": 1, "ingest_back": 1,
+                              "connect": 0 if cell == "hybrid-pipeline-4m" else 1}
+                require(all(calls[st] == n for st, n in want_calls.items()) and calls["sqlite"] >= 1
+                        and calls["fetch_arrow"] >= 1, f"{cell}: the steps' spans {calls}")
+                require(len(maps) == 1 and maps[0][0] == "TorchDataFrame",
+                        f"{cell}: the torch map engine returned {maps}")
+                if cell == "hybrid-pipeline-4m":
+                    require(launches["bin_sum"] == 0, f"{cell}: B1 launched {launches['bin_sum']} times")
+                    require(host_maps[0] == 1, f"{cell}: rescale took the host path {host_maps[0]} times")
+                    require(len(got) == len(expected), f"{cell}: {len(got)} groups")
+                    check_sql_pipeline(np, got, expected)
+                    checks.append(f"keys and counts exact; s rtol={SQL_PIPELINE_RTOL} atol={SQL_PIPELINE_ATOL} "
+                                  "vs a pandas oracle of the same frame")
+                else:
+                    require(maps[0][1] == str(device), f"{cell}: the map ran on {maps[0][1]}")
+                    require(host_maps[0] == 0, f"{cell}: the torch UDF took the host path")
+                    require(len(centered_types) == 1 and "z: float\n" in centered_types[0] + "\n",
+                            f"{cell}: CONNECT's input after sqlite {centered_types}")
+                    want_b1 = 1 if on_card else 0
+                    require(launches["bin_sum"] == want_b1, f"{cell}: B1 launched {launches['bin_sum']} times")
+                    require(len(connect_b1) == 1 and launches["bin_sum"] - connect_b1[0] == want_b1,
+                            f"{cell}: B1 outside the CONNECT step")
+                    require([type(e).__name__ for e in made] == ["TorchExecutionEngine"] and all(stopped),
+                            f"{cell}: CONNECT's engines {made} stopped {stopped}")
+                    require(list(got.columns) == ["k", "s", "n"], f"{cell}: columns {list(got.columns)}")
+                    require(got["k"].tolist() == sorted(got["k"].tolist()), f"{cell}: not in ORDER BY order")
+                    require(np.array_equal(got["k"].to_numpy(), mixed["k"])
+                            and np.array_equal(got["n"].to_numpy(), mixed["n"]), f"{cell}: keys or counts differ")
+                    require(np.allclose(got["s"].to_numpy(), mixed["s"], rtol=WH_MIXED_RTOL, atol=WH_MIXED_ATOL),
+                            f"{cell}: s differs from the float64 oracle")
+                    checks.append(f"keys and counts exact; s rtol={WH_MIXED_RTOL} atol={WH_MIXED_ATOL} vs a "
+                                  "float64 numpy oracle; ORDER BY; z float32 after sqlite")
+                    run["centered_schema"] = centered_types[0]
+                runs.append(run)
+                made.clear()
+        finally:
+            tmap._host_map.map_dataframe = real_host
+        line = {"phase": "warehouse_path", "cell": cell, "rows": cell_rows, **runs[-1], "checks": checks,
+                "first_call_ms": runs[0]["wall_ms"], "setup_s": setup_s,
+                "phase_s_so_far": time.perf_counter() - start}
+        if cell == "hybrid-pipeline-4m" and twin is not None:
+            line.update(twin="sql-pipeline-4m", twin_ms=twin["ms"], twin_first_call_s=twin["first_call_s"])
+        emit(line, eng)
+        out["cells"][cell] = line
+
+    try:
+        factory.make_execution_engine = make_spy
+        RunSQLSelect.process = connect_spy
+        run_cell("hybrid-pipeline-4m", sql_pipeline_text(path), rows)
+        run_cell("hybrid-mixed-1m", wh_mixed_text(mixed_path), mixed_rows)
+    finally:
+        factory.make_execution_engine = real_make
+        RunSQLSelect.process = real_connect
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # B1 alone at the shape CONNECT torch gave it, the kept rows' keys and z
+    # (CUDA events time it: on the card only)
+    out["b1"] = {}
+    if on_card:
+        kk = torch.as_tensor(mixed["rows_k"], device=device)
+        zz = torch.as_tensor(mixed["rows_z"], device=device)
+        valid = torch.ones(kk.shape[0], dtype=torch.bool, device=device)
+        b1 = b1_at_shape(torch, bg, kk, zz, valid, int(mixed["k"].min()), int(mixed["k"].max()), plain_reps=3)
+        out["b1"]["hybrid-mixed-1m"] = {**b1, "launches": out["cells"]["hybrid-mixed-1m"]["launches"]["bin_sum"]}
+        del kk, zz, valid
+    emit({"phase": "warehouse_path", "cell": "b1-at-shape", "shapes": out["b1"]})
+
+    # no temp table of the phase's frames left in a connection, then stop
+    gc.collect()
+    left = {i: e.connection.execute("SELECT name FROM sqlite_temp_master WHERE name LIKE '_fugue_temp_table_%'")
+            .fetchall() for i, e in enumerate(engines)}
+    for e in engines:
+        e.stop()
+    require(all(len(v) == 0 for v in left.values()), f"warehouse_path: temp tables left {left}")
+    require(all(e._stopped and e.torch_engine._stopped for e in engines), "warehouse_path: an engine still runs")
+    n_engines = len(engines)
+    engines.clear()
+    gc.collect()
+    sync()
+    mem_after = torch.cuda.memory_allocated() if on_card else 0
+    require(mem_after == mem_before, f"warehouse_path: {mem_after - mem_before} device bytes held after stop()")
+    out["memory"] = {"before_phase": mem_before, "after_stop": mem_after, "engines": n_engines,
+                     "temp_tables_left": 0}
+    emit({"phase": "warehouse_path", "cell": "memory", **out["memory"]})
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def urllib_get(rpc, path: str) -> str:
     import urllib.request
 
@@ -5438,6 +5775,9 @@ def main() -> int:
     del plan_frame_, plan_exp
     _release(torch)
     serve_path = phase_serve_path(torch, np, pd, pa, bg, ff, col, dev, cache_path.pop("handover"), args.seed)
+    _release(torch)
+    warehouse_path = phase_warehouse_path(torch, np, pd, pa, bg, go, dev, rows=args.sql_rows,
+                                          twin=sql_path["cells"]["sql-pipeline-4m"])
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -5465,7 +5805,8 @@ def main() -> int:
                                       else sum(x["launches"][name] for x in r["runs"]))
                                   for c, r in cache_path["cells"].items()},
                    "serve_path": {c: r["launches"][name] for c, r in serve_path["cells"].items()
-                                  if "launches" in r}}
+                                  if "launches" in r},
+                   "warehouse_path": {c: r["launches"][name] for c, r in warehouse_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -5476,6 +5817,7 @@ def main() -> int:
             by_frame["stream-chunk"] = stream_path["cells"]["f32-aggregate"]["bin_sum"]
             by_frame.update(analysis_path["b1"])  # plan_path's and analysis_path's shapes
             by_frame.update(cache_path["b1"])  # the delta recompute's new rows
+            by_frame.update(warehouse_path["b1"])  # CONNECT torch's SUM of z
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5489,7 +5831,8 @@ def main() -> int:
             + sum(by_path["host_path"].values()) + sum(by_path["stream_path"].values())
             + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
             + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values())
-            + sum(by_path["cache_path"].values()) + sum(by_path["serve_path"].values()),
+            + sum(by_path["cache_path"].values()) + sum(by_path["serve_path"].values())
+            + sum(by_path["warehouse_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

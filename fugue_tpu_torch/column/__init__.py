@@ -1,10 +1,11 @@
 from . import functions
 from .expressions import ColumnExpr, all_cols, col, function, lit, null
-from .sql import SelectColumns
+from .sql import SelectColumns, SQLExpressionGenerator
 
 __all__ = [
     "ColumnExpr",
     "SelectColumns",
+    "SQLExpressionGenerator",
     "all_cols",
     "col",
     "function",

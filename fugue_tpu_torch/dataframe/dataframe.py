@@ -4,8 +4,10 @@ row count, metadata, columnar conversions to arrow and pandas, the row
 views a list-annotated transformer reads (``as_array``,
 ``as_array_iterable``, ``as_dicts``, ``as_dict_iterable``, ``peek_array``,
 ``peek_dict``), the column verbs of the workflow (``rename``,
-``alter_columns``, ``drop``, ``df[cols]``), ``head`` and ``show``, the
-local frame classes (:179-207) and ``YieldedDataFrame`` (:209).
+``alter_columns``, ``drop``, ``df[cols]``), ``head``, ``show`` and
+``_repr_html_`` through the display chain (``DataFrameDisplay``, the
+text table; ``dataset/dataset.py``), the local frame classes (:179-207)
+and ``YieldedDataFrame`` (:209).
 
 The column verbs' generic forms go through arrow and return an
 ``ArrowDataFrame``; a frame that can do better (pandas, the device's
@@ -25,6 +27,7 @@ from .._utils.arrow import pa_table_to_pandas
 from .._utils.params import ParamDict
 from .._utils.assertion import assert_or_throw
 from ..collections.yielded import Yielded
+from ..dataset.dataset import DatasetDisplay, get_dataset_display, register_dataset_display
 from ..exceptions import (
     FugueDataFrameEmptyError,
     FugueDataFrameOperationError,
@@ -197,10 +200,29 @@ class DataFrame(ABC):
 
     def show(self, n: int = 10, with_count: bool = False, title: Optional[str] = None) -> None:
         """Print the first ``n`` rows as a table under the column names and
-        types (``fugue_tpu`` ``DataFrameDisplay``)."""
-        rows = self.head(n).as_array(type_safe=True)
+        types, through the display chain (``DataFrameDisplay``)."""
+        get_dataset_display(self).show(n=n, with_count=with_count, title=title)
+
+    def _repr_html_(self) -> str:
+        """The notebooks' rich rendering, through the display chain."""
+        return get_dataset_display(self).repr_html()
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.schema})"
+
+
+class DataFrameDisplay(DatasetDisplay):
+    """A frame as text: its first rows under the column names and types
+    (``fugue_tpu`` ``DataFrameDisplay``)."""
+
+    @property
+    def df(self) -> DataFrame:
+        return self._ds
+
+    def show(self, n: int = 10, with_count: bool = False, title: Optional[str] = None) -> None:
+        rows = self.df.head(n).as_array(type_safe=True)
         lines: List[str] = [] if title is None else [title]
-        headers = [f"{f.name}:{type_to_expression(f.type)}" for f in self.schema.fields]
+        headers = [f"{f.name}:{type_to_expression(f.type)}" for f in self.df.schema.fields]
         widths = [
             max(len(h), *(len(_cell(r[i])) for r in rows)) if len(rows) > 0 else len(h)
             for i, h in enumerate(headers)
@@ -210,11 +232,13 @@ class DataFrame(ABC):
         for r in rows:
             lines.append("|".join(_cell(v).ljust(w) for v, w in zip(r, widths)))
         if with_count:
-            lines.append(f"Total count: {self.count()}")
+            lines.append(f"Total count: {self.df.count()}")
         print("\n".join(lines))
 
-    def __repr__(self) -> str:
-        return f"{type(self).__name__}({self.schema})"
+
+@register_dataset_display(lambda ds: isinstance(ds, DataFrame), priority=0.1)
+def _default_dataframe_display(ds: DataFrame) -> DataFrameDisplay:
+    return DataFrameDisplay(ds)
 
 
 def _cell(v: Any) -> str:

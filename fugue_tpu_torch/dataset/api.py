@@ -1,14 +1,19 @@
 """The dataset functions, copied from ``fugue_tpu/dataset/api.py`` (:13-43)
-with no plugin dispatch: the port's frames are its datasets, so each
-function converts with ``as_fugue_df`` and reads the frame."""
+with no plugin dispatch: a ``Dataset`` (a bag) is itself, anything else
+converts with ``as_fugue_df``, and each function reads the result. The
+frame functions are imported at call time: ``dataframe/dataframe.py``
+imports this package for its display."""
 
 from typing import Any, Optional
 
-from ..dataframe import DataFrame
-from ..dataframe.api import as_fugue_df
+from .dataset import Dataset
 
 
-def as_fugue_dataset(data: Any, **kwargs: Any) -> DataFrame:
+def as_fugue_dataset(data: Any, **kwargs: Any) -> Any:
+    if isinstance(data, Dataset):
+        return data
+    from ..dataframe.api import as_fugue_df
+
     return as_fugue_df(data, **kwargs)
 
 

@@ -134,6 +134,18 @@ class MapEngine(ABC):
         ``output_schema``. ``on_init(0, df)`` runs once first."""
         raise NotImplementedError
 
+    def map_bag(
+        self,
+        bag: Any,
+        map_func: Callable,
+        partition_spec: PartitionSpec,
+        on_init: Optional[Callable] = None,
+    ) -> Any:
+        """Apply ``map_func`` to the partitions of a bag
+        (``fugue_tpu_torch/bag``). No map of the port supports bags yet,
+        as none of the JAX package's does (``fugue_tpu`` :170)."""
+        raise NotImplementedError(f"{type(self)} doesn't support bags")
+
 
 class SQLEngine(ABC):
     """SQL over a dict of named frames, bound to an execution engine

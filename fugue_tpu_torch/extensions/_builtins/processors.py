@@ -19,6 +19,7 @@ from ...collections.sql import StructuredRawSQL
 from ...column import SelectColumns as ColSelectColumns
 from ...dataframe import ArrayDataFrame, DataFrame, DataFrames, LocalDataFrame
 from ...exceptions import FugueWorkflowError
+from ...obs import get_tracer
 from ...rpc import EmptyRPCHandler, to_rpc_handler
 from ...schema import Schema
 from .._utils import validate_input_schema, validate_partition_spec
@@ -219,12 +220,17 @@ class Fillna(Processor):
 
 class RunSQLSelect(Processor):
     """A SQL statement on the engine's SQL facet; with ``sql_engine`` (a
-    FugueSQL ``CONNECT``), on the named one: ``local``/``sql`` (the
-    in-tree SQL engine over this engine) or an engine of the port
-    (``native``, ``torch``). Another name raises naming ROADMAP.md A.10."""
+    FugueSQL ``CONNECT``), on the named one: a SQL engine of the port
+    (``local``/``sql``, the in-tree SQL engine over this engine;
+    ``sqlite``, the warehouse's, a private sqlite session unless this
+    engine is a warehouse) or an engine of the port (``native``,
+    ``torch``, ``sqlite_torch``, ...), made for the statement and stopped
+    after it unless it is this engine or in a context. Another name
+    raises naming ROADMAP.md A.10. A ``CONNECT`` to an engine runs in one
+    ``sql.connect`` span (its engine, the result's rows)."""
 
     def process(self, dfs: DataFrames) -> DataFrame:
-        from ...execution.factory import is_engine_name, make_execution_engine
+        from ...execution.factory import DEVICE_ENGINE_NAMES, is_engine_name, make_execution_engine
         from ...sql.local_sql import LocalSQLEngine
 
         statement = self.params.get_or_throw("statement", StructuredRawSQL)
@@ -234,16 +240,28 @@ class RunSQLSelect(Processor):
             return engine.sql_engine.select(dfs, statement)
         if isinstance(spec, str) and spec.lower() in ("local", "sql"):
             return LocalSQLEngine(engine).select(dfs, statement)
+        if isinstance(spec, str) and spec.lower() == "sqlite":
+            from ...warehouse import WarehouseSQLEngine
+
+            return WarehouseSQLEngine(engine).select(dfs, statement)
         if not is_engine_name(spec):
             raise NotImplementedError(
                 f"CONNECT {spec}: the port has no such engine; other engines and SQL "
                 "backends are not ported (ROADMAP.md A.10)"
             )
         kw = dict(self.params.get("sql_engine_params", dict()))
-        device = getattr(engine, "device", None) if spec.lower() in ("torch", "cuda") else None
-        other = make_execution_engine(spec, device=kw.pop("device", device), conf=engine.conf)
-        res = other.sql_engine.select(dfs, statement)
-        return engine.to_df(res.as_local_bounded())
+        on_device = spec.lower() in DEVICE_ENGINE_NAMES
+        device = getattr(engine, "device", None) if on_device else None
+        with get_tracer().span("sql.connect", cat="engine", annotate=True, engine=spec.lower()) as sp:
+            other = make_execution_engine(spec, device=kw.pop("device", device), conf=engine.conf)
+            try:
+                res = other.sql_engine.select(dfs, statement).as_local_bounded()
+                sp.set(rows=res.count())
+                return engine.to_df(res)
+            finally:
+                # the temporary engine stops once its result is detached
+                if other is not engine and not other.in_context:
+                    other.stop()
 
 
 class Zip(Processor):

@@ -33,8 +33,11 @@ registry of extension names, then in the caller's scope.
 
 A SELECT written in another dialect (``fugue.sql.compile.dialect``, e.g.
 ``postgres``) goes through the transpiler (``sql/dialect.py``) into the
-in-tree one before parsing. Not ported: ``CONNECT`` to an engine the port
-lacks raises at run time naming ROADMAP.md A.10.
+in-tree one before parsing. ``CONNECT`` runs a SELECT on another engine
+of the port (``torch``, ``sqlite_torch``, ``native``, ...) or SQL engine
+(``local``, ``sqlite``; ``extensions/_builtins/processors.py``
+``RunSQLSelect``); a name the port lacks raises at run time naming
+ROADMAP.md A.10.
 """
 
 import json

@@ -104,7 +104,6 @@ from ..dataframe import (
     DataFrame,
     DataFrames,
     LocalBoundedDataFrame,
-    LocalDataFrame,
     PandasDataFrame,
 )
 from ..dataframe.utils import get_join_schemas, parse_join_type
@@ -555,7 +554,8 @@ class TorchExecutionEngine(ExecutionEngine):
     @traced_verb("engine.to_df")
     def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
         """A pandas frame, an arrow table, a local frame, rows with a
-        schema or a ``TorchDataFrame`` as a ``TorchDataFrame`` on this
+        schema, a ``TorchDataFrame`` or another engine's frame (a
+        warehouse table: one fetch) as a ``TorchDataFrame`` on this
         engine's device. A stream (``LocalDataFrameIterableDataFrame``) is
         read whole."""
         if isinstance(df, TorchDataFrame):
@@ -564,7 +564,7 @@ class TorchExecutionEngine(ExecutionEngine):
             return TorchDataFrame(df.as_arrow(), schema=schema, device=self._device)
         if isinstance(df, (list, tuple)):
             df = ArrayDataFrame(df, schema)
-        if isinstance(df, LocalDataFrame):
+        if isinstance(df, DataFrame):
             df = df.as_arrow()
         if isinstance(df, (pd.DataFrame, pa.Table)):
             return TorchDataFrame(df, schema=schema, device=self._device)

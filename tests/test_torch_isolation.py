@@ -134,3 +134,35 @@ print(bad); sys.exit(1 if bad else 0)
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=180
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_warehouse_bag_and_notebook_load_no_jax():
+    """``warehouse``, ``bag``, ``dataset`` and ``notebook`` import neither
+    JAX nor ``fugue_tpu``, and a mixed pipeline on ``sqlite_torch``
+    (SELECT in sqlite, a torch UDF's map, ``CONNECT torch``, ``CONNECT
+    sqlite``) loads neither."""
+    code = """
+import sys
+from typing import Dict
+import pandas as pd, torch
+import fugue_tpu_torch.bag, fugue_tpu_torch.dataset, fugue_tpu_torch.notebook, fugue_tpu_torch.warehouse
+from fugue_tpu_torch import ArrayBag, api
+from fugue_tpu_torch.torch import group_ops as go
+def demean(cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {"k": cols["k"], "z": (cols["v"] - go.per_row(cols, go.mean(cols, cols["v"]))).float()}
+pdf = pd.DataFrame({"k": [1, 1, 2], "v": [1.0, 2.0, 3.0]})
+res = api.fugue_sql('''
+big = SELECT k, v FROM pdf WHERE v > 0
+c = TRANSFORM big PREPARTITION BY k USING demean SCHEMA k:long,z:float
+sums = CONNECT torch SELECT k, SUM(z) AS s FROM c GROUP BY k
+r = CONNECT sqlite SELECT k, s FROM sums ORDER BY k
+''', pdf=pdf, engine="sqlite_torch", device="cpu", as_fugue=True)
+assert [r[0] for r in res.as_array()] == [1, 2], res.as_array()
+assert ArrayBag([1]).count() == 1
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fugue_tpu')]
+print(bad); sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=180
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
