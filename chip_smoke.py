@@ -103,8 +103,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    chunks of 4·10^6, ``--cogroup-stream-rows``, zipped with a bounded
    frame of 2·10^3 rows in shuffled order, cut in scale from 10^4), each against a ``np.bincount``
    oracle with the launch counts set to 0 just before and read just after
-   (B1 and B2 launch 0 times here), timed (one call after the checked
-   one), with the copy to the host in
+   (B1 and B2 launch 0 times here), timed (``cogroup-uniform-1k``: one
+   call after the checked one; the other two: the checked call), with the
+   copy to the host in
    seconds and bytes, the peak device memory and one traced call; then
    the tutorial's §2 block inside ``engine_context("torch")`` over
    sql_path's parquet frame, checked once against pandas;
@@ -262,8 +263,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against the pandas oracle, beside its twin ``sql-pipeline-4m``; B1 0)
    and ``hybrid-mixed-1m`` (cut in scale to 10^6 rows: SELECT WHERE in
    sqlite, a keyed torch UDF's map on the card, ``CONNECT torch``
-   SUM/COUNT of the float32 ``z``, ORDER BY in sqlite; one checked call,
-   one timed: the map on the card, ``z`` float32 after sqlite, B1 once a
+   SUM/COUNT of the float32 ``z``, ORDER BY in sqlite; one call, checked,
+   timed and split: the map on the card, ``z`` float32 after sqlite, B1 once a
    call inside the CONNECT step, its engine stopped, against a float64
    oracle), each with its wall time split, from the port's warehouse
    spans, into LOAD's ingest, the sqlite statements, ``fetch_arrow``, the
@@ -271,7 +272,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    drops, the rows each moved, B1's launches and the peak
    device bytes; then B1 alone at the CONNECT step's shape; at the end no
    temp table is left and the device's allocated bytes are back to the
-   phase's start, to the byte.
+   phase's start, to the byte;
+23. dist_path: the worker tier and the workflow's distributed pass: ``LOAD
+   fact → filter(v > 0.25) → join(LOAD dim, on k) → select(g, v * w AS z)
+   → aggregate`` by ``g`` on ``TorchExecutionEngine``, the join a fragment
+   on three worker processes (``python -m fugue_tpu_torch.dist.worker``,
+   fetch over HTTP), the ``select → aggregate`` segment on the card over
+   the frame that lands (B1 once a run), one line a cell:
+   ``dist-join-agg-10m`` (config #3's frame family cut in scale to 10^7
+   rows in 16 parquet files, ``DIST_ROWS``; beside its twin with no
+   board), ``dist-warm-10m`` (the same board: 0 tasks dispatched),
+   ``dist-kill-2m`` (its own board and workers, one SIGKILLed while it
+   holds a lease: WORKER_LOST re-dispatch, the steal in the event log),
+   each against a float64 oracle with a zero audit and the wall time
+   split into the fragment, the card's segment and the rest; then B1 at
+   the segment's shape and the processes line (no worker held the card
+   or is left running; device bytes back to the phase's start).
 
 Every cell line of the phases before cache_path carries ``cache_hits``,
 the result-cache hits the engines it ran on have served: it must be 0.
@@ -609,6 +625,33 @@ def make_lineitem(np, pa, seed: int, orders: int = SF10_ORDERS, parts: int = SF1
                  "mode": mode}
 
 
+# sorted_path, join_path and host_path read the same SF10 lineitem, and
+# the last two its orders: made once a run (three makes took ~38 s of
+# numpy on the card's host) and dropped after host_path
+_SHARED_TABLES: dict = {}
+
+
+def shared_lineitem(np, pa, seed: int, orders: int):
+    """``make_lineitem(np, pa, seed, orders)``, made once a run."""
+    key = ("lineitem", seed, orders)
+    if key not in _SHARED_TABLES:
+        _SHARED_TABLES[key] = make_lineitem(np, pa, seed, orders)
+    return _SHARED_TABLES[key]
+
+
+def shared_orders(np, pa, seed: int, orders: int):
+    """``(lineitem, aux, orders, oaux)``: ``shared_lineitem``'s frame with
+    ``make_orders``' table (``oaux["totalprice"]`` its total prices), made
+    once a run."""
+    key = ("orders", seed, orders)
+    if key not in _SHARED_TABLES:
+        tbl, aux = shared_lineitem(np, pa, seed, orders)
+        otbl, oaux = make_orders(np, pa, tbl, aux, seed)
+        oaux["totalprice"] = otbl.column("o_totalprice").to_numpy()
+        _SHARED_TABLES[key] = otbl, oaux
+    return (*shared_lineitem(np, pa, seed, orders), *_SHARED_TABLES[key])
+
+
 # TPC-H orders by dbgen's rules (TPC-H spec 4.2.3): one row per order of
 # ``make_lineitem``'s ``aux``, customer keys 1..orders/10 skipping every
 # multiple of 3, priority one of 5 at random, status F (every line F), O
@@ -875,7 +918,7 @@ def phase_sorted_path(torch, np, pd, pa, bg, api, ff, col, engine, seed: int, or
     calls) and traced once; then B1 alone at the shape ``shipmode`` gives
     it (8 buckets)."""
     t0 = time.perf_counter()
-    tbl, aux = make_lineitem(np, pa, seed, orders)
+    tbl, aux = shared_lineitem(np, pa, seed, orders)
     generate_s = time.perf_counter() - t0
     oracles = lineitem_oracles(np, pd, tbl, aux)
     select_oracles = select_path_oracles(np, pd, tbl, aux)
@@ -1582,9 +1625,9 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
     each checked against a ``np.bincount`` oracle with the launch counts
     set to 0 just before the cell and read after it (0: no binned SUM on
     this path), timed (the in-memory cell: median of ``COGROUP_REPS``
-    calls and their range; the others one call), with the seconds and
-    bytes of the copy to the host, one traced call (its idle share and
-    the comap's host spans) and the peak device memory. Then the
+    calls and their range; the others their checked call), with the seconds and
+    bytes of the copy to the host, the checked call traced (its idle share
+    and the comap's host spans) and the peak device memory. Then the
     tutorial's §2 block inside ``engine_context("torch")`` over a parquet
     file of ``ctx_rows`` rows (sql_path's frame) in a temporary directory
     of the checkout, removed after: checked once against pandas, not
@@ -1653,23 +1696,24 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
 
     require(isinstance(engine.zip(DataFrames(ta, tb), partition_spec=PartitionSpec(by=["k"])),
                        ZippedTorchDataFrame), "cogroup: the zip of the frames takes the blob protocol")
-    for cell, run, reps in (("cogroup-uniform-1k", by_dag, COGROUP_REPS), ("sql-cogroup-uniform-1k", by_sql, 1)):
+    for cell, run, reps in (("cogroup-uniform-1k", by_dag, COGROUP_REPS), ("sql-cogroup-uniform-1k", by_sql, 0)):
         for k in bg.LAUNCHES:
             bg.LAUNCHES[k] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = run(ta, tb)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
+        # the checked first call is the traced one (the small frames its
+        # warm-up step), and the SQL cell's timed one too (reps 0)
+        got = {}
+        profile = _trace(torch, lambda: got.update(r=run(ta, tb)), warm_up=lambda: run(*small))
+        res = got.pop("r")
+        first_s = profile["wall_ms"] / 1e3
         peak = torch.cuda.max_memory_allocated()
         require(isinstance(res, TorchDataFrame) and res.device == engine.device,
                 f"{cell}: the output is not on {engine.device}")
         checks = check_cogroup(np, res.as_pandas(), exp, cell)
         rows_out = res.count()
         del res
-        wall = timed(lambda: run(ta, tb), reps)
-        profile = _trace(torch, lambda: run(ta, tb), warm_up=lambda: run(*small))
+        wall = timed(lambda: run(ta, tb), reps) if reps else [first_s * 1e3]
         launches = dict(bg.LAUNCHES)
         require(launches == {k: 0 for k in launches}, f"{cell}: binned-sum launches {launches}")
         require("fugue::comap" in profile["host_spans_ms"], f"{cell}: no fugue::comap span")
@@ -1681,6 +1725,8 @@ def phase_cogroup_path(torch, np, pd, bg, api, ff, col, frame_from_numpy, engine
                 "split": _comap_split(profile), "peak_device_gb": peak / 1e9, "checks": checks,
                 "profile": profile, "phase_s_so_far": time.perf_counter() - start}
         if cell.startswith("sql-"):
+            # its traced call against the twin's timed one: both pay no
+            # first call's setup, which the twin's first call pays
             twin = out["cells"]["cogroup-uniform-1k"]["ms"]
             line.update(twin="cogroup-uniform-1k", twin_ms=twin, sql_cost_ms=ms - twin)
         emit(line, engine)
@@ -2594,9 +2640,7 @@ def phase_join_path(torch, np, pa, bg, api, ff, col, frame_from_numpy, engine, s
 
     # lineitem with orders: the unique probe
     t0 = time.perf_counter()
-    tbl, aux = make_lineitem(np, pa, seed, orders)
-    otbl, oaux = make_orders(np, pa, tbl, aux, seed)
-    oaux["totalprice"] = otbl.column("o_totalprice").to_numpy()
+    tbl, aux, otbl, oaux = shared_orders(np, pa, seed, orders)
     otbl_f = otbl.filter(pa.array(oaux["status"] == 0))
     generate_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2847,9 +2891,7 @@ def phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, seed: 
 
     # orders-lineitem-expand-sf10: past MAX_EXPAND_ROWS, the host join
     t0 = time.perf_counter()
-    tbl, aux = make_lineitem(np, pa, seed, orders)
-    otbl, oaux = make_orders(np, pa, tbl, aux, seed)
-    oaux["totalprice"] = otbl.column("o_totalprice").to_numpy()
+    tbl, aux, otbl, oaux = shared_orders(np, pa, seed, orders)
     generate_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     lineitem = engine.persist(engine.to_df(tbl))
@@ -5441,7 +5483,7 @@ def phase_warehouse_path(torch, np, pd, pa, bg, go, device, rows: int = SQL_PIPE
       so the torch map engine runs it through its host path and returns a
       ``TorchDataFrame``;
     - ``hybrid-mixed-1m``: ``wh_mixed_text`` over the first ``mixed_rows``
-      rows, one checked call, then one timed call: the torch UDF's map
+      rows, one call, checked, timed and split: the torch UDF's map
       returns a ``TorchDataFrame`` on the card (the dense keyed plan, no
       host map), ``centered``'s ``z`` is float32 after the sqlite round
       trip, B1 launches once a call, inside the ``CONNECT torch`` step, and
@@ -5545,74 +5587,73 @@ def phase_warehouse_path(torch, np, pd, pa, bg, go, device, rows: int = SQL_PIPE
         tmap._host_map.map_dataframe = host_spy
         checks, runs = [], []
         try:
-            for _ in range(1 if cell == "hybrid-pipeline-4m" else 2):
-                for name in bg.LAUNCHES:
-                    bg.LAUNCHES[name] = 0
-                host_maps[0] = 0
-                made.clear()
-                connect_b1.clear()
-                centered_types.clear()
-                if on_card:
-                    torch.cuda.reset_peak_memory_stats()
+            for name in bg.LAUNCHES:
+                bg.LAUNCHES[name] = 0
+            host_maps[0] = 0
+            made.clear()
+            connect_b1.clear()
+            centered_types.clear()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            tracer.clear()
+            tracer.enable()
+            try:
+                t1 = time.perf_counter()
+                res = api.fugue_sql(text, rescale=rescale, demean_t=demean_t, engine=eng, as_fugue=True)
                 sync()
-                tracer.clear()
-                tracer.enable()
-                try:
-                    t1 = time.perf_counter()
-                    res = api.fugue_sql(text, rescale=rescale, demean_t=demean_t, engine=eng, as_fugue=True)
-                    sync()
-                    wall_ms = (time.perf_counter() - t1) * 1e3
-                finally:
-                    tracer.disable()
-                launches = dict(bg.LAUNCHES)
-                recs = tracer.records()
-                tracer.clear()
-                split = wh_split(recs, wall_ms)
-                maps = [(r["args"].get("frame"), r["args"].get("device")) for r in recs
-                        if r["name"] == "warehouse.map"]
-                got = res.as_pandas()
-                del res, recs
-                stopped = [bool(e._stopped) for e in made]
-                run = {"wall_ms": wall_ms, "launches": launches, **split,
-                       "device_map_results": list(maps), "host_maps": host_maps[0],
-                       "connect_engines": [type(e).__name__ for e in made], "connect_engines_stopped": stopped,
-                       "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None}
-                calls = split["step_calls"]
-                want_calls = {"load_ingest": 1, "device_map": 1, "ingest_back": 1,
-                              "connect": 0 if cell == "hybrid-pipeline-4m" else 1}
-                require(all(calls[st] == n for st, n in want_calls.items()) and calls["sqlite"] >= 1
-                        and calls["fetch_arrow"] >= 1, f"{cell}: the steps' spans {calls}")
-                require(len(maps) == 1 and maps[0][0] == "TorchDataFrame",
-                        f"{cell}: the torch map engine returned {maps}")
-                if cell == "hybrid-pipeline-4m":
-                    require(launches["bin_sum"] == 0, f"{cell}: B1 launched {launches['bin_sum']} times")
-                    require(host_maps[0] == 1, f"{cell}: rescale took the host path {host_maps[0]} times")
-                    require(len(got) == len(expected), f"{cell}: {len(got)} groups")
-                    check_sql_pipeline(np, got, expected)
-                    checks.append(f"keys and counts exact; s rtol={SQL_PIPELINE_RTOL} atol={SQL_PIPELINE_ATOL} "
-                                  "vs a pandas oracle of the same frame")
-                else:
-                    require(maps[0][1] == str(device), f"{cell}: the map ran on {maps[0][1]}")
-                    require(host_maps[0] == 0, f"{cell}: the torch UDF took the host path")
-                    require(len(centered_types) == 1 and "z: float\n" in centered_types[0] + "\n",
-                            f"{cell}: CONNECT's input after sqlite {centered_types}")
-                    want_b1 = 1 if on_card else 0
-                    require(launches["bin_sum"] == want_b1, f"{cell}: B1 launched {launches['bin_sum']} times")
-                    require(len(connect_b1) == 1 and launches["bin_sum"] - connect_b1[0] == want_b1,
-                            f"{cell}: B1 outside the CONNECT step")
-                    require([type(e).__name__ for e in made] == ["TorchExecutionEngine"] and all(stopped),
-                            f"{cell}: CONNECT's engines {made} stopped {stopped}")
-                    require(list(got.columns) == ["k", "s", "n"], f"{cell}: columns {list(got.columns)}")
-                    require(got["k"].tolist() == sorted(got["k"].tolist()), f"{cell}: not in ORDER BY order")
-                    require(np.array_equal(got["k"].to_numpy(), mixed["k"])
-                            and np.array_equal(got["n"].to_numpy(), mixed["n"]), f"{cell}: keys or counts differ")
-                    require(np.allclose(got["s"].to_numpy(), mixed["s"], rtol=WH_MIXED_RTOL, atol=WH_MIXED_ATOL),
-                            f"{cell}: s differs from the float64 oracle")
-                    checks.append(f"keys and counts exact; s rtol={WH_MIXED_RTOL} atol={WH_MIXED_ATOL} vs a "
-                                  "float64 numpy oracle; ORDER BY; z float32 after sqlite")
-                    run["centered_schema"] = centered_types[0]
-                runs.append(run)
-                made.clear()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                tracer.disable()
+            launches = dict(bg.LAUNCHES)
+            recs = tracer.records()
+            tracer.clear()
+            split = wh_split(recs, wall_ms)
+            maps = [(r["args"].get("frame"), r["args"].get("device")) for r in recs
+                    if r["name"] == "warehouse.map"]
+            got = res.as_pandas()
+            del res, recs
+            stopped = [bool(e._stopped) for e in made]
+            run = {"wall_ms": wall_ms, "launches": launches, **split,
+                   "device_map_results": list(maps), "host_maps": host_maps[0],
+                   "connect_engines": [type(e).__name__ for e in made], "connect_engines_stopped": stopped,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None}
+            calls = split["step_calls"]
+            want_calls = {"load_ingest": 1, "device_map": 1, "ingest_back": 1,
+                          "connect": 0 if cell == "hybrid-pipeline-4m" else 1}
+            require(all(calls[st] == n for st, n in want_calls.items()) and calls["sqlite"] >= 1
+                    and calls["fetch_arrow"] >= 1, f"{cell}: the steps' spans {calls}")
+            require(len(maps) == 1 and maps[0][0] == "TorchDataFrame",
+                    f"{cell}: the torch map engine returned {maps}")
+            if cell == "hybrid-pipeline-4m":
+                require(launches["bin_sum"] == 0, f"{cell}: B1 launched {launches['bin_sum']} times")
+                require(host_maps[0] == 1, f"{cell}: rescale took the host path {host_maps[0]} times")
+                require(len(got) == len(expected), f"{cell}: {len(got)} groups")
+                check_sql_pipeline(np, got, expected)
+                checks.append(f"keys and counts exact; s rtol={SQL_PIPELINE_RTOL} atol={SQL_PIPELINE_ATOL} "
+                              "vs a pandas oracle of the same frame")
+            else:
+                require(maps[0][1] == str(device), f"{cell}: the map ran on {maps[0][1]}")
+                require(host_maps[0] == 0, f"{cell}: the torch UDF took the host path")
+                require(len(centered_types) == 1 and "z: float\n" in centered_types[0] + "\n",
+                        f"{cell}: CONNECT's input after sqlite {centered_types}")
+                want_b1 = 1 if on_card else 0
+                require(launches["bin_sum"] == want_b1, f"{cell}: B1 launched {launches['bin_sum']} times")
+                require(len(connect_b1) == 1 and launches["bin_sum"] - connect_b1[0] == want_b1,
+                        f"{cell}: B1 outside the CONNECT step")
+                require([type(e).__name__ for e in made] == ["TorchExecutionEngine"] and all(stopped),
+                        f"{cell}: CONNECT's engines {made} stopped {stopped}")
+                require(list(got.columns) == ["k", "s", "n"], f"{cell}: columns {list(got.columns)}")
+                require(got["k"].tolist() == sorted(got["k"].tolist()), f"{cell}: not in ORDER BY order")
+                require(np.array_equal(got["k"].to_numpy(), mixed["k"])
+                        and np.array_equal(got["n"].to_numpy(), mixed["n"]), f"{cell}: keys or counts differ")
+                require(np.allclose(got["s"].to_numpy(), mixed["s"], rtol=WH_MIXED_RTOL, atol=WH_MIXED_ATOL),
+                        f"{cell}: s differs from the float64 oracle")
+                checks.append(f"keys and counts exact; s rtol={WH_MIXED_RTOL} atol={WH_MIXED_ATOL} vs a "
+                              "float64 numpy oracle; ORDER BY; z float32 after sqlite")
+                run["centered_schema"] = centered_types[0]
+            runs.append(run)
+            made.clear()
         finally:
             tmap._host_map.map_dataframe = real_host
         line = {"phase": "warehouse_path", "cell": cell, "rows": cell_rows, **runs[-1], "checks": checks,
@@ -5665,6 +5706,438 @@ def phase_warehouse_path(torch, np, pd, pa, bg, go, device, rows: int = SQL_PIPE
     if on_card:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# dist_path: config #3's frame family over parquet, cut in scale from 10^8
+# rows (the worker tier is host work: 10^7 rows took the JAX package's
+# in-process tier 3.70 s on an 8-core CPU)
+DIST_ROWS, DIST_FILES = 10_000_000, 16
+DIST_KEYS, DIST_GROUPS = 1_000_000, 1024
+DIST_KILL_ROWS, DIST_KILL_FILES = 2_000_000, 4
+DIST_WORKERS, DIST_BUCKETS, DIST_TIMEOUT_S = 3, 8, 120
+DIST_RTOL = 1e-4  # float32 binned sums vs a float64 oracle
+# bench.py's _DIST_CONF: fetch=remote is the multi-host shape, every
+# foreign fragment over the producer's /dist/fetch
+DIST_CONF = {
+    "fugue.tpu.dist.heartbeat.interval_s": 0.2,
+    "fugue.tpu.dist.heartbeat.stale_after_s": 1.2,
+    "fugue.tpu.dist.lease_s": 2.5,
+    "fugue.tpu.dist.fetch": "remote",
+    "fugue.tpu.cache.enabled": False,
+    "fugue.tpu.tuning.enabled": False,
+}
+DIST_VICTIM_PLAN = "dist.lease=delay:4@1"  # dist-kill-2m: w0 holds its first lease 4 s
+# ... and w1, w2 their first 0.5 s, so that w0 surely takes one
+DIST_SURVIVOR_PLAN = "dist.lease=delay:0.5@1"
+
+
+def dist_frames(np, pa, pq, root, seed: int, rows: int, files: int, dim: bool) -> dict:
+    """``fact`` (``k`` int64 uniform over ``DIST_KEYS``, ``g`` int64 over
+    ``DIST_GROUPS``, ``v`` float32) as ``files`` parquet files under
+    ``root/fact``, and with ``dim`` the dimension table (``k`` 0 ..
+    DIST_KEYS-1, ``w`` float32) under ``root/dim``; returns the arrays."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, DIST_KEYS, rows, dtype=np.int64)
+    g = rng.integers(0, DIST_GROUPS, rows, dtype=np.int64)
+    v = rng.random(rows, dtype=np.float32)
+    os.makedirs(os.path.join(root, "fact"))
+    edges = np.linspace(0, rows, files + 1).astype(np.int64)
+    for i in range(files):
+        lo, hi = edges[i], edges[i + 1]
+        pq.write_table(pa.table({"k": k[lo:hi], "g": g[lo:hi], "v": v[lo:hi]}),
+                       os.path.join(root, "fact", f"part-{i:04d}.parquet"))
+    out = {"k": k, "g": g, "v": v}
+    if dim:
+        w = rng.random(DIST_KEYS, dtype=np.float32)
+        os.makedirs(os.path.join(root, "dim"))
+        pq.write_table(pa.table({"k": np.arange(DIST_KEYS, dtype=np.int64), "w": w}),
+                       os.path.join(root, "dim", "part-0000.parquet"))
+        out["w"] = w
+    return out
+
+
+def dist_oracle(np, arrays: dict, w) -> dict:
+    """The workflow in numpy: rows with ``v > 0.25`` joined to ``w`` by
+    ``k`` (every key is in the dimension), ``z = v * w`` in float32 as the
+    card computes it, summed in float64 by ``g``."""
+    keep = arrays["v"] > 0.25
+    g = arrays["g"][keep]
+    z = arrays["v"][keep] * w[arrays["k"][keep]]
+    return {"g": np.arange(DIST_GROUPS), "n": np.bincount(g, minlength=DIST_GROUPS),
+            "s": np.bincount(g, weights=z.astype(np.float64), minlength=DIST_GROUPS),
+            "rows_g": g, "rows_z": z}
+
+
+def _worker_state(pid: int) -> dict:
+    """Whether a process has a CUDA device file open (a context opens
+    ``/dev/nvidia*``) and whether it loaded torch (``libtorch`` mapped)."""
+    import os
+
+    card = False
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                card = card or os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+            except OSError:
+                continue
+        with open(f"/proc/{pid}/maps") as f:
+            torch_loaded = "libtorch" in f.read()
+    except OSError:
+        torch_loaded = False
+    return {"card": card, "torch": torch_loaded}
+
+
+def phase_dist_path(torch, np, pd, pa, bg, ff, col, device, seed: int, rows: int = DIST_ROWS,
+                    files: int = DIST_FILES, kill_rows: int = DIST_KILL_ROWS,
+                    kill_files: int = DIST_KILL_FILES) -> dict:
+    """The worker tier and the workflow's distributed pass, one line a cell.
+    ``LOAD fact → filter(v > 0.25) → join(LOAD dim, on k) → select(g, v * w
+    AS z) → aggregate(SUM(z), COUNT(z)) by g`` on ``TorchExecutionEngine``
+    on ``device`` (result cache and tuner off): the optimizer lowers it into
+    two segments, the planner makes one fragment of the first (the filter
+    in the fact side's map, the join in the reduce: ``DIST_BUCKETS``
+    buckets), and ``select → aggregate`` runs on the card over the frame
+    that lands there (B1 for the float32 SUM). The workers are
+    ``DIST_WORKERS`` fresh interpreters a board (``python -m
+    fugue_tpu_torch.dist.worker``, host engines, ``DIST_CONF``), all six
+    started at once at the phase's start; the data is parquet in a
+    temporary directory of the checkout, removed after.
+
+    - ``dist-join-agg-10m``: ``rows`` rows in ``files`` files on a fresh
+      board: the explain's fragment, keys and counts equal to a float64
+      numpy oracle and ``s`` within ``DIST_RTOL``, the result a
+      ``TorchDataFrame`` on ``device``, B1 once (counted from 0 just
+      before), one workflow job, no failed task, a zero audit, the rows
+      that landed equal to the oracle's; the wall time split into the
+      fragment (span ``dist.workflow_fragment``), the card's segment
+      (``plan.segment``) and the rest; its twin is the same workflow with
+      no board on the same engine (local on the card, B1 once);
+    - ``dist-warm-10m``: the same on the same board: 0 tasks dispatched,
+      every task's done record reused, B1 once, the same result;
+    - ``dist-kill-2m``: ``kill_rows`` rows in ``kill_files`` files on its
+      own board and workers, the event log on, ``w0`` under
+      ``DIST_VICTIM_PLAN`` (the others under ``DIST_SURVIVOR_PLAN``, so
+      that ``w0`` takes a lease): SIGKILLed while it holds it; at
+      least one WORKER_LOST re-dispatch, the steal in the event log, a
+      zero audit, the result against its oracle, B1 once;
+    - ``b1-at-shape``: B1 alone at the local segment's shape beside its
+      bound and ``index_add_``;
+    - ``processes``: no worker loaded torch, held a CUDA device file or
+      showed in ``nvidia-smi``'s compute apps while it ran (a worker is a
+      host engine: it never imports torch); each stopped by its stop
+      file (the victim excepted), none left a child of this process; the
+      device's allocated bytes back to the phase's start, to the byte."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import pyarrow.parquet as pq
+
+    from fugue_tpu_torch.dist.heartbeat import read_heartbeat
+    from fugue_tpu_torch.obs import get_tracer, read_events
+    from fugue_tpu_torch.torch import TorchDataFrame, TorchExecutionEngine
+    from fugue_tpu_torch.workflow import FugueWorkflow
+
+    start = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {"phase": "dist_path", "cells": {}}
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    sync()
+    mem_before = torch.cuda.memory_allocated() if on_card else 0
+    here = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix=".dist_path_", dir=here))
+    boards = {"main": str(tmp / "board"), "kill": str(tmp / "board_kill")}
+    events_dir = str(tmp / "events")
+    procs: dict = {}  # (board, worker id) -> Popen
+    logs: list = []
+    victim: dict = {"pid": None}
+    tracer = get_tracer()
+
+    def launch(board: str, wid: str, extra: dict) -> None:
+        conf = dict(DIST_CONF, **extra)
+        log = open(str(tmp / f"{os.path.basename(board)}-{wid}.log"), "w")
+        logs.append(log)
+        procs[(board, wid)] = subprocess.Popen(
+            [sys.executable, "-m", "fugue_tpu_torch.dist.worker", "--root", board, "--id", wid,
+             "--conf", json.dumps(conf), "--stop-file", os.path.join(board, "_stop")],
+            cwd=str(here), stdout=log, stderr=subprocess.STDOUT)
+
+    def log_tails() -> str:
+        tails = []
+        for log in logs:
+            log.flush()
+            with open(log.name) as f:
+                tails.append(f"{os.path.basename(log.name)}: {f.read()[-600:]}")
+        return " | ".join(tails)
+
+    def workers_up(board: str, timeout: float = 120.0) -> None:
+        hb_dir = os.path.join(board, "hb")
+        deadline = time.monotonic() + timeout
+        while not all(read_heartbeat(hb_dir, f"w{i}") is not None for i in range(DIST_WORKERS)):
+            dead = [w for (b, w), p in procs.items() if b == board and p.poll() is not None]
+            require(not dead and time.monotonic() < deadline,
+                    f"dist_path: workers of {board} not up (exited: {dead}); {log_tails()}")
+            time.sleep(0.05)
+
+    def build(dag, fact: str, dim: str):
+        (dag.load(fact, fmt="parquet").filter(col("v") > 0.25)
+         .join(dag.load(dim, fmt="parquet"), how="inner", on=["k"])
+         .select(col("g"), (col("v") * col("w")).alias("z"))
+         .partition_by("g").aggregate(ff.sum(col("z")).alias("s"), ff.count(col("z")).alias("n"))
+         .yield_dataframe_as("r"))
+        return dag
+
+    def run_conf(board: str) -> dict:
+        return {"fugue.tpu.dist.board": board, "fugue.tpu.dist.buckets": DIST_BUCKETS,
+                "fugue.tpu.dist.workflow_timeout_s": DIST_TIMEOUT_S}
+
+    def check(res, exp: dict, cell: str) -> str:
+        require(isinstance(res, TorchDataFrame) and res.device == device,
+                f"{cell}: the result is {type(res).__name__} on {getattr(res, 'device', None)}")
+        got = res.as_pandas().sort_values("g").reset_index(drop=True)
+        require(np.array_equal(got["g"].to_numpy(), exp["g"]) and np.array_equal(got["n"].to_numpy(), exp["n"]),
+                f"{cell}: keys or counts differ from the oracle")
+        require(np.allclose(got["s"].to_numpy(), exp["s"], rtol=DIST_RTOL, atol=0),
+                f"{cell}: s differs from the float64 oracle")
+        return f"keys and counts exact; s rtol={DIST_RTOL} vs a float64 numpy oracle"
+
+    def dist_stats(engine) -> dict:
+        d = engine.stats().get("dist", {})
+        failed = d.get("tasks_failed", 0) + sum(w.get("tasks_failed", 0) for w in d.get("workers", {}).values())
+        return {k: d.get(k, 0) for k in ("workflow_jobs", "workflow_tasks_dispatched",
+                                         "workflow_partitions_delta_skipped", "workflow_tasks_re_dispatched",
+                                         "redispatch_worker_lost", "redispatch_transient")} | {"tasks_failed": failed}
+
+    def board_job(board: str) -> tuple:
+        """The board's one workflow job: its id, the audit of the
+        supervisor that ran it, the rows its reduces published (what
+        landed on the card) and its failure records."""
+        from fugue_tpu_torch.dist import TaskBoard
+
+        jids = [n[: -len(".job.json")] for n in os.listdir(os.path.join(board, "jobs")) if n.endswith(".job.json")]
+        require(len(jids) == 1, f"dist_path: jobs on {board}: {jids}")
+        tb = TaskBoard(board)
+        manifest = tb.read_job(jids[0])
+        landed = sum(int(tb.read_done(t)["rows_out"]) for t in manifest["reduce_tids"])
+        sup = engine._wf_dist_supervisor
+        require(os.path.abspath(sup.board.root) == os.path.abspath(board), f"dist_path: supervisor of {board}")
+        audit = sup.audit_job(jids[0])
+        return jids[0], audit, landed, len(os.listdir(tb.fail_dir))
+
+    def run_cell(cell: str, dag) -> dict:
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+        sup = getattr(engine, "_wf_dist_supervisor", None)
+        before = dist_stats(engine)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        tracer.clear()
+        tracer.enable()
+        try:
+            t0 = time.perf_counter()
+            res = dag.run(engine).yields["r"].result
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            tracer.disable()
+        recs = tracer.records()
+        tracer.clear()
+        launches = dict(bg.LAUNCHES)
+        require(launches["bin_sum"] == (1 if on_card else 0), f"{cell}: B1 launched {launches['bin_sum']} times")
+        frag_ms = sum(r["dur"] for r in recs if r["name"] == "dist.workflow_fragment") / 1e6
+        seg_ms = sum(r["dur"] for r in recs if r["name"] == "plan.segment") / 1e6
+        after = dist_stats(engine)
+        if getattr(engine, "_wf_dist_supervisor", None) is not sup:  # a new board's supervisor
+            before = {}
+        return {"res": res, "launches": launches, "wall_ms": wall_ms,
+                "split_ms": {"fragment": frag_ms, "card_segment": seg_ms, "other": wall_ms - frag_ms - seg_ms},
+                "fragment_spans": sum(r["name"] == "dist.workflow_fragment" for r in recs),
+                "dist": {k: after[k] - before.get(k, 0) for k in after},
+                "peak_device_bytes": torch.cuda.max_memory_allocated() if on_card else None}
+
+    engine = None
+    try:
+        # the six workers start first: their imports overlap the data's making
+        for board in boards.values():
+            os.makedirs(board)
+            for i in range(DIST_WORKERS):
+                extra = {}
+                if board == boards["kill"]:
+                    extra = {"fugue.tpu.events.enabled": True, "fugue.tpu.events.dir": events_dir,
+                             "fugue.tpu.fault.plan": DIST_SURVIVOR_PLAN if i else DIST_VICTIM_PLAN}
+                launch(board, f"w{i}", extra)
+        t0 = time.perf_counter()
+        data = dist_frames(np, pa, pq, str(tmp / "main"), seed + 19, rows, files, dim=True)
+        exp = dist_oracle(np, data, data["w"])
+        kill_data = dist_frames(np, pa, pq, str(tmp / "kill"), seed + 20, kill_rows, kill_files, dim=False)
+        kill_exp = dist_oracle(np, kill_data, data["w"])
+        del data, kill_data
+        setup_s = time.perf_counter() - t0
+        fact, dim = str(tmp / "main" / "fact"), str(tmp / "main" / "dim")
+        engine = TorchExecutionEngine(device, conf=dict(NO_CACHE, **STATIC_CHUNKS))
+        t0 = time.perf_counter()
+        workers_up(boards["main"])
+        workers_up(boards["kill"])
+        wait_s = time.perf_counter() - t0
+
+        # dist-join-agg-10m: the cold run on a fresh board, then its twin
+        dag = build(FugueWorkflow(run_conf(boards["main"])), fact, dim)
+        explain = dag.explain(engine=engine)
+        dist_part = explain[explain.index("== distributed workflows"):]
+        require("1 fragment(s)" in dist_part and "join how=inner on=['k'] buckets=8 covers 3 task(s)" in dist_part
+                and "map[left]: %d file(s) | filter[(v > 0.25)]" % files in dist_part
+                and "-> aggregate[s,n]" in explain and "not distributed t3 LoweredSegment" in dist_part,
+                f"dist-join-agg-10m: the explain {dist_part!r}")
+        cold = run_cell("dist-join-agg-10m", dag)
+        checks = check(cold.pop("res"), exp, "dist-join-agg-10m")
+        jid, audit, landed, fails = board_job(boards["main"])
+        require(cold["dist"]["workflow_jobs"] == 1 and cold["dist"]["tasks_failed"] == 0 and fails == 0,
+                f"dist-join-agg-10m: dist stats {cold['dist']}, {fails} failure records")
+        require(audit["rows_lost"] == 0 and audit["rows_double_counted"] == 0, f"dist-join-agg-10m: audit {audit}")
+        require(landed == len(exp["rows_g"]), f"dist-join-agg-10m: {landed} rows landed")
+        require(cold["fragment_spans"] == 1, "dist-join-agg-10m: no dist.workflow_fragment span")
+        twin = run_cell("dist-join-agg-10m twin", build(FugueWorkflow(), fact, dim))
+        check(twin.pop("res"), exp, "dist-join-agg-10m twin")
+        require(twin["fragment_spans"] == 0 and twin["dist"]["workflow_jobs"] == 0,
+                "dist-join-agg-10m twin: the twin went to the board")
+        line = {"phase": "dist_path", "cell": "dist-join-agg-10m", "rows": rows, "files": files,
+                "workers": DIST_WORKERS, "buckets": DIST_BUCKETS, "rows_landed": landed,
+                "tasks_dispatched": cold["dist"]["workflow_tasks_dispatched"], **cold, "job": jid, "audit": audit,
+                "checks": checks, "twin_ms": twin["wall_ms"], "twin_split_ms": twin["split_ms"],
+                "twin_launches": twin["launches"], "setup_s": setup_s, "workers_up_s": wait_s,
+                "explain_fragment": [ln.strip() for ln in dist_part.splitlines()[1:4]],
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line, engine)
+        out["cells"]["dist-join-agg-10m"] = line
+        del dag  # its last run holds the frame that landed on the card
+
+        # dist-warm-10m: every done record reused
+        warm = run_cell("dist-warm-10m", build(FugueWorkflow(run_conf(boards["main"])), fact, dim))
+        checks = check(warm.pop("res"), exp, "dist-warm-10m")
+        n_tasks = line["tasks_dispatched"]
+        require(warm["dist"]["workflow_tasks_dispatched"] == 0
+                and warm["dist"]["workflow_partitions_delta_skipped"] == n_tasks,
+                f"dist-warm-10m: dist stats {warm['dist']} of {n_tasks} tasks")
+        line = {"phase": "dist_path", "cell": "dist-warm-10m", "rows": rows,
+                "tasks_dispatched": warm["dist"]["workflow_tasks_dispatched"],
+                "tasks_delta_skipped": warm["dist"]["workflow_partitions_delta_skipped"], **warm, "checks": checks,
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line, engine)
+        out["cells"]["dist-warm-10m"] = line
+
+        # the workers, alive: none holds the card
+        pids = {f"{os.path.basename(b)}/{w}": p.pid for (b, w), p in procs.items()}
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout if on_card else ""
+        smi_pids = {int(r.split(",")[0]) for r in smi.splitlines() if r.split(",")[0].strip().isdigit()}
+        states = {w: _worker_state(pid) for w, pid in pids.items()}
+        holding = [w for w, pid in pids.items() if states[w]["card"] or states[w]["torch"] or pid in smi_pids]
+        require(not holding, f"dist_path: workers holding the card or torch {states}, compute apps {smi!r}")
+
+        # dist-kill-2m: w0 SIGKILLed while it holds its first lease
+        kill_board = boards["kill"]
+        kill_proc = procs[(kill_board, "w0")]
+
+        def killer() -> None:
+            lease_dir = os.path.join(kill_board, "leases")
+            deadline = time.monotonic() + DIST_TIMEOUT_S
+            while time.monotonic() < deadline and kill_proc.poll() is None:
+                for n in os.listdir(lease_dir):
+                    try:
+                        with open(os.path.join(lease_dir, n)) as f:
+                            holder = json.load(f)
+                    except (OSError, ValueError):
+                        continue
+                    if holder.get("owner") == "w0":
+                        victim.update(pid=kill_proc.pid, lease=n, at_s=time.perf_counter() - start)
+                        kill_proc.send_signal(signal.SIGKILL)
+                        return
+                time.sleep(0.005)
+
+        thread = threading.Thread(target=killer, daemon=True)
+        thread.start()
+        kill = run_cell("dist-kill-2m", build(FugueWorkflow(run_conf(kill_board)), str(tmp / "kill" / "fact"), dim))
+        thread.join(timeout=5)
+        checks = check(kill.pop("res"), kill_exp, "dist-kill-2m")
+        require(victim["pid"] is not None and kill_proc.wait(timeout=30) == -signal.SIGKILL,
+                f"dist-kill-2m: w0 never killed ({victim})")
+        jid, audit, landed, fails = board_job(kill_board)
+        require(kill["dist"]["redispatch_worker_lost"] >= 1, f"dist-kill-2m: dist stats {kill['dist']}")
+        require(audit["rows_lost"] == 0 and audit["rows_double_counted"] == 0, f"dist-kill-2m: audit {audit}")
+        events = read_events(events_dir)
+        kinds = sorted({e.get("type") for e in events})
+        stolen = [e for e in events if e.get("type") in ("lease.steal", "task.redispatch")]
+        require(stolen, f"dist-kill-2m: no steal or re-dispatch in the event log ({kinds})")
+        states.update({w: _worker_state(pids[w]) for w in ("board_kill/w1", "board_kill/w2")})
+        require(not any(states[w]["card"] or states[w]["torch"] for w in ("board_kill/w1", "board_kill/w2")),
+                f"dist-kill-2m: workers holding the card or torch {states}")
+        line = {"phase": "dist_path", "cell": "dist-kill-2m", "rows": kill_rows, "files": kill_files,
+                "rows_landed": landed, "tasks_dispatched": kill["dist"]["workflow_tasks_dispatched"], **kill,
+                "victim": victim, "job": jid, "audit": audit, "failure_records": fails,
+                "event_types": kinds, "steal_events": len(stolen), "checks": checks,
+                "phase_s_so_far": time.perf_counter() - start}
+        emit(line, engine)
+        out["cells"]["dist-kill-2m"] = line
+    finally:
+        for board in boards.values():
+            with open(os.path.join(board, "_stop"), "w") as f:
+                f.write("stop")
+        killed = []
+        for (board, wid), p in procs.items():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                killed.append(f"{os.path.basename(board)}/{wid}")
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not killed, f"dist_path: workers killed at the end {killed}")
+    codes = {f"{os.path.basename(b)}/{w}": p.returncode for (b, w), p in procs.items()}
+    require(all(c == 0 for w, c in codes.items() if w != "board_kill/w0"), f"dist_path: worker exits {codes}")
+    left = sorted(set(_child_pids()) & {p.pid for p in procs.values()})
+    require(not left, f"dist_path: workers left running {left}")
+
+    # B1 alone at the local segment's shape (CUDA events time it: on the card only)
+    out["b1"] = {}
+    if on_card:
+        gg = torch.as_tensor(exp["rows_g"], device=device)
+        zz = torch.as_tensor(exp["rows_z"], device=device)
+        valid = torch.ones(gg.shape[0], dtype=torch.bool, device=device)
+        b1 = b1_at_shape(torch, bg, gg, zz, valid, 0, DIST_GROUPS - 1, plain_reps=3)
+        out["b1"]["dist-join-agg-10m"] = {**b1, "launches": out["cells"]["dist-join-agg-10m"]["launches"]["bin_sum"]}
+        del gg, zz, valid
+    emit({"phase": "dist_path", "cell": "b1-at-shape", "shapes": out["b1"]})
+
+    del engine, exp, kill_exp
+    gc.collect()
+    sync()
+    mem_after = torch.cuda.memory_allocated() if on_card else 0
+    require(mem_after == mem_before, f"dist_path: {mem_after - mem_before} device bytes held after the phase")
+    out["processes"] = {"workers": pids, "exit_codes": codes, "worker_states": states, "nvidia_smi_apps": smi,
+                        "left_running": left, "killed_at_end": killed,
+                        "memory": {"before_phase": mem_before, "after_phase": mem_after}}
+    emit({"phase": "dist_path", "cell": "processes", **out["processes"]})
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    emit({"phase": "dist_path", "cell": "end", "seconds": out["seconds"]})
     return out
 
 
@@ -5751,6 +6224,7 @@ def main() -> int:
     _release(torch)
     host_path = phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, args.seed, args.rows,
                                 args.orders, transform_path["cells"]["demean-dense"]["transform_ms"])
+    _SHARED_TABLES.clear()
     del engine
     _release(torch)
     stream_path = phase_stream_path(torch, np, pd, bg, api, ff, col, None, args.seed,
@@ -5778,6 +6252,8 @@ def main() -> int:
     _release(torch)
     warehouse_path = phase_warehouse_path(torch, np, pd, pa, bg, go, dev, rows=args.sql_rows,
                                           twin=sql_path["cells"]["sql-pipeline-4m"])
+    _release(torch)
+    dist_path = phase_dist_path(torch, np, pd, pa, bg, ff, col, dev, args.seed)
 
     sources = {"bin_sum": "fugue_tpu_torch/csrc/bin_groupby.cu", "bin_sum_count": "fugue_tpu_torch/csrc/bin_groupby.cu"}
     kernels = []
@@ -5806,7 +6282,8 @@ def main() -> int:
                                   for c, r in cache_path["cells"].items()},
                    "serve_path": {c: r["launches"][name] for c, r in serve_path["cells"].items()
                                   if "launches" in r},
-                   "warehouse_path": {c: r["launches"][name] for c, r in warehouse_path["cells"].items()}}
+                   "warehouse_path": {c: r["launches"][name] for c, r in warehouse_path["cells"].items()},
+                   "dist_path": {c: r["launches"][name] for c, r in dist_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -5818,6 +6295,7 @@ def main() -> int:
             by_frame.update(analysis_path["b1"])  # plan_path's and analysis_path's shapes
             by_frame.update(cache_path["b1"])  # the delta recompute's new rows
             by_frame.update(warehouse_path["b1"])  # CONNECT torch's SUM of z
+            by_frame.update(dist_path["b1"])  # the SUM of z after the distributed join
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5832,7 +6310,7 @@ def main() -> int:
             + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
             + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values())
             + sum(by_path["cache_path"].values()) + sum(by_path["serve_path"].values())
-            + sum(by_path["warehouse_path"].values()),
+            + sum(by_path["warehouse_path"].values()) + sum(by_path["dist_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

@@ -50,14 +50,6 @@ _FUGUE_GLOBAL_CONF = ParamDict(
     }
 )
 
-# the JAX package's workflow services that the port does not have
-# (ROADMAP.md A.10): each key, set to turn its service on, makes a run
-# raise. Their defaults are a plain run
-A10_WORKFLOW_KEYS = {
-    "fugue.tpu.dist.enabled": "the distributed pass",
-    "fugue.tpu.dist.board": "the distributed pass",
-}
-
 # --- the result cache (``fugue_tpu_torch/cache``; ``fugue_tpu/constants.py``
 # :183-214): task outputs memoized across runs, keyed on the fingerprints
 # of the optimized plan. The master switch, default ON: with no
@@ -289,3 +281,46 @@ FUGUE_TPU_CONF_TRACE_SPOOL_DIR = "fugue.tpu.trace.spool_dir"
 FUGUE_TPU_CONF_DIST_HB_DIR = "fugue.tpu.dist.heartbeat.dir"
 FUGUE_TPU_CONF_DIST_HB_INTERVAL_S = "fugue.tpu.dist.heartbeat.interval_s"
 FUGUE_TPU_CONF_DIST_HB_STALE_S = "fugue.tpu.dist.heartbeat.stale_after_s"
+
+# --- the worker tier (``fugue_tpu_torch/dist``; ``fugue_tpu/constants.py``
+# :385-436) ---
+# master kill-switch: =false makes DistSupervisor.run_* execute the whole
+# job serially in THIS process (same functions, same bucket order) —
+# bit-identical to the distributed result by construction
+FUGUE_TPU_CONF_DIST_ENABLED = "fugue.tpu.dist.enabled"
+# task lease duration: a lease this old whose owner cannot be proven
+# alive (heartbeat) is stealable by any live worker; owners renew at
+# lease_s/3 while executing, so only a dead or wedged owner expires
+FUGUE_TPU_CONF_DIST_LEASE_S = "fugue.tpu.dist.lease_s"
+# shuffle-fragment fetch mode: "auto" reads the producer's file directly
+# when its path is visible on this host's filesystem and falls back to
+# the producer's HTTP /dist/fetch route; "remote" always fetches over
+# HTTP except from this worker's own dir (the multi-host shape); "local"
+# never fetches (single-host tier)
+FUGUE_TPU_CONF_DIST_FETCH = "fugue.tpu.dist.fetch"
+# reduce-side bucket count for the network-partitioned exchange
+FUGUE_TPU_CONF_DIST_BUCKETS = "fugue.tpu.dist.buckets"
+# straggler mitigation: a task leased (and renewed) by a LIVE owner for
+# longer than this is marked speculative — a second worker re-executes
+# it and the first published done record wins (artifacts are content-
+# addressed, so the loser's publish dedups). 0 (default) disables
+FUGUE_TPU_CONF_DIST_SPECULATIVE_AFTER_S = "fugue.tpu.dist.speculative_after_s"
+# supervisor/worker poll cadence over the shared board
+FUGUE_TPU_CONF_DIST_POLL_S = "fugue.tpu.dist.poll_s"
+# reduce-side fragment prefetch depth: the fetch of fragment i+1 overlaps
+# the decode and reduce of fragment i; <=0 fetches serially; default 2
+FUGUE_TPU_CONF_DIST_FETCH_PREFETCH_DEPTH = "fugue.tpu.dist.fetch_prefetch_depth"
+# shared task-board root for DISTRIBUTED WORKFLOW execution: when set (and
+# dist.enabled is true), workflow.run hands distributable fragments of the
+# optimized DAG — Load roots + row-local chains into an equi-join, keyed
+# aggregate, or bucket-local SQL SELECT — to
+# DistSupervisor.run_workflow_job as leased board tasks
+# (``plan/distribute.py``). Unset (default): the planner is inert
+FUGUE_TPU_CONF_DIST_BOARD = "fugue.tpu.dist.board"
+# wall-clock timeout (seconds) for one distributed workflow fragment's
+# board job; 0/unset = unbounded (recovery is driven by leases, not this)
+FUGUE_TPU_CONF_DIST_WORKFLOW_TIMEOUT_S = "fugue.tpu.dist.workflow_timeout_s"
+# wall-clock deadline (seconds) across ALL RetryPolicy-driven attempts of
+# one /dist/fetch fragment fetch (conf prefix fugue.tpu.retry.dist.*);
+# past it the fetch stops retrying and the orphaned-fragment ladder runs
+FUGUE_TPU_CONF_RETRY_DIST_DEADLINE_S = "fugue.tpu.retry.dist.deadline_s"

@@ -7,7 +7,8 @@ sampler here are not the JAX package's. Two modules differ from the
 reference: ``tracer.py`` mirrors spans into ``torch.profiler`` ranges and
 ``sampler.py`` reads device bytes from the CUDA caching allocator. The
 cluster pieces (``spool``, ``assemble``, ``events``) are file based and
-copied whole; their distributed callers are not ported (ROADMAP.md A.10).
+copied whole; the dist tier's workers and supervisor (``fugue_tpu_torch/
+dist``) write them.
 Quick start::
 
     from fugue_tpu_torch.obs import get_tracer, get_sampler

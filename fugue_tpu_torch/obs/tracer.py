@@ -22,7 +22,9 @@ Design constraints, in priority order:
 - **Profiler timeline alignment**: spans created with ``annotate=True``
   also enter a ``torch.profiler.record_function`` range of the same name,
   so when a ``torch.profiler`` capture is active the host-side span names
-  enclose the kernels they launch. A span measures host wall time: CUDA
+  enclose the kernels they launch. Only where torch is already imported:
+  a process without it (a dist worker) runs no capture, and importing
+  torch for a range would cost it seconds. A span measures host wall time: CUDA
   runs asynchronously and a span's close does not wait on the card, so
   a verb's span covers its device work only where the verb itself waits
   (a count, a copy to the host).
@@ -47,6 +49,7 @@ env var (which overrides the conf either way). ``fugue.tpu.trace.xla``
 import contextlib
 import os
 import socket
+import sys
 import threading
 import time
 import uuid
@@ -247,7 +250,7 @@ class Tracer:
         self._tls = threading.local()
         self._seq = 0
         self._tids: Dict[int, int] = {}
-        self._ann_cls: Any = False  # False = unresolved, None = unavailable
+        self._ann_cls: Any = False  # False = unresolved (torch not imported yet)
         self.enabled = False
         self.xla_annotate = True
         self.max_spans = max_spans
@@ -305,12 +308,11 @@ class Tracer:
 
     def _annotation_cls(self) -> Any:
         if self._ann_cls is False:
-            try:
-                import torch.profiler
-
-                cls: Any = torch.profiler.record_function
-            except Exception:
-                cls = None
+            # torch already imported or no mirror: importing it here would
+            # cost a host process (a dist worker) seconds on its first span
+            cls = getattr(getattr(sys.modules.get("torch"), "profiler", None), "record_function", None)
+            if cls is None:
+                return None
             # racing first-touchers resolve the IDENTICAL class; the lock
             # just makes the publish a clean single write
             with self._lock:

@@ -15,7 +15,7 @@ made after earlier ones in a process loses its first kernel records, and
 those take the loss. It writes one Chrome
 trace (``fugue_profile_<pid>_<ns>.json``) into ``log_dir``, for Perfetto
 or ``chrome://tracing``. :func:`annotate` names a region of the timeline
-(``torch.profiler.record_function``).
+(``torch.profiler.record_function``, where torch is imported).
 
 Conf-driven: setting ``fugue.tpu.profile.dir`` makes
 :func:`profiled_engine_context` capture everything inside the context.
@@ -28,8 +28,9 @@ and ``engine.fused`` show in a capture whether tracing is on or off. With
 """
 
 import os
+import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Iterator
 
 FUGUE_TPU_CONF_PROFILE_DIR = "fugue.tpu.profile.dir"
@@ -81,14 +82,16 @@ def profile(log_dir: str) -> Iterator[None]:
     )
 
 
-@contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Name a region in the trace (shows up in the profiler timeline); a
-    no-op outside a capture."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield
+def annotate(name: str) -> Any:
+    """Name a region in the trace (``torch.profiler.record_function``;
+    shows up in the profiler timeline), a no-op outside a capture and
+    where torch is not imported: no capture runs in a process without
+    torch, and importing it for a range costs a host process seconds (a
+    dist worker, a host engine's workflow)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return nullcontext()
+    return torch.profiler.record_function(name)
 
 
 @contextmanager

@@ -16,10 +16,19 @@ Runs at ``workflow.run()`` time over the task graph, before execution:
 
 Disable with ``fugue.tpu.plan.optimize=false`` (or per pass:
 ``.prune`` / ``.pushdown`` / ``.fuse`` / ``.lower_segments``). Every
-rewrite gives the result of the unoptimized path. The distributed pass
-(``fugue_tpu/plan/distribute.py``) waits for ROADMAP.md A.10.
+rewrite gives the result of the unoptimized path.
+
+A separate pass after the optimizer (``distribute.py``) partitions the
+task DAG into board jobs for the worker tier (``fugue_tpu_torch/dist``)
+when ``fugue.tpu.dist.board`` is set.
 """
 
+from .distribute import (
+    DistributePlan,
+    describe_distribution,
+    execute_fragment,
+    plan_distribution,
+)
 from .fused import FusedVerbs, apply_steps_engine, compose_steps
 from .lowering import (
     LoweredSegment,
@@ -30,6 +39,7 @@ from .lowering import (
 from .optimizer import PlanReport, PlanStats, optimize_tasks
 
 __all__ = [
+    "DistributePlan",
     "FusedVerbs",
     "LoweredSegment",
     "PlanReport",
@@ -37,7 +47,10 @@ __all__ = [
     "apply_steps_engine",
     "apply_terminal_engine",
     "compose_steps",
+    "describe_distribution",
+    "execute_fragment",
     "lower_segments",
     "optimize_tasks",
+    "plan_distribution",
     "segment_fingerprint",
 ]

@@ -29,8 +29,9 @@ stateful callback could double-apply it.
 
 The ``/serve/*``, view and ``/dist/fetch`` routes are copied whole. An
 ``EngineServer`` (``fugue_tpu_torch/serve``) binds the serve and view
-routes with ``bind_serve``; the dist worker is not ported, so
-``/dist/fetch`` answers 404, as the JAX package's server does unbound.
+routes with ``bind_serve``, and a ``DistWorker`` (``fugue_tpu_torch/dist``)
+binds ``/dist/fetch`` with ``bind_dist`` to serve its shuffle fragments;
+unbound, a route answers 404.
 """
 
 import base64

@@ -29,9 +29,16 @@ frontier frames (``plan_cache``); tasks upstream of the cut never run. A
 hit is one ``task.cache_hit`` span, a grown source's partial hit one
 ``task.delta_recompute`` span over the new partitions only, and every
 finished bounded result is published under its fingerprint
-(``cache.publish`` span), with the delta manifest kept up to date. Not
-ported (ROADMAP.md A.10): the distributed pass (:137-160);
-``FugueWorkflow.run`` refuses the conf keys that turn it on."""
+(``cache.publish`` span), with the delta manifest kept up to date.
+
+The distributed pass (:137-160, :342-365; ``plan/distribute.py``): with
+``fugue.tpu.dist.board`` set, ``run`` plans after the cache cut, and each
+distributable fragment runs as leased map and reduce tasks on the
+board's workers (host engines); its interior tasks never run here, and
+only the fragment's combined frame lands, through ``engine.to_df`` (on
+the card for a ``TorchExecutionEngine``), under a
+``dist.workflow_fragment`` span. Every task downstream of that point
+runs on this engine."""
 
 import contextvars
 import time
@@ -60,6 +67,7 @@ class FugueWorkflowContext:
         self._aliases: Dict[int, FugueTask] = {}
         self._removed: Set[int] = set()
         self._cache_plan: Any = None
+        self._dist_plan: Any = None
         # the fault budgets span the run: `error@1` fails one task once,
         # not once an attempt
         self._injector = FaultInjector.from_conf(conf)
@@ -95,6 +103,16 @@ class FugueWorkflowContext:
                 "addressable, or disable the cache with "
                 "fugue.tpu.cache.enabled=false"
             )
+        dp = self._dist_plan
+        if id(t) not in self._results and dp is not None and id(t) in dp.interior_ids:
+            raise FugueWorkflowError(
+                "this task executed REMOTELY as a leased board task inside a "
+                "distributed workflow fragment (fugue_tpu_torch/plan/"
+                "distribute.py); its intermediate frame never materialized "
+                "in this process. Pin it with persist()/checkpoint()/"
+                "yield_dataframe_as() to keep it local, or set "
+                "fugue.tpu.dist.enabled=false"
+            )
         return self._results[id(t)]
 
     def has_result(self, task: FugueTask) -> bool:
@@ -119,6 +137,23 @@ class FugueWorkflowContext:
             from ..cache import plan_cache
 
             self._cache_plan = plan_cache(tasks, self._engine, cache, self._checkpoint_path)
+        # the distributed pass: with fugue.tpu.dist.board set, the
+        # distributable fragments run on the board's workers and their
+        # interior tasks never run here. A planning error must never fail
+        # a run: it runs wholly local, with a warning
+        self._dist_plan = None
+        try:
+            from ..plan import plan_distribution
+
+            dp = plan_distribution(tasks, self._conf, self._cache_plan)
+            if dp.active and dp.fragments:
+                self._dist_plan = dp
+        except Exception as ex:  # pragma: no cover - defensive degrade
+            self._engine.log.warning(
+                "distributed-workflow planning failed (%s: %s); running fully local",
+                type(ex).__name__,
+                ex,
+            )
         # a one-pass stream consumed by more than one task is read whole
         # once, or the second consumer would find it exhausted
         self._consumers: Dict[int, int] = {}
@@ -144,6 +179,10 @@ class FugueWorkflowContext:
         # tasks a cache hit cut away count as done: a consumer that needed
         # one would not have been cut
         cut = set(self._cache_plan.skipped) if self._cache_plan is not None else set()
+        if self._dist_plan is not None:
+            # a fragment's interior runs on the workers; its result task
+            # is intercepted in _run_task_once
+            cut |= self._dist_plan.interior_ids
         if concurrency <= 1:
             for t in tasks:
                 if id(t) not in cut:
@@ -264,6 +303,28 @@ class FugueWorkflowContext:
             # exact run takes the whole-task path), and the fresh segment
             # or partial appended to the manifest
             self._maybe_cache_publish(task, result, delta_hit=hit)
+            return
+        dp = self._dist_plan
+        if dp is not None and id(task) in dp.results:
+            # a fragment's result: its loads, row-local chains, shuffle,
+            # terminal and tail ran as leased board tasks; only the
+            # combined frame lands here, through set_result, so the
+            # checkpoint, broadcast, yield and cache contracts hold as for
+            # a frame computed here
+            from ..plan import execute_fragment
+
+            frag = dp.results[id(task)]
+            with get_tracer().span(
+                "dist.workflow_fragment",
+                cat="dist",
+                task=task.name or type(task.extension).__name__,
+                keys=",".join(frag.keys),
+                buckets=frag.buckets,
+            ):
+                pdf = execute_fragment(frag, self._engine, self._conf)
+                result = task.set_result(self, self._engine.to_df(pdf))
+                self._results[id(task)] = result
+            self._maybe_cache_publish(task, result)
             return
         inputs = [self._results[id(d)] for d in task.inputs]
         self._injector.fire(SITE_TASK_EXECUTE)

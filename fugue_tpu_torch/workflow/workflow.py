@@ -32,7 +32,6 @@ import uuid as _uuid
 from contextlib import nullcontext
 from typing import Any, Dict, List, Optional
 
-from torch.profiler import record_function
 
 from .._utils.assertion import assert_or_throw
 from .._utils.convert import get_caller_global_local_vars
@@ -53,7 +52,6 @@ from ..dataframe import DataFrame, YieldedDataFrame
 from ..exceptions import FugueWorkflowCompileError, FugueWorkflowError
 from ..execution.execution_engine import ExecutionEngine
 from ..execution.factory import make_execution_engine
-from ..constants import A10_WORKFLOW_KEYS
 from ..extensions._builtins import creators as bc
 from ..extensions._builtins import outputters as bo
 from ..extensions._builtins import processors as bp
@@ -864,16 +862,16 @@ class FugueWorkflow:
             e = make_execution_engine(engine, device=device, conf=conf, infer_by=self._collect_raw_inputs())
         plan_conf = ParamDict(e.conf)
         plan_conf.update(self._conf)
-        _refuse_a10(plan_conf)
         self._last_engine = e
         ctx = FugueWorkflowContext(e, conf=plan_conf)
         self._last_context = ctx
         self._apply_auto_persist(e, plan_conf)
         from ..obs import current_trace_id, get_tracer, run_labels, trace_scope
+        from ..parallel.profiler import annotate
         from ..plan import optimize_tasks
 
         tracer = get_tracer()
-        with record_function("fugue::plan_optimize"), tracer.span(
+        with annotate("fugue::plan_optimize"), tracer.span(
             "plan.optimize", cat="plan", tasks=len(self._tasks)
         ) as psp:
             run_tasks, aliases, removed, report = optimize_tasks(
@@ -971,12 +969,13 @@ class FugueWorkflow:
         the passes that are not ported. Then the result cache's would-be
         cut over the optimized plan (which tasks hit, which are
         uncacheable and why, which producers a warm run skips, which
-        grown sources recompute only their new partitions) and the
-        tuner's settings for the plan. Nothing runs; ``engine`` (if given)
+        grown sources recompute only their new partitions), the
+        distributed pass's fragments and refusals, and the tuner's
+        settings for the plan. Nothing runs; ``engine`` (if given)
         lends its live cache tiers and tuned store. ``lint=True`` appends
         the structured static-check section (:meth:`lint`)."""
         from ..cache import describe_cache
-        from ..plan import optimize_tasks
+        from ..plan import describe_distribution, optimize_tasks
         from ..plan.ir import build_graph
         from ..plan.optimizer import _render_nodes
         from ..tuning import describe_tuning, plan_fingerprint
@@ -995,6 +994,9 @@ class FugueWorkflow:
                 engine_kind="any" if eng is None else type(eng).__name__,
             )
         )
+        # the distributed pass: which fragments would route through the
+        # board's workers and why the rest refuse
+        lines.extend(describe_distribution(run_tasks, merged))
         lines.extend(describe_tuning(merged, plan_fingerprint(run_tasks), engine=eng))
         if lint:
             lines.append(self.lint(conf=conf, engine=engine).render())
@@ -1110,18 +1112,6 @@ class FugueWorkflow:
                 t.set_checkpoint(
                     WeakCheckpoint() if value == "" else WeakCheckpoint(value=value)
                 )
-
-
-def _refuse_a10(conf: ParamDict) -> None:
-    """Raise when the run's conf turns on a workflow service the port lacks."""
-    for key, what in A10_WORKFLOW_KEYS.items():
-        v = conf.get(key, None)
-        if isinstance(v, str):
-            v = v.strip().lower() not in ("", "0", "false", "no", "off")
-        if v:
-            raise NotImplementedError(
-                f"{key}={conf[key]!r}: {what} of the workflow is not ported (ROADMAP.md A.10)"
-            )
 
 
 class _NoOpOutputter(_OutputterBase):

@@ -166,3 +166,43 @@ print(bad); sys.exit(1 if bad else 0)
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=180
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_dist_tier_loads_no_jax(tmp_path):
+    """``dist`` (board, worker, supervisor), ``shuffle`` and
+    ``plan/distribute.py`` import neither JAX nor ``fugue_tpu``, and a
+    workflow whose join runs as a fragment on a worker of the board
+    loads neither."""
+    code = """
+import os, sys, threading
+import pandas as pd
+import fugue_tpu_torch.shuffle, fugue_tpu_torch.plan.distribute
+from fugue_tpu_torch.column import col, functions as ff
+from fugue_tpu_torch.dist import DistWorker
+from fugue_tpu_torch.torch import TorchExecutionEngine
+from fugue_tpu_torch.workflow import FugueWorkflow
+root = sys.argv[1]
+for side in ("a", "b"):
+    os.makedirs(os.path.join(root, side))
+    pd.DataFrame({"k": [1, 2, 3], side: [1.0, 2.0, 3.0]}).to_parquet(os.path.join(root, side, "p.parquet"))
+board = os.path.join(root, "board")
+conf = {"fugue.tpu.cache.enabled": False, "fugue.tpu.dist.poll_s": 0.01}
+w = DistWorker(board, "w0", conf=conf).start()
+t = threading.Thread(target=w.serve_forever, kwargs={"stop_file": os.path.join(board, "_stop")}, daemon=True)
+t.start()
+dag = FugueWorkflow({"fugue.tpu.dist.board": board, "fugue.tpu.dist.buckets": 2})
+(dag.load(os.path.join(root, "a"), fmt="parquet").join(dag.load(os.path.join(root, "b"), fmt="parquet"), how="inner",
+ on=["k"]).partition_by("k").aggregate(s=ff.sum(col("a") * col("b"))).yield_dataframe_as("r"))
+eng = TorchExecutionEngine(device="cpu", conf=conf)
+got = dag.run(eng).yields["r"].result.as_pandas()
+open(os.path.join(board, "_stop"), "w").close()
+t.join(10)
+w.stop()
+assert sorted(got["s"]) == [1.0, 4.0, 9.0] and eng.stats()["dist"]["workflow_jobs"] == 1, got
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fugue_tpu')]
+print(bad); sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=180
+    )
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -43,11 +43,13 @@ from fugue_tpu_torch import api
 from fugue_tpu_torch import dataframe as tdf
 from fugue_tpu_torch import workflow as twf
 from fugue_tpu_torch.collections import PartitionSpec
-from fugue_tpu_torch.constants import A10_WORKFLOW_KEYS
 from fugue_tpu_torch.execution import ExecutionEngine, NativeExecutionEngine
 from fugue_tpu_torch.torch import TorchExecutionEngine
 
 from test_torch_sql import _rows, _same
+from torch_dist_common import PORT as PORT_SIDE
+from torch_dist_common import REF as REF_SIDE
+from torch_dist_common import dist_section
 
 REF = SimpleNamespace(
     FugueWorkflow=fugue_tpu.FugueWorkflow, Transformer=fugue_tpu.Transformer,
@@ -582,15 +584,56 @@ def test_cotransform_zip_and_callbacks_are_refused(jax_engine, port_engine, tmp_
     assert (spec.algo, spec.num_partitions) == ("even", "ROWCOUNT")
 
 
-@pytest.mark.parametrize("key", sorted(A10_WORKFLOW_KEYS))
-def test_a10_workflow_services_are_refused(key, port_engine):
-    dag = twf.FugueWorkflow({key: "/some/dir" if key.endswith("board") else True})
-    dag.df([[1]], "a:long").show()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dag.run(port_engine)
-    off = twf.FugueWorkflow({key: False})
-    off.df([[1]], "a:long").show()
-    off.run(port_engine)
+DIST_CONF = {"fugue.tpu.cache.enabled": False, "fugue.tpu.tuning.enabled": False, "fugue.tpu.dist.poll_s": 0.01,
+             "fugue.tpu.dist.workflow_timeout_s": 15,
+             "fugue.tpu.dist.buckets": 2}
+
+
+def _dist_run(ns, engine, key: str, root: str, value: Any) -> tuple:
+    """A load ⋈ load → aggregate DAG with ``key`` set to ``value`` (under
+    the board key: the board's path for ``True``, unset for ``False``),
+    run over one worker of ``ns``'s package on the board: its explain's
+    distributed section (the board written ``<board>``), its result and
+    its workflow jobs."""
+    import threading
+
+    dist = (REF_SIDE if ns is REF else PORT_SIDE).dist
+    for side in ("a", "b"):
+        os.makedirs(os.path.join(root, side), exist_ok=True)
+        pd.DataFrame({"k": [1, 2, 3, 3], side: [1.0, 2.0, 3.0, 4.0]}).to_parquet(os.path.join(root, side, "p.parquet"))
+    board = os.path.join(root, "board")
+    dag = ns.FugueWorkflow({key: (board if value else "") if key.endswith("board") else value})
+    (dag.load(os.path.join(root, "a"), fmt="parquet").join(dag.load(os.path.join(root, "b"), fmt="parquet"),
+                                                           how="inner", on=["k"])
+     .partition_by("k").aggregate(ns.ff.sum(ns.col("a") * ns.col("b")).alias("s")).yield_dataframe_as("r"))
+    section = dist_section(dag.explain(conf=DIST_CONF), board)
+    w = dist.DistWorker(board, "w0", conf=DIST_CONF, start_http=False).start()
+    t = threading.Thread(target=w.serve_forever, kwargs={"stop_file": os.path.join(board, "_stop")}, daemon=True)
+    t.start()
+    try:
+        dag.run(engine, conf=DIST_CONF)
+    finally:
+        open(os.path.join(board, "_stop"), "w").close()
+        t.join(10)
+        w.stop()
+    jobs = engine.stats().get("dist", {}).get("workflow_jobs", 0) if key.endswith("board") and value else 0
+    return section, dag.yields["r"].result, jobs
+
+
+@pytest.mark.parametrize("key", ["fugue.tpu.dist.board", "fugue.tpu.dist.enabled"])
+def test_a10_workflow_services_are_refused(key, jax_engine, port_engine, tmp_path):
+    """The distributed pass's two keys, refused before the pass was
+    ported, now answer as the JAX package's: with a board the join runs as
+    a fragment on the board's worker; ``enabled`` alone, or either key
+    off, leaves the planner inert. The explain's distributed section and
+    the result equal the reference's."""
+    for value in (True, False):
+        ref = _dist_run(REF, jax_engine, key, str(tmp_path / f"ref-{value}"), value)
+        got = _dist_run(PORT, port_engine, key, str(tmp_path / f"port-{value}"), value)
+        assert got[0] == ref[0]
+        assert str(got[1].schema) == str(ref[1].schema)
+        _same(got[1], ref[1])
+        assert got[2] == (1 if key.endswith("board") and value else 0)
 
 
 RETRY_KNOBS = {"fugue.tpu.retry.attempts": ("max_attempts", 5), "fugue.tpu.retry.base": ("base_delay", 0.5),
