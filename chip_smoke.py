@@ -287,7 +287,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each against a float64 oracle with a zero audit and the wall time
    split into the fragment, the card's segment and the rest; then B1 at
    the segment's shape and the processes line (no worker held the card
-   or is left running; device bytes back to the phase's start).
+   or is left running; device bytes back to the phase's start);
+24. spill_path (run right after host_path, on the SF10 tables it made):
+   the out-of-core spill ladder with a 512 MiB device budget, its spill
+   directory a temporary directory of the checkout (its free space
+   checked first, removed after), one line a cell:
+   ``spill-join-sf10`` (lineitem ⋈ orders on ``l_orderkey``, handed in as
+   host arrow frames: ``shuffle_spill``, bucket pairs joined on the card,
+   the one-pass result read into the engine and aggregated by
+   ``l_shipmode``, B1 at 8 buckets, against a float64 oracle; the join's
+   peak under the budget; the wall time split into each side's partition,
+   the pair loop and the aggregate; beside its twin with the shuffle off),
+   ``spill-stream-semi`` (2·10^7 streamed rows joined ``left_semi`` with
+   500 keys: the streaming plan refuses it, the stream spills; then the
+   streamed aggregate, B1 once a chunk, against an ``isin`` + ``bincount``
+   oracle), ``spill-repartition-stream`` (the same stream repartitioned
+   by ``k`` into 16 buckets: each key in one chunk), B1 at the SF10
+   aggregate's shape, and the memory line (device bytes back to the
+   phase's start, no spill directory left).
 
 Every cell line of the phases before cache_path carries ``cache_hits``,
 the result-cache hits the engines it ran on have served: it must be 0.
@@ -6141,6 +6158,337 @@ def phase_dist_path(torch, np, pd, pa, bg, ff, col, device, seed: int, rows: int
     return out
 
 
+SPILL_BUDGET_BYTES = 512 << 20  # the spill cells' device budget: the SF10 sides' ~1.5 GB pass it
+SPILL_STREAM_ROWS = 20_000_000  # spill-stream-semi: plan_path's frame family cut in scale from 10^8
+SPILL_STREAM_CHUNK = 4_000_000  # the stream's chunks, as stream_path's
+SPILL_STREAM_BUCKETS = 16  # the semi join's and the repartition's buckets
+SPILL_SEMI_KEYS = 500  # the semi join's frame: every other key of 1,000
+SPILL_PHASE_LIMIT_S = 120.0  # the phase's time limit on the card
+SPILL_DISK_FACTOR = 3  # the spill root's free space, in estimates of the bytes the phase spills
+
+
+def spill_stream_frame(np, rows: int, seed: int) -> dict:
+    """plan_path's frame family (``k`` over 1,000 uniform keys, ``v``
+    float32 with 1% NaN) as numpy columns."""
+    rng = np.random.default_rng(seed + 29)
+    k = rng.integers(0, 1000, rows, dtype=np.int64)
+    v = rng.random(rows, dtype=np.float32)
+    v[rng.random(rows) < 0.01] = np.nan
+    return {"k": k, "v": v}
+
+
+def spill_stream_oracle(np, k, v, keep=None) -> dict:
+    """Per key of 1,000 over the rows ``keep`` selects (all by default):
+    the rows, the non-NaN count of ``v`` and its float64 sum."""
+    if keep is not None:
+        k, v = k[keep], v[keep]
+    ok = ~np.isnan(v)
+    return {"rows": np.bincount(k, minlength=1000), "n": np.bincount(k[ok], minlength=1000),
+            "s": np.bincount(k[ok], weights=v[ok].astype(np.float64), minlength=1000)}
+
+
+def phase_spill_path(torch, np, pd, pa, bg, ff, col, device, seed: int, orders: int,
+                     stream_rows: int = SPILL_STREAM_ROWS, stream_chunk: int = SPILL_STREAM_CHUNK,
+                     budget: int = SPILL_BUDGET_BYTES) -> dict:
+    """The out-of-core spill ladder on ``TorchExecutionEngine`` on ``device``
+    (result cache off; the streamed cells with the tuner off), with a device
+    budget of ``budget`` bytes (``SPILL_BUDGET_BYTES``; a cut scale needs a
+    cut budget to spill); the spill directory is a temporary
+    directory of the checkout whose free space is checked first and which
+    is removed after. One line a cell:
+
+    - ``spill-join-sf10``: TPC-H SF10 lineitem ⋈ orders (``orders`` orders,
+      the tables ``shared_orders`` made), inner on ``l_orderkey``, the sides
+      handed in as host arrow frames (lineitem's ``l_orderkey``,
+      ``l_quantity``, ``l_shipmode``; orders' ``l_orderkey``,
+      ``o_orderpriority``): the ladder picks ``shuffle_spill`` (the
+      ``engine.join`` span says so), both sides spill to buckets and the
+      pairs join on the card; the one-pass result is read into the engine
+      (``engine.to_df``) and aggregated by ``l_shipmode`` (SUM and COUNT
+      of ``l_quantity``: the dense partials route, B1 at 8 buckets) against
+      a float64 numpy oracle of lineitem (every line has its order). The
+      join's ``peak_device_bytes`` stays under the budget, B1 launches,
+      and the spill directory is gone after; the wall time is split into
+      each side's partition, the pair loop and the aggregate. Its twin is
+      the same call with ``fugue.tpu.shuffle.enabled=false`` (the sides
+      joined whole on the card), with its wall time and peak;
+    - ``spill-stream-semi``: a one-pass stream of ``stream_rows`` rows of
+      plan_path's frame family in chunks of ``stream_chunk``, joined
+      ``left_semi`` with a frame of ``SPILL_SEMI_KEYS`` keys: the streaming
+      plan refuses a semi join, so the stream spills (``joins_spill`` 1,
+      ``SPILL_STREAM_BUCKETS`` buckets); then the streamed dense aggregate
+      SUM(v), COUNT(v) by ``k`` over the join's stream (B1 once a chunk),
+      against a numpy ``isin`` + ``bincount`` oracle; the join's peak under
+      the bytes of the whole stream;
+    - ``spill-repartition-stream``: ``repartition(PartitionSpec(by=["k"],
+      algo="hash", num=16))`` of the same stream: at most 16 chunks, each
+      key in exactly one, per-key rows and float64 sums equal to the
+      oracle's, ``repartitions_spill`` 1;
+    - ``b1-at-shape``: B1 alone at the shape of the SF10 aggregate beside
+      its bound and ``index_add_``;
+    - ``memory``: the device's allocated bytes back to the phase's start,
+      to the byte, and no spill directory left under the spill root."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from fugue_tpu_torch.collections.partition import PartitionSpec
+    from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
+    from fugue_tpu_torch.obs import get_tracer
+    from fugue_tpu_torch.torch import TorchExecutionEngine
+    from fugue_tpu_torch.torch import streaming as tstreaming
+
+    start = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    out = {"phase": "spill_path", "cells": {}}
+    tracer = get_tracer()
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def zero_launches() -> None:
+        for name in bg.LAUNCHES:
+            bg.LAUNCHES[name] = 0
+
+    def span_s(recs, name: str, **attrs) -> float:
+        return sum(r["dur"] for r in recs if r["name"] == name
+                   and all(r["args"].get(k) == v for k, v in attrs.items())) / 1e9
+
+    def leftover(root: str) -> list:
+        return sorted(n for n in os.listdir(root) if n.startswith("shuffle-"))
+
+    def emit_cell(cell: str, line: dict, *engines) -> None:
+        line = {"phase": "spill_path", "cell": cell, **line, "phase_s_so_far": time.perf_counter() - start}
+        emit(line, *engines)
+        out["cells"][cell] = line
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    sync()
+    mem_before = torch.cuda.memory_allocated() if on_card else 0
+    tbl, aux, otbl, _ = shared_orders(np, pa, seed, orders)
+    left_tbl = tbl.select(["l_orderkey", "l_quantity", "l_shipmode"])
+    right_tbl = otbl.select(["l_orderkey", "o_orderpriority"])
+    mode, qty = aux["mode"], left_tbl.column("l_quantity").to_numpy().astype(np.float64)
+    del tbl, otbl
+    sides_bytes = left_tbl.nbytes + right_tbl.nbytes
+    stream_bytes = stream_rows * 12
+    root = Path(tempfile.mkdtemp(prefix=".spill_path_", dir=Path(__file__).resolve().parent))
+    free = shutil.disk_usage(root).free
+    need = SPILL_DISK_FACTOR * (sides_bytes + stream_bytes)
+    require(free >= need, f"spill_path: {free} bytes free under {root}, the phase needs {need} "
+                          f"({SPILL_DISK_FACTOR}x the ~{sides_bytes + stream_bytes} bytes it may spill)")
+    conf = {**NO_CACHE, "fugue.tpu.shuffle.device_budget_bytes": budget,
+            "fugue.tpu.shuffle.dir": str(root)}
+    try:
+        # spill-join-sf10
+        n_oracle = np.bincount(mode, minlength=len(SHIPMODES))
+        s_oracle = np.bincount(mode, weights=qty, minlength=len(SHIPMODES))
+        del qty
+
+        def check_sf10(res, what: str) -> str:
+            got = res.as_pandas().sort_values("l_shipmode").reset_index(drop=True)
+            require(got["l_shipmode"].tolist() == list(SHIPMODES), f"{what}: keys {got['l_shipmode'].tolist()}")
+            require(np.array_equal(got["n"].to_numpy(), n_oracle), f"{what}: counts vs oracle")
+            require(np.allclose(got["s"].to_numpy(), s_oracle, rtol=ORACLE_RTOL, atol=0), f"{what}: sums vs oracle")
+            return f"7 keys and counts exact, sums rtol={ORACLE_RTOL} vs float64 oracle"
+
+        def sf10_call(engine, traced: bool) -> dict:
+            zero_launches()
+            sync()
+            mem0 = torch.cuda.memory_allocated() if on_card else 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            if traced:
+                tracer.clear()
+                tracer.enable()
+            try:
+                t0 = time.perf_counter()
+                res = engine.join(ArrowDataFrame(left_tbl), ArrowDataFrame(right_tbl), how="inner",
+                                  on=["l_orderkey"])
+                t1 = time.perf_counter()
+                tdf = engine.to_df(res)
+                sync()
+                t2 = time.perf_counter()
+                peak = (torch.cuda.max_memory_allocated() - mem0) if on_card else None
+                agg = engine.aggregate(tdf, PartitionSpec(by=["l_shipmode"]),
+                                       [ff.sum(col("l_quantity")).alias("s"), ff.count(col("l_quantity")).alias("n")])
+                sync()
+                t3 = time.perf_counter()
+            finally:
+                tracer.disable()
+            recs = tracer.records() if traced else []
+            tracer.clear()
+            return {"tdf": tdf, "agg": agg, "recs": recs, "launches": dict(bg.LAUNCHES), "rows_out": tdf.count(),
+                    "wall_s": t3 - t0, "join_call_s": t1 - t0, "read_s": t2 - t1, "aggregate_s": t3 - t2,
+                    "peak_to_read_bytes": peak}
+
+        engine = TorchExecutionEngine(device, conf=conf)
+        r = sf10_call(engine, traced=True)
+        checks = check_sf10(r["agg"], "spill-join-sf10")
+        st = engine.stats()["shuffle"]
+        (jspan,) = [x for x in r["recs"] if x["name"] == "engine.join"]
+        require(jspan["args"].get("strategy") == "shuffle_spill",
+                f"spill-join-sf10: strategy {jspan['args'].get('strategy')} ({jspan['args'].get('reason')})")
+        require(r["rows_out"] == left_tbl.num_rows, f"spill-join-sf10: {r['rows_out']} rows out")
+        require(st["joins_spill"] == 1 and st["bucket_joins"] >= st["group_joins"] > 0, f"spill-join-sf10: {st}")
+        require(0 < st["peak_device_bytes"] <= budget,
+                f"spill-join-sf10: the join's peak {st['peak_device_bytes']} bytes over {budget}")
+        require(r["launches"]["bin_sum"] >= (1 if on_card else 0), f"spill-join-sf10: B1 {r['launches']}")
+        require(leftover(str(root)) == [], f"spill-join-sf10: spill directories left {leftover(str(root))}")
+        parts = {side: span_s(r["recs"], "shuffle.partition", side=side) for side in ("left", "right")}
+        pairs_s = span_s(r["recs"], "shuffle.bucket")
+        sf10_tdf = r.pop("tdf")
+        del r["agg"], r["recs"]
+        twin_engine = TorchExecutionEngine(device, conf={**conf, "fugue.tpu.shuffle.enabled": False})
+        twin = sf10_call(twin_engine, traced=False)
+        check_sf10(twin.pop("agg"), "spill-join-sf10 twin")
+        del twin["tdf"], twin["recs"]
+        require(twin_engine.stats()["shuffle"]["joins_spill"] == 0, "spill-join-sf10 twin: it spilled")
+        emit_cell("spill-join-sf10", {
+            "rows_left": left_tbl.num_rows, "rows_right": right_tbl.num_rows, "sides_arrow_bytes": sides_bytes,
+            "budget_bytes": budget, "strategy": jspan["args"]["strategy"],
+            "reason": jspan["args"].get("reason"), **r,
+            "split_s": {"partition_left": parts["left"], "partition_right": parts["right"], "pair_loop": pairs_s,
+                        "read_other": r["join_call_s"] + r["read_s"] - parts["left"] - parts["right"] - pairs_s,
+                        "aggregate": r["aggregate_s"]},
+            "shuffle": {k: st[k] for k in ("buckets", "rows_spilled", "bytes_spilled", "mem_buckets",
+                                           "mem_bucket_hits", "mem_demotions", "writebehind_batches",
+                                           "bucket_joins", "group_joins", "peak_device_bytes",
+                                           "spill_dirs_cleaned", "device_budget_source")},
+            "spill_dir_left": leftover(str(root)), "checks": checks,
+            "twin": {k: twin[k] for k in ("wall_s", "join_call_s", "read_s", "aggregate_s", "peak_to_read_bytes",
+                                          "launches")}}, engine, twin_engine)
+        del twin_engine, left_tbl, right_tbl
+        gc.collect()
+
+        # B1 alone at the SF10 aggregate's shape (CUDA events time it: on the card only)
+        out["b1"] = {}
+        if on_card:
+            kmin, kmax = sf10_tdf.key_range("l_shipmode")
+            b1 = b1_at_shape(torch, bg, sf10_tdf.device_cols["l_shipmode"].to(torch.int64),
+                             sf10_tdf.device_cols["l_quantity"], sf10_tdf.device_valid_mask(), kmin, kmax,
+                             plain_reps=3)
+            out["b1"]["spill-join-sf10"] = {**b1, "launches": out["cells"]["spill-join-sf10"]["launches"]["bin_sum"]}
+        del sf10_tdf, engine
+        gc.collect()
+
+        # spill-stream-semi and spill-repartition-stream over one stream's rows
+        cols = spill_stream_frame(np, stream_rows, seed)
+        stbl = pa.table(cols)
+        keep = np.isin(cols["k"], np.arange(0, 1000, 1000 // SPILL_SEMI_KEYS))
+        semi_exp = spill_stream_oracle(np, cols["k"], cols["v"], keep)
+        all_exp = spill_stream_oracle(np, cols["k"], cols["v"])
+        del cols, keep
+        keys = pa.table({"k": np.arange(0, 1000, 1000 // SPILL_SEMI_KEYS, dtype=np.int64)})
+
+        def stream():
+            return LocalDataFrameIterableDataFrame(
+                (ArrowDataFrame(stbl.slice(s, stream_chunk)) for s in range(0, stream_rows, stream_chunk)),
+                schema="k:long,v:float")
+
+        seng = TorchExecutionEngine(device, conf={
+            **conf, **STATIC_CHUNKS, "fugue.tpu.shuffle.buckets": SPILL_STREAM_BUCKETS,
+            "fugue.tpu.stream.chunk_rows": min(1 << 20, stream_chunk), "fugue.tpu.stream.key_range": "0,999"})
+        zero_launches()
+        sync()
+        tracer.clear()
+        tracer.enable()
+        try:
+            t0 = time.perf_counter()
+            joined = seng.join(stream(), ArrowDataFrame(keys), how="left_semi", on=["k"])
+            t1 = time.perf_counter()
+            agg = seng.aggregate(joined, PartitionSpec(by=["k"]),
+                                 [ff.sum(col("v")).alias("s"), ff.count(col("v")).alias("n")])
+            got = agg.as_pandas().sort_values("k").reset_index(drop=True)
+            t2 = time.perf_counter()
+        finally:
+            tracer.disable()
+        recs = tracer.records()
+        tracer.clear()
+        agg_run = dict(tstreaming.last_run_stats)
+        launches = dict(bg.LAUNCHES)
+        st = seng.stats()["shuffle"]
+        (jspan,) = [x for x in recs if x["name"] == "engine.join"]
+        require(jspan["args"].get("strategy") == "shuffle_spill", f"spill-stream-semi: span {jspan['args']}")
+        want = np.flatnonzero(semi_exp["rows"])
+        require(got["k"].tolist() == want.tolist(), "spill-stream-semi: keys vs oracle")
+        require(np.array_equal(got["n"].to_numpy(), semi_exp["n"][want]), "spill-stream-semi: counts vs oracle")
+        require(np.allclose(got["s"].to_numpy(), semi_exp["s"][want], rtol=ORACLE_RTOL, atol=0),
+                "spill-stream-semi: sums vs oracle")
+        require(st["joins_spill"] == 1, f"spill-stream-semi: joins_spill {st['joins_spill']}")
+        require(0 < st["peak_device_bytes"] < stream_bytes,
+                f"spill-stream-semi: the join's peak {st['peak_device_bytes']} bytes, the stream {stream_bytes}")
+        require(agg_run.get("verb") == "aggregate", f"spill-stream-semi: the last stream run {agg_run}")
+        require(launches["bin_sum"] == (agg_run["chunks"] if on_card else 0),
+                f"spill-stream-semi: B1 {launches['bin_sum']} over {agg_run.get('chunks')} chunks")
+        require(leftover(str(root)) == [], f"spill-stream-semi: spill directories left {leftover(str(root))}")
+        emit_cell("spill-stream-semi", {
+            "rows": stream_rows, "chunk_rows": stream_chunk, "semi_keys": SPILL_SEMI_KEYS,
+            "rows_out": int(semi_exp["rows"].sum()), "stream_bytes": stream_bytes, "launches": launches,
+            "aggregate_chunks": agg_run.get("chunks"), "wall_s": t2 - t0, "join_call_s": t1 - t0,
+            "split_s": {"partition_left": span_s(recs, "shuffle.partition", side="left"),
+                        "partition_right": span_s(recs, "shuffle.partition", side="right"),
+                        "pair_loop": span_s(recs, "shuffle.bucket")},
+            "shuffle": {k: st[k] for k in ("buckets", "rows_spilled", "bytes_spilled", "mem_bucket_hits",
+                                           "bucket_joins", "group_joins", "peak_device_bytes", "joins_spill")},
+            "checks": f"keys and counts exact, sums rtol={ORACLE_RTOL} vs float64 isin + bincount"}, seng)
+        del agg, joined, got
+
+        # spill-repartition-stream
+        zero_launches()
+        t0 = time.perf_counter()
+        part = seng.repartition(stream(), PartitionSpec(by=["k"], algo="hash", num=SPILL_STREAM_BUCKETS))
+        seen = np.zeros(1000, dtype=np.int64)
+        rows_k, sums_k = np.zeros(1000, dtype=np.int64), np.zeros(1000)
+        chunks = 0
+        for sub in part.native:
+            t = sub.as_arrow()
+            k, v = t.column("k").to_numpy(), t.column("v").to_numpy(zero_copy_only=False)
+            ks = np.unique(k)
+            require(not seen[ks].any(), "spill-repartition-stream: a key in two chunks")
+            seen[ks] = 1
+            rows_k += np.bincount(k, minlength=1000)
+            ok = ~np.isnan(v)
+            sums_k += np.bincount(k[ok], weights=v[ok].astype(np.float64), minlength=1000)
+            chunks += 1
+        rep_s = time.perf_counter() - t0
+        st2 = seng.stats()["shuffle"]
+        require(chunks <= SPILL_STREAM_BUCKETS, f"spill-repartition-stream: {chunks} chunks")
+        require(np.array_equal(rows_k, all_exp["rows"]), "spill-repartition-stream: per-key rows vs oracle")
+        require(np.allclose(sums_k, all_exp["s"], rtol=1e-12, atol=1e-9), "spill-repartition-stream: sums vs oracle")
+        require(st2["repartitions_spill"] == 1, f"spill-repartition-stream: repartitions_spill {st2}")
+        require(leftover(str(root)) == [], f"spill-repartition-stream: spill directories left {leftover(str(root))}")
+        emit_cell("spill-repartition-stream", {
+            "rows": stream_rows, "num": SPILL_STREAM_BUCKETS, "chunks": chunks, "wall_s": rep_s,
+            "launches": dict(bg.LAUNCHES), "repartitions_spill": st2["repartitions_spill"],
+            "checks": "each key in one chunk; per-key rows exact, float64 sums vs oracle"}, seng)
+        del part, seng, stbl
+    finally:
+        left = leftover(str(root)) if root.exists() else []
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "spill_path", "cell": "b1-at-shape", "shapes": out["b1"]})
+
+    gc.collect()
+    sync()
+    mem_after = torch.cuda.memory_allocated() if on_card else 0
+    require(mem_after == mem_before, f"spill_path: {mem_after - mem_before} device bytes held after the phase")
+    require(left == [], f"spill_path: spill directories left {left}")
+    out["memory"] = {"before_phase": mem_before, "after_phase": mem_after, "spill_dirs_left": left}
+    emit({"phase": "spill_path", "cell": "memory", **out["memory"]})
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    out["within_limit"] = out["seconds"] <= SPILL_PHASE_LIMIT_S
+    emit({"phase": "spill_path", "cell": "end", "seconds": out["seconds"], "limit_s": SPILL_PHASE_LIMIT_S,
+          "within_limit": out["within_limit"]})
+    return out
+
+
 def urllib_get(rpc, path: str) -> str:
     import urllib.request
 
@@ -6224,8 +6572,10 @@ def main() -> int:
     _release(torch)
     host_path = phase_host_path(torch, np, pd, pa, bg, api, frame_from_numpy, engine, args.seed, args.rows,
                                 args.orders, transform_path["cells"]["demean-dense"]["transform_ms"])
-    _SHARED_TABLES.clear()
     del engine
+    _release(torch)
+    spill_path = phase_spill_path(torch, np, pd, pa, bg, ff, col, dev, args.seed, args.orders)
+    _SHARED_TABLES.clear()
     _release(torch)
     stream_path = phase_stream_path(torch, np, pd, bg, api, ff, col, None, args.seed,
                                     rows=args.stream_rows, f32_rows=args.rows)
@@ -6283,7 +6633,8 @@ def main() -> int:
                    "serve_path": {c: r["launches"][name] for c, r in serve_path["cells"].items()
                                   if "launches" in r},
                    "warehouse_path": {c: r["launches"][name] for c, r in warehouse_path["cells"].items()},
-                   "dist_path": {c: r["launches"][name] for c, r in dist_path["cells"].items()}}
+                   "dist_path": {c: r["launches"][name] for c, r in dist_path["cells"].items()},
+                   "spill_path": {c: r["launches"][name] for c, r in spill_path["cells"].items()}}
         by_frame = {
             dist: {k: f["kernels"][i][k] for k in ("route", "ms", "bound_ms", "library_ms")}
             for dist, f in times["frames"].items()
@@ -6296,6 +6647,7 @@ def main() -> int:
             by_frame.update(cache_path["b1"])  # the delta recompute's new rows
             by_frame.update(warehouse_path["b1"])  # CONNECT torch's SUM of z
             by_frame.update(dist_path["b1"])  # the SUM of z after the distributed join
+            by_frame.update(spill_path["b1"])  # the SUM of l_quantity after the spilled SF10 join
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -6310,7 +6662,8 @@ def main() -> int:
             + sum(by_path["plan_path"].values()) + sum(by_path["analysis_path"].values())
             + sum(by_path["obs_path"].values()) + sum(by_path["services_path"].values())
             + sum(by_path["cache_path"].values()) + sum(by_path["serve_path"].values())
-            + sum(by_path["warehouse_path"].values()) + sum(by_path["dist_path"].values()),
+            + sum(by_path["warehouse_path"].values()) + sum(by_path["dist_path"].values())
+            + sum(by_path["spill_path"].values()),
             "launches_by_path": by_path,
             "on_main_path": name == "bin_sum",
             "max_abs_err": kern["max_abs_err"][name],

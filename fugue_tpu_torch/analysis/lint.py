@@ -2,14 +2,11 @@
 ``fugue_tpu/analysis/lint.py``.
 
 Runs the UDF analyzer plus the plan machinery (an optimizer dry run with
-segment lowering) over a built workflow and returns STRUCTURED
-diagnostics: per-UDF verdict + refusal reason, predicted lowered
-segments, and every optimizer note. Also rendered by
+the join-strategy annotation and segment lowering) over a built workflow
+and returns STRUCTURED diagnostics: per-UDF verdict + refusal reason,
+each join's predicted strategy (``shuffle/strategy.py``), predicted
+lowered segments, and every optimizer note. Also rendered by
 ``workflow.explain(lint=True)``.
-
-Note: the reference's ``"join"`` diagnostics come from the join-strategy
-annotation over the shuffle ladder, which waits for ROADMAP.md A.7; the
-port's reports carry no join strategies, so lint gives none.
 """
 
 from typing import Any, Dict, List, Optional

@@ -164,6 +164,45 @@ FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS = "fugue.tpu.plan.analyze_udfs"
 FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS = "fugue.tpu.plan.translate_udfs"
 
 
+# --- the out-of-core spill ladder (``fugue_tpu_torch/shuffle``;
+# ``fugue_tpu/constants.py`` :221-280, same names and defaults). Master
+# switch (default on; false restores the ladder without spilling: the
+# device join, else the host join).
+FUGUE_TPU_CONF_SHUFFLE_ENABLED = "fugue.tpu.shuffle.enabled"
+# spill-file directory; unset = <tempdir>/fugue_tpu_shuffle. Each shuffle
+# makes a subdirectory of its own, removed on success and on failure.
+FUGUE_TPU_CONF_SHUFFLE_DIR = "fugue.tpu.shuffle.dir"
+# explicit bucket count P (0 = from the size estimate and bucket_bytes)
+FUGUE_TPU_CONF_SHUFFLE_BUCKETS = "fugue.tpu.shuffle.buckets"
+# target bytes a bucket when P is sized from the estimate; a bucket pair
+# and the join's intermediates must fit the budget together (default
+# 1/32 of device_budget_bytes)
+FUGUE_TPU_CONF_SHUFFLE_BUCKET_BYTES = "fugue.tpu.shuffle.bucket_bytes"
+# the device byte budget a join stays under: estimates past it spill.
+# 0/unset = the card's memory (torch.cuda.mem_get_info), or half of the
+# host's MemTotal on the CPU.
+FUGUE_TPU_CONF_SHUFFLE_DEVICE_BUDGET = "fugue.tpu.shuffle.device_budget_bytes"
+# right sides at or under this row count take the broadcast strategy
+# (default: ops/join.py MAX_BROADCAST_ROWS)
+FUGUE_TPU_CONF_JOIN_BROADCAST_MAX_ROWS = "fugue.tpu.join.broadcast_max_rows"
+# kill switch of the overlapped spill: write-behind bucket writes, the
+# memory-resident bucket tier, bucket-pair prefetch and grouping; false
+# restores the serial phase-barrier path (the same span multiset)
+FUGUE_TPU_CONF_SHUFFLE_PIPELINE_ENABLED = "fugue.tpu.shuffle.pipeline.enabled"
+# host-byte ledger of the memory-resident bucket tier. 0/unset = 1/16 of
+# the host's MemTotal, at most 256 MiB; negative turns the tier off
+FUGUE_TPU_CONF_SHUFFLE_MEM_BUCKET_BYTES = "fugue.tpu.shuffle.mem_bucket_bytes"
+# bucket-pair prefetch depth of the spill join; unset = the stream
+# prefetcher's default; <=0 consumes serially
+FUGUE_TPU_CONF_SHUFFLE_PREFETCH_DEPTH = "fugue.tpu.shuffle.prefetch_depth"
+# bucket batches in flight to the background spill writer
+FUGUE_TPU_CONF_SHUFFLE_WRITEBEHIND_DEPTH = "fugue.tpu.shuffle.writebehind_depth"
+# the device_exchange rung's kill switch and its stage cap: read on one
+# card too, where n_shards == 1 keeps the rung closed (its exchange is the
+# multi-device layout's)
+FUGUE_TPU_CONF_SHUFFLE_DEVICE_EXCHANGE_ENABLED = "fugue.tpu.shuffle.device_exchange.enabled"
+FUGUE_TPU_CONF_SHUFFLE_EXCHANGE_STAGE_BYTES = "fugue.tpu.shuffle.device_exchange.stage_bytes"
+
 # --- serving and views (``fugue_tpu_torch/serve``, ``fugue_tpu_torch/views``):
 # the keys of ``fugue_tpu/constants.py`` :279-379, copied with their
 # defaults (views off; the fleet active only over a shared

@@ -72,3 +72,10 @@ class FugueSQLSyntaxError(FugueSQLError):
 
 class FugueSQLRuntimeError(FugueSQLError):
     """The SQL executed but failed at runtime."""
+
+
+class FuguePluginsRegistrationError(FugueTPUError, ValueError):
+    """A plugin could not be registered or resolved (an engine name that no
+    factory knows among them). It is a ``ValueError`` too: the port's
+    engine factory raised that for an unknown name before it had a
+    registry."""

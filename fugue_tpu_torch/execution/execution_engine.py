@@ -94,8 +94,9 @@ _GLOBAL_ENGINE: List[Optional["ExecutionEngine"]] = [None]
 _RUN_CONF: ContextVar[tuple] = ContextVar("fugue_tpu_torch_run_conf", default=())
 
 
-class MapEngine(ABC):
-    """Runs a function over the logical partitions of a frame."""
+class EngineFacet(ABC):
+    """A sub-engine bound to a parent execution engine (``fugue_tpu``
+    ``EngineFacet`` :97): the map and SQL engines."""
 
     def __init__(self, execution_engine: "ExecutionEngine"):
         self._execution_engine = execution_engine
@@ -105,11 +106,24 @@ class MapEngine(ABC):
         return self._execution_engine
 
     @property
+    def execution_engine_constraint(self) -> type:
+        """The engine type this facet requires (``set_sql_engine`` checks)."""
+        return ExecutionEngine
+
+    @property
     def conf(self) -> ParamDict:
         return self._execution_engine.conf
 
+    @property
+    def log(self) -> logging.Logger:
+        return self._execution_engine.log
+
     def to_df(self, df: Any, schema: Any = None) -> DataFrame:
         return self._execution_engine.to_df(df, schema)
+
+
+class MapEngine(EngineFacet):
+    """Runs a function over the logical partitions of a frame."""
 
     @property
     def map_handles_repartition(self) -> bool:
@@ -147,29 +161,9 @@ class MapEngine(ABC):
         raise NotImplementedError(f"{type(self)} doesn't support bags")
 
 
-class SQLEngine(ABC):
+class SQLEngine(EngineFacet):
     """SQL over a dict of named frames, bound to an execution engine
     (``fugue_tpu`` ``SQLEngine`` :124)."""
-
-    def __init__(self, execution_engine: "ExecutionEngine"):
-        self._execution_engine = execution_engine
-
-    @property
-    def execution_engine(self) -> "ExecutionEngine":
-        return self._execution_engine
-
-    @property
-    def execution_engine_constraint(self) -> type:
-        """The engine type this facet requires (``set_sql_engine`` checks)."""
-        return ExecutionEngine
-
-    @property
-    def conf(self) -> ParamDict:
-        return self._execution_engine.conf
-
-    @property
-    def log(self) -> logging.Logger:
-        return self._execution_engine.log
 
     @property
     def dialect(self) -> Optional[str]:

@@ -5,15 +5,18 @@ extension names (``register_transformer("name", f)``), the ``parse_*``
 hooks, and the resolution of a name against the registry and the
 caller's scope (``USING rescale``).
 
-A ``parse_*`` hook is the JAX package's ``fugue_plugin``
-(``fugue_tpu/_utils/registry.py``) trimmed to what the converters use: its
-candidates, tried newest first, each a matcher and a function."""
+A ``parse_*`` hook is a plugin of ``_utils/registry.py`` (the JAX
+package's ``@fugue_plugin def parse_*(obj): return obj``): its
+candidates, highest priority first and the latest registration first
+among equals, each a matcher and a function; with none that matches,
+the object as it is."""
 
 import inspect
 import re
 from typing import Any, Callable, Dict, List, Optional, Type
 
 from .._utils.convert import get_caller_global_local_vars, to_function, to_type
+from .._utils.registry import ConditionalDispatcher
 from ..exceptions import FugueInterfacelessError
 
 
@@ -71,30 +74,17 @@ class ExtensionRegistry:
         return name in self._registry
 
 
-class ParseHook:
-    """``hook(obj)``: the first candidate whose matcher takes ``obj``
-    turns it into an extension spec; with none, ``obj`` as it is.
-    ``@hook.candidate(matcher)`` registers one."""
+def _as_is(obj: Any) -> Any:
+    return obj
 
-    def __init__(self) -> None:
-        self._candidates: List[Any] = []
 
-    def candidate(self, matcher: Callable[..., bool]) -> Callable[[Callable], Callable]:
-        def deco(func: Callable) -> Callable:
-            self._candidates.insert(0, (matcher, func))
-            return func
+class ParseHook(ConditionalDispatcher):
+    """``hook(obj)``: the registry's dispatcher whose default returns
+    ``obj`` as it is. ``@hook.candidate(matcher, priority)`` registers a
+    function that turns a matching ``obj`` into an extension spec."""
 
-        return deco
-
-    def __call__(self, obj: Any) -> Any:
-        for matcher, func in self._candidates:
-            try:
-                ok = matcher(obj)
-            except Exception:
-                ok = False
-            if ok:
-                return func(obj)
-        return obj
+    def __init__(self, name: str = "parse_hook") -> None:
+        super().__init__(_as_is, name=name)
 
 
 def resolve_extension_object(

@@ -17,7 +17,7 @@ from .._shared import ExtensionRegistry, ParseHook, parse_comment_annotation, re
 from .creator import Creator
 
 _CREATOR_REGISTRY = ExtensionRegistry("creator")
-parse_creator = ParseHook()
+parse_creator = ParseHook("parse_creator")
 
 
 def register_creator(alias: str, obj: Any, on_dup: str = "overwrite") -> None:

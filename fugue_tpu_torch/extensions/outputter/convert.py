@@ -15,7 +15,7 @@ from .._utils import parse_validation_rules_from_comment, to_validation_rules
 from .outputter import Outputter
 
 _OUTPUTTER_REGISTRY = ExtensionRegistry("outputter")
-parse_outputter = ParseHook()
+parse_outputter = ParseHook("parse_outputter")
 
 
 def register_outputter(alias: str, obj: Any, on_dup: str = "overwrite") -> None:

@@ -18,7 +18,7 @@ from .._utils import parse_validation_rules_from_comment, to_validation_rules
 from .processor import Processor
 
 _PROCESSOR_REGISTRY = ExtensionRegistry("processor")
-parse_processor = ParseHook()
+parse_processor = ParseHook("parse_processor")
 
 
 def register_processor(alias: str, obj: Any, on_dup: str = "overwrite") -> None:

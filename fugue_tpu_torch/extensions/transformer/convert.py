@@ -36,8 +36,8 @@ _CO_INPUT_RE = "^(c|[lspqt]+)[fF]?x*z?$"
 
 _TRANSFORMER_REGISTRY = ExtensionRegistry("transformer")
 _OUT_TRANSFORMER_REGISTRY = ExtensionRegistry("output_transformer")
-parse_transformer = ParseHook()
-parse_output_transformer = ParseHook()
+parse_transformer = ParseHook("parse_transformer")
+parse_output_transformer = ParseHook("parse_output_transformer")
 
 
 def register_transformer(alias: str, obj: Any, on_dup: str = "overwrite") -> None:

@@ -15,8 +15,10 @@
 The JAX package's ``shard_map`` programs run here as eager PyTorch on one
 device: its broadcast strategy, with the right side whole and the left
 rows in place. On one device its ``copartition`` moves no row and computes
-the same thing, so the shuffle strategy (the exchange, ROADMAP.md A.7) is
-not ported. Hashes are held as int64 images whose signed order is the
+the same thing. A join past the device budget runs this form one bucket
+pair at a time (the spill ladder, ``shuffle/join.py``); the shuffle
+strategy's exchange of rows between devices is the multi-device layout's
+(ROADMAP.md A.7) and is not ported. Hashes are held as int64 images whose signed order is the
 hash's unsigned order (``unsigned_order``), because PyTorch has no
 ``searchsorted`` over ``uint64``.
 

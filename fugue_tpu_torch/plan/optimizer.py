@@ -6,13 +6,14 @@ before execution. Everything is gated by ``fugue.tpu.plan.optimize``
 (default ON) with per-pass switches; the unoptimized path is always one
 conf key away.
 
-The UDF analyzer's pass (``fugue_tpu_torch/analysis``) runs first, gated
-by ``fugue.tpu.plan.analyze_udfs`` and ``.translate_udfs``. The last
-pass, ``annotate_delta_eligibility``, marks the verbs the delta cache
-(``fugue_tpu_torch/cache/delta.py``) can serve incrementally. The
-reference's join-strategy annotation (``annotate_join_strategies``, over
-``shuffle/strategy.py``) waits for ROADMAP.md A.7, and the report notes
-it once. Annotations change no result.
+``annotate_join_strategies`` runs first: it marks every join with the
+strategy the engine's ladder (``shuffle/strategy.py``, the same decision
+function) picks for the plan-time size estimates. The UDF analyzer's pass
+(``fugue_tpu_torch/analysis``) runs next, gated by
+``fugue.tpu.plan.analyze_udfs`` and ``.translate_udfs``. The last pass,
+``annotate_delta_eligibility``, marks the verbs the delta cache
+(``fugue_tpu_torch/cache/delta.py``) can serve incrementally.
+Annotations change no result.
 """
 
 import threading
@@ -28,15 +29,27 @@ from ..constants import (
     FUGUE_TPU_CONF_PLAN_TRANSLATE_UDFS,
 )
 from ..workflow._tasks import FugueTask
-from .ir import K_LOAD, LNode, build_graph
+from .ir import (
+    K_CREATE,
+    K_DISTINCT,
+    K_DROP,
+    K_DROPNA,
+    K_FILLNA,
+    K_FILTER,
+    K_JOIN,
+    K_LOAD,
+    K_PROJECT,
+    K_RENAME,
+    K_SAMPLE,
+    K_SELECT,
+    K_TAKE,
+    LNode,
+    build_graph,
+)
 from .lowering import lower_segments
 from .passes import emit, fuse_verbs, prune_columns, pushdown_filters
 
 __all__ = ["PlanReport", "PlanStats", "optimize_tasks"]
-
-# what the report says of the pass that waits for its layer
-_WAITING = ("join strategies not annotated: the shuffle ladder is ROADMAP.md A.7",)
-
 
 class PlanStats:
     """Engine-level optimizer counters (``engine.plan_stats``). Locked:
@@ -113,6 +126,8 @@ class PlanReport:
         self.udfs_translated = 0
         self.udfs_refused = 0
         self.udf_diags: List[Dict[str, Any]] = []
+        # plan-time join strategy per join node (annotate_join_strategies)
+        self.join_strategies: List[Dict[str, Any]] = []
         self.segments: List[str] = []
         self.notes: List[str] = []
         self.before: List[str] = []
@@ -193,6 +208,110 @@ def _flag(conf: Any, key: str, default: bool = True) -> bool:
         return default
 
 
+# kinds whose output is never larger than their (first) input: a size
+# estimate flows through them toward the nearest create or load source
+_SIZE_PASSTHROUGH_KINDS = {
+    K_PROJECT,
+    K_DROP,
+    K_RENAME,
+    K_FILTER,
+    K_SELECT,
+    K_DISTINCT,
+    K_DROPNA,
+    K_FILLNA,
+    K_SAMPLE,
+    K_TAKE,
+}
+
+
+def _estimate_node_size(
+    n: LNode, memo: Dict[int, Tuple[Optional[int], Optional[int], bool]]
+) -> Tuple[Optional[int], Optional[int], bool]:
+    """A static (bytes, rows, is_stream) upper-bound estimate of one plan
+    node: concrete created data and parquet metadata are the sources;
+    verbs that shrink rows pass the estimate through; everything else is
+    unknown (None), and the run time checks the live sizes again."""
+    if id(n) in memo:
+        return memo[id(n)]
+    est: Tuple[Optional[int], Optional[int], bool] = (None, None, False)
+    if n.kind == K_CREATE:
+        data = n.info.get("data")
+        if n.info.get("is_stream"):
+            est = (None, None, True)
+        else:
+            try:
+                import pandas as pd
+                import pyarrow as pa
+
+                from ..dataframe import DataFrame
+                from ..shuffle.strategy import estimate_frame_bytes, estimate_frame_rows
+
+                if isinstance(data, pa.Table):
+                    est = (int(data.nbytes), int(data.num_rows), False)
+                elif isinstance(data, pd.DataFrame):
+                    est = (int(data.memory_usage(index=False, deep=False).sum()), int(len(data)), False)
+                elif isinstance(data, DataFrame):
+                    est = (estimate_frame_bytes(data), estimate_frame_rows(data), False)
+                elif isinstance(data, list):
+                    est = (None, len(data), False)
+            except Exception:
+                est = (None, None, False)
+    elif n.kind == K_LOAD:
+        path, fmt = n.info.get("path"), n.info.get("fmt") or ""
+        try:
+            from .._utils.io import FileParser
+
+            if isinstance(path, str) and FileParser(path, fmt or None).file_format == "parquet":
+                import pyarrow.parquet as pq
+
+                meta = pq.ParquetFile(path).metadata
+                nbytes = sum(meta.row_group(i).total_byte_size for i in range(meta.num_row_groups))
+                est = (int(nbytes), int(meta.num_rows), False)
+        except Exception:
+            est = (None, None, False)
+    elif n.kind in _SIZE_PASSTHROUGH_KINDS and len(n.inputs) >= 1:
+        est = _estimate_node_size(n.inputs[0], memo)
+    memo[id(n)] = est
+    return est
+
+
+def annotate_join_strategies(
+    nodes: List[LNode], conf: Any, report: "PlanReport", device: Any = None
+) -> None:
+    """Mark every join node with the strategy the engine's ladder (the same
+    ``choose_join_strategy``) picks for the plan-time size estimates on
+    ``device``, and note it in the report, so ``workflow.explain()`` shows
+    broadcast / copartition / shuffle_spill before anything runs. Only an
+    annotation: the run-time decision over the live sizes is the one that
+    holds. Plan time counts one shard, the port's one card."""
+    from ..shuffle.strategy import choose_join_strategy, default_mesh_shards
+
+    n_shards = default_mesh_shards()
+    memo: Dict[int, Tuple[Optional[int], Optional[int], bool]] = {}
+    idx = {id(n): i for i, n in enumerate(nodes)}
+    for n in nodes:
+        if n.kind != K_JOIN or len(n.inputs) != 2:
+            continue
+        how = n.info.get("how", "")
+        lb, _lr, ls = _estimate_node_size(n.inputs[0], memo)
+        rb, rr, rs = _estimate_node_size(n.inputs[1], memo)
+        if how == "cross":
+            strategy, reason = "broadcast", "cross join (constant-key expansion)"
+        elif ls or rs:
+            strategy, reason = (
+                "stream",
+                "one-pass side: streaming join plan, spill shuffle if ineligible",
+            )
+        else:
+            dec = choose_join_strategy(conf, lb, rb, rr, n_shards=n_shards, device=device)
+            strategy, reason = dec.strategy, dec.reason
+        n.annotations.append(f"strategy={strategy}")
+        report.join_strategies.append(
+            {"node": f"t{idx[id(n)]}", "how": how, "strategy": strategy, "reason": reason}
+        )
+        report.note("join t%d (%s): strategy=%s -- %s" % (idx[id(n)], how, strategy, reason))
+
+
 def annotate_delta_eligibility(nodes: List[LNode], report: "PlanReport") -> None:
     """Mark every verb the partition-level delta cache
     (``cache/delta.py``) can serve incrementally: row-local verbs split
@@ -254,20 +373,22 @@ def optimize_tasks(
     conf: Any,
     stats: Optional[PlanStats] = None,
     analysis_stats: Any = None,
+    device: Any = None,
 ) -> Tuple[List[FugueTask], Dict[int, FugueTask], Set[int], PlanReport]:
     """Rewrite the task DAG. Returns (tasks to execute, result-alias map
     {id(original task): executed task}, ids of original tasks whose
     intermediate result is no longer computed anywhere (fused interiors,
     producers a filter commuted past), report). With the optimizer off
-    the ORIGINAL list round-trips untouched."""
+    the ORIGINAL list round-trips untouched. ``device`` is the engine's,
+    whose memory is the join strategies' budget where the conf sets
+    none."""
     enabled = _flag(conf, FUGUE_TPU_CONF_PLAN_OPTIMIZE, True)
     report = PlanReport(enabled)
     if not enabled or len(tasks) == 0:
         return tasks, {}, set(), report
     nodes = build_graph(tasks)
     report.before = _render_nodes(nodes)
-    for msg in _WAITING:
-        report.note(msg)
+    annotate_join_strategies(nodes, conf, report, device)
     if _flag(conf, FUGUE_TPU_CONF_PLAN_ANALYZE_UDFS, True):
         # UDF static analysis FIRST: translated UDFs become plain plan
         # nodes every later pass (pushdown/prune/fuse/lower) composes

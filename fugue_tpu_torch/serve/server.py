@@ -213,7 +213,7 @@ class EngineServer:
         if engine is None:
             from ..execution.factory import make_execution_engine
 
-            engine = make_execution_engine(None, conf)
+            engine = make_execution_engine(None, conf=conf)
         self._engine = engine
         c = engine.conf
         self.max_concurrent = max(1, int(c.get(FUGUE_TPU_CONF_SERVE_MAX_CONCURRENT, 2)))

@@ -129,6 +129,18 @@ from ..ops.segment import (
 from ..parallel.device import resolve_device
 from ..parallel.profiler import annotate
 from ..schema import Schema
+from ..shuffle.join import shuffle_spill_join, spill_repartition
+from ..shuffle.partitioner import spill_dir_bytes
+from ..shuffle.stats import ShuffleStats
+from ..shuffle.strategy import (
+    broadcast_max_rows,
+    choose_join_strategy,
+    device_budget_bytes,
+    device_budget_info,
+    estimate_frame_bytes,
+    estimate_frame_rows,
+    shuffle_enabled,
+)
 from ..torch_annotations import sniff_torch_func
 from .dataframe import TorchDataFrame, from_storage, is_wide_unsigned
 from .group_ops import SEGMENT_SPACE, SEGMENTS, SPANS_SHARDS, VALID
@@ -489,6 +501,13 @@ class TorchExecutionEngine(ExecutionEngine):
         self._host_engine._resilience_stats = self.resilience_stats
         self._map_engine = TorchMapEngine(self)
         self._pipeline_stats = PipelineStats()
+        # the spill ladder: its counters, the live spill directories the
+        # resource sampler reads, and the device budget with the source
+        # that set it (conf, cuda_mem_get_info or host_meminfo)
+        self._shuffle_stats = ShuffleStats()
+        self._active_spill_dirs: set = set()
+        self._last_join_strategy: Optional[str] = None
+        self._shuffle_stats.set_budget(*device_budget_info(self.conf, self._device))
         # per-verb roofline recording (record only): while tracing is on,
         # each traced verb's close folds its bytes/s and rows/s into this
         # engine's tuner; fugue.tpu.tuning.rooflines=false opts out
@@ -497,21 +516,39 @@ class TorchExecutionEngine(ExecutionEngine):
         install_verb_observer(self)
 
     def _stats_sources(self) -> Dict[str, Callable[[], Any]]:
-        """The base sources and ``pipeline``. The JAX engine's
-        ``jit_cache`` has no counterpart here (no jit), and ``shuffle``
-        comes with the out-of-core shuffle (ROADMAP.md A.7)."""
-        return {**super()._stats_sources(), "pipeline": lambda: self._pipeline_stats}
+        """The base sources, ``pipeline`` and ``shuffle`` (the spill
+        ladder's counters). The JAX engine's ``jit_cache`` has no
+        counterpart here (no jit)."""
+        return {
+            **super()._stats_sources(),
+            "pipeline": lambda: self._pipeline_stats,
+            "shuffle": lambda: self._shuffle_stats,
+        }
 
     def _resource_probe_fns(self) -> Dict[str, Callable[[Any], float]]:
-        """The base probes and the ingest pipeline's ``overlap_fraction``.
-        Registered from the base constructor, before ``_pipeline_stats``
-        exists, so it reads that attribute guarded."""
+        """The base probes, the ingest pipeline's ``overlap_fraction`` and
+        ``shuffle_spill_bytes`` (the live spill directories' bytes).
+        Registered from the base constructor, before the attributes they
+        read exist, so they read them guarded."""
 
         def overlap(e: Any) -> float:
             ps = getattr(e, "_pipeline_stats", None)
             return float(ps.as_dict()["overlap_fraction"]) if ps is not None else 0.0
 
-        return {**super()._resource_probe_fns(), "overlap_fraction": overlap}
+        def spill_bytes(e: Any) -> float:
+            # on the sampler's thread while joins change the set: a race
+            # must not break the sampler
+            try:
+                dirs = getattr(e, "_active_spill_dirs", None)
+                return float(spill_dir_bytes(dirs)) if dirs else 0.0
+            except Exception:
+                return 0.0
+
+        return {
+            **super()._resource_probe_fns(),
+            "overlap_fraction": overlap,
+            "shuffle_spill_bytes": spill_bytes,
+        }
 
     @property
     def device(self) -> torch.device:
@@ -626,9 +663,29 @@ class TorchExecutionEngine(ExecutionEngine):
         the default with keys), evenly (``even``, the default without) or
         at random (``rand``); ``coarse`` moves none. On one device each of
         them picks the one device, so the frame comes back as it lies, with
-        no copy. An empty spec returns ``df`` untouched."""
+        no copy. An empty spec returns ``df`` untouched.
+
+        The out-of-core layout (the JAX engine's :800-830): a hash spec
+        with keys over a one-pass stream, or over a frame whose estimate
+        passes the device budget, goes through ``spill_repartition`` while
+        ``fugue.tpu.shuffle.enabled`` holds: a one-pass stream of arrow
+        chunks in which each key lies in exactly one chunk, never on the
+        device whole."""
         if partition_spec is None or partition_spec.empty:
             return df
+        by = list(partition_spec.partition_by)
+        algo = partition_spec.algo or ("hash" if by else "even")
+        if algo == "hash" and by and shuffle_enabled(self.conf):
+            streaming = is_stream_frame(df)
+            est = None if streaming else estimate_frame_bytes(df)
+            if streaming or (est is not None and est > device_budget_bytes(self.conf, self._device)):
+                try:
+                    num = int(partition_spec.num_partitions or "0")
+                except ValueError:
+                    num = 0
+                res = spill_repartition(self, df, by, num=num)
+                if res is not None:
+                    return res
         return self.to_df(df)
 
     def _repartition_single(self, df: Any) -> TorchDataFrame:
@@ -1502,28 +1559,57 @@ class TorchExecutionEngine(ExecutionEngine):
             return self._join_impl(df1, df2, how, on, sp)
 
     def _join_impl(self, df1: Any, df2: Any, how: str, on: Optional[List[str]], sp: Any) -> DataFrame:
-        """Hash joins on the device (``ops/join.py``): inner / left_outer /
-        left_semi / left_anti by a probe of the hash-sorted right side when
-        its keys are unique, by the 1:N/N:M expansion when they are not;
-        right_outer mirrors left_outer; full_outer is left_outer ∪ the
-        NULL-extended anti of the right side; cross runs through the
-        expansion on a constant key. Every join runs in the broadcast form:
-        the right side whole and the left rows in place.
+        """The JAX engine's ladder (:1586-1680) without its device_exchange
+        rung, which needs a mesh. A one-pass stream takes the streaming join
+        first (``streaming_hash_join``: a stream of the result); a stream
+        the streaming plan refuses spills (``shuffle_spill_join``) rather
+        than being read whole; it is read whole only where the spill
+        refuses too (the shuffle off, a cross join, keys it cannot hash). Bounded sides go to ``choose_join_strategy`` with their
+        estimates (and the sizes the tuner learned where an estimate is
+        unknown): past the device budget they spill, bucket pair by bucket
+        pair on the device; under it the device join runs. The span's
+        ``strategy`` and ``reason`` are the reference's.
+
+        The device join (``ops/join.py``): inner / left_outer / left_semi /
+        left_anti by a probe of the hash-sorted right side when its keys
+        are unique, by the 1:N/N:M expansion when they are not; right_outer
+        mirrors left_outer; full_outer is left_outer ∪ the NULL-extended
+        anti of the right side; cross runs through the expansion on a
+        constant key. On one card ``broadcast`` and ``copartition`` both
+        run it in the broadcast form: the right side whole and the left
+        rows in place; the span names the one the reference's rule picks
+        (``broadcast`` up to ``fugue.tpu.join.broadcast_max_rows`` right
+        rows).
 
         Where the JAX engine joins on its host engine (keys it cannot align,
         host columns whose rows would move, expansions past
         ``MAX_EXPAND_ROWS``, a cross join past ``MAX_BROADCAST_ROWS``) the
         host engine joins the two frames' host copies, and the result comes
-        back to the device (``fugue::host_join``).
-
-        When either side is a one-pass stream, the streaming join runs
-        first (``streaming_hash_join``: a stream of the result); a plan it
-        does not take materializes the stream, as in the JAX engine."""
+        back to the device (``fugue::host_join``)."""
+        self._last_join_strategy = None
+        tuner = self.tuner
         if is_stream_frame(df1) or is_stream_frame(df2):
+            tune = tuner.join_params(None, None, None)[3]
             res = streaming_hash_join(self, df1, df2, how, on)
             if res is not None:
                 sp.set(strategy="stream")
                 return res
+            if shuffle_enabled(self.conf):
+                res = shuffle_spill_join(self, df1, df2, how, on, tune=tune)
+                if res is not None:
+                    sp.set(strategy="shuffle_spill", reason="stream ineligible for the streaming join plan")
+                    return res
+            self.log.warning("streaming join ineligible for this plan; materializing the stream")
+        else:
+            est_l, est_r, est_rr, tune = tuner.join_params(
+                estimate_frame_bytes(df1), estimate_frame_bytes(df2), estimate_frame_rows(df2)
+            )
+            dec = choose_join_strategy(self.conf, est_l, est_r, est_rr, n_shards=1, device=self._device)
+            if dec.strategy == "shuffle_spill" and shuffle_enabled(self.conf):
+                res = shuffle_spill_join(self, df1, df2, how, on, tune=tune)
+                if res is not None:
+                    sp.set(strategy="shuffle_spill", reason=dec.reason)
+                    return res
         jt = parse_join_type(how)
         j1, j2 = self.to_df(df1), self.to_df(df2)
         if jt in _KERNEL_HOW:
@@ -1539,7 +1625,7 @@ class TorchExecutionEngine(ExecutionEngine):
         else:
             res = self._cross_device(j1, j2, on)
         if res is not None:
-            sp.set(strategy="broadcast" if jt == "cross" else "device")
+            sp.set(strategy="broadcast" if jt == "cross" else self._last_join_strategy or "device")
             return res
         sp.set(strategy="host")
         local1, local2 = self._host(j1), self._host(j2)
@@ -1763,6 +1849,11 @@ class TorchExecutionEngine(ExecutionEngine):
             if prepared is None:
                 return None
             left_key_arrs, right_key_arrs = prepared
+            # the strategy the reference's rule names for this right side
+            n_right = next(iter(j2.device_cols.values())).shape[0] if j2.device_cols else j2.count()
+            self._last_join_strategy = (
+                "broadcast" if n_right <= broadcast_max_rows(self.conf) else "copartition"
+            )
             value_names = [n for n in j2.schema.names if n not in keys and n in out_schema]
             # value entries: (out_name, tensor, left_outer miss fill); masked
             # columns ship their mask as an extra gathered tensor (miss = True)

@@ -118,7 +118,7 @@ def stream_parquet(
 
 def _iter_local_frames(df: Any, chunk_rows: int) -> Iterator[LocalDataFrame]:
     """A stream's local frames; a row stream's rows in batches of
-    ``chunk_rows``."""
+    ``chunk_rows``; a bounded frame whole."""
     if isinstance(df, LocalDataFrameIterableDataFrame):
         yield from df.native
     elif isinstance(df, IterableDataFrame):
@@ -130,6 +130,9 @@ def _iter_local_frames(df: Any, chunk_rows: int) -> Iterator[LocalDataFrame]:
             yield ArrayDataFrame(rows, df.schema)
     elif isinstance(df, LocalBoundedDataFrame):
         yield df
+    elif isinstance(df, DataFrame):
+        # a bounded frame (on the device) whole, as one local chunk
+        yield df.as_local_bounded()
     else:
         raise FugueInvalidOperation(f"can't stream from {type(df)}")
 

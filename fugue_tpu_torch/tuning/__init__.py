@@ -1,7 +1,7 @@
 """Cost-based adaptive execution, copied from ``fugue_tpu/tuning``: a
-feedback layer that re-derives a stream's chunk size and prefetch depth
-(and, once the shuffle ladder is ported, its bucket count and join-side
-estimates) from the engine's own telemetry, keyed by plan fingerprint and
+feedback layer that re-derives a stream's chunk size and prefetch depth,
+and a spill join's bucket count, pipeline knobs and side estimates, from
+the engine's own telemetry, keyed by plan fingerprint and
 persisted to ``fugue_tpu_torch/build/_tuned.json`` (or
 ``fugue.tpu.tuning.path``) so a warm engine converges across runs and
 survives restart. ``fugue.tpu.tuning.enabled=false`` resolves every knob

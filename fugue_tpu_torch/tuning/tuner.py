@@ -18,10 +18,14 @@ consumer waits, wall time). This module closes the loop:
   :class:`~fugue_tpu_torch.tuning.store.TunedStore`.
 
 The join and shuffle knobs (``join_params``, :class:`ExchangeHandle`,
-``adjust_buckets``, ``adjust_pipeline``) are copied whole; their callers,
-the shuffle ladder, wait for ROADMAP.md A.7. The device budget that caps
-a chunk is the card's memory (``torch.cuda.mem_get_info``), or half the
-host's on the CPU.
+``adjust_buckets``, ``adjust_pipeline``) feed the spill ladder: the
+torch engine's ``_join_impl`` asks ``join_params`` for a join's side
+estimates, and ``shuffle/join.py`` asks the handle for the bucket count
+and the pipeline's depth and tier, and reports the sides and the pair
+peak back. The device budget that caps a chunk and a bucket is
+``shuffle/strategy.py``'s ``device_budget_bytes``: the conf's, else the
+card's memory (``torch.cuda.mem_get_info``), or half the host's on the
+CPU.
 
 Degradation ladder (every rung gives the same results):
 
@@ -330,25 +334,6 @@ def adjust_pipeline(
     }
 
 
-def device_budget_bytes(device: Any = None) -> int:
-    """The byte budget a chunk is sized against: the card's memory
-    (``torch.cuda.mem_get_info``) for a CUDA device, else half the host's
-    memory (the CPU device is host memory), else 16 GiB."""
-    import torch
-
-    dev = torch.device(device) if device is not None else None
-    if dev is not None and dev.type == "cuda":
-        return int(torch.cuda.mem_get_info(dev)[1])
-    try:
-        with open("/proc/meminfo") as f:
-            for line in f:
-                if line.startswith("MemTotal:"):
-                    return int(line.split()[1]) * 1024 // 2
-    except Exception:
-        pass
-    return 1 << 34
-
-
 # -- run scope ---------------------------------------------------------------
 class _Scope:
     """One workflow.run's tuning context: the plan fingerprint, per-kind
@@ -484,8 +469,8 @@ class ExchangeHandle:
 
     def bucket_count(self, static_buckets: int) -> int:
         """Calibrated bucket count for this exchange: the learned value
-        when one exists, the caller's static rule (``static_buckets``)
-        otherwise."""
+        when one exists, the caller's static rule (``static_buckets``,
+        ``shuffle/strategy.py`` ``bucket_count``) otherwise."""
         cal = self.entry.get("buckets")
         if cal:
             n = max(1, min(4096, int(cal)))
@@ -738,8 +723,10 @@ class Tuner:
 
     # -- learning ------------------------------------------------------------
     def _budget(self) -> int:
+        from ..shuffle.strategy import device_budget_bytes
+
         try:
-            return device_budget_bytes(self._device)
+            return device_budget_bytes(self._conf, self._device)
         except Exception:
             return 0
 

@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional
 
 from .._utils.assertion import assert_or_throw
 from .._utils.convert import get_caller_global_local_vars
-from .._utils.params import ParamDict
+from .._utils.params import IndexedOrderedDict, ParamDict
 from ..collections.partition import PartitionSpec
 from ..collections.sql import StructuredRawSQL
 from ..collections.yielded import PhysicalYielded, Yielded
@@ -64,6 +64,68 @@ from ._checkpoint import StrongCheckpoint, WeakCheckpoint
 from ._tasks import CreateTask, FugueTask, OutputTask, ProcessTask
 from ._workflow_context import FugueWorkflowContext
 
+
+
+class WorkflowDataFrames(IndexedOrderedDict):
+    """Ordered dictionary of :class:`WorkflowDataFrame`, copied from
+    ``fugue_tpu/workflow/workflow.py`` (:41): keyed or positional (``_<n>``
+    keys), read-only once built, every member from the same workflow."""
+
+    def __init__(self, *args: Any, **kwargs: Any):
+        super().__init__()
+        self._has_dict_key = False
+        for a in args:
+            self._append(a)
+        for k, v in kwargs.items():
+            self[k] = v
+        self.set_readonly()
+
+    @property
+    def has_key(self) -> bool:
+        return self._has_dict_key
+
+    @property
+    def workflow(self) -> "FugueWorkflow":
+        assert_or_throw(len(self) > 0, FugueWorkflowCompileError("empty WorkflowDataFrames"))
+        return next(iter(self.values())).workflow
+
+    def _append(self, obj: Any) -> None:
+        if obj is None:
+            return
+        if isinstance(obj, WorkflowDataFrame):
+            self[f"_{len(self)}"] = obj
+        elif isinstance(obj, (WorkflowDataFrames, dict)):
+            for k, v in obj.items():
+                if isinstance(k, str) and k.startswith("_"):
+                    # positional members take new keys on a merge, or the
+                    # second container's "_0" would overwrite the first's
+                    self._append(v)
+                else:
+                    self[k] = v
+        elif isinstance(obj, (list, tuple)):
+            for x in obj:
+                self._append(x)
+        else:
+            raise FugueWorkflowCompileError(f"can't add {type(obj)} to WorkflowDataFrames")
+
+    def __getitem__(self, key: Any) -> "WorkflowDataFrame":  # type: ignore
+        if isinstance(key, int):
+            return self.get_value_by_index(key)
+        return super().__getitem__(key)
+
+    def __setitem__(self, key: Any, value: Any) -> None:
+        assert_or_throw(
+            isinstance(key, str), FugueWorkflowCompileError(f"key {key!r} must be a string")
+        )
+        assert_or_throw(
+            isinstance(value, WorkflowDataFrame),
+            FugueWorkflowCompileError(f"{key} value must be a WorkflowDataFrame"),
+        )
+        if len(self) > 0 and value.workflow is not next(iter(self.values())).workflow:
+            raise FugueWorkflowCompileError("all members must come from the same workflow")
+        super().__setitem__(key, value)  # the read-only check runs first
+        if not key.startswith("_"):
+            self._has_dict_key = True
 
 
 class FugueWorkflowResult:
@@ -875,7 +937,8 @@ class FugueWorkflow:
             "plan.optimize", cat="plan", tasks=len(self._tasks)
         ) as psp:
             run_tasks, aliases, removed, report = optimize_tasks(
-                self._tasks, plan_conf, stats=e.plan_stats, analysis_stats=e.analysis_stats
+                self._tasks, plan_conf, stats=e.plan_stats, analysis_stats=e.analysis_stats,
+                device=getattr(e, "device", None),
             )
             psp.set(**report.span_attrs())
         self._last_plan_report = report
@@ -953,7 +1016,9 @@ class FugueWorkflow:
         from ..plan.ir import build_graph
         from ..plan.optimizer import _render_nodes
 
-        _, _, _, report = optimize_tasks(self._tasks, self._merged_plan_conf(conf, engine))
+        _, _, _, report = optimize_tasks(
+            self._tasks, self._merged_plan_conf(conf, engine), device=getattr(engine, "device", None)
+        )
         if not report.before:
             report.before = _render_nodes(build_graph(self._tasks))
         return report
@@ -964,9 +1029,9 @@ class FugueWorkflow:
         verbs_fused, segments_lowered, verbs_absorbed, udfs_translated,
         bytes_skipped estimate), a line for each lowered segment
         (``lowered segment <fingerprint>: steps -> terminal``) and the
-        notes: every UDF's analyzer verdict (``udf <name>[<fp>]:
-        translated ...`` or ``interpreted -- <reason>``), refusals, and
-        the passes that are not ported. Then the result cache's would-be
+        notes: each join's strategy (``join t<i> (<how>): strategy=...``),
+        every UDF's analyzer verdict (``udf <name>[<fp>]: translated ...``
+        or ``interpreted -- <reason>``) and refusals. Then the result cache's would-be
         cut over the optimized plan (which tasks hit, which are
         uncacheable and why, which producers a warm run skips, which
         grown sources recompute only their new partitions), the
@@ -981,7 +1046,7 @@ class FugueWorkflow:
         from ..tuning import describe_tuning, plan_fingerprint
 
         merged = self._merged_plan_conf(conf, engine)
-        run_tasks, _, _, report = optimize_tasks(self._tasks, merged)
+        run_tasks, _, _, report = optimize_tasks(self._tasks, merged, device=getattr(engine, "device", None))
         if not report.before:
             report.before = _render_nodes(build_graph(self._tasks))
         eng = engine if isinstance(engine, ExecutionEngine) else None

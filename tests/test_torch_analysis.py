@@ -715,19 +715,27 @@ def test_lint_structured_diagnostics():
         rep = dag.lint()
         dag2 = m.Workflow()
         dag2.transform(pdf, using=udf_apply, schema="*,z:double").yield_dataframe_as("r2", as_local=True)
-        reps[m.name] = (rep, dag2.lint(), dag.explain(lint=True))
-    rep, rep2, text = reps["port"]
+        # two joins, one under the budget and one past it: the join
+        # findings are the strategy ladder's, without the device_exchange
+        # rung (plan time counts 8 shards in the JAX package, 1 in the port)
+        dag3 = m.Workflow({"fugue.tpu.shuffle.device_budget_bytes": 100_000,
+                           "fugue.tpu.shuffle.device_exchange.enabled": False})
+        a = dag3.df(pdf)
+        a.inner_join(dag3.df(pdf[["k"]].drop_duplicates()))
+        a.left_outer_join(dag3.df(pdf.rename(columns={c: c + "_r" for c in pdf.columns if c != "k"})))
+        reps[m.name] = (rep, dag2.lint(), dag.explain(lint=True), dag3.lint())
+    rep, rep2, text, rep3 = reps["port"]
     udfs = rep.udfs
     assert len(udfs) == 1 and udfs[0].status == "translated", rep.as_dict()
     assert any(d.kind == "segment" for d in rep.diagnostics), rep.as_dict()
     assert "== lint ==" in text and "[udf]" in text
     assert rep2.udfs[0].status == "apply", rep2.as_dict()
     assert "apply" in rep2.udfs[0].message
-    # udf and segment findings as the reference's (its join findings wait
-    # for A.7's strategy annotation; the notes differ by the passes each
-    # package has)
-    for got, exp in ((rep, reps["ref"][0]), (rep2, reps["ref"][1])):
-        for kind in ("udf", "segment"):
+    assert [d.status for d in rep3.by_kind("join")] == ["broadcast", "shuffle_spill"], rep3.as_dict()
+    # udf, join and segment findings as the reference's (the notes differ
+    # by the passes each package has)
+    for got, exp in ((rep, reps["ref"][0]), (rep2, reps["ref"][1]), (rep3, reps["ref"][3])):
+        for kind in ("udf", "join", "segment"):
             assert [d.as_dict() for d in got.by_kind(kind)] == [d.as_dict() for d in exp.by_kind(kind)]
 
 

@@ -206,3 +206,62 @@ print(bad); sys.exit(1 if bad else 0)
         [sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=180
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_spill_ladder_loads_no_jax(tmp_path):
+    """``shuffle`` (strategy, stats, partitioner, pipeline, join) imports
+    neither JAX nor ``fugue_tpu``, and a join past the device budget that
+    spills bucket by bucket, a stream join the streaming plan refuses and
+    a spilled repartition load neither."""
+    code = """
+import sys
+import numpy as np, pandas as pd, pyarrow as pa
+import fugue_tpu_torch.shuffle
+from fugue_tpu_torch.collections.partition import PartitionSpec
+from fugue_tpu_torch.dataframe import ArrowDataFrame, LocalDataFrameIterableDataFrame
+from fugue_tpu_torch.torch import TorchExecutionEngine
+rng = np.random.default_rng(0)
+left = pd.DataFrame({"k": rng.integers(0, 300, 3000), "a": rng.normal(size=3000)})
+right = pd.DataFrame({"k": rng.integers(0, 300, 3000), "b": rng.normal(size=3000)})
+eng = TorchExecutionEngine(device="cpu", conf={"fugue.tpu.shuffle.device_budget_bytes": 20000,
+                                                "fugue.tpu.shuffle.dir": sys.argv[1]})
+got = eng.join(eng.to_df(left), eng.to_df(right), how="inner", on=["k"]).as_pandas()
+assert len(got) == len(left.merge(right, on="k"))
+tbl = pa.Table.from_pandas(left, preserve_index=False)
+stream = LocalDataFrameIterableDataFrame((ArrowDataFrame(tbl.slice(s, 500)) for s in range(0, 3000, 500)))
+semi = eng.join(stream, eng.to_df(right), how="left_semi", on=["k"]).as_pandas()
+assert len(semi) == int(left["k"].isin(right["k"]).sum())
+part = eng.repartition(eng.to_df(left), PartitionSpec(algo="hash", by=["k"], num=4))
+assert sum(len(c.as_pandas()) for c in part.native) == 3000
+st = eng.stats()["shuffle"]
+assert st["joins_spill"] == 2 and st["repartitions_spill"] == 1, st
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fugue_tpu')]
+print(bad); sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, capture_output=True, text=True, timeout=180
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_plugin_packages_load_no_jax():
+    """``plugins``, ``dev``, ``contrib``, ``test`` and ``_utils/registry.py``
+    import neither JAX nor ``fugue_tpu``, and neither does resolving
+    ``"viz:bar"`` or running a suite bound to a test backend."""
+    code = """
+import sys
+import fugue_tpu_torch.contrib, fugue_tpu_torch.dev, fugue_tpu_torch.plugins
+from fugue_tpu_torch._utils.registry import load_entry_point_plugins
+from fugue_tpu_torch.extensions.outputter.convert import _to_outputter
+from fugue_tpu_torch.test import fugue_test_suite
+load_entry_point_plugins()
+assert type(_to_outputter("viz:bar")).__name__ == "_VizOutputter"
+@fugue_test_suite("native")
+class Suite:
+    pass
+Suite().make_engine().stop()
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fugue_tpu')]
+print(bad); sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout + res.stderr

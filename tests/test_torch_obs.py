@@ -212,7 +212,8 @@ def test_span_tree_transform_join_aggregate(tracers):
             chain = _chain(r, by_id)
             assert "workflow.task" in chain and chain[-1] == "workflow.run", chain
     (join,) = [r for r in port_recs if r["name"] == "engine.join"]
-    assert join["args"]["strategy"] == "device"
+    (ref_join,) = [r for r in ref_recs if r["name"] == "engine.join"]
+    assert join["args"]["strategy"] == ref_join["args"]["strategy"] == "broadcast"
 
 
 def test_span_tree_streaming_chunks_nest_in_verb(tracers):
@@ -521,7 +522,7 @@ def test_prometheus_text_passes_both_validators(tracers, samplers):
     res = {k: {n for n in v if n.startswith("fugue_tpu_resource_")} for k, v in fams.items()}
     assert res["port"] <= res["ref"]
     only_ref = {n[len("fugue_tpu_resource_"):] for n in res["ref"] - res["port"]}
-    expect = {"jit_cache_entries", "shuffle_spill_bytes"}
+    expect = {"jit_cache_entries"}
     if not torch.backends.cuda.is_built():
         expect.add("device_bytes")
     assert only_ref == expect
@@ -539,9 +540,10 @@ def test_engine_stats_surface_and_reset_keeps_entries(tracers, samplers):
     )
     try:
         st = e.stats()
-        assert set(st) == {"resilience", "plan", "analysis", "cache", "tuning", "pipeline", "latency",
-                           "telemetry"}
+        assert set(st) == {"resilience", "plan", "analysis", "cache", "tuning", "pipeline", "shuffle",
+                           "latency", "telemetry"}
         assert e.result_cache.stats is e.metrics.get("cache") and e.tuner is e.metrics.get("tuning")
+        assert e._shuffle_stats is e.metrics.get("shuffle")
         assert e.pipeline_stats is e.metrics.get("pipeline")
         assert e.resilience_stats is e.metrics.get("resilience")
         assert e._host_engine.resilience_stats is e.resilience_stats

@@ -373,11 +373,15 @@ def test_join_nan_keys_never_match(dtype):
 
 
 def test_join_with_duplicate_build_keys_materializes():
+    """Repeated build keys: the streaming plan refuses the join, and the
+    stream spills bucket by bucket (the spill ladder) instead of being read
+    whole, as in the JAX engine; the rows equal its."""
     big = pd.DataFrame({"k": [1, 2, 2, 3], "v": [1.0, 2.0, 3.0, 4.0]})
     dup = pd.DataFrame({"k": [2, 2, 3], "w": [5.0, 6.0, 7.0]})
     got, exp, schema = _join(1000, big, 2, dup, "inner")
-    assert isinstance(got, TorchDataFrame)  # the in-memory device join's answer
+    assert isinstance(got, LocalDataFrameIterableDataFrame)  # the spilled join's stream
     _same_rows(got, exp, schema)
+    assert streaming.last_run_stats["verb"] == "shuffle_join"
 
 
 def test_join_empty_build_side():

@@ -639,8 +639,9 @@ def test_tuned_stream_chunk_counts_follow_adjust_stream(tmp_path, _inject_wall):
 
 
 def test_join_params_inside_a_scope(tmp_path):
-    """``join_params`` (no caller until the shuffle ladder, ROADMAP.md A.7)
-    fills only unknown estimates from what a run of the plan observed."""
+    """``join_params`` (called by the torch engine's join ladder, which
+    hands the handle to the spill join) fills only unknown estimates from
+    what a run of the plan observed."""
     eng = _engine(PORT, tmp_path / "_tuned.json")
     assert eng.tuner.join_params(None, 10, None)[:3] == (None, 10, None)  # no scope: static
     with run_scope(eng, "planfp", eng.conf):
